@@ -1,0 +1,129 @@
+"""``MeshExecutor``: the sync schemes with the workers stacked on one card.
+
+Counterpart of ``repro/engine/mesh.py`` for ``average`` (eq. 3) and
+``delta`` (eq. 8).  The reference shards one worker per device and merges
+with collectives; here the M workers are the leading dimension of the
+codebook tensor ``(M, kappa, d)``, one kernel launch runs every worker's
+window, and the merge is a reduction over that dimension through the
+executor's ``Transport``, which records the wire bytes a ring all-reduce
+among M devices would move.
+
+The inner loop (``_local_window``) has the reference's three routes:
+
+  * the window kernel, one launch per window, when ``fused`` is on and the
+    codebook fits (``ops.window_fits``);
+  * the per-step loop through the delta kernel (``ops.vq_delta_routed``),
+    with the eq.-1 update in PyTorch, when ``fused`` is off or the window
+    kernel does not fit;
+  * the per-step loop through ``core.vq.H``, when ``use_kernels`` is off.
+
+On the CPU the kernels' plain versions stand in, and all three routes give
+the same codebooks bit for bit; on the card the first two do (the kernels
+share their distance routine).
+
+After every window the shared codebook is scored by eq. 2: the mean over
+workers of ``vq.distortion`` on each worker's eval points, reduced through
+the transport with tag ``"eval"``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import comm
+from repro_torch import device as device_lib
+from repro_torch.core import vq
+from repro_torch.core.schemes import SchemeResult
+from repro_torch.engine import api
+from repro_torch.engine import merge as merge_lib
+from repro_torch.engine.network import GeometricDelayNetwork, NetworkModel
+from repro_torch.kernels import ops
+
+
+class MeshExecutor:
+    """M workers stacked on one device, merged through a transport."""
+
+    name = "mesh"
+
+    def __init__(self, network: NetworkModel | None = None, *,
+                 transport: comm.Transport | str | None = None,
+                 use_kernels: bool = True, fused: bool = True,
+                 device: str | torch.device | None = None):
+        self.network = network or GeometricDelayNetwork()
+        self.transport = comm.get_transport(
+            transport if transport is not None else "xla")
+        # use_kernels=False is the reference's use_pallas=False: the plain
+        # vq.H step.  fused=False keeps the per-step delta-kernel loop as the
+        # comparator of the window kernel; both give the same codebooks.
+        self.use_kernels = use_kernels
+        self.fused = fused
+        self.device = device_lib.resolve(device)
+        # comm summary of the most recent run() (CommLog.summarize dict)
+        self.last_comm: dict | None = None
+
+    def _local_window(self, w0: torch.Tensor, zwin: torch.Tensor,
+                      eps: torch.Tensor) -> torch.Tensor:
+        """tau sequential eq.-1 steps for every worker from the shared w0
+        (kappa, d) over zwin (M, tau, d); returns (M, kappa, d)."""
+        m, tau, d = zwin.shape
+        kappa = w0.shape[0]
+        if self.use_kernels and self.fused and ops.window_fits(kappa, d):
+            return ops.vq_window(zwin, w0, eps)
+        w = w0.expand(m, kappa, d).contiguous()
+        for s in range(tau):
+            z = zwin[:, s]
+            if self.use_kernels:
+                # a batch of one point per worker, so counts/zsum reduce
+                # exactly to eq. (4)'s H(z, w)
+                counts, zsum = ops.vq_delta_routed(
+                    z.unsqueeze(1).contiguous(), w)
+                h = counts.unsqueeze(-1) * w - zsum
+            else:
+                h = vq.H(z, w)
+            w = w - eps[s] * h
+        return w
+
+    def run(self, scheme: str, w0: torch.Tensor, data: torch.Tensor,
+            eval_data: torch.Tensor, *, tau: int, eps0: float = 0.5,
+            decay: float = 1.0) -> SchemeResult:
+        api.validate_scheme(scheme)
+        if data.dim() != 3:
+            raise ValueError(f"data must be (M, n, d), got {tuple(data.shape)}")
+        if eval_data.dim() != 3 or eval_data.shape[0] != data.shape[0]:
+            raise ValueError(
+                f"eval_data must be (M, n_eval, d) with the same M as data; "
+                f"got {tuple(eval_data.shape)} vs M={data.shape[0]}")
+        if w0.dim() != 2 or w0.shape[1] != data.shape[2]:
+            raise ValueError(
+                f"w0 must be (kappa, d={data.shape[2]}), got {tuple(w0.shape)}")
+        m, n, _ = data.shape
+        n_windows = n // tau
+        if n_windows == 0:
+            raise ValueError(f"need at least one tau={tau} window, got n={n}")
+        w0, data, eval_data = (x.to(self.device, torch.float32).contiguous()
+                               for x in (w0, data, eval_data))
+        strategy = merge_lib.get_merge(scheme, transport=self.transport)
+        # every window's step sizes at once: eps_t for t = 1 .. n_windows*tau
+        eps_all = vq.default_steps(
+            torch.arange(1, n_windows * tau + 1, device=self.device),
+            eps0=eps0, decay=decay)
+        log = self.transport.log
+        mark = log.mark()
+        w_srd, curve = w0, []
+        try:
+            for i in range(n_windows):
+                span = slice(i * tau, (i + 1) * tau)
+                w_fin = self._local_window(w_srd, data[:, span].contiguous(),
+                                           eps_all[span])
+                w_srd = strategy(w_srd, w_fin)
+                curve.append(self.transport.all_reduce(
+                    vq.distortion(eval_data, w_srd), op="mean", tag="eval"))
+        finally:
+            self.last_comm = comm.CommLog.summarize(log.since(mark))
+        merge_wire = self.last_comm["by_tag"].get(
+            "merge", {"wire_bytes": 0})["wire_bytes"]
+        wt = (self.network.window_ticks(tau)
+              + self.network.transfer_ticks(merge_wire / n_windows))
+        ticks = torch.arange(1, n_windows + 1, dtype=torch.int32) * wt
+        return SchemeResult(w_shared=w_srd, wall_ticks=ticks,
+                            distortion=torch.stack(curve))

@@ -1,0 +1,75 @@
+"""Carries state between the JAX reference and the port, through numpy.
+
+``from_reference`` turns the reference's inputs (anything ``np.asarray``
+takes: numpy arrays or the JAX package's arrays) into the port's f32
+contiguous tensors on a device, after checking their shapes and types;
+``result_from_reference`` does the same for a reference ``SchemeResult``.
+``to_numpy`` turns a port ``SchemeResult`` into numpy arrays.  The device
+is ``cuda`` unless the caller passes ``device="cpu"``.  Nothing here
+imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.core.schemes import SchemeResult
+
+
+def _tensor(x, name: str, ndim: int, kind: str, dtype: torch.dtype,
+            device) -> torch.Tensor:
+    device = device_lib.resolve(device)
+    a = np.asarray(x)
+    if a.ndim != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got {a.shape}")
+    if a.dtype.kind not in kind:
+        raise TypeError(f"{name} must be of kind {kind!r}, got {a.dtype}")
+    return torch.from_numpy(np.array(a, order="C", copy=True)).to(
+        device=device, dtype=dtype).contiguous()
+
+
+def from_reference(w0, data, eval_data, *, device=None
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Reference inputs -> ``(w0 (kappa, d), data (M, n, d),
+    eval_data (M, n_eval, d))`` f32 contiguous tensors on ``device``."""
+    f32 = torch.float32
+    w0_t = _tensor(w0, "w0", 2, "f", f32, device)
+    data_t = _tensor(data, "data", 3, "f", f32, device)
+    eval_t = _tensor(eval_data, "eval_data", 3, "f", f32, device)
+    d = w0_t.shape[1]
+    if data_t.shape[2] != d or eval_t.shape[2] != d:
+        raise ValueError(
+            f"d disagrees: w0 {tuple(w0_t.shape)}, data "
+            f"{tuple(data_t.shape)}, eval_data {tuple(eval_t.shape)}")
+    if eval_t.shape[0] != data_t.shape[0]:
+        raise ValueError(
+            f"M disagrees: data {tuple(data_t.shape)}, eval_data "
+            f"{tuple(eval_t.shape)}")
+    return w0_t, data_t, eval_t
+
+
+def result_from_reference(result, *, device=None) -> SchemeResult:
+    """A reference ``SchemeResult`` (w_shared, wall_ticks, distortion) ->
+    the port's, on ``device``."""
+    w, ticks, curve = result
+    out = SchemeResult(
+        w_shared=_tensor(w, "w_shared", 2, "f", torch.float32, device),
+        wall_ticks=_tensor(ticks, "wall_ticks", 1, "iu", torch.int32, device),
+        distortion=_tensor(curve, "distortion", 1, "f", torch.float32,
+                           device))
+    if out.wall_ticks.shape != out.distortion.shape:
+        raise ValueError(
+            f"wall_ticks {tuple(out.wall_ticks.shape)} and distortion "
+            f"{tuple(out.distortion.shape)} disagree")
+    return out
+
+
+def to_numpy(result: SchemeResult) -> SchemeResult:
+    """A port ``SchemeResult`` as numpy arrays (f32, int32, f32)."""
+    return SchemeResult(
+        w_shared=result.w_shared.detach().cpu().numpy().astype(np.float32),
+        wall_ticks=result.wall_ticks.detach().cpu().numpy().astype(np.int32),
+        distortion=result.distortion.detach().cpu().numpy().astype(
+            np.float32))

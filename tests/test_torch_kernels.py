@@ -1,0 +1,177 @@
+"""The port's kernel modules held against ``repro.kernels``.
+
+Here, on the CPU, each kernel wrapper takes its plain version (CUDA tensors
+launch the kernel; ``chip_smoke.py`` holds the kernels against these plain
+versions on the card).  The reference's Pallas kernels run in interpret
+mode, as its own tests run them.  Tolerances: assignments equal, counts
+exact, codebooks, sums and distances at ``rtol=1e-4, atol=1e-6``.
+"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import vq as jvq
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.core import vq
+from repro_torch.kernels import _build, ops, ref, vq_assign, vq_fused
+
+torch.set_num_threads(1)
+
+RTOL, ATOL = 1e-4, 1e-6
+
+
+def _mixture(rng, shape, d, n_centers=10, noise=0.05):
+    centers = rng.random((n_centers, d)).astype(np.float32)
+    assign = rng.integers(0, n_centers, size=shape)
+    eps = noise * rng.standard_normal(shape + (d,)).astype(np.float32)
+    return (centers[assign] + eps).astype(np.float32)
+
+
+def _window_inputs(seed, m, tau, kappa, d, t0=0):
+    rng = np.random.default_rng(seed)
+    zwin = _mixture(rng, (m, tau), d)
+    w0 = _mixture(rng, (kappa,), d)
+    eps = np.array(jvq.default_steps(
+        jnp.arange(t0 + 1, t0 + 1 + tau, dtype=jnp.int32)))
+    return zwin, w0, eps
+
+
+@pytest.mark.parametrize("m,tau,kappa,d", [(8, 10, 16, 8), (1, 10, 64, 16)])
+def test_window_plain_matches_reference_window_kernel(m, tau, kappa, d):
+    zwin, w0, eps = _window_inputs(0, m, tau, kappa, d, t0=20)
+    ours = vq_fused.vq_window(torch.from_numpy(zwin), torch.from_numpy(w0),
+                              torch.from_numpy(eps))
+    assert ours.shape == (m, kappa, d)
+    for i in range(m):
+        want = jops.vq_window(jnp.asarray(zwin[i]), jnp.asarray(w0),
+                              jnp.asarray(eps))
+        np.testing.assert_allclose(ours[i].numpy(), np.asarray(want),
+                                   rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("batch,kappa,d", [(1, 16, 8), (37, 200, 8),
+                                           (300, 200, 16)])
+def test_delta_plain_matches_reference_kernel_and_ref(batch, kappa, d):
+    """Ragged batches (not a block multiple) and kappa > 128."""
+    rng = np.random.default_rng(batch)
+    z = _mixture(rng, (batch,), d)
+    w = _mixture(rng, (kappa,), d)
+    counts, zsum, mind, assign = vq_assign.vq_delta(torch.from_numpy(z),
+                                                    torch.from_numpy(w))
+    jc, jz = jops.vq_delta(jnp.asarray(z), jnp.asarray(w))
+    rc, rz = jref.vq_delta_ref(jnp.asarray(z), jnp.asarray(w))
+    ra, rm = jref.vq_assign_ref(jnp.asarray(z), jnp.asarray(w))
+    np.testing.assert_array_equal(assign.numpy(), np.asarray(ra))
+    assert assign.dtype == torch.int32
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(rc))
+    np.testing.assert_allclose(zsum.numpy(), np.asarray(jz), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(zsum.numpy(), np.asarray(rz), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(mind.numpy(), np.asarray(rm), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(
+        float(ops.distortion(torch.from_numpy(z), torch.from_numpy(w))),
+        float(jops.distortion(jnp.asarray(z), jnp.asarray(w))), rtol=RTOL)
+
+
+def test_delta_stacked_workers_match_per_worker():
+    rng = np.random.default_rng(7)
+    z = torch.from_numpy(_mixture(rng, (8, 30), 8))
+    w = torch.from_numpy(_mixture(rng, (8, 16), 8))
+    counts, zsum = ops.vq_delta(z, w)
+    assert counts.shape == (8, 16) and zsum.shape == (8, 16, 8)
+    for i in range(8):
+        c, s = ops.vq_delta(z[i], w[i])
+        torch.testing.assert_close(counts[i], c, rtol=0, atol=0)
+        torch.testing.assert_close(zsum[i], s, rtol=RTOL, atol=ATOL)
+
+
+def test_port_ref_matches_reference_ref():
+    rng = np.random.default_rng(8)
+    z = _mixture(rng, (50,), 8)
+    w = _mixture(rng, (40,), 8)
+    a, m = ref.vq_assign_ref(torch.from_numpy(z), torch.from_numpy(w))
+    ja, jm = jref.vq_assign_ref(jnp.asarray(z), jnp.asarray(w))
+    np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm), rtol=RTOL, atol=ATOL)
+    c, s = ref.vq_delta_ref(torch.from_numpy(z), torch.from_numpy(w))
+    jc, js = jref.vq_delta_ref(jnp.asarray(z), jnp.asarray(w))
+    np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(
+        float(ref.distortion_ref(torch.from_numpy(z), torch.from_numpy(w))),
+        float(jref.distortion_ref(jnp.asarray(z), jnp.asarray(w))), rtol=RTOL)
+
+
+@pytest.mark.parametrize("m", [1, 8])
+def test_window_plain_equals_per_step_delta_scan_bitwise(m):
+    """The CPU side of the card contract: the window's plain version and
+    the per-step scan through the delta plain version agree to the bit."""
+    zwin, w0, eps = _window_inputs(1, m, 10, 16, 8, t0=50)
+    zt, w0t, epst = (torch.from_numpy(x) for x in (zwin, w0, eps))
+    fused = vq_fused.vq_window(zt, w0t, epst)
+    w = w0t.expand(m, 16, 8).contiguous()
+    for s in range(10):
+        counts, zsum = ops.vq_delta_routed(zt[:, s].unsqueeze(1).contiguous(),
+                                           w)
+        w = w - epst[s] * (counts.unsqueeze(-1) * w - zsum)
+    assert torch.equal(fused, w)
+    # and the per-step scan over core.vq.H
+    w = w0t.expand(m, 16, 8).contiguous()
+    for s in range(10):
+        w = w - epst[s] * vq.H(zt[:, s], w)
+    assert torch.equal(fused, w)
+
+
+def test_residency_predicates_and_routing():
+    # the slice's width fits both kernels by far
+    assert ops.window_fits(4096, 128) and ops.delta_fits(128)
+    assert vq_fused.smem_bytes(4096, 128) == 4 * (512 + 256) + 8 * 18
+    # 62,500 norms per block of the 8-block cluster are 250,000 B
+    assert not ops.window_fits(500_000, 8)
+    assert not ops.delta_fits(2048)   # a (32, 2048) f32 tile is 256 KiB
+    with pytest.raises(NotImplementedError, match="queue 2, row 3"):
+        ops.vq_delta_routed(torch.zeros((1, 2048)), torch.zeros((3, 2048)))
+    counts, zsum = ops.vq_delta_routed(torch.zeros((1, 4)), torch.zeros((3, 4)))
+    assert counts.shape == (3,) and zsum.shape == (3, 4)
+
+
+def test_wrappers_validate_inputs():
+    z = torch.zeros((2, 1, 4))
+    w = torch.zeros((2, 3, 4))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        vq_assign.vq_delta(z.to("meta"), w.to("meta"))
+    with pytest.raises(ValueError, match="float32"):
+        vq_assign.vq_delta(z.double(), w.double())
+    with pytest.raises(ValueError, match="mismatch"):
+        vq_assign.vq_delta(z, torch.zeros((2, 3, 5)))
+    zwin = torch.zeros((2, 3, 4))
+    eps = torch.ones(3)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        vq_fused.vq_window(zwin.to("meta"), w[0].to("meta"), eps.to("meta"))
+    with pytest.raises(ValueError, match="mismatch"):
+        vq_fused.vq_window(zwin, w[0], torch.ones(2))
+    before = (vq_fused.launches, vq_assign.launches)
+    vq_fused.vq_window(zwin, w[0], eps)
+    vq_assign.vq_delta(z, w)
+    # the plain versions on the CPU are not kernel launches
+    assert (vq_fused.launches, vq_assign.launches) == before
+
+
+def test_build_needs_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
+    h = _build.source_hash()
+    assert len(h) == 16 and h == _build.source_hash()
+    assert {p.name for p in _build.CSRC.glob("*.cu")} == {"vq_window.cu",
+                                                          "vq_delta.cu"}
+    assert os.path.basename(_build.BUILD_ROOT) == ".build"
