@@ -1,4 +1,4 @@
-"""The ``Transport`` API and its wire-byte accounting, for the sync path.
+"""The ``Transport`` API and its wire-byte accounting.
 
 Counterpart of ``repro/comm/api.py``.  The reference's transports run inside
 a ``shard_map`` body and reduce over a named mesh axis.  Here the M workers
@@ -51,7 +51,7 @@ def ring_wire_bytes(logical_bytes: int, m: int) -> int:
 class CommRecord:
     """One collective call: what it moved, per participant, per call."""
 
-    op: str                # 'sum' | 'mean'
+    op: str                # 'sum' | 'mean' | 'masked_sum'
     transport: str
     axis: str
     participants: int
@@ -135,6 +135,14 @@ class Transport:
 
     def all_reduce(self, x: torch.Tensor, *, op: str = "sum",
                    tag: str = "merge") -> torch.Tensor:
+        raise NotImplementedError
+
+    def masked_all_reduce(self, x: torch.Tensor, mask: torch.Tensor, *,
+                          tag: str = "merge") -> torch.Tensor:
+        """The eq.-9 reducer: the f32 sum over workers of ``mask[i] * x[i]``
+        (mask (M,), 1.0 for the workers whose round lands this tick).  Every
+        participant joins the collective whatever its bit, so it is charged
+        as a dense sum."""
         raise NotImplementedError
 
 

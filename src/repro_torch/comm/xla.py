@@ -3,8 +3,9 @@
 The reference reduces with XLA's psum/pmean; here the workers are the
 leading dimension of one tensor, so the reduction is a plain f32
 ``sum``/``mean`` over dimension 0 (stock ops, as the reference's psum is
-stock XLA).  Means cast back to the input dtype.  The record name stays
-``"xla"`` so byte summaries compare with the reference's one for one.
+stock XLA), and the eq.-9 masked sum the same way.  Means cast back to the
+input dtype.  The record name stays ``"xla"`` so byte summaries compare
+with the reference's one for one.
 """
 
 from __future__ import annotations
@@ -41,3 +42,13 @@ class XlaTransport(Transport):
                          tag=tag)
             return torch.mean(x.to(torch.float32), dim=0).to(x.dtype)
         raise ValueError(f"unknown reduce op {op!r}; choose 'sum' or 'mean'")
+
+    def masked_all_reduce(self, x: torch.Tensor, mask: torch.Tensor, *,
+                          tag: str = "merge") -> torch.Tensor:
+        """x (M, ...), mask (M,) -> sum_i mask[i] * x[i] in f32."""
+        m = x.shape[0]
+        if mask.shape != (m,):
+            raise ValueError(f"mask must be ({m},), got {tuple(mask.shape)}")
+        self._record("masked_sum", m, tree_f32_bytes(x[0]), tag=tag)
+        masked = mask.view(m, *(1,) * (x.dim() - 1)) * x
+        return torch.sum(masked.to(torch.float32), dim=0)

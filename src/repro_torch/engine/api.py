@@ -8,8 +8,10 @@ returns a ``SchemeResult``.  Two backends are ported:
   * ``MeshExecutor`` (``engine.mesh``): the workers stacked on one card,
     inner loop on the port's kernels, merges through a ``Transport``.
 
-Scheme names are the reference's; ``async_delta`` (eq. 9) is accepted by
-name and raises ``NotImplementedError`` until its slice is ported.
+Scheme names are the reference's: ``average`` (eq. 3), ``delta`` (eq. 8)
+and ``async_delta`` (eq. 9).  ``run`` also takes the async scheme's round
+lengths, drawn from ``generator`` under the executor's network unless the
+caller passes ``lengths``.
 """
 
 from __future__ import annotations
@@ -18,21 +20,28 @@ from typing import Protocol, runtime_checkable
 
 import torch
 
+from repro_torch.core import async_vq
 from repro_torch.core.schemes import SchemeResult
 
 SCHEMES = ("average", "delta", "async_delta")
-#: The schemes this slice runs.
-SYNC_SCHEMES = ("average", "delta")
 
 
 def validate_scheme(scheme: str) -> str:
     if scheme not in SCHEMES:
         raise ValueError(f"unknown scheme {scheme!r}; choose from {SCHEMES}")
-    if scheme not in SYNC_SCHEMES:
-        raise NotImplementedError(
-            f"scheme {scheme!r} (paper eq. 9) belongs to the async slice of "
-            f"the port, not ported yet (ROADMAP.md queue 1)")
     return scheme
+
+
+def async_lengths(network, m: int, n: int, tau: int, *,
+                  generator: torch.Generator | None = None,
+                  lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """The async scheme's (M, n // tau + 2) round lengths: the caller's, or
+    a draw from ``network`` with ``generator`` (default:
+    ``async_vq.seeded``)."""
+    if lengths is not None:
+        return lengths
+    return network.round_lengths(async_vq.seeded(generator), m,
+                                 n // tau + 2, tau)
 
 
 @runtime_checkable
@@ -43,9 +52,11 @@ class Executor(Protocol):
 
     def run(self, scheme: str, w0: torch.Tensor, data: torch.Tensor,
             eval_data: torch.Tensor, *, tau: int, eps0: float = 0.5,
-            decay: float = 1.0) -> SchemeResult:
+            decay: float = 1.0, generator: torch.Generator | None = None,
+            lengths: torch.Tensor | None = None) -> SchemeResult:
         """data: (M, n, d) per-worker streams; eval_data: (M, n_eval, d).
-        Returns the curve indexed by wall tick."""
+        Returns the curve indexed by wall tick.  ``generator`` and
+        ``lengths`` concern ``async_delta`` only."""
         ...
 
 

@@ -1,12 +1,12 @@
-"""``MeshExecutor``: the sync schemes with the workers stacked on one card.
+"""``MeshExecutor``: the paper's schemes with the workers stacked on one card.
 
-Counterpart of ``repro/engine/mesh.py`` for ``average`` (eq. 3) and
-``delta`` (eq. 8).  The reference shards one worker per device and merges
-with collectives; here the M workers are the leading dimension of the
-codebook tensor ``(M, kappa, d)``, one kernel launch runs every worker's
-window, and the merge is a reduction over that dimension through the
-executor's ``Transport``, which records the wire bytes a ring all-reduce
-among M devices would move.
+Counterpart of ``repro/engine/mesh.py`` for ``average`` (eq. 3), ``delta``
+(eq. 8) and ``async_delta`` (eq. 9).  The reference shards one worker per
+device and merges with collectives; here the M workers are the leading
+dimension of the codebook tensor ``(M, kappa, d)``, one kernel launch runs
+every worker's window (or tick), and the merge is a reduction over that
+dimension through the executor's ``Transport``, which records the wire
+bytes a ring all-reduce among M devices would move.
 
 The inner loop (``_local_window``) has the reference's three routes:
 
@@ -24,6 +24,15 @@ share their distance routine).
 After every window the shared codebook is scored by eq. 2: the mean over
 workers of ``vq.distortion`` on each worker's eval points, reduced through
 the transport with tag ``"eval"``.
+
+The async scheme (``_run_async``, the reference's ``mesh.py:812-915``) has
+no window: every tick each worker takes one eq.-1 step at batch 1 (the
+delta kernel, or ``vq.H`` with ``use_kernels`` off), then the in-flight
+displacements of the workers whose round completes land on the shared
+version through ``Transport.masked_all_reduce``.  The completion schedule
+is one (n, M) mask made from the round lengths before the loop starts
+(``core.async_vq.done_mask``), so no tick waits on the host; the shared
+version is scored every ``eval_every`` ticks as the loop passes them.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ import torch
 
 from repro_torch import comm
 from repro_torch import device as device_lib
-from repro_torch.core import vq
+from repro_torch.core import async_vq, vq
 from repro_torch.core.schemes import SchemeResult
 from repro_torch.engine import api
 from repro_torch.engine import merge as merge_lib
@@ -48,6 +57,7 @@ class MeshExecutor:
     def __init__(self, network: NetworkModel | None = None, *,
                  transport: comm.Transport | str | None = None,
                  use_kernels: bool = True, fused: bool = True,
+                 eval_every: int = 10,
                  device: str | torch.device | None = None):
         self.network = network or GeometricDelayNetwork()
         self.transport = comm.get_transport(
@@ -57,6 +67,8 @@ class MeshExecutor:
         # comparator of the window kernel; both give the same codebooks.
         self.use_kernels = use_kernels
         self.fused = fused
+        # the async scheme scores the shared version every eval_every ticks
+        self.eval_every = eval_every
         self.device = device_lib.resolve(device)
         # comm summary of the most recent run() (CommLog.summarize dict)
         self.last_comm: dict | None = None
@@ -71,21 +83,62 @@ class MeshExecutor:
             return ops.vq_window(zwin, w0, eps)
         w = w0.expand(m, kappa, d).contiguous()
         for s in range(tau):
-            z = zwin[:, s]
-            if self.use_kernels:
-                # a batch of one point per worker, so counts/zsum reduce
-                # exactly to eq. (4)'s H(z, w)
-                counts, zsum = ops.vq_delta_routed(
-                    z.unsqueeze(1).contiguous(), w)
-                h = counts.unsqueeze(-1) * w - zsum
-            else:
-                h = vq.H(z, w)
-            w = w - eps[s] * h
+            w = w - eps[s] * self._h(zwin[:, s], w)
         return w
+
+    def _h(self, z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """Eq. (4)'s H(z, w) for every worker: z (M, d), w (M, kappa, d)."""
+        if not self.use_kernels:
+            return vq.H(z, w)
+        # a batch of one point per worker, so counts/zsum reduce exactly to
+        # H(z, w)
+        counts, zsum = ops.vq_delta_routed(z.unsqueeze(1).contiguous(), w)
+        return counts.unsqueeze(-1) * w - zsum
+
+    def _run_async(self, w0: torch.Tensor, data: torch.Tensor,
+                   eval_data: torch.Tensor, *, tau: int, eps0: float,
+                   decay: float, lengths: torch.Tensor) -> SchemeResult:
+        """Eq. (9), tick by tick; the where-updates follow the reference's
+        ``mesh.py:834-866`` line for line."""
+        m, n, _ = data.shape
+        kappa, d = w0.shape
+        dones = async_vq.done_mask(lengths, m, n, tau, self.device)
+        dones_f = dones.to(torch.float32)
+        eps_all = vq.default_steps(torch.arange(1, n + 1, device=self.device),
+                                   eps0=eps0, decay=decay)
+        w = w0.expand(m, kappa, d).contiguous()
+        w_srd, snap = w0, w.clone()
+        dcur = torch.zeros_like(w)
+        dinf = torch.zeros_like(w)
+        curve = []
+        for t in range(n):
+            # local VQ step on every worker (1st line of eq. 9)
+            step = eps_all[t] * self._h(data[:, t], w)
+            w_tmp = w - step
+            dcur = dcur + step
+            # masked merge: only completing workers' in-flight deltas land
+            # on the shared version (4th line)
+            w_srd = w_srd - self.transport.masked_all_reduce(
+                dinf, dones_f[t], tag="merge")
+            # completed: adopt the downloaded snapshot and replay the local
+            # delta (3rd line); the others keep the plain step (2nd line)
+            mask = dones[t][:, None, None]
+            w = torch.where(mask, snap - dcur, w_tmp)
+            snap = torch.where(mask, w_srd, snap)
+            dinf = torch.where(mask, dcur, dinf)
+            dcur = dcur.masked_fill(mask, 0.0)
+            if (t + 1) % self.eval_every == 0:
+                curve.append(self.transport.all_reduce(
+                    vq.distortion(eval_data, w_srd), op="mean", tag="eval"))
+        ticks = async_vq.eval_ticks(n, self.eval_every) + 1
+        return SchemeResult(
+            w_shared=w_srd, wall_ticks=ticks.to(torch.int32),
+            distortion=torch.stack(curve) if curve else torch.zeros(0))
 
     def run(self, scheme: str, w0: torch.Tensor, data: torch.Tensor,
             eval_data: torch.Tensor, *, tau: int, eps0: float = 0.5,
-            decay: float = 1.0) -> SchemeResult:
+            decay: float = 1.0, generator: torch.Generator | None = None,
+            lengths: torch.Tensor | None = None) -> SchemeResult:
         api.validate_scheme(scheme)
         if data.dim() != 3:
             raise ValueError(f"data must be (M, n, d), got {tuple(data.shape)}")
@@ -102,6 +155,17 @@ class MeshExecutor:
             raise ValueError(f"need at least one tau={tau} window, got n={n}")
         w0, data, eval_data = (x.to(self.device, torch.float32).contiguous()
                                for x in (w0, data, eval_data))
+        if scheme == "async_delta":
+            lengths = api.async_lengths(self.network, m, n, tau,
+                                        generator=generator, lengths=lengths)
+            mark = self.transport.log.mark()
+            try:
+                return self._run_async(w0, data, eval_data, tau=tau,
+                                       eps0=eps0, decay=decay,
+                                       lengths=lengths)
+            finally:
+                self.last_comm = comm.CommLog.summarize(
+                    self.transport.log.since(mark))
         strategy = merge_lib.get_merge(scheme, transport=self.transport)
         # every window's step sizes at once: eps_t for t = 1 .. n_windows*tau
         eps_all = vq.default_steps(

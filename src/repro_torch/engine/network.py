@@ -1,10 +1,17 @@
 """Communication-cost models, counterpart of ``repro/engine/network.py``.
 
-A ``NetworkModel`` tells the sync executors what a window costs in wall
-ticks: ``window_ticks(tau)`` (compute plus the blocking merge round-trip)
-and ``transfer_ticks(wire_bytes)`` (extra ticks to move a window's measured
-merge bytes).  The async hooks (``round_lengths``, ``late_matrix``) come with
-the async slice.
+A ``NetworkModel`` answers what the executors ask of the network:
+
+  * ``round_lengths(generator, m, max_rounds, tau)``, for the async scheme
+    (eq. 9) and the load generator's arrivals: the wall ticks each of a
+    worker's back-to-back upload/download rounds takes, always >= tau;
+  * ``window_ticks(tau)``, for the sync schemes: what a barriered window
+    costs (compute plus the blocking merge round-trip), and
+    ``transfer_ticks(wire_bytes)``, the extra ticks to move a window's
+    measured merge bytes.
+
+``late_matrix`` (the quorum merge's straggler bits) comes with the quorum
+merge.
 
   * ``InstantNetwork``: communication is free, a window costs tau ticks
     (the simulated architecture of paper Sections 2-3);
@@ -18,11 +25,22 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
+from repro_torch.core import async_vq
+
 
 class NetworkModel:
     """Base communication-cost model."""
 
     name = "base"
+
+    def round_lengths(self, generator: torch.Generator, m: int,
+                      max_rounds: int, tau: int) -> torch.Tensor:
+        """(m, max_rounds) int32 per-round durations in wall ticks (>= tau),
+        a host tensor; random models draw from ``generator`` (a CPU
+        ``torch.Generator``)."""
+        raise NotImplementedError
 
     def window_ticks(self, tau: int) -> int:
         """Wall ticks a synchronous tau-window costs under this network."""
@@ -39,6 +57,10 @@ class NetworkModel:
 @dataclasses.dataclass(frozen=True)
 class InstantNetwork(NetworkModel):
     name = "instant"
+
+    def round_lengths(self, generator, m, max_rounds, tau):
+        del generator
+        return torch.full((m, max_rounds), tau, dtype=torch.int32)
 
     def window_ticks(self, tau):
         return tau
@@ -69,6 +91,11 @@ class FixedLatencyNetwork(NetworkModel):
             return 0
         return int(-(-wire_bytes // rate))
 
+    def round_lengths(self, generator, m, max_rounds, tau):
+        del generator
+        return torch.full((m, max_rounds), tau + self.latency_ticks,
+                          dtype=torch.int32)
+
     def window_ticks(self, tau):
         return tau + self.latency_ticks
 
@@ -83,6 +110,12 @@ class GeometricDelayNetwork(NetworkModel):
     def __post_init__(self):
         if not 0.0 < self.p_delay <= 1.0:
             raise ValueError(f"p_delay must be in (0, 1], got {self.p_delay}")
+
+    def round_lengths(self, generator, m, max_rounds, tau):
+        # the same sampler as async_vq's own draw, so the sim oracle and the
+        # mesh engine replay identical delays from one generator
+        return async_vq.round_lengths(generator, (m, max_rounds), tau=tau,
+                                      p_delay=self.p_delay)
 
     def window_ticks(self, tau):
         # a barriered window waits for the slowest worker; charging the MEAN

@@ -3,7 +3,10 @@
 ``from_reference`` turns the reference's inputs (anything ``np.asarray``
 takes: numpy arrays or the JAX package's arrays) into the port's f32
 contiguous tensors on a device, after checking their shapes and types;
-``result_from_reference`` does the same for a reference ``SchemeResult``.
+``result_from_reference`` does the same for a reference ``SchemeResult``,
+``lengths_from_reference`` for a ``NetworkModel.round_lengths`` draw (the
+async scheme's round lengths, which torch cannot redraw from a JAX key) and
+``codebook_from_reference`` for a codebook to publish into a store.
 ``to_numpy`` turns a port ``SchemeResult`` into numpy arrays.  The device
 is ``cuda`` unless the caller passes ``device="cpu"``.  Nothing here
 imports JAX.
@@ -64,6 +67,18 @@ def result_from_reference(result, *, device=None) -> SchemeResult:
             f"wall_ticks {tuple(out.wall_ticks.shape)} and distortion "
             f"{tuple(out.distortion.shape)} disagree")
     return out
+
+
+def lengths_from_reference(lengths, *, device="cpu") -> torch.Tensor:
+    """A reference (M, max_rounds) round-length draw -> an int32 tensor
+    (on the host by default: the async scheme moves it once, after
+    checking its shape and that every round lasts tau ticks or more)."""
+    return _tensor(lengths, "lengths", 2, "iu", torch.int32, device)
+
+
+def codebook_from_reference(w, *, device=None) -> torch.Tensor:
+    """A reference (kappa, d) codebook -> an f32 tensor on ``device``."""
+    return _tensor(w, "codebook", 2, "f", torch.float32, device)
 
 
 def to_numpy(result: SchemeResult) -> SchemeResult:

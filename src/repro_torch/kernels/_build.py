@@ -40,6 +40,8 @@ SIGNATURES = {
     # stream
     "vq_delta_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _P),
+    # z, w, mind, assign, w2, pmin, pidx, M, B, K, D, kchunk, stream
+    "vq_assign_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,13 +1,19 @@
 // Delta kernel: nearest prototype per point, then the per-prototype count
-// and sum of the points assigned to it, for M stacked workers.
+// and sum of the points assigned to it, for M stacked workers; and the
+// assign kernel, the same nearest-prototype passes without the sums.
 //
-// Replaces the TPU kernel repro/kernels/vq_assign.py::_delta_kernel (called
-// through vq_delta_pallas): argmin over the whole codebook, counts and zsum
-// (the one-hot scatter-add), and the per-point min distance for eq. 2.
+// vq_delta_f32 replaces the TPU kernel repro/kernels/vq_assign.py::
+// _delta_kernel (called through vq_delta_pallas): argmin over the whole
+// codebook, counts and zsum (the one-hot scatter-add), and the per-point min
+// distance for eq. 2.  vq_assign_f32 replaces repro/kernels/vq_assign.py::
+// _assign_kernel (called through vq_assign_pallas): the (assign, min
+// distance) of every point, the distances never written to global memory.
+// It runs passes 1-3 below and stops, so a served assignment has the bits
+// of the training kernels' assignment.
 //
 // Inputs:  z (M, B, d) f32, w (M, kappa, d) f32.
-// Outputs: counts (M, kappa) f32, zsum (M, kappa, d) f32, mind (M, B) f32,
-//          assign (M, B) int32.
+// Outputs: counts (M, kappa) f32, zsum (M, kappa, d) f32 (delta only),
+//          mind (M, B) f32, assign (M, B) int32.
 // Scratch: w2 (M, kappa), pmin/pidx (M, B, S) with S = ceil(kappa/kchunk).
 // The port does not pad rows, so no row needs masking; codebook rows past
 // kappa in a block are skipped, which is the reference's BIG mask.
@@ -15,7 +21,10 @@
 // What bounds it on an H100.  At the per-step shape (B = 1) it must read
 // the codebooks and write zsum, 32 MiB at M=8, kappa=4096, d=128: bytes.  At
 // the eval shape (B = 1000) the distance product, 2*B*kappa*d flops per
-// worker, on the f32 pipes: operations.
+// worker, on the f32 pipes: operations.  The assign kernel at the serving
+// flush (B = 128, M = 1) reads 2 MiB of codebook and does 134 MFLOP: 0.6 us
+// by bytes, 2 us by operations, so launch latency and the 16 kappa chunks
+// of pass 2 set its time.
 //
 // What the design does about it.  A TPU kernel revisits one accumulator
 // block after block in order; GPU blocks run in no order, and float atomics
@@ -203,33 +212,52 @@ cudaError_t allow_smem(Kernel* fn, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-}  // namespace
-
-extern "C" int vq_delta_f32(const float* z, const float* w, float* counts,
-                            float* zsum, float* mind, int* assign, float* w2,
-                            float* pmin, int* pidx, int M, int B, int K, int D,
-                            int kchunk, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+// Passes 1-3: row norms, partial argmin over kchunk-row kappa chunks, and
+// the fixed-order combine into assign and mind.
+cudaError_t launch_assign(const float* z, const float* w, float* mind,
+                          int* assign, float* w2, float* pmin, int* pidx,
+                          int M, int B, int K, int D, int kchunk,
+                          cudaStream_t st) {
   const int S = (K + kchunk - 1) / kchunk;
   cudaError_t e;
 
   const long wrows = static_cast<long>(M) * K;
   row_norms_kernel<<<static_cast<unsigned>((wrows + kWarps - 1) / kWarps),
                      kThreads, 0, st>>>(w, w2, wrows, D);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   const size_t smem2 = sizeof(float) * kRows * D;
-  if ((e = allow_smem(partial_argmin_kernel, smem2)) != cudaSuccess)
-    return static_cast<int>(e);
+  if ((e = allow_smem(partial_argmin_kernel, smem2)) != cudaSuccess) return e;
   partial_argmin_kernel<<<dim3(S, (B + kRows - 1) / kRows, M), kThreads,
                           smem2, st>>>(z, w, w2, pmin, pidx, B, K, D, kchunk,
                                        S);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   const long rows = static_cast<long>(M) * B;
   combine_kernel<<<static_cast<unsigned>((rows + 255) / 256), 256, 0, st>>>(
       pmin, pidx, assign, mind, rows, S);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int vq_assign_f32(const float* z, const float* w, float* mind,
+                             int* assign, float* w2, float* pmin, int* pidx,
+                             int M, int B, int K, int D, int kchunk,
+                             void* stream) {
+  return static_cast<int>(launch_assign(z, w, mind, assign, w2, pmin, pidx,
+                                        M, B, K, D, kchunk,
+                                        static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int vq_delta_f32(const float* z, const float* w, float* counts,
+                            float* zsum, float* mind, int* assign, float* w2,
+                            float* pmin, int* pidx, int M, int B, int K, int D,
+                            int kchunk, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = launch_assign(z, w, mind, assign, w2, pmin, pidx, M, B, K,
+                                D, kchunk, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
 
   const size_t smem4 = sizeof(float) * kOwnRows * D;
   if ((e = allow_smem(accumulate_kernel, smem4)) != cudaSuccess)

@@ -22,7 +22,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import vq_assign, vq_fused
+from repro_torch.kernels import vq_assign as assign_kernels
+from repro_torch.kernels import vq_fused
 
 #: Shared memory one block may use on an H100 (dynamic, after opting in).
 SMEM_BUDGET_BYTES = 232_448
@@ -35,21 +36,29 @@ def window_fits(kappa: int, d: int) -> bool:
 
 def delta_fits(d: int) -> bool:
     """Can the full-codebook delta kernel run at width d?"""
-    return vq_assign.smem_bytes(d) <= SMEM_BUDGET_BYTES
+    return assign_kernels.smem_bytes(d) <= SMEM_BUDGET_BYTES
+
+
+def vq_assign(z: torch.Tensor, w: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nearest-prototype ``(assign int32, mind f32)``; the contract of
+    ``ref.vq_assign_ref``, with optional leading worker dimension.  The
+    serving read path (``serve.lookup``) goes through it."""
+    return assign_kernels.vq_assign(z, w)
 
 
 def vq_delta(z: torch.Tensor, w: torch.Tensor
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Minibatch displacement statistics ``(counts, zsum)``; the contract of
     ``ref.vq_delta_ref``, with optional leading worker dimension."""
-    counts, zsum, _, _ = vq_assign.vq_delta(z, w)
+    counts, zsum, _, _ = assign_kernels.vq_delta(z, w)
     return counts, zsum
 
 
 def distortion(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Mean min distance (paper eq. 2 per worker) through the delta
     kernel: z (..., B, d), w (..., kappa, d) -> (...)."""
-    _, _, mind, _ = vq_assign.vq_delta(z, w)
+    _, _, mind, _ = assign_kernels.vq_delta(z, w)
     return torch.mean(mind, dim=-1)
 
 

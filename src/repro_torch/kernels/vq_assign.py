@@ -1,14 +1,18 @@
-"""The delta kernel: assignment, counts, zsum and min distance per point.
+"""The assign and delta kernels: nearest prototype per point, and the
+delta kernel's counts and zsum.
 
-Counterpart of the delta part of ``repro/kernels/vq_assign.py``
-(``_delta_kernel`` / ``vq_delta_pallas``), with a leading worker dimension:
-the reference's 2-D signature is the case M=1.  The CUDA source is
-``csrc/vq_delta.cu``; it says what bounds the kernel and how.
+Counterpart of ``repro/kernels/vq_assign.py`` (``_assign_kernel`` /
+``vq_assign_pallas`` and ``_delta_kernel`` / ``vq_delta_pallas``), with a
+leading worker dimension: the reference's 2-D signatures are the case M=1.
+Both kernels live in ``csrc/vq_delta.cu``, which says what bounds them and
+how; the assign kernel is the delta kernel's first three passes, so the
+two assign with the same bits.
 
-``vq_delta`` launches the kernel for CUDA tensors and takes the plain
-version ``vq_delta_plain`` for CPU tensors only.  ``launches`` counts the
-wrapper's launches of the kernel; each is four CUDA kernel launches in a
-row (row norms, partial argmin, combine, accumulate).
+``vq_assign`` and ``vq_delta`` launch their kernels for CUDA tensors and
+take the plain versions (``vq_assign_plain``, ``vq_delta_plain``) for CPU
+tensors only.  ``launches_assign`` and ``launches`` count the wrappers'
+launches; an assign launch is three CUDA kernel launches in a row (row
+norms, partial argmin, combine), a delta launch four (then accumulate).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ OWN_ROWS = 32
 CHUNK = 256
 
 launches = 0
+launches_assign = 0
 
 
 def smem_bytes(d: int) -> int:
@@ -42,32 +47,107 @@ def smem_bytes(d: int) -> int:
     return max(accumulate, argmin)
 
 
+def vq_assign_plain(z: torch.Tensor, w: torch.Tensor):
+    """The assign kernel's plain version: z (..., B, d), w (..., kappa, d)
+    -> (assign (..., B) int32, mind (..., B) f32), first index on ties."""
+    mind, assign = torch.min(vq.squared_distances(z, w), dim=-1)
+    return assign.to(torch.int32), mind
+
+
 def vq_delta_plain(z: torch.Tensor, w: torch.Tensor):
     """The kernel's plain version: argmin, one-hot, counts, one-hot^T @ z.
 
     z (..., B, d), w (..., kappa, d) -> (counts (..., kappa),
     zsum (..., kappa, d), mind (..., B), assign (..., B) int32)."""
-    d2 = vq.squared_distances(z, w)
-    mind, assign = torch.min(d2, dim=-1)
-    onehot = F.one_hot(assign, w.shape[-2]).to(torch.float32)
+    assign, mind = vq_assign_plain(z, w)
+    onehot = F.one_hot(assign.long(), w.shape[-2]).to(torch.float32)
     counts = torch.sum(onehot, dim=-2)
     zsum = onehot.transpose(-1, -2) @ z
-    return counts, zsum, mind, assign.to(torch.int32)
+    return counts, zsum, mind, assign
 
 
-def _check(z: torch.Tensor, w: torch.Tensor) -> None:
+def _check(z: torch.Tensor, w: torch.Tensor, name: str) -> None:
     if z.dim() != w.dim() or z.dim() not in (2, 3):
         raise ValueError(
-            f"vq_delta takes z (B, d), w (kappa, d) or z (M, B, d), "
+            f"{name} takes z (B, d), w (kappa, d) or z (M, B, d), "
             f"w (M, kappa, d); got {tuple(z.shape)}, {tuple(w.shape)}")
     if z.shape[:-2] != w.shape[:-2] or z.shape[-1] != w.shape[-1]:
         raise ValueError(
             f"shape mismatch: z {tuple(z.shape)}, w {tuple(w.shape)}")
-    for name, x in (("z", z), ("w", w)):
+    for arg, x in (("z", z), ("w", w)):
         if x.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {x.dtype}")
+            raise ValueError(f"{arg} must be float32, got {x.dtype}")
     if z.device != w.device:
         raise ValueError(f"z is on {z.device}, w on {w.device}")
+
+
+def _launch(z: torch.Tensor, w: torch.Tensor, name: str, stats: bool):
+    """Launch ``vq_assign_f32`` (``stats`` False) or ``vq_delta_f32`` on
+    CUDA tensors; returns ``(counts, zsum, mind, assign)``, the first two
+    None without ``stats``."""
+    for arg, x in (("z", z), ("w", w)):
+        if not x.is_contiguous():
+            raise ValueError(f"{arg} must be contiguous")
+    flat = z.dim() == 2
+    if flat:
+        z, w = z.unsqueeze(0), w.unsqueeze(0)
+    m, b, d = z.shape
+    kappa = w.shape[1]
+    if m == 0 or b == 0 or kappa == 0 or d == 0:
+        raise ValueError(f"{name} needs M, B, kappa and d > 0")
+    if m > 65535 or -(-b // ROWS) > 65535:
+        raise ValueError(f"M={m}, B={b} is past the launch grid's limits")
+    s = -(-kappa // KCHUNK)
+    dev = z.device
+    f32 = torch.float32
+    counts = zsum = None
+    mind = torch.empty((m, b), dtype=f32, device=dev)
+    assign = torch.empty((m, b), dtype=torch.int32, device=dev)
+    w2 = torch.empty((m, kappa), dtype=f32, device=dev)
+    pmin = torch.empty((m, b, s), dtype=f32, device=dev)
+    pidx = torch.empty((m, b, s), dtype=torch.int32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        tail = (w2.data_ptr(), pmin.data_ptr(), pidx.data_ptr(), m, b, kappa,
+                d, KCHUNK, stream)
+        if stats:
+            counts = torch.empty((m, kappa), dtype=f32, device=dev)
+            zsum = torch.empty((m, kappa, d), dtype=f32, device=dev)
+            rc = lib.vq_delta_f32(z.data_ptr(), w.data_ptr(),
+                                  counts.data_ptr(), zsum.data_ptr(),
+                                  mind.data_ptr(), assign.data_ptr(), *tail)
+        else:
+            rc = lib.vq_assign_f32(z.data_ptr(), w.data_ptr(),
+                                   mind.data_ptr(), assign.data_ptr(), *tail)
+    _build.check(rc, f"{name}_f32")
+    if flat:
+        return (None if counts is None else counts[0],
+                None if zsum is None else zsum[0], mind[0], assign[0])
+    return counts, zsum, mind, assign
+
+
+def _device_ok(z: torch.Tensor, name: str) -> bool:
+    """True for CUDA tensors (launch), False for CPU ones (plain version);
+    raises for any other device."""
+    if z.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, got {z.device}")
+    return z.device.type == "cuda"
+
+
+def vq_assign(z: torch.Tensor, w: torch.Tensor):
+    """Nearest prototype of z (M, B, d) in w (M, kappa, d) (or the 2-D case
+    M=1): ``(assign int32, mind f32)`` as ``vq_assign_plain``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the current stream."""
+    global launches_assign
+    _check(z, w, "vq_assign")
+    if not _device_ok(z, "vq_assign"):
+        return vq_assign_plain(z, w)
+    _, _, mind, assign = _launch(z, w, "vq_assign", stats=False)
+    launches_assign += 1
+    return assign, mind
 
 
 def vq_delta(z: torch.Tensor, w: torch.Tensor):
@@ -77,41 +157,9 @@ def vq_delta(z: torch.Tensor, w: torch.Tensor):
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     the current stream."""
     global launches
-    _check(z, w)
-    if z.device.type == "cpu":
+    _check(z, w, "vq_delta")
+    if not _device_ok(z, "vq_delta"):
         return vq_delta_plain(z, w)
-    if z.device.type != "cuda":
-        raise ValueError(f"vq_delta runs on cuda or cpu, got {z.device}")
-    for name, x in (("z", z), ("w", w)):
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    flat = z.dim() == 2
-    if flat:
-        z, w = z.unsqueeze(0), w.unsqueeze(0)
-    m, b, d = z.shape
-    kappa = w.shape[1]
-    if m == 0 or b == 0 or kappa == 0 or d == 0:
-        raise ValueError("vq_delta needs M, B, kappa and d > 0")
-    if m > 65535 or -(-b // ROWS) > 65535:
-        raise ValueError(f"M={m}, B={b} is past the launch grid's limits")
-    s = -(-kappa // KCHUNK)
-    dev = z.device
-    counts = torch.empty((m, kappa), dtype=torch.float32, device=dev)
-    zsum = torch.empty((m, kappa, d), dtype=torch.float32, device=dev)
-    mind = torch.empty((m, b), dtype=torch.float32, device=dev)
-    assign = torch.empty((m, b), dtype=torch.int32, device=dev)
-    w2 = torch.empty((m, kappa), dtype=torch.float32, device=dev)
-    pmin = torch.empty((m, b, s), dtype=torch.float32, device=dev)
-    pidx = torch.empty((m, b, s), dtype=torch.int32, device=dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vq_delta_f32(
-            z.data_ptr(), w.data_ptr(), counts.data_ptr(), zsum.data_ptr(),
-            mind.data_ptr(), assign.data_ptr(), w2.data_ptr(),
-            pmin.data_ptr(), pidx.data_ptr(), m, b, kappa, d, KCHUNK, stream)
-    _build.check(rc, "vq_delta_f32")
+    out = _launch(z, w, "vq_delta", stats=True)
     launches += 1
-    if flat:
-        return counts[0], zsum[0], mind[0], assign[0]
-    return counts, zsum, mind, assign
+    return out

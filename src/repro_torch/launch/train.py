@@ -5,9 +5,11 @@
         --executor mesh --scheme delta --workers 8 --points 125000 \\
         --dim 128 --kappa 4096
 
-Data is drawn from ``--seed`` on the run's device (``--device cuda``, the
-default, or ``cpu``).  Prints the distortion-vs-ticks table, the wall time
-in us/point and the merge wire bytes, as the reference does.
+``--scheme async_delta`` runs eq. 9 with the per-tick masked merge; its
+round lengths are drawn from the network with a CPU generator seeded by
+``--seed``.  Data is drawn from ``--seed`` on the run's device (``--device
+cuda``, the default, or ``cpu``).  Prints the distortion-vs-ticks table, the
+wall time in us/point and the merge wire bytes, as the reference does.
 """
 
 from __future__ import annotations
@@ -28,11 +30,12 @@ N_EVAL = 1000
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.train",
-        description="The paper's sync VQ schemes on the PyTorch port.")
+        description="The paper's VQ schemes on the PyTorch port.")
     ap.add_argument("--mode", choices=("vq",), default="vq",
                     help="only the VQ schemes are ported")
     ap.add_argument("--executor", choices=("sim", "mesh"), default="sim")
-    ap.add_argument("--scheme", choices=("average", "delta"), default="delta")
+    ap.add_argument("--scheme", choices=("average", "delta", "async_delta"),
+                    default="delta")
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--points", type=int, default=2000,
                     help="data points per worker")
@@ -84,7 +87,8 @@ def run_vq(args):
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     res = executor.run(args.scheme, w0, data, eval_data, tau=args.tau,
-                       eps0=args.eps0)
+                       eps0=args.eps0,
+                       generator=torch.Generator().manual_seed(args.seed))
     curve = res.distortion.cpu()   # waits for the device
     wall = time.perf_counter() - t0
     ticks = res.wall_ticks.cpu()

@@ -263,8 +263,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 def test_scheme_and_factory_validation():
     assert validate_scheme("delta") == "delta"
-    with pytest.raises(NotImplementedError, match="async"):
-        validate_scheme("async_delta")
+    assert validate_scheme("async_delta") == "async_delta"
     with pytest.raises(ValueError):
         validate_scheme("nope")
     with pytest.raises(ValueError):
@@ -281,8 +280,9 @@ def test_scheme_and_factory_validation():
     w0, data, eval_data = interop.from_reference(*_setup(2), device=CPU)
     with pytest.raises(ValueError, match="window"):
         ex.run("delta", w0, data[:, :5], eval_data, tau=TAU)
-    with pytest.raises(NotImplementedError):
-        ex.run("async_delta", w0, data, eval_data, tau=TAU)
+    with pytest.raises(ValueError, match="lengths"):
+        ex.run("async_delta", w0, data, eval_data, tau=TAU,
+               lengths=torch.full((2, 3), TAU, dtype=torch.int32))
 
 
 def test_comm_log_is_bounded_and_marks_survive_trims():

@@ -81,6 +81,41 @@ def test_delta_plain_matches_reference_kernel_and_ref(batch, kappa, d):
         float(jops.distortion(jnp.asarray(z), jnp.asarray(w))), rtol=RTOL)
 
 
+@pytest.mark.parametrize("batch,kappa,d", [(1, 130, 8), (37, 200, 16),
+                                           (129, 300, 16)])
+def test_assign_plain_matches_reference_kernel_and_ref(batch, kappa, d):
+    """kappa not a multiple of 128: the reference kernel masks its padded
+    columns; N(0, 1) data as the reference's serving tests use."""
+    rng = np.random.default_rng(100 + batch)
+    z = rng.standard_normal((batch, d)).astype(np.float32)
+    w = rng.standard_normal((kappa, d)).astype(np.float32)
+    assign, mind = vq_assign.vq_assign(torch.from_numpy(z),
+                                       torch.from_numpy(w))
+    assert assign.dtype == torch.int32 and mind.dtype == torch.float32
+    for ja, jm in (jops.vq_assign(jnp.asarray(z), jnp.asarray(w)),
+                   jref.vq_assign_ref(jnp.asarray(z), jnp.asarray(w))):
+        np.testing.assert_array_equal(assign.numpy(), np.asarray(ja))
+        np.testing.assert_allclose(mind.numpy(), np.asarray(jm), rtol=1e-5)
+    a2, m2 = ops.vq_assign(torch.from_numpy(z), torch.from_numpy(w))
+    assert torch.equal(a2, assign) and torch.equal(m2, mind)
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 200, 8), (1, 5, 16, 8)])
+def test_assign_plain_equals_delta_plain_bitwise(shape):
+    """The CPU side of the card contract: the assign and delta plain
+    versions give the same (assign, mind) to the bit, stacked or 2-D."""
+    m, b, kappa, d = shape
+    rng = np.random.default_rng(m * b)
+    z = torch.from_numpy(_mixture(rng, (m, b), d))
+    w = torch.from_numpy(_mixture(rng, (m, kappa), d))
+    for zz, ww in ((z, w), (z[0], w[0])):
+        assign, mind = vq_assign.vq_assign(zz, ww)
+        _, _, dmind, dassign = vq_assign.vq_delta(zz, ww)
+        assert torch.equal(assign, dassign) and assign.dtype == torch.int32
+        assert torch.equal(mind, dmind)
+        assert assign.shape == zz.shape[:-1]
+
+
 def test_delta_stacked_workers_match_per_worker():
     rng = np.random.default_rng(7)
     z = torch.from_numpy(_mixture(rng, (8, 30), 8))
@@ -163,6 +198,23 @@ def test_wrappers_validate_inputs():
     vq_assign.vq_delta(z, w)
     # the plain versions on the CPU are not kernel launches
     assert (vq_fused.launches, vq_assign.launches) == before
+
+
+def test_assign_wrapper_validates_and_never_counts_cpu():
+    z = torch.zeros((2, 1, 4))
+    w = torch.zeros((2, 3, 4))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        vq_assign.vq_assign(z.to("meta"), w.to("meta"))
+    with pytest.raises(ValueError, match="vq_assign takes"):
+        vq_assign.vq_assign(z, w[0])
+    with pytest.raises(ValueError, match="float32"):
+        vq_assign.vq_assign(z.double(), w.double())
+    before = vq_assign.launches_assign
+    vq_assign.vq_assign(z, w)
+    ops.vq_assign(z[0], w[0])
+    assert vq_assign.launches_assign == before
+    assert set(_build.SIGNATURES) == {"vq_window_f32", "vq_delta_f32",
+                                      "vq_assign_f32"}
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
