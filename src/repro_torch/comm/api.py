@@ -14,6 +14,13 @@ Accounting is the reference's, record for record:
     wire per participant, ``2 * (m-1)/m * logical``; one participant moves
     nothing.
 
+Transports follow the reference's ``(result, state)`` convention:
+``all_reduce`` and ``masked_all_reduce`` return the reduced tensor and the
+transport's new state.  A ``stateful`` transport (``SparseTransport``, whose
+state is the per-worker error-feedback residual) is seeded with
+``init_state(x)`` and fed its state back every call; a stateless one
+(``XlaTransport``) takes and returns ``None``.
+
 Each call logs one ``CommRecord`` with ``calls=1``; the log folds a repeat
 of a collective since its latest mark into the first record's ``calls``, so
 a run keeps one record per distinct collective, as the reference's does
@@ -129,31 +136,46 @@ class Transport:
     """Base transport: reduces a stacked ``(M, ...)`` tensor over dim 0."""
 
     name = "base"
+    stateful = False
 
     def __init__(self):
         self.log = CommLog()
 
-    def all_reduce(self, x: torch.Tensor, *, op: str = "sum",
-                   tag: str = "merge") -> torch.Tensor:
+    def init_state(self, x: torch.Tensor):
+        """The state a stateful transport threads from call to call, for a
+        stacked payload shaped like ``x``; ``None`` for a stateless one."""
+        return None
+
+    def plain(self) -> "Transport":
+        """This transport with its kernels' plain PyTorch versions in their
+        place, sharing its log (``MeshExecutor(use_kernels=False)`` merges
+        through it).  A transport that launches no kernel returns itself."""
+        return self
+
+    def all_reduce(self, x: torch.Tensor, *, op: str = "sum", state=None,
+                   tag: str = "merge") -> tuple[torch.Tensor, object]:
+        """x (M, ...) -> ``(the reduction over workers, new state)``."""
         raise NotImplementedError
 
     def masked_all_reduce(self, x: torch.Tensor, mask: torch.Tensor, *,
-                          tag: str = "merge") -> torch.Tensor:
-        """The eq.-9 reducer: the f32 sum over workers of ``mask[i] * x[i]``
-        (mask (M,), 1.0 for the workers whose round lands this tick).  Every
-        participant joins the collective whatever its bit, so it is charged
-        as a dense sum."""
+                          state=None, tag: str = "merge"
+                          ) -> tuple[torch.Tensor, object]:
+        """The eq.-9 reducer: ``(the f32 sum over workers of mask[i] * x[i],
+        new state)`` (mask (M,), 1.0 for the workers whose round lands this
+        tick).  Every participant joins the collective whatever its bit, so
+        it is charged as a full call."""
         raise NotImplementedError
 
 
 def get_transport(name, **kwargs) -> Transport:
-    """Factory: 'xla' (the dense transport; the only one ported so far).
+    """Factory: 'xla' (dense) | 'sparse' (top-k + error feedback, ``frac=``).
 
     An already-constructed ``Transport`` passes through unchanged."""
     if isinstance(name, Transport):
         return name
+    from repro_torch.comm.sparse import SparseTransport
     from repro_torch.comm.xla import XlaTransport
-    transports = {"xla": XlaTransport}
+    transports = {"xla": XlaTransport, "sparse": SparseTransport}
     if name not in transports:
         raise ValueError(
             f"unknown transport {name!r}; choose from {sorted(transports)}")

@@ -61,7 +61,9 @@ class Executor(Protocol):
 
 
 def get_executor(name: str, **kwargs) -> Executor:
-    """Factory: 'sim' | 'mesh' (+ backend kwargs)."""
+    """Factory: 'sim' | 'mesh' (+ backend kwargs; ``transport=`` a name or
+    a ``comm.Transport`` reaches the mesh executor's merges, the sim
+    oracles have no collective to route)."""
     if name == "sim":
         from repro_torch.engine.sim import SimExecutor
         return SimExecutor(**kwargs)

@@ -1,13 +1,14 @@
 """Merge strategies, the paper's reducing phases.  Counterpart of
-``repro/engine/merge.py`` for the two sync strategies.
+``repro/engine/merge.py`` for the sync strategies and the sparse delta merge.
 
-A strategy is ``merged = strategy(w0, w_local)``: ``w0`` is the window's
-shared starting codebook (kappa, d), ``w_local`` the workers' codebooks
-after tau local steps, stacked (M, kappa, d).  The strategy decides what
-to reduce; its ``Transport`` reduces over the worker dimension and accounts
-the bytes.  The reference threads a state through stateful strategies;
-neither sync strategy has one, so the port drops it until a stateful one
-is ported.
+A strategy is ``(merged, state) = strategy(w0, w_local, state=None)``:
+``w0`` is the window's shared starting codebook (kappa, d), ``w_local`` the
+workers' codebooks after tau local steps, stacked (M, kappa, d).  The
+strategy decides what to reduce; its ``Transport`` reduces over the worker
+dimension and accounts the bytes.  ``state`` is the transport's (the sparse
+transport's per-worker residual, (M, kappa, d)): a ``stateful`` strategy is
+seeded with ``init_state(w_local)`` and fed its state back every window.
+No ported strategy owns state of its own yet.
 """
 
 from __future__ import annotations
@@ -36,8 +37,16 @@ class MergeStrategy:
         self.transport = (transport if transport is not None
                           else comm.get_transport("xla"))
 
-    def __call__(self, w0: torch.Tensor, w_local: torch.Tensor
-                 ) -> torch.Tensor:
+    @property
+    def stateful(self) -> bool:
+        return self.transport.stateful
+
+    def init_state(self, w_local: torch.Tensor):
+        """The transport's state for stacked codebooks like ``w_local``."""
+        return self.transport.init_state(w_local)
+
+    def __call__(self, w0: torch.Tensor, w_local: torch.Tensor, state=None
+                 ) -> tuple[torch.Tensor, object]:
         raise NotImplementedError
 
 
@@ -47,9 +56,11 @@ class AverageMerge(MergeStrategy):
 
     name = "average"
 
-    def __call__(self, w0, w_local):
+    def __call__(self, w0, w_local, state=None):
         del w0
-        return self.transport.all_reduce(w_local, op="mean")
+        merged, _ = self.transport.all_reduce(w_local, op="mean")
+        # means ride dense on every transport: the state passes through
+        return merged, state
 
 
 class DeltaMerge(MergeStrategy):
@@ -57,19 +68,41 @@ class DeltaMerge(MergeStrategy):
 
     name = "delta"
 
-    def __call__(self, w0, w_local):
-        total = self.transport.all_reduce(tree_sub_f32(w0, w_local), op="sum")
-        return tree_apply_delta(w0, total)
+    def __call__(self, w0, w_local, state=None):
+        total, state = self.transport.all_reduce(
+            tree_sub_f32(w0, w_local), op="sum", state=state)
+        return tree_apply_delta(w0, total), state
 
 
-_STRATEGIES = {"average": AverageMerge, "delta": DeltaMerge}
+class SparseDeltaMerge(DeltaMerge):
+    """Eq. (8) over the top-k/error-feedback ``SparseTransport``; its state
+    is the per-worker residual."""
+
+    name = "delta_sparse"
+
+    def __init__(self, transport: comm.Transport | None = None, *,
+                 frac: float | None = None):
+        if transport is None:
+            transport = comm.get_transport(
+                "sparse", frac=0.01 if frac is None else frac)
+        elif frac is not None and getattr(transport, "frac", frac) != frac:
+            # an explicit transport AND a conflicting frac: refuse rather
+            # than compress at a rate the caller did not ask for
+            raise ValueError(
+                f"frac={frac} conflicts with the supplied transport's "
+                f"frac={transport.frac}; configure one place only")
+        super().__init__(transport)
 
 
-def get_merge(name: str, transport: comm.Transport | None = None
+_STRATEGIES = {"average": AverageMerge, "delta": DeltaMerge,
+               "delta_sparse": SparseDeltaMerge}
+
+
+def get_merge(name: str, transport: comm.Transport | None = None, **kwargs
               ) -> MergeStrategy:
-    """Factory: 'average' | 'delta'."""
+    """Factory: 'average' | 'delta' | 'delta_sparse' (``frac=``)."""
     if name not in _STRATEGIES:
         raise ValueError(
             f"unknown merge strategy {name!r}; choose from "
             f"{sorted(_STRATEGIES)}")
-    return _STRATEGIES[name](transport)
+    return _STRATEGIES[name](transport, **kwargs)

@@ -25,6 +25,14 @@ After every window the shared codebook is scored by eq. 2: the mean over
 workers of ``vq.distortion`` on each worker's eval points, reduced through
 the transport with tag ``"eval"``.
 
+The merge runs on the executor's transport: the dense ``XlaTransport`` by
+default, or the top-k ``SparseTransport`` (``transport="sparse"`` or an
+instance with its ``frac``).  A stateful transport's state (the sparse
+residual, f32 (M, kappa, d) on the device) is made once per run and threaded
+window by window, or tick by tick for eq. 9, as the reference threads it
+through its scans.  With ``use_kernels`` off the transport's selection is
+its plain version too (``Transport.plain``).
+
 The async scheme (``_run_async``, the reference's ``mesh.py:812-915``) has
 no window: every tick each worker takes one eq.-1 step at batch 1 (the
 delta kernel, or ``vq.H`` with ``use_kernels`` off), then the in-flight
@@ -60,11 +68,14 @@ class MeshExecutor:
                  eval_every: int = 10,
                  device: str | torch.device | None = None):
         self.network = network or GeometricDelayNetwork()
+        # use_kernels=False is the reference's use_pallas=False: the plain
+        # vq.H step, and the transport's plain selection.  fused=False keeps
+        # the per-step delta-kernel loop as the comparator of the window
+        # kernel; both give the same codebooks.
         self.transport = comm.get_transport(
             transport if transport is not None else "xla")
-        # use_kernels=False is the reference's use_pallas=False: the plain
-        # vq.H step.  fused=False keeps the per-step delta-kernel loop as the
-        # comparator of the window kernel; both give the same codebooks.
+        if not use_kernels:
+            self.transport = self.transport.plain()
         self.use_kernels = use_kernels
         self.fused = fused
         # the async scheme scores the shared version every eval_every ticks
@@ -110,6 +121,7 @@ class MeshExecutor:
         w_srd, snap = w0, w.clone()
         dcur = torch.zeros_like(w)
         dinf = torch.zeros_like(w)
+        comm_state = self.transport.init_state(dinf)
         curve = []
         for t in range(n):
             # local VQ step on every worker (1st line of eq. 9)
@@ -118,8 +130,9 @@ class MeshExecutor:
             dcur = dcur + step
             # masked merge: only completing workers' in-flight deltas land
             # on the shared version (4th line)
-            w_srd = w_srd - self.transport.masked_all_reduce(
-                dinf, dones_f[t], tag="merge")
+            landed, comm_state = self.transport.masked_all_reduce(
+                dinf, dones_f[t], state=comm_state, tag="merge")
+            w_srd = w_srd - landed
             # completed: adopt the downloaded snapshot and replay the local
             # delta (3rd line); the others keep the plain step (2nd line)
             mask = dones[t][:, None, None]
@@ -128,12 +141,18 @@ class MeshExecutor:
             dinf = torch.where(mask, dcur, dinf)
             dcur = dcur.masked_fill(mask, 0.0)
             if (t + 1) % self.eval_every == 0:
-                curve.append(self.transport.all_reduce(
-                    vq.distortion(eval_data, w_srd), op="mean", tag="eval"))
+                curve.append(self._eval(eval_data, w_srd))
         ticks = async_vq.eval_ticks(n, self.eval_every) + 1
         return SchemeResult(
             w_shared=w_srd, wall_ticks=ticks.to(torch.int32),
             distortion=torch.stack(curve) if curve else torch.zeros(0))
+
+    def _eval(self, eval_data: torch.Tensor, w_srd: torch.Tensor
+              ) -> torch.Tensor:
+        """Eq. 2 of the shared codebook: the mean over workers, reduced
+        through the transport with tag "eval"."""
+        return self.transport.all_reduce(vq.distortion(eval_data, w_srd),
+                                         op="mean", tag="eval")[0]
 
     def run(self, scheme: str, w0: torch.Tensor, data: torch.Tensor,
             eval_data: torch.Tensor, *, tau: int, eps0: float = 0.5,
@@ -174,14 +193,14 @@ class MeshExecutor:
         log = self.transport.log
         mark = log.mark()
         w_srd, curve = w0, []
+        state = strategy.init_state(w0.expand(m, *w0.shape))
         try:
             for i in range(n_windows):
                 span = slice(i * tau, (i + 1) * tau)
                 w_fin = self._local_window(w_srd, data[:, span].contiguous(),
                                            eps_all[span])
-                w_srd = strategy(w_srd, w_fin)
-                curve.append(self.transport.all_reduce(
-                    vq.distortion(eval_data, w_srd), op="mean", tag="eval"))
+                w_srd, state = strategy(w_srd, w_fin, state=state)
+                curve.append(self._eval(eval_data, w_srd))
         finally:
             self.last_comm = comm.CommLog.summarize(log.since(mark))
         merge_wire = self.last_comm["by_tag"].get(

@@ -42,6 +42,8 @@ SIGNATURES = {
                      _P),
     # z, w, mind, assign, w2, pmin, pidx, M, B, K, D, kchunk, stream
     "vq_assign_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # full, vals, idx, residual, M, N, k, stream
+    "vq_topk_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 

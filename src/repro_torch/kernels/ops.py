@@ -14,8 +14,8 @@ does not pad batches, so no row floor exists.
 
 Where the full-codebook delta kernel does not fit, the reference takes its
 blocked assign+delta kernel; that kernel is not ported yet, so
-``vq_delta_routed`` raises ``NotImplementedError`` instead of taking another
-route.
+``vq_delta_routed`` and ``vq_delta_topk`` raise ``NotImplementedError``
+instead of taking another route.
 """
 
 from __future__ import annotations
@@ -62,17 +62,54 @@ def distortion(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.mean(mind, dim=-1)
 
 
+def _require_delta_fits(d: int) -> None:
+    if not delta_fits(d):
+        raise NotImplementedError(
+            f"d={d} is past the delta kernel's shared-memory budget; the "
+            f"blocked assign+delta kernel that would take it "
+            f"(repro/kernels/vq_fused.py::_fused_delta_kernel) is still to "
+            f"port: ROADMAP.md queue 2, row 3")
+
+
 def vq_delta_routed(z: torch.Tensor, w: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """``vq_delta`` where the full-codebook kernel fits the shared-memory
     budget; past it, the reference's blocked kernel, which is not ported."""
-    if not delta_fits(w.shape[-1]):
-        raise NotImplementedError(
-            f"d={w.shape[-1]} is past the delta kernel's shared-memory "
-            f"budget; the blocked assign+delta kernel that would take it "
-            f"(repro/kernels/vq_fused.py::_fused_delta_kernel) is still to "
-            f"port: ROADMAP.md queue 2, row 3")
+    _require_delta_fits(w.shape[-1])
     return vq_delta(z, w)
+
+
+def vq_topk(full: torch.Tensor, k: int
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The sparse transport's selection: for each row of full (M, N), the k
+    largest-|x| entries ``(vals (M, k), idx (M, k) int32)`` in ascending
+    index order and the error-feedback residual ``full - kept`` (M, N)."""
+    return vq_fused.vq_topk(full, k)
+
+
+def vq_delta_topk(z: torch.Tensor, w: torch.Tensor, residual: torch.Tensor,
+                  *, frac: float
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The eq.-8 displacement with the error-feedback carry folded in,
+    ``counts * w - zsum + residual``, compressed to the sparse transport's
+    payload with ``k = max(1, int(frac * kappa * d))`` (the convention of
+    ``comm.sparse.topk_count``).
+
+    z (B, d), w and residual (kappa, d) -> (vals (k,), idx (k,) int32,
+    new residual (kappa, d)); with a leading worker dimension M on all
+    three, each output gains it.  Past the delta kernel's budget the
+    reference takes its blocked kernel's epilogue, which is not ported."""
+    _require_delta_fits(w.shape[-1])
+    if residual.shape != w.shape:
+        raise ValueError(f"residual must be shaped like w {tuple(w.shape)}, "
+                         f"got {tuple(residual.shape)}")
+    counts, zsum = vq_delta(z, w)
+    full = counts.unsqueeze(-1) * w - zsum + residual
+    flat = full.reshape(-1, w.shape[-2] * w.shape[-1])
+    vals, idx, new_res = vq_topk(flat, max(1, int(frac * flat.shape[1])))
+    if w.dim() == 2:
+        return vals[0], idx[0], new_res.view(w.shape)
+    return vals, idx, new_res.view(w.shape)
 
 
 def vq_window(zwin: torch.Tensor, w0: torch.Tensor,

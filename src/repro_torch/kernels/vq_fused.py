@@ -1,12 +1,14 @@
-"""The window kernel: tau sequential eq.-1 steps for M stacked workers.
+"""The window kernel (tau sequential eq.-1 steps for M stacked workers) and
+the top-k kernel (the sparse transport's per-worker selection).
 
-Counterpart of the window part of ``repro/kernels/vq_fused.py``
-(``_window_kernel`` / ``vq_window_pallas``).  The CUDA source is
-``csrc/vq_window.cu``; it says what bounds the kernel and how.
+Counterpart of the window and top-k parts of ``repro/kernels/vq_fused.py``
+(``_window_kernel`` / ``vq_window_pallas`` and ``_topk_kernel`` /
+``vq_topk_pallas``).  The CUDA sources are ``csrc/vq_window.cu`` and
+``csrc/vq_topk.cu``; each says what bounds its kernel and how.
 
-``vq_window`` launches the kernel for CUDA tensors and takes the plain
-version ``vq_window_plain`` for CPU tensors only.  ``launches`` counts the
-kernel's launches.
+``vq_window`` and ``vq_topk`` launch their kernels for CUDA tensors and take
+the plain versions ``vq_window_plain`` and ``vq_topk_plain`` for CPU tensors
+only.  ``launches`` and ``launches_topk`` count the kernels' launches.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ CLUSTER_BLOCKS = 8
 WARPS = 16
 
 launches = 0
+launches_topk = 0
 
 
 def smem_bytes(kappa: int, d: int) -> int:
@@ -93,3 +96,55 @@ def vq_window(zwin: torch.Tensor, w0: torch.Tensor,
     _build.check(rc, "vq_window_f32")
     launches += 1
     return wout
+
+
+def vq_topk_plain(full: torch.Tensor, k: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The top-k kernel's plain version: a stable descending sort of |x|
+    (the lower index first among equal |x|, as ``lax.top_k``), its first k
+    indices in ascending order, their entries, and ``full - kept``.
+
+    full (M, N) f32 -> (vals (M, k) f32, idx (M, k) int32,
+    residual (M, N) f32).  ``torch.topk`` does not promise an order among
+    ties, so it is not used."""
+    order = torch.sort(full.abs(), dim=1, descending=True, stable=True)[1]
+    idx = torch.sort(order[:, :k], dim=1)[0]
+    vals = torch.gather(full, 1, idx)
+    kept = torch.zeros_like(full).scatter_(1, idx, vals)
+    return vals, idx.to(torch.int32), full - kept
+
+
+def vq_topk(full: torch.Tensor, k: int
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The k largest-|x| entries of each row of full (M, N) f32, 1 <= k <= N:
+    ``(vals (M, k), idx (M, k) int32, residual (M, N))`` as
+    ``vq_topk_plain``, the pairs in ascending index order.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the current stream."""
+    global launches_topk
+    if full.dim() != 2 or full.dtype != torch.float32:
+        raise ValueError(f"vq_topk takes full (M, N) float32, got "
+                         f"{tuple(full.shape)} {full.dtype}")
+    m, n = full.shape
+    if not 1 <= k <= n:
+        raise ValueError(f"vq_topk needs 1 <= k <= N={n}, got k={k}")
+    if full.device.type == "cpu":
+        return vq_topk_plain(full, k)
+    if full.device.type != "cuda":
+        raise ValueError(f"vq_topk runs on cuda or cpu, got {full.device}")
+    if not full.is_contiguous():
+        raise ValueError("full must be contiguous")
+    if m == 0 or m > 2**31 - 1:
+        raise ValueError(f"vq_topk needs 1 <= M < 2**31, got M={m}")
+    vals = torch.empty((m, k), dtype=torch.float32, device=full.device)
+    idx = torch.empty((m, k), dtype=torch.int32, device=full.device)
+    residual = torch.empty_like(full)
+    lib = _build.library()
+    with torch.cuda.device(full.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.vq_topk_f32(full.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                             residual.data_ptr(), m, n, k, stream)
+    _build.check(rc, "vq_topk_f32")
+    launches_topk += 1
+    return vals, idx, residual

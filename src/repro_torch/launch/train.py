@@ -5,7 +5,10 @@
         --executor mesh --scheme delta --workers 8 --points 125000 \\
         --dim 128 --kappa 4096
 
-``--scheme async_delta`` runs eq. 9 with the per-tick masked merge; its
+``--transport sparse --compress-frac F`` (mesh executor only) merges through
+the top-k/error-feedback transport, each worker shipping its F * kappa * d
+largest displacement entries.  ``--scheme async_delta`` runs eq. 9 with the
+per-tick masked merge; its
 round lengths are drawn from the network with a CPU generator seeded by
 ``--seed``.  Data is drawn from ``--seed`` on the run's device (``--device
 cuda``, the default, or ``cpu``).  Prints the distortion-vs-ticks table, the
@@ -19,6 +22,7 @@ import time
 
 import torch
 
+from repro_torch import comm
 from repro_torch import device as device_lib
 from repro_torch.data import synthetic
 from repro_torch.engine import get_executor, get_network
@@ -47,6 +51,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                     default="instant")
     ap.add_argument("--latency", type=int, default=1)
     ap.add_argument("--p-delay", type=float, default=0.5)
+    ap.add_argument("--transport", choices=("xla", "sparse"), default="xla",
+                    help="merge transport (mesh executor): dense, or top-k "
+                         "with error feedback")
+    ap.add_argument("--compress-frac", type=float, default=0.01,
+                    help="sparse transport: fraction of entries each worker "
+                         "ships per merge")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return ap.parse_args(argv)
@@ -69,9 +79,14 @@ def build_executor(args, dev: torch.device):
         net_kw["latency_ticks"] = args.latency
     elif args.network == "geometric":
         net_kw["p_delay"] = args.p_delay
+    kw = {}
+    if args.executor == "mesh":
+        kw["transport"] = comm.get_transport(
+            args.transport, **({"frac": args.compress_frac}
+                               if args.transport == "sparse" else {}))
     return get_executor(args.executor, network=get_network(args.network,
                                                            **net_kw),
-                        device=dev)
+                        device=dev, **kw)
 
 
 def run_vq(args):
@@ -80,9 +95,11 @@ def run_vq(args):
     dev = device_lib.resolve(args.device)
     w0, data, eval_data = make_inputs(args, dev)
     executor = build_executor(args, dev)
+    transport = getattr(executor, "transport", None)
     print(f"executor={executor.name} scheme={args.scheme} M={args.workers} "
           f"tau={args.tau} network={args.network} n={args.points} "
-          f"d={args.dim} kappa={args.kappa} device={dev}")
+          f"d={args.dim} kappa={args.kappa} device={dev} "
+          f"transport={transport.name if transport else 'none'}")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -102,7 +119,8 @@ def run_vq(args):
     if last_comm:
         merge_b = last_comm["by_tag"].get(
             "merge", {"wire_bytes": 0, "logical_bytes": 0})
-        print(f"comm[xla]: merge wire {merge_b['wire_bytes']:,} B / logical "
+        print(f"comm[{transport.name}]: merge wire "
+              f"{merge_b['wire_bytes']:,} B / logical "
               f"{merge_b['logical_bytes']:,} B per worker "
               f"({last_comm['calls']} collective calls, measured)")
     return res, executor, wall
@@ -113,6 +131,11 @@ def main(argv=None) -> int:
     if args.points < args.tau:
         print(f"error: --points {args.points} is less than one tau="
               f"{args.tau} window")
+        return 2
+    if args.transport != "xla" and args.executor != "mesh":
+        # the sim oracles issue no collective for a transport to reroute
+        print(f"error: --transport {args.transport} needs --executor mesh "
+              f"(the sim backend issues no collectives)")
         return 2
     run_vq(args)
     return 0

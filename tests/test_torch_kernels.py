@@ -17,6 +17,7 @@ import torch
 from repro.core import vq as jvq
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels import vq_fused as jfused
 from repro_torch.core import vq
 from repro_torch.kernels import _build, ops, ref, vq_assign, vq_fused
 
@@ -214,7 +215,7 @@ def test_assign_wrapper_validates_and_never_counts_cpu():
     ops.vq_assign(z[0], w[0])
     assert vq_assign.launches_assign == before
     assert set(_build.SIGNATURES) == {"vq_window_f32", "vq_delta_f32",
-                                      "vq_assign_f32"}
+                                      "vq_assign_f32", "vq_topk_f32"}
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
@@ -225,5 +226,126 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {"vq_window.cu",
-                                                          "vq_delta.cu"}
+                                                          "vq_delta.cu",
+                                                          "vq_topk.cu"}
     assert os.path.basename(_build.BUILD_ROOT) == ".build"
+
+
+def _tie_heavy(rng, m, n):
+    """Mostly exact zeros of both signs, plus repeated magnitudes of both
+    signs and a few distinct values: every k below cuts through a tie."""
+    x = np.zeros((m, n), np.float32)
+    x[rng.random((m, n)) < 0.3] = -0.0
+    for mag, share in ((0.5, 0.05), (0.25, 0.1)):
+        hit = rng.random((m, n)) < share
+        x[hit] = mag * rng.choice(np.array([1.0, -1.0], np.float32),
+                                  int(hit.sum()))
+    few = rng.random((m, n)) < 0.02
+    x[few] = rng.standard_normal(int(few.sum())).astype(np.float32)
+    return x
+
+
+def _bits(a):
+    return np.ascontiguousarray(np.asarray(a, np.float32)).view(np.uint32)
+
+
+# (M, kappa, d, k): k = 1 and k = N; N = 1155 = 3*5*7*11 has no
+# power-of-two factor; M = 1 and M = 3
+TOPK_CASES = [(1, 16, 8, 1), (1, 16, 8, 128), (3, 33, 35, 37),
+              (3, 33, 35, 1155), (3, 24, 6, 14)]
+
+
+@pytest.mark.parametrize("tie_heavy", [False, True])
+@pytest.mark.parametrize("m,kappa,d,k", TOPK_CASES)
+def test_topk_plain_matches_reference_topk_kernel(m, kappa, d, k, tie_heavy):
+    """The same kept set as the reference's top-k kernel (interpret mode),
+    and vals and residual equal bit for bit once ordered by index; the
+    port keeps its pairs in ascending index order."""
+    rng = np.random.default_rng(7 + k)
+    n = kappa * d
+    full = (_tie_heavy(rng, m, n) if tie_heavy
+            else rng.standard_normal((m, n)).astype(np.float32))
+    vals, idx, res = vq_fused.vq_topk_plain(torch.from_numpy(full), k)
+    assert vals.shape == (m, k) and idx.shape == (m, k)
+    assert idx.dtype == torch.int32 and res.shape == (m, n)
+    for j in range(m):
+        rv, ri, rr = jfused.vq_topk_pallas(
+            jnp.asarray(full[j].reshape(kappa, d)), k, interpret=True)
+        ri = np.asarray(ri)
+        order = np.argsort(ri)
+        np.testing.assert_array_equal(idx[j].numpy(), ri[order])
+        np.testing.assert_array_equal(_bits(vals[j].numpy()),
+                                      _bits(np.asarray(rv)[order]))
+        np.testing.assert_array_equal(_bits(res[j].numpy()),
+                                      _bits(np.asarray(rr).reshape(-1)))
+
+
+def test_topk_plain_breaks_ties_by_lower_index():
+    """lax.top_k's order on the reference's own example: among equal |x|,
+    -0.0 and +0.0 included, the lower index is kept."""
+    x = torch.tensor([[0.0, .5, -.5, 0.0, .25, -.25, .5, -0.0, 0.0]])
+    vals, idx, res = vq_fused.vq_topk_plain(x, 6)
+    assert idx.tolist() == [[0, 1, 2, 4, 5, 6]]
+    assert vals.tolist() == [[0.0, .5, -.5, .25, -.25, .5]]
+    # kept entries become +0.0; the others keep their bits (-0.0 too)
+    assert _bits(res.numpy()).tolist() == _bits(
+        np.array([[0.0, 0, 0, 0, 0, 0, 0, -0.0, 0]], np.float32)).tolist()
+
+
+def test_topk_wrapper_validates_and_never_counts_cpu():
+    full = torch.zeros((2, 5))
+    with pytest.raises(ValueError, match="1 <= k"):
+        vq_fused.vq_topk(full, 0)
+    with pytest.raises(ValueError, match="1 <= k"):
+        vq_fused.vq_topk(full, 6)
+    with pytest.raises(ValueError, match="float32"):
+        vq_fused.vq_topk(full.double(), 1)
+    with pytest.raises(ValueError, match=r"\(M, N\)"):
+        vq_fused.vq_topk(full[0], 1)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        vq_fused.vq_topk(full.to("meta"), 1)
+    before = vq_fused.launches_topk
+    got = vq_fused.vq_topk(full, 2)
+    ops.vq_topk(full, 5)
+    assert vq_fused.launches_topk == before
+    for a, b in zip(got, vq_fused.vq_topk_plain(full, 2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m", [1, 3])
+def test_delta_topk_matches_reference(m):
+    """ops.vq_delta_topk against the reference's (mirrors
+    tests/test_autotune.py:106): the same kept set, vals and residual at
+    RTOL/ATOL (zsum sums points in another order), and the port's own
+    displacement + plain selection bit for bit."""
+    batch, kappa, d, frac = 40, 24, 6, 0.1
+    rng = np.random.default_rng(11)
+    z = _mixture(rng, (m, batch), d)
+    w = _mixture(rng, (m, kappa), d)
+    residual = 0.01 * rng.standard_normal((m, kappa, d)).astype(np.float32)
+    zt, wt, rt = (torch.from_numpy(a) for a in (z, w, residual))
+    got = ops.vq_delta_topk(zt if m > 1 else zt[0], wt if m > 1 else wt[0],
+                            rt if m > 1 else rt[0], frac=frac)
+    vals, idx, new_res = (g if m > 1 else g[None] for g in got)
+    k = max(1, int(frac * kappa * d))
+    assert vals.shape == (m, k) and new_res.shape == (m, kappa, d)
+    counts, zsum = ops.vq_delta(zt, wt)
+    full = (counts.unsqueeze(-1) * wt - zsum + rt).reshape(m, -1)
+    for a, b in zip((vals, idx, new_res.reshape(m, -1)),
+                    vq_fused.vq_topk_plain(full, k)):
+        assert torch.equal(a, b)
+    for j in range(m):
+        rv, ri, rr = jops.vq_delta_topk(jnp.asarray(z[j]), jnp.asarray(w[j]),
+                                        jnp.asarray(residual[j]), frac=frac)
+        ri = np.asarray(ri)
+        order = np.argsort(ri)
+        np.testing.assert_array_equal(idx[j].numpy(), ri[order])
+        np.testing.assert_allclose(vals[j].numpy(), np.asarray(rv)[order],
+                                   rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(new_res[j].numpy(), np.asarray(rr),
+                                   rtol=RTOL, atol=ATOL)
+    with pytest.raises(NotImplementedError, match="queue 2, row 3"):
+        ops.vq_delta_topk(torch.zeros((1, 2048)), torch.zeros((3, 2048)),
+                          torch.zeros((3, 2048)), frac=0.1)
+    with pytest.raises(ValueError, match="residual"):
+        ops.vq_delta_topk(zt[0], wt[0], rt[0, :3], frac=frac)
