@@ -54,12 +54,33 @@ PyTorch built for CUDA:
      kernel, payload + residual, the plain selection, the sum); and eq. 9
      over the sparse transport for 20,000 ticks on the dense eq.-9 run's
      round lengths, whose curve must equal the dense run's head bit for bit;
-  11. times each kernel, its plain version, its bound and, for the top-k
+  11. holds the blocked assign+delta kernel against the delta kernel, bit
+     for bit (assign, mind, counts, zsum), at (8, 1) and (8, 1000) x 4096 x
+     128; against its plain version at d=3072 ((8, 1) and (8, 1000) x 4096)
+     and at two ragged shapes, one past the argmin pass's staging limit
+     (d=8000), with its epilogue equal to the eager expression on its own
+     outputs bit for bit; and ``ops.vq_delta_topk``'s blocked branch against
+     its full-kernel branch at d=128, bit for bit;
+  12. runs eq. 9 at d=128 through the blocked route (the shared-memory
+     budget forced down) for 2,000 ticks, which must equal the dense run's
+     head bit for bit with one blocked launch per tick;
+  13. drives eq. 9 on a 3072-wide embedding codebook (kappa=4096, M=8,
+     2,000 ticks per worker, cut for time) through the launcher: one
+     blocked launch per tick and no delta or window launch, distortion
+     falling, its first 200 ticks held against ``scheme_async`` under the
+     flip rule and, with ``fused=False`` (assign kernel + ``index_add_``),
+     equal to the blocked route bit for bit; then the sync delta scheme at
+     that width on 8 x 2,000 points, the window kernel against the
+     per-step loop through the blocked kernel, window by window, bit for
+     bit;
+  14. runs the tile tuner's search on the eq.-9 shape and shows the tuned
+     tiles give the untuned tiles' bits;
+  15. times each kernel, its plain version, its bound and, for the top-k
      kernel, ``torch.topk`` (selection only), and traces 200 windows of the
-     sync delta path, 1,000 ticks of the eq.-9 path and 200 windows of the
-     sparse eq.-8 path with torch.profiler (device time by kernel, the
-     device's idle share);
-  12. prints one ``{"kernels": [...]}`` line, the card line again, and last
+     sync delta path, 1,000 ticks of the eq.-9 path, 200 windows of the
+     sparse eq.-8 path and 200 ticks of the 3072-wide eq.-9 path with
+     torch.profiler (device time by kernel, the device's idle share);
+  16. prints one ``{"kernels": [...]}`` line, the card line again, and last
       ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check exits non-zero before the result lines; an exception
@@ -94,6 +115,14 @@ SPARSE_FRAC = 0.01      # the launcher's --compress-frac default
 LOSSY_FRAC = 0.001      # k = 524 < tau * d: the selection drops entries
 LOSSY_POINTS = 20_000   # depth of the lossy sparse eq.-8 leg
 SPARSE_TICKS = 20_000   # depth of the sparse eq.-9 leg
+# a text-embedding-3-large-shaped codebook (see PERF.md): d=3072 is past
+# the delta kernel's shared memory, so every step takes the blocked kernel
+WIDE_D = 3072
+WIDE_POINTS = 2000      # ticks (points) per worker, cut for time
+BLOCKED_TICKS = 2000    # depth of the d=128 eq.-9 leg, blocked route
+# below the window kernel's (3,216 B at d=128, 26,768 B at d=3072) and the
+# delta kernel's (17,536 B at d=128) shared memory: forces the blocked route
+FORCE_BUDGET = 1024
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
 # f32 FLOP/s outside the tensor cores (both kernels run on the f32 pipes)
@@ -108,6 +137,12 @@ PEAK_F32_FLOPS = 67e12
 FLIP_REL = 2e-6
 # zsum at batch 1000 is a sum of a few points taken in another order
 ZSUM_RTOL, ZSUM_ATOL = 1e-5, 1e-5
+# BLOCKED_REF: the blocked kernel is held against its plain version run on
+# the inputs cast to float64, under the same FLIP_REL rule.  At d=3072 the
+# f32 plain version's batched cuBLAS product can sum all 3,072 terms of a
+# distance into one f32 accumulator, with errors past FLIP_REL, while the
+# kernel's 32 lane sums of 96 terms stay well inside it: in f32 the
+# reference would be the less accurate side (check_blocked prints both).
 # A flip moves one row on one side only; the oracle's first windows agree to
 # CURVE_RTOL on the curve and in all but ROWS_FRAC of the codebook rows.
 CURVE_RTOL, ROW_ATOL, ROWS_FRAC = 1e-3, 1e-4, 0.01
@@ -434,6 +469,101 @@ def profile(label: str, run, units: int, unit: str) -> None:
         print(f"  {us * per:9.2f} us/{unit}  {name[:100]}")
 
 
+def zero_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels import vq_assign, vq_fused
+    vq_fused.launches = vq_fused.launches_blocked = 0
+    vq_fused.launches_topk = 0
+    vq_assign.launches = vq_assign.launches_assign = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from repro_torch.kernels import vq_assign, vq_fused
+    return {"window": vq_fused.launches, "delta": vq_assign.launches,
+            "assign": vq_assign.launches_assign,
+            "blocked": vq_fused.launches_blocked,
+            "topk": vq_fused.launches_topk}
+
+
+def same_bits(a, b) -> bool:
+    """Equal to the bit (float tensors compared as their int32 words)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def check_blocked(z, w, label: str, residual=None) -> float:
+    """The blocked kernel against its plain version evaluated in float64
+    (the same code on the inputs cast to f64; see BLOCKED_REF): flips only
+    at near-ties; counts exact and equal to the kernel's own assignment's
+    histogram; zsum within ZSUM_RTOL/ATOL of its own assignment's f64 sums
+    and of the plain zsum off flipped rows; min distances within FLIP_REL of
+    the cancelled magnitude; the epilogue equal, bit for bit, to the eager
+    ``counts * w - zsum + residual`` on the kernel's own outputs.  The f32
+    plain version's own flips against the f64 one are counted and printed.
+    Returns max |mind diff| off flipped points."""
+    import torch
+
+    from repro_torch.kernels import vq_fused
+
+    out = vq_fused.vq_delta_blocked(z, w, residual=residual)
+    ck, zk, mk, ak = out[:4]
+    cp, zp, mp64, ap = vq_fused.vq_delta_blocked_plain(z.double(),
+                                                        w.double())
+    cp, zp = cp.float(), zp.float()
+    _, _, m32, a32 = vq_fused.vq_delta_blocked_plain(z, w)
+    f32_flips = int((a32 != ap).sum())
+    m, b, d = z.shape
+    kappa = w.shape[1]
+    dev = z.device
+    diff = (ak != ap).nonzero().tolist()
+    touched = torch.zeros((m, kappa), dtype=torch.bool, device=dev)
+    for j, i in diff:
+        ok, gap = flip_gap_ok(z[j, i], w[j], int(ak[j, i]), int(ap[j, i]))
+        if not ok:
+            fail(f"blocked {label}: worker {j} point {i}: {int(ak[j, i])} vs "
+                 f"plain {int(ap[j, i])}, gap {gap:.3e}: not a near-tie")
+        touched[j, int(ak[j, i])] = touched[j, int(ap[j, i])] = True
+    counts_own = torch.zeros((m, kappa), device=dev).scatter_add_(
+        1, ak.long(), torch.ones_like(mk))
+    zsum_own = torch.zeros((m, kappa, d), dtype=torch.float64,
+                           device=dev).index_put_(
+        (torch.arange(m, device=dev)[:, None].expand(m, b), ak.long()),
+        z.double(), accumulate=True)
+    keep = ~touched
+    z_err = float((zk - zp).abs()[keep].max())
+    if not (torch.equal(ck, counts_own) and torch.equal(ck[keep], cp[keep])
+            and torch.allclose(zk, zsum_own.float(), rtol=ZSUM_RTOL,
+                               atol=ZSUM_ATOL)
+            and torch.allclose(zk[keep], zp[keep], rtol=ZSUM_RTOL,
+                               atol=ZSUM_ATOL)):
+        fail(f"blocked {label}: counts/zsum disagree with the plain version")
+    kept_pt = ak == ap
+    w2 = (w.double() ** 2).sum(-1)
+    scale = (z.double() ** 2).sum(-1) + torch.gather(w2, 1, ak.long())
+    err = (mk.double() - mp64).abs()
+    if bool(((err > FLIP_REL * scale) & kept_pt).any()):
+        fail(f"blocked {label}: min distances differ from the plain version")
+    m_err = float(err[kept_pt].max()) if bool(kept_pt.any()) else 0.0
+    f32_err = float((m32.double() - mp64).abs()[a32 == ap].max())
+    epi = "no residual"
+    if residual is not None:
+        if not same_bits(out[4], ck.unsqueeze(-1) * w - zk + residual):
+            fail(f"blocked {label}: the epilogue differs from the eager "
+                 f"expression on the kernel's own counts and zsum")
+        epi = "epilogue == eager bitwise"
+    print(f"check blocked {label} vs plain in f64: {len(diff)} flips of "
+          f"{ak.numel()}, counts exact, max |zsum diff| off flipped rows "
+          f"{z_err:.3e}, max |mind diff| {m_err:.3e}, {epi}; the f32 plain "
+          f"version (cuBLAS) against the f64 one: {f32_flips} flips, max "
+          f"|mind diff| {f32_err:.3e}")
+    return m_err
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch is not beside chip_smoke.py; run it from a "
@@ -453,7 +583,7 @@ def main() -> None:
     from repro_torch.engine.mesh import MeshExecutor
     from repro_torch.engine.network import (GeometricDelayNetwork,
                                             InstantNetwork)
-    from repro_torch.kernels import _build, ops, vq_assign, vq_fused
+    from repro_torch.kernels import _build, autotune, ops, vq_assign, vq_fused
     from repro_torch.launch import serve, train
 
     dev = torch.device("cuda")
@@ -612,10 +742,12 @@ def main() -> None:
     # -- 5+6. the main path, and its first windows against the oracles -------
     runs = {}
     for scheme in ("delta", "average"):
-        vq_fused.launches = vq_assign.launches = 0
+        zero_counts()
         res, executor, wall = train.run_vq(
             train.parse_args(full + ["--scheme", scheme]))
         counts = {"window": vq_fused.launches, "delta": vq_assign.launches}
+        if vq_fused.launches_blocked:
+            fail(f"{scheme}: the blocked kernel ran at d={D}")
         n_windows = N_PER // TAU
         curve = res.distortion.cpu()
         print(f"main path --scheme {scheme}: C first {float(curve[0]):.6f} "
@@ -683,7 +815,7 @@ def main() -> None:
     freeze_ab(serve, trained, geometric)
 
     # -- 8. eq. 9 at full width ------------------------------------------------
-    vq_fused.launches = vq_assign.launches = 0
+    zero_counts()
     res_a, ex_a, wall_a = train.run_vq(train.parse_args(
         ["--executor", "mesh", "--scheme", "async_delta", "--workers", str(M),
          "--points", str(N_PER), "--dim", str(D), "--kappa", str(KAPPA),
@@ -697,9 +829,10 @@ def main() -> None:
           f"({wall_a / (M * N_PER) * 1e6:.3f} us/point), launches "
           f"{counts_a}, merge wire {merge_a['wire_bytes']:,} B over "
           f"{merge_a['calls']:,} masked reduces")
-    if counts_a["delta"] != N_PER or counts_a["window"]:
+    if counts_a["delta"] != N_PER or counts_a["window"] or (
+            vq_fused.launches_blocked):
         fail(f"async_delta: launches {counts_a}, expected {N_PER} delta "
-             f"and no window launch")
+             f"and no window or blocked launch")
     c_sync = float(runs["delta"][0].distortion[-1])
     if (len(curve_a) != N_PER // 10 or res_a.w_shared.shape != (KAPPA, D)
             or not bool(torch.isfinite(curve_a).all())):
@@ -842,7 +975,217 @@ def main() -> None:
         fail("sparse eq. 9 at k >= the in-flight entries differs from the "
              "dense run's head")
 
-    # -- 11. timing at the main path's shapes ---------------------------------
+    # -- 11. the blocked kernel: vs the delta kernel, vs plain ----------------
+    gen_b = torch.Generator(device=dev).manual_seed(SEED + 6)
+    z1 = data[:, :1].contiguous()
+    for z, label in ((z1, "batch 1"), (eval_data, f"batch {N_EVAL}")):
+        same = [same_bits(a, b) for a, b in zip(
+            vq_fused.vq_delta_blocked(z, wb), vq_assign.vq_delta(z, wb))]
+        print(f"check blocked == delta kernel, {label} (M={M}, kappa={KAPPA}"
+              f", d={D}), bitwise (counts, zsum, mind, assign): {same}")
+        if not all(same):
+            fail(f"blocked kernel differs from the delta kernel, {label}")
+    resid_b = 0.01 * torch.randn((M, KAPPA, D), generator=gen_b, device=dev)
+    for z, label in ((z1, "batch 1"), (eval_data, f"batch {N_EVAL}")):
+        same = [same_bits(a, b) for a, b in zip(
+            ops.vq_delta_topk(z, wb, resid_b, frac=SPARSE_FRAC),
+            ops.vq_delta_topk(z, wb, resid_b, frac=SPARSE_FRAC,
+                              budget_bytes=FORCE_BUDGET))]
+        print(f"check ops.vq_delta_topk blocked branch == full-kernel branch, "
+              f"{label}, d={D}, bitwise (vals, idx, residual): {same}")
+        if not all(same):
+            fail(f"vq_delta_topk's blocked branch differs, {label}")
+
+    wide = ["--executor", "mesh", "--workers", str(M), "--points",
+            str(WIDE_POINTS), "--dim", str(WIDE_D), "--kappa", str(KAPPA),
+            "--tau", str(TAU), "--seed", str(SEED)]
+    wide_async = wide + ["--scheme", "async_delta", "--network", "geometric",
+                         "--p-delay", str(P_DELAY)]
+    w0w, dataw, evalw = train.make_inputs(train.parse_args(wide_async), dev)
+    if ops.delta_fits(WIDE_D) or not ops.window_fits(KAPPA, WIDE_D):
+        fail(f"d={WIDE_D}: expected the blocked route and the window kernel")
+    ww = (w0w + 0.01 * torch.randn((M, KAPPA, WIDE_D), generator=gen_b,
+                                   device=dev)).contiguous()
+    resid_w = 0.01 * torch.randn((M, KAPPA, WIDE_D), generator=gen_b,
+                                 device=dev)
+    z1w = dataw[:, :1].contiguous()
+    blocked_err = 0.0
+    for z, label in ((z1w, f"({M}, 1) x {KAPPA} x {WIDE_D}"),
+                     (evalw, f"({M}, {N_EVAL}) x {KAPPA} x {WIDE_D}")):
+        blocked_err = max(blocked_err, check_blocked(z, ww, label, resid_w))
+    zr, wr, rr = (torch.rand(shape, generator=gen_b, device=dev)
+                  for shape in ((3, 37, 3000), (3, 1001, 3000),
+                                (3, 1001, 3000)))
+    check_blocked(zr, wr, "ragged (M=3, kappa=1001, d=3000, B=37)", rr)
+    zr, wr = (torch.rand(shape, generator=gen_b, device=dev)
+              for shape in ((2, 13, 8000), (2, 300, 8000)))
+    check_blocked(zr, wr, "points read in place (M=2, kappa=300, d=8000, "
+                  "B=13)")
+
+    # -- 12. eq. 9 at d=128 through the blocked route -------------------------
+    n_b = BLOCKED_TICKS
+    zero_counts()
+    forced = MeshExecutor(GeometricDelayNetwork(P_DELAY),
+                          smem_budget_bytes=FORCE_BUDGET, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_f = forced.run("async_delta", w0, data[:, :n_b], eval_data, tau=TAU,
+                       lengths=lengths[:, : n_b // TAU + 2])
+    curve_f = res_f.distortion.cpu()
+    wall_f = time.perf_counter() - t0
+    counts_f = launch_counts()
+    head_ok = torch.equal(res_f.distortion, res_a.distortion[: n_b // 10])
+    print(f"eq. 9 at d={D} through the blocked route (smem budget "
+          f"{FORCE_BUDGET} B), {n_b} ticks: C last {float(curve_f[-1]):.6f}, "
+          f"wall {wall_f:.2f} s, launches {counts_f}; curve == dense eq.-9 "
+          f"head {head_ok}")
+    if counts_f != {"window": 0, "delta": 0, "assign": 0, "blocked": n_b,
+                    "topk": 0}:
+        fail(f"eq. 9 through the blocked route: launches {counts_f}")
+    if not head_ok:
+        fail("eq. 9 through the blocked route differs from the dense run")
+
+    # -- 13. eq. 9 and the sync scheme on a 3072-wide codebook ----------------
+    zero_counts()
+    res_w, _, wall_w = train.run_vq(train.parse_args(wide_async))
+    counts_w = launch_counts()
+    curve_w = res_w.distortion.cpu()
+    print(f"main path --scheme async_delta --dim {WIDE_D} --kappa {KAPPA}, "
+          f"{WIDE_POINTS} ticks: C first {float(curve_w[0]):.6f} last "
+          f"{float(curve_w[-1]):.6f}, wall {wall_w:.2f} s "
+          f"({wall_w / WIDE_POINTS * 1e3:.3f} ms/tick), launches {counts_w}")
+    if counts_w != {"window": 0, "delta": 0, "assign": 0,
+                    "blocked": WIDE_POINTS, "topk": 0}:
+        fail(f"eq. 9 at d={WIDE_D}: launches {counts_w}, expected one "
+             f"blocked launch per tick and nothing else")
+    if (len(curve_w) != WIDE_POINTS // 10
+            or res_w.w_shared.shape != (KAPPA, WIDE_D)
+            or not bool(torch.isfinite(curve_w).all())
+            or not bool(torch.isfinite(res_w.w_shared).all())):
+        fail(f"eq. 9 at d={WIDE_D}: result of the wrong shape or not finite")
+    if not float(curve_w[-1]) < float(curve_w[0]):
+        fail(f"eq. 9 at d={WIDE_D}: distortion did not go down")
+    n_c = ASYNC_CHECK_TICKS
+    lengths_w = GeometricDelayNetwork(P_DELAY).round_lengths(
+        torch.Generator().manual_seed(SEED), M, WIDE_POINTS // TAU + 2, TAU)
+    lengths_wc = lengths_w[:, : n_c // TAU + 2]
+    oracle_w = async_vq.scheme_async(w0w, dataw[:, :n_c], evalw, tau=TAU,
+                                     lengths=lengths_wc)
+    short_w = MeshExecutor(GeometricDelayNetwork(P_DELAY), device=dev).run(
+        "async_delta", w0w, dataw[:, :n_c], evalw, tau=TAU,
+        lengths=lengths_wc)
+    zero_counts()
+    unfused_w = MeshExecutor(GeometricDelayNetwork(P_DELAY), fused=False,
+                             device=dev).run(
+        "async_delta", w0w, dataw[:, :n_c], evalw, tau=TAU,
+        lengths=lengths_wc)
+    counts_u = launch_counts()
+    head_w = res_w.distortion[: n_c // 10]
+    c_err = float(((head_w - oracle_w.distortion).abs()
+                   / oracle_w.distortion.abs()).max())
+    rows = int(((short_w.w_shared - oracle_w.w_shared).abs() > ROW_ATOL)
+               .any(dim=1).sum())
+    via_ok = (torch.equal(unfused_w.distortion, short_w.distortion)
+              and same_bits(unfused_w.w_shared, short_w.w_shared))
+    print(f"check eq. 9 at d={WIDE_D}, first {n_c} ticks vs scheme_async: "
+          f"max rel curve diff {c_err:.3e} (rtol {CURVE_RTOL}), codebook "
+          f"rows off by > {ROW_ATOL}: {rows} of {KAPPA}, ticks equal "
+          f"{torch.equal(short_w.wall_ticks, oracle_w.wall_ticks)}, short "
+          f"run == main run's head {torch.equal(short_w.distortion, head_w)};"
+          f" fused=False (assign kernel + index_add_, launches {counts_u}) "
+          f"== blocked route bitwise {via_ok}")
+    if (c_err > CURVE_RTOL or rows > ROWS_FRAC * KAPPA
+            or not torch.equal(short_w.wall_ticks, oracle_w.wall_ticks)
+            or not torch.equal(short_w.distortion, head_w)):
+        fail(f"eq. 9 at d={WIDE_D}: first ticks disagree with the oracle")
+    if counts_u["assign"] != n_c or counts_u["blocked"] or not via_ok:
+        fail(f"eq. 9 at d={WIDE_D}, fused=False: launches {counts_u}, equal "
+             f"to the blocked route {via_ok}")
+
+    wide_sync = wide + ["--scheme", "delta", "--network", "instant"]
+    n_wwin = WIDE_POINTS // TAU
+    zero_counts()
+    res_ws, _, wall_ws = train.run_vq(train.parse_args(wide_sync))
+    counts_ws = launch_counts()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_wf = MeshExecutor(InstantNetwork(), smem_budget_bytes=FORCE_BUDGET,
+                          device=dev).run("delta", w0w, dataw, evalw, tau=TAU)
+    curve_wf = res_wf.distortion.cpu()
+    wall_wf = time.perf_counter() - t0
+    counts_wf = launch_counts()
+    eps_w = vq.default_steps(torch.arange(1, n_wwin * TAU + 1, device=dev))
+    w_srd, win_same = w0w, 0
+    for i in range(n_wwin):
+        span = slice(i * TAU, (i + 1) * TAU)
+        zwin = dataw[:, span].contiguous()
+        wk = vq_fused.vq_window(zwin, w_srd, eps_w[span])
+        w = w_srd.expand(M, KAPPA, WIDE_D).contiguous()
+        for s in range(TAU):
+            cs, zs = ops.vq_delta_routed(zwin[:, s].unsqueeze(1).contiguous(),
+                                         w, budget_bytes=FORCE_BUDGET)
+            w = w - eps_w[span][s] * (cs.unsqueeze(-1) * w - zs)
+        if not same_bits(w, wk):
+            fail(f"d={WIDE_D} window {i}: the window kernel differs from the "
+                 f"per-step loop through the blocked kernel, max |diff| "
+                 f"{float((w - wk).abs().max()):.3e}")
+        win_same += 1
+        w_srd = w_srd - torch.sum(w_srd - wk, dim=0)   # eq. 8
+    sync_same = (torch.equal(res_wf.distortion, res_ws.distortion)
+                 and same_bits(res_wf.w_shared, res_ws.w_shared))
+    curve_ws = res_ws.distortion.cpu()
+    print(f"main path --scheme delta --dim {WIDE_D}, {WIDE_POINTS} "
+          f"points/worker: C first {float(curve_ws[0]):.6f} last "
+          f"{float(curve_ws[-1]):.6f}, wall {wall_ws:.2f} s, launches "
+          f"{counts_ws}; per-step through the blocked kernel (smem budget "
+          f"{FORCE_BUDGET} B): wall {wall_wf:.2f} s, launches {counts_wf}, "
+          f"curve and codebook == window route bitwise {sync_same}; window "
+          f"kernel == per-step blocked loop, bitwise, {win_same} of {n_wwin} "
+          f"windows")
+    if (counts_ws["window"] != n_wwin or counts_ws["blocked"]
+            or counts_ws["delta"]):
+        fail(f"sync delta at d={WIDE_D}: launches {counts_ws}")
+    if counts_wf["blocked"] != WIDE_POINTS or counts_wf["window"]:
+        fail(f"sync delta at d={WIDE_D} through the blocked route: launches "
+             f"{counts_wf}")
+    if not sync_same:
+        fail(f"sync delta at d={WIDE_D}: the blocked per-step route differs "
+             f"from the window route")
+    if not float(curve_ws[-1]) < float(curve_ws[0]):
+        fail(f"sync delta at d={WIDE_D}: distortion did not go down")
+
+    # -- 14. the tile tuner ---------------------------------------------------
+    legacy = autotune.legacy_tiles()
+    model_pick = autotune.pick_tiles(1, KAPPA, WIDE_D, m=M, device=dev,
+                                     kind="delta_blocked")
+    autotune.reset("search")
+    t0 = time.perf_counter()
+    tuned = autotune.pick_tiles(1, KAPPA, WIDE_D, m=M, device=dev,
+                                kind="delta_blocked")
+    t_search = time.perf_counter() - t0
+    autotune.reset("cache")
+    for z in (z1w, evalw):
+        same = [same_bits(a, b) for a, b in zip(
+            vq_fused.vq_delta_blocked(z, ww, residual=resid_w,
+                                      kchunk=tuned.kchunk, bk=tuned.bk),
+            vq_fused.vq_delta_blocked(z, ww, residual=resid_w,
+                                      kchunk=legacy.kchunk, bk=legacy.bk))]
+        if not all(same):
+            fail(f"tuned tiles {tuned} change bits against {legacy}: {same}")
+    tile_ms = {legacy: [], tuned: [], model_pick: []}
+    for cfg in (legacy, tuned, model_pick, model_pick, tuned, legacy):
+        tile_ms[cfg].append(time_ms(lambda: vq_fused.vq_delta_blocked(
+            z1w, ww, kchunk=cfg.kchunk, bk=cfg.bk), 50))
+    print(f"tuner search at ({M}, 1) x {KAPPA} x {WIDE_D}: picked {tuned} in "
+          f"{t_search:.2f} s (model's pick {model_pick}, untuned {legacy}); "
+          f"tuned == untuned bitwise at batch 1 and {N_EVAL} (counts, zsum, "
+          f"mind, assign, delta); ms per launch (order untuned, tuned, model, "
+          f"model, tuned, untuned): "
+          f"{ {str(k): [round(x, 4) for x in v]
+              for k, v in tile_ms.items()} }")
+
+    # -- 15. timing at the main path's shapes ---------------------------------
     zwin = data[:, :TAU].contiguous()
     eps = eps_all[:TAU].contiguous()
     win_ms = time_ms(lambda: vq_fused.vq_window(zwin, w0, eps), 200)
@@ -888,11 +1231,44 @@ def main() -> None:
     print(f"timing assign eval (({M}, {N_EVAL}) x {KAPPA} x {D}): kernel "
           f"{ae_ms:.4f} ms, plain {ae_plain:.4f} ms, bound "
           f"{ae_bound[0]:.4f} ms ({ae_bound[1]})")
-    print("library_ms: null for the window, delta and assign kernels: none "
-          "of their functions is one PyTorch call (an argmin fused with a "
-          "scatter, a loop of dependent steps, and the squared-distance "
-          "argmin with its min: torch.cdist returns distances, not the argmin "
-          "and min)")
+    def blocked_bound(d, epilogue):
+        # batch 1: read z, w (and the residual); write counts, zsum, mind,
+        # assign (and delta); the distance and the one-point sums (and the
+        # epilogue's three operations an element)
+        big = M * KAPPA * d
+        n_in = M * d + big * (2 if epilogue else 1)
+        n_out = M * KAPPA + big * (2 if epilogue else 1) + 2 * M
+        flops = M * KAPPA * (2 * d + 3) + M * d + (3 * big if epilogue else 0)
+        return bound(4 * (n_in + n_out), flops)
+
+    bl_ms = time_ms(lambda: vq_fused.vq_delta_blocked(z1w, ww), 100)
+    bl_plain = time_ms(lambda: vq_fused.vq_delta_blocked_plain(z1w, ww), 20)
+    bl_bound = blocked_bound(WIDE_D, False)
+    be_ms = time_ms(lambda: vq_fused.vq_delta_blocked(
+        z1w, ww, residual=resid_w), 100)
+    be_plain = time_ms(lambda: vq_fused.vq_delta_blocked_plain(
+        z1w, ww, resid_w), 20)
+    be_bound = blocked_bound(WIDE_D, True)
+    pair = {"blocked": [], "delta": []}
+    for name in ("blocked", "delta", "delta", "blocked"):
+        fn = vq_fused.vq_delta_blocked if name == "blocked" else (
+            vq_assign.vq_delta)
+        pair[name].append(time_ms(lambda: fn(z1, wb), 200))
+    b128_plain = time_ms(lambda: vq_fused.vq_delta_blocked_plain(z1, wb), 50)
+    b128_bound = blocked_bound(D, False)
+    print(f"timing blocked ({M}, 1) x {KAPPA} x {WIDE_D}: kernel {bl_ms:.4f} "
+          f"ms, plain {bl_plain:.4f} ms, bound {bl_bound[0]:.4f} ms "
+          f"({bl_bound[1]}); with the epilogue: kernel {be_ms:.4f} ms, plain "
+          f"{be_plain:.4f} ms, bound {be_bound[0]:.4f} ms ({be_bound[1]})")
+    print(f"timing blocked ({M}, 1) x {KAPPA} x {D} beside the delta kernel "
+          f"(order blocked, delta, delta, blocked): blocked {pair['blocked']}"
+          f" ms, delta {pair['delta']} ms, plain {b128_plain:.4f} ms, bound "
+          f"{b128_bound[0]:.4f} ms ({b128_bound[1]})")
+    print("library_ms: null for the window, delta, assign and blocked "
+          "kernels: none of their functions is one PyTorch call (an argmin "
+          "fused with a scatter, a loop of dependent steps, and the "
+          "squared-distance argmin with its min: torch.cdist returns "
+          "distances, not the argmin and min)")
     topk_t = {}
     n_flat = KAPPA * D
     for k in (k_main, k_l):
@@ -926,6 +1302,11 @@ def main() -> None:
                                   data[:, : PROFILE_WINDOWS * TAU],
                                   eval_data, tau=TAU),
             PROFILE_WINDOWS, "window")
+    profile(f"--scheme async_delta --dim {WIDE_D}",
+            lambda: async_ex.run("async_delta", w0w,
+                                 dataw[:, :ASYNC_CHECK_TICKS], evalw,
+                                 tau=TAU),
+            ASYNC_CHECK_TICKS, "tick")
 
     kernels = [
         {"name": "vq_window", "route": "cuda",
@@ -953,6 +1334,12 @@ def main() -> None:
          "ms": topk_t[k_main][0], "plain_ms": topk_t[k_main][1],
          "bound_ms": topk_t[k_main][3][0], "bound_by": topk_t[k_main][3][1],
          "library_ms": topk_t[k_main][2]},
+        {"name": "vq_delta_blocked", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/vq_blocked.cu",
+         "replaces": "src/repro/kernels/vq_fused.py:46",
+         "launches": counts_w["blocked"], "max_abs_err": blocked_err,
+         "ms": bl_ms, "plain_ms": bl_plain, "bound_ms": bl_bound[0],
+         "bound_by": bl_bound[1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

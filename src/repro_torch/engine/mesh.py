@@ -12,14 +12,18 @@ The inner loop (``_local_window``) has the reference's three routes:
 
   * the window kernel, one launch per window, when ``fused`` is on and the
     codebook fits (``ops.window_fits``);
-  * the per-step loop through the delta kernel (``ops.vq_delta_routed``),
-    with the eq.-1 update in PyTorch, when ``fused`` is off or the window
-    kernel does not fit;
+  * the per-step loop through ``ops.vq_delta_routed`` (the delta kernel, or
+    past its shared memory the blocked kernel, or with ``fused`` off there
+    the assign kernel and an ``index_add_``), with the eq.-1 update in
+    PyTorch, when ``fused`` is off or the window kernel does not fit;
   * the per-step loop through ``core.vq.H``, when ``use_kernels`` is off.
 
-On the CPU the kernels' plain versions stand in, and all three routes give
-the same codebooks bit for bit; on the card the first two do (the kernels
-share their distance routine).
+``smem_budget_bytes`` is the reference's ``vmem_budget_bytes``: the budget
+the window and delta kernels must fit (``ops.smem_budget_bytes``), so a
+small one sends the sync loop and the eq.-9 tick through the blocked
+kernel at any width.  On the CPU the kernels' plain versions stand in, and
+all three routes give the same codebooks bit for bit; on the card the
+first two do (the kernels share their distance routine).
 
 After every window the shared codebook is scored by eq. 2: the mean over
 workers of ``vq.distortion`` on each worker's eval points, reduced through
@@ -34,13 +38,14 @@ through its scans.  With ``use_kernels`` off the transport's selection is
 its plain version too (``Transport.plain``).
 
 The async scheme (``_run_async``, the reference's ``mesh.py:812-915``) has
-no window: every tick each worker takes one eq.-1 step at batch 1 (the
-delta kernel, or ``vq.H`` with ``use_kernels`` off), then the in-flight
-displacements of the workers whose round completes land on the shared
-version through ``Transport.masked_all_reduce``.  The completion schedule
-is one (n, M) mask made from the round lengths before the loop starts
-(``core.async_vq.done_mask``), so no tick waits on the host; the shared
-version is scored every ``eval_every`` ticks as the loop passes them.
+no window: every tick each worker takes one eq.-1 step at batch 1 (through
+``ops.vq_delta_routed``, or ``vq.H`` with ``use_kernels`` off), then the
+in-flight displacements of the workers whose round completes land on the
+shared version through ``Transport.masked_all_reduce``.  The completion
+schedule is one (n, M) mask made from the round lengths before the loop
+starts (``core.async_vq.done_mask``), so no tick waits on the host; the
+shared version is scored every ``eval_every`` ticks as the loop passes
+them.
 """
 
 from __future__ import annotations
@@ -66,18 +71,22 @@ class MeshExecutor:
                  transport: comm.Transport | str | None = None,
                  use_kernels: bool = True, fused: bool = True,
                  eval_every: int = 10,
+                 smem_budget_bytes: int | None = None,
                  device: str | torch.device | None = None):
         self.network = network or GeometricDelayNetwork()
         # use_kernels=False is the reference's use_pallas=False: the plain
         # vq.H step, and the transport's plain selection.  fused=False keeps
-        # the per-step delta-kernel loop as the comparator of the window
-        # kernel; both give the same codebooks.
+        # the per-step loop (and past the delta kernel's budget the assign
+        # kernel + index_add_ route) as the comparator of the window and
+        # blocked kernels; all give the same codebooks.
         self.transport = comm.get_transport(
             transport if transport is not None else "xla")
         if not use_kernels:
             self.transport = self.transport.plain()
         self.use_kernels = use_kernels
         self.fused = fused
+        # None: REPRO_SMEM_BUDGET_BYTES or the H100's (ops.smem_budget_bytes)
+        self.smem_budget_bytes = smem_budget_bytes
         # the async scheme scores the shared version every eval_every ticks
         self.eval_every = eval_every
         self.device = device_lib.resolve(device)
@@ -90,7 +99,9 @@ class MeshExecutor:
         (kappa, d) over zwin (M, tau, d); returns (M, kappa, d)."""
         m, tau, d = zwin.shape
         kappa = w0.shape[0]
-        if self.use_kernels and self.fused and ops.window_fits(kappa, d):
+        if (self.use_kernels and self.fused
+                and ops.window_fits(kappa, d,
+                                    budget_bytes=self.smem_budget_bytes)):
             return ops.vq_window(zwin, w0, eps)
         w = w0.expand(m, kappa, d).contiguous()
         for s in range(tau):
@@ -103,7 +114,9 @@ class MeshExecutor:
             return vq.H(z, w)
         # a batch of one point per worker, so counts/zsum reduce exactly to
         # H(z, w)
-        counts, zsum = ops.vq_delta_routed(z.unsqueeze(1).contiguous(), w)
+        counts, zsum = ops.vq_delta_routed(
+            z.unsqueeze(1).contiguous(), w,
+            budget_bytes=self.smem_budget_bytes, fused=self.fused)
         return counts.unsqueeze(-1) * w - zsum
 
     def _run_async(self, w0: torch.Tensor, data: torch.Tensor,

@@ -1,5 +1,5 @@
-// Device routines shared by the window kernel (vq_window.cu) and the delta
-// kernel (vq_delta.cu).
+// Device routines shared by the window kernel (vq_window.cu), the delta
+// kernel (vq_delta.cu) and the blocked assign+delta kernel (vq_blocked.cu).
 //
 // Both kernels must give a row the same squared distance to the last bit, so
 // that the window kernel and the per-step path through the delta kernel
@@ -58,5 +58,27 @@ __device__ __forceinline__ void warp_argmin(float& v, int& i) {
     }
   }
 }
+
+// Shared memory one block may use on an H100 after opting in (227 KB),
+// static and dynamic together.
+constexpr size_t kSmemMax = 232448;
+
+// Opt a kernel in to more than 48 KB of dynamic shared memory.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// Passes 1-3 of the delta kernel, defined in vq_delta.cu: row norms, partial
+// (min, argmin) over kchunk-row kappa chunks, and the fixed-order combine
+// into assign and mind.  vq_delta_f32, vq_assign_f32 and
+// vq_delta_blocked_f32 all assign through it, so they assign with the same
+// bits.
+cudaError_t launch_assign(const float* z, const float* w, float* mind,
+                          int* assign, float* w2, float* pmin, int* pidx,
+                          int M, int B, int K, int D, int kchunk,
+                          cudaStream_t st);
 
 }  // namespace vq

@@ -34,7 +34,9 @@
 //      uses, so both kernels see the same bits);
 //   2. partial (min, argmin): a block takes 8 points and one chunk of
 //      kchunk codebook rows, so a batch of one still spreads over
-//      ceil(kappa/kchunk) * M blocks;
+//      ceil(kappa/kchunk) * M blocks.  The 8 points are staged in shared
+//      memory while 8 * d floats fit (d <= 7,247) and read in place from
+//      global memory past that, in the same order, so the bits agree;
 //   3. the S partials of each point combined in a fixed order;
 //   4. one owner block per 32 codebook rows scans every point's assignment
 //      in point order and accumulates counts and zsum in shared memory.
@@ -61,6 +63,7 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) w2[r] = n2;
 }
 
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
     partial_argmin_kernel(const float* __restrict__ z,
                           const float* __restrict__ w,
@@ -74,17 +77,26 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31;
   const int nrows = min(kRows, B - b0);
 
-  extern __shared__ float zs[];  // [kRows][D], rows past B zeroed
+  extern __shared__ float zs[];  // [kRows][D] if staged, rows past B zeroed
   __shared__ float z2s[kRows];
   __shared__ float wmin[kWarps][kRows];
   __shared__ int widx[kWarps][kRows];
 
   const float* zm = z + (static_cast<size_t>(m) * B + b0) * D;
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads)
-    zs[i] = i < nrows * D ? zm[i] : 0.f;
-  __syncthreads();
+  if constexpr (kStaged) {
+    for (int i = threadIdx.x; i < kRows * D; i += kThreads)
+      zs[i] = i < nrows * D ? zm[i] : 0.f;
+    __syncthreads();
+  }
+  // Point j's row: staged, or in place with rows past B on the last valid
+  // row (their results are dropped below).
+  auto zrow = [&](int j) -> const float* {
+    if constexpr (kStaged) return zs + j * D;
+    return zm + static_cast<size_t>(min(j, nrows - 1)) * D;
+  };
   {
-    const float v = vq::warp_dot(zs + warp * D, zs + warp * D, D, lane);
+    const float* zr = zrow(warp);
+    const float v = vq::warp_dot(zr, zr, D, lane);
     if (lane == 0) z2s[warp] = v;
   }
   __syncthreads();
@@ -110,7 +122,7 @@ __global__ void __launch_bounds__(kThreads)
       const float wv = wr[k];
 #pragma unroll
       for (int j = 0; j < kRows; ++j)
-        acc[j] = __fmaf_rn(zs[j * D + k], wv, acc[j]);
+        acc[j] = __fmaf_rn(zrow(j)[k], wv, acc[j]);
     }
     const float wn = w2m[r];
 #pragma unroll
@@ -205,19 +217,12 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = threadIdx.x; i < nown * D; i += kThreads) zsm[i] = acc[i];
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
+}  // namespace
 
-// Passes 1-3: row norms, partial argmin over kchunk-row kappa chunks, and
-// the fixed-order combine into assign and mind.
-cudaError_t launch_assign(const float* z, const float* w, float* mind,
-                          int* assign, float* w2, float* pmin, int* pidx,
-                          int M, int B, int K, int D, int kchunk,
-                          cudaStream_t st) {
+cudaError_t vq::launch_assign(const float* z, const float* w, float* mind,
+                              int* assign, float* w2, float* pmin, int* pidx,
+                              int M, int B, int K, int D, int kchunk,
+                              cudaStream_t st) {
   const int S = (K + kchunk - 1) / kchunk;
   cudaError_t e;
 
@@ -226,11 +231,21 @@ cudaError_t launch_assign(const float* z, const float* w, float* mind,
                      kThreads, 0, st>>>(w, w2, wrows, D);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
-  const size_t smem2 = sizeof(float) * kRows * D;
-  if ((e = allow_smem(partial_argmin_kernel, smem2)) != cudaSuccess) return e;
-  partial_argmin_kernel<<<dim3(S, (B + kRows - 1) / kRows, M), kThreads,
-                          smem2, st>>>(z, w, w2, pmin, pidx, B, K, D, kchunk,
-                                       S);
+  // kernels/vq_assign.py::argmin_smem_bytes mirrors this choice
+  const dim3 grid2(S, (B + kRows - 1) / kRows, M);
+  const size_t stage = sizeof(float) * kRows * D;
+  const size_t fixed = sizeof(float) * kRows +
+                       (sizeof(float) + sizeof(int)) * kWarps * kRows;
+  if (stage + fixed <= vq::kSmemMax) {
+    if ((e = vq::allow_smem(partial_argmin_kernel<true>, stage)) !=
+        cudaSuccess)
+      return e;
+    partial_argmin_kernel<true><<<grid2, kThreads, stage, st>>>(
+        z, w, w2, pmin, pidx, B, K, D, kchunk, S);
+  } else {
+    partial_argmin_kernel<false><<<grid2, kThreads, 0, st>>>(
+        z, w, w2, pmin, pidx, B, K, D, kchunk, S);
+  }
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   const long rows = static_cast<long>(M) * B;
@@ -239,15 +254,13 @@ cudaError_t launch_assign(const float* z, const float* w, float* mind,
   return cudaGetLastError();
 }
 
-}  // namespace
-
 extern "C" int vq_assign_f32(const float* z, const float* w, float* mind,
                              int* assign, float* w2, float* pmin, int* pidx,
                              int M, int B, int K, int D, int kchunk,
                              void* stream) {
-  return static_cast<int>(launch_assign(z, w, mind, assign, w2, pmin, pidx,
-                                        M, B, K, D, kchunk,
-                                        static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(vq::launch_assign(z, w, mind, assign, w2, pmin,
+                                            pidx, M, B, K, D, kchunk,
+                                            static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int vq_delta_f32(const float* z, const float* w, float* counts,
@@ -255,12 +268,12 @@ extern "C" int vq_delta_f32(const float* z, const float* w, float* counts,
                             float* pmin, int* pidx, int M, int B, int K, int D,
                             int kchunk, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = launch_assign(z, w, mind, assign, w2, pmin, pidx, M, B, K,
-                                D, kchunk, st);
+  cudaError_t e = vq::launch_assign(z, w, mind, assign, w2, pmin, pidx, M, B,
+                                    K, D, kchunk, st);
   if (e != cudaSuccess) return static_cast<int>(e);
 
   const size_t smem4 = sizeof(float) * kOwnRows * D;
-  if ((e = allow_smem(accumulate_kernel, smem4)) != cudaSuccess)
+  if ((e = vq::allow_smem(accumulate_kernel, smem4)) != cudaSuccess)
     return static_cast<int>(e);
   accumulate_kernel<<<dim3((K + kOwnRows - 1) / kOwnRows, M), kThreads, smem4,
                       st>>>(z, assign, counts, zsum, B, K, D);

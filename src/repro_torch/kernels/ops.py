@@ -5,20 +5,27 @@ The reference plans residency against a TPU core's VMEM
 (``DEFAULT_VMEM_BUDGET_BYTES = 8 MiB``) and aligns batch blocks to 8 rows
 for the TPU's sublanes (``_bm_floor``).  Neither applies on Hopper.  Here a
 kernel "fits" when each of its blocks fits the shared memory one block may
-use on an H100, 227 KB (232,448 bytes), counting what the port's own
-kernels hold there (``vq_fused.smem_bytes``, ``vq_assign.smem_bytes``).
-Both kernels stream the codebook from global memory, so the budget bounds
-kappa/8 + 2d floats for the window kernel and a (32, d) tile for the delta
-kernel; at the slice's width (kappa=4096, d=128) both fit by far.  The port
-does not pad batches, so no row floor exists.
+use, by default an H100's 227 KB (232,448 bytes), counting what the port's
+own kernels hold there (``delta_smem_bytes``, ``vq_fused.smem_bytes``).
+Every kernel streams the codebook from global memory, so the budget bounds
+kappa/8 + 2d floats for the window kernel and a (32, d) tile for the
+full-codebook delta kernel, which holds up to d = 1,807.  The port does not
+pad batches, so no row floor exists.
 
-Where the full-codebook delta kernel does not fit, the reference takes its
-blocked assign+delta kernel; that kernel is not ported yet, so
-``vq_delta_routed`` and ``vq_delta_topk`` raise ``NotImplementedError``
-instead of taking another route.
+``vq_delta_routed`` routes as the reference's does (``delta_route``): the
+full-codebook delta kernel where it fits the budget; past it the blocked
+assign+delta kernel (``vq_delta_blocked``), whose shared memory does not
+grow with d, or with ``fused=False`` the assign kernel and an
+``index_add_`` (``_delta_via_assign``, the comparator).  ``vq_delta_topk``
+takes the blocked kernel's epilogue past the budget.  The budget is the
+caller's ``budget_bytes``, else ``REPRO_SMEM_BUDGET_BYTES``, else the
+H100's (``smem_budget_bytes``); a smaller one forces the blocked routes at
+any width.  A CUDA tensor launches the routed kernel or raises.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -26,17 +33,51 @@ from repro_torch.kernels import vq_assign as assign_kernels
 from repro_torch.kernels import vq_fused
 
 #: Shared memory one block may use on an H100 (dynamic, after opting in).
-SMEM_BUDGET_BYTES = 232_448
+DEFAULT_SMEM_BUDGET_BYTES = assign_kernels.SMEM_MAX
 
 
-def window_fits(kappa: int, d: int) -> bool:
+def smem_budget_bytes(budget_bytes: int | None = None) -> int:
+    """The shared-memory budget that routes between kernels: the explicit
+    value, else ``REPRO_SMEM_BUDGET_BYTES``, else 232,448."""
+    if budget_bytes is None:
+        env = os.environ.get("REPRO_SMEM_BUDGET_BYTES", "")
+        budget_bytes = int(env) if env else DEFAULT_SMEM_BUDGET_BYTES
+    if budget_bytes <= 0:
+        raise ValueError(f"smem budget must be > 0, got {budget_bytes}")
+    return budget_bytes
+
+
+def delta_smem_bytes(kappa: int, d: int, *, bk: int | None = None) -> int:
+    """Shared memory of the largest block of one delta launch: the ONE
+    model the router and the tuner share.
+
+    ``bk=None``: the full-codebook delta kernel (``vq_assign.smem_bytes``),
+    whose (32, d) accumulate tile grows with d.  ``bk`` given: the blocked
+    kernel at accumulate tile ``bk`` (``vq_fused.blocked_smem_bytes``)."""
+    if bk is None:
+        return assign_kernels.smem_bytes(d)
+    return vq_fused.blocked_smem_bytes(kappa, d, bk)
+
+
+def window_fits(kappa: int, d: int, *, budget_bytes: int | None = None
+                ) -> bool:
     """Can the window kernel run a (kappa, d) codebook?"""
-    return vq_fused.smem_bytes(kappa, d) <= SMEM_BUDGET_BYTES
+    return vq_fused.smem_bytes(kappa, d) <= smem_budget_bytes(budget_bytes)
 
 
-def delta_fits(d: int) -> bool:
+def delta_fits(d: int, *, budget_bytes: int | None = None) -> bool:
     """Can the full-codebook delta kernel run at width d?"""
-    return assign_kernels.smem_bytes(d) <= SMEM_BUDGET_BYTES
+    return delta_smem_bytes(0, d) <= smem_budget_bytes(budget_bytes)
+
+
+def delta_route(d: int, *, budget_bytes: int | None = None,
+                fused: bool = True) -> str:
+    """The route ``vq_delta_routed`` takes at width d: ``"full"`` (the delta
+    kernel), ``"blocked"`` (the blocked kernel) or ``"via_assign"`` (the
+    assign kernel and an ``index_add_``)."""
+    if delta_fits(d, budget_bytes=budget_bytes):
+        return "full"
+    return "blocked" if fused else "via_assign"
 
 
 def vq_assign(z: torch.Tensor, w: torch.Tensor
@@ -62,21 +103,59 @@ def distortion(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.mean(mind, dim=-1)
 
 
-def _require_delta_fits(d: int) -> None:
-    if not delta_fits(d):
-        raise NotImplementedError(
-            f"d={d} is past the delta kernel's shared-memory budget; the "
-            f"blocked assign+delta kernel that would take it "
-            f"(repro/kernels/vq_fused.py::_fused_delta_kernel) is still to "
-            f"port: ROADMAP.md queue 2, row 3")
+def vq_delta_blocked(z: torch.Tensor, w: torch.Tensor, *,
+                     residual: torch.Tensor | None = None,
+                     kchunk: int | None = None, bk: int | None = None):
+    """The blocked kernel at any width: ``(counts, zsum)``, and with
+    ``residual`` also the displacement epilogue
+    ``counts.unsqueeze(-1) * w - zsum + residual``.  Tiles come from
+    ``kernels.autotune`` unless given."""
+    out = vq_fused.vq_delta_blocked(z, w, residual=residual, kchunk=kchunk,
+                                    bk=bk)
+    return out[:2] if residual is None else (out[0], out[1], out[4])
 
 
-def vq_delta_routed(z: torch.Tensor, w: torch.Tensor
+def _delta_via_assign(z: torch.Tensor, w: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(counts, zsum) through the assign kernel and an ``index_add_``: the
+    reference's pre-fusion blocked route, kept as the ``fused=False``
+    comparator.  The assignments round-trip through device memory; on the
+    card ``index_add_`` adds with atomics, so at a batch past one the sums
+    may differ from the blocked kernel's in the last bits."""
+    assign, _ = assign_kernels.vq_assign(z, w)
+    kappa, d = w.shape[-2:]
+    m = z.shape[0] if z.dim() == 3 else 1
+    rows = (assign.reshape(m, -1).long()
+            + kappa * torch.arange(m, device=z.device)[:, None]).reshape(-1)
+    counts = torch.zeros(m * kappa, dtype=torch.float32, device=z.device)
+    counts.index_add_(0, rows, torch.ones(rows.shape, device=z.device))
+    zsum = torch.zeros((m * kappa, d), dtype=torch.float32, device=z.device)
+    zsum.index_add_(0, rows, z.reshape(-1, d))
+    return counts.view(w.shape[:-1]), zsum.view(w.shape)
+
+
+def vq_delta_routed(z: torch.Tensor, w: torch.Tensor, *,
+                    budget_bytes: int | None = None, fused: bool = True
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``vq_delta`` where the full-codebook kernel fits the shared-memory
-    budget; past it, the reference's blocked kernel, which is not ported."""
-    _require_delta_fits(w.shape[-1])
-    return vq_delta(z, w)
+    """``vq_delta`` routed by shared memory (``delta_route``): the
+    full-codebook kernel where it fits the budget, else the blocked kernel,
+    else with ``fused=False`` the assign kernel and an ``index_add_``."""
+    route = delta_route(w.shape[-1], budget_bytes=budget_bytes, fused=fused)
+    if route == "full":
+        return vq_delta(z, w)
+    if route == "blocked":
+        return vq_delta_blocked(z, w)
+    return _delta_via_assign(z, w)
+
+
+def vq_minibatch_step(z: torch.Tensor, w: torch.Tensor, eps: torch.Tensor,
+                      *, budget_bytes: int | None = None) -> torch.Tensor:
+    """One minibatch VQ update ``w - (eps / |B|) * (counts * w - zsum)``
+    over z (..., B, d), routed through ``vq_delta_routed``, so wide
+    codebooks take the blocked kernel."""
+    counts, zsum = vq_delta_routed(z, w, budget_bytes=budget_bytes)
+    delta = counts.unsqueeze(-1) * w - zsum
+    return w - (eps / z.shape[-2]) * delta
 
 
 def vq_topk(full: torch.Tensor, k: int
@@ -88,7 +167,7 @@ def vq_topk(full: torch.Tensor, k: int
 
 
 def vq_delta_topk(z: torch.Tensor, w: torch.Tensor, residual: torch.Tensor,
-                  *, frac: float
+                  *, frac: float, budget_bytes: int | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The eq.-8 displacement with the error-feedback carry folded in,
     ``counts * w - zsum + residual``, compressed to the sparse transport's
@@ -97,14 +176,17 @@ def vq_delta_topk(z: torch.Tensor, w: torch.Tensor, residual: torch.Tensor,
 
     z (B, d), w and residual (kappa, d) -> (vals (k,), idx (k,) int32,
     new residual (kappa, d)); with a leading worker dimension M on all
-    three, each output gains it.  Past the delta kernel's budget the
-    reference takes its blocked kernel's epilogue, which is not ported."""
-    _require_delta_fits(w.shape[-1])
+    three, each output gains it.  Where the delta kernel fits the budget
+    the payload is formed eagerly from its (counts, zsum); past it, by the
+    blocked kernel's epilogue, with the same rounding."""
     if residual.shape != w.shape:
         raise ValueError(f"residual must be shaped like w {tuple(w.shape)}, "
                          f"got {tuple(residual.shape)}")
-    counts, zsum = vq_delta(z, w)
-    full = counts.unsqueeze(-1) * w - zsum + residual
+    if delta_fits(w.shape[-1], budget_bytes=budget_bytes):
+        counts, zsum = vq_delta(z, w)
+        full = counts.unsqueeze(-1) * w - zsum + residual
+    else:
+        _, _, full = vq_delta_blocked(z, w, residual=residual)
     flat = full.reshape(-1, w.shape[-2] * w.shape[-1])
     vals, idx, new_res = vq_topk(flat, max(1, int(frac * flat.shape[1])))
     if w.dim() == 2:

@@ -13,6 +13,8 @@ take the plain versions (``vq_assign_plain``, ``vq_delta_plain``) for CPU
 tensors only.  ``launches_assign`` and ``launches`` count the wrappers'
 launches; an assign launch is three CUDA kernel launches in a row (row
 norms, partial argmin, combine), a delta launch four (then accumulate).
+The argmin pass's kappa chunk (``kchunk``) comes from ``kernels.autotune``
+unless the caller gives one; it changes no bit.
 """
 
 from __future__ import annotations
@@ -21,10 +23,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import vq
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 
-#: Codebook rows per block of the argmin pass (the kappa split that gives a
-#: batch of one its parallelism).
+#: Codebook rows per block of the argmin pass before tuning (the kappa split
+#: that gives a batch of one its parallelism); ``autotune``'s ``off`` tiles.
 KCHUNK = 256
 #: Points per block of the argmin pass; mirrors csrc/vq_delta.cu.
 ROWS = 8
@@ -32,19 +34,35 @@ ROWS = 8
 OWN_ROWS = 32
 #: Assignments staged per sweep of the accumulate pass; mirrors the source.
 CHUNK = 256
+#: Shared memory one block may use on an H100 (dynamic, after opting in);
+#: mirrors csrc/vq_common.cuh's kSmemMax.
+SMEM_MAX = 232_448
 
 launches = 0
 launches_assign = 0
 
 
+def argmin_smem_bytes(d: int) -> int:
+    """Shared memory of one argmin-pass block: its 8 points when they fit
+    (d <= 7,247), plus the 8 norms and the 8x8 per-warp partials; past
+    that the points are read in place and only the rest stays."""
+    fixed = 4 * ROWS + 8 * ROWS * ROWS
+    staged = 4 * ROWS * d + fixed
+    return staged if staged <= SMEM_MAX else fixed
+
+
+def accumulate_smem_bytes(d: int) -> int:
+    """Shared memory of one accumulate-pass block: a (32, d) zsum tile, 256
+    staged assignments and 32 counts."""
+    return 4 * (OWN_ROWS * d + CHUNK + OWN_ROWS)
+
+
 def smem_bytes(d: int) -> int:
-    """Shared memory of the delta kernel's largest block: the accumulate
-    pass holds a (32, d) zsum tile, 256 staged assignments and 32 counts
-    (the argmin pass holds 8 points and 8x8 partials, less).  The codebook
-    streams from global memory, so kappa does not enter."""
-    accumulate = 4 * (OWN_ROWS * d + CHUNK + OWN_ROWS)
-    argmin = 4 * (ROWS * d + ROWS) + 8 * ROWS * ROWS
-    return max(accumulate, argmin)
+    """Shared memory of the delta kernel's largest block, the accumulate
+    pass's (the argmin pass holds at most 8 points and 8x8 partials,
+    less).  The codebook streams from global memory, so kappa does not
+    enter."""
+    return max(accumulate_smem_bytes(d), argmin_smem_bytes(d))
 
 
 def vq_assign_plain(z: torch.Tensor, w: torch.Tensor):
@@ -60,13 +78,15 @@ def vq_delta_plain(z: torch.Tensor, w: torch.Tensor):
     z (..., B, d), w (..., kappa, d) -> (counts (..., kappa),
     zsum (..., kappa, d), mind (..., B), assign (..., B) int32)."""
     assign, mind = vq_assign_plain(z, w)
-    onehot = F.one_hot(assign.long(), w.shape[-2]).to(torch.float32)
+    onehot = F.one_hot(assign.long(), w.shape[-2]).to(z.dtype)
     counts = torch.sum(onehot, dim=-2)
     zsum = onehot.transpose(-1, -2) @ z
     return counts, zsum, mind, assign
 
 
-def _check(z: torch.Tensor, w: torch.Tensor, name: str) -> None:
+def check_inputs(z: torch.Tensor, w: torch.Tensor, name: str) -> None:
+    """Raise unless z (B, d), w (kappa, d) or z (M, B, d), w (M, kappa, d)
+    are float32 on one device."""
     if z.dim() != w.dim() or z.dim() not in (2, 3):
         raise ValueError(
             f"{name} takes z (B, d), w (kappa, d) or z (M, B, d), "
@@ -81,39 +101,60 @@ def _check(z: torch.Tensor, w: torch.Tensor, name: str) -> None:
         raise ValueError(f"z is on {z.device}, w on {w.device}")
 
 
-def _launch(z: torch.Tensor, w: torch.Tensor, name: str, stats: bool):
-    """Launch ``vq_assign_f32`` (``stats`` False) or ``vq_delta_f32`` on
-    CUDA tensors; returns ``(counts, zsum, mind, assign)``, the first two
-    None without ``stats``."""
+def argmin_buffers(m: int, b: int, kappa: int, kchunk: int,
+                   dev: torch.device) -> tuple[torch.Tensor, ...]:
+    """Outputs and scratch of the argmin passes on ``dev``:
+    ``(mind (M, B), assign (M, B) int32, w2 (M, kappa), pmin, pidx
+    (M, B, ceil(kappa / kchunk)))``."""
+    if kchunk < 1:
+        raise ValueError(f"kchunk must be >= 1, got {kchunk}")
+    s = -(-kappa // kchunk)
+    f32 = torch.float32
+    return (torch.empty((m, b), dtype=f32, device=dev),
+            torch.empty((m, b), dtype=torch.int32, device=dev),
+            torch.empty((m, kappa), dtype=f32, device=dev),
+            torch.empty((m, b, s), dtype=f32, device=dev),
+            torch.empty((m, b, s), dtype=torch.int32, device=dev))
+
+
+def stacked_dims(z: torch.Tensor, w: torch.Tensor, name: str
+                 ) -> tuple[int, int, int, int]:
+    """``(M, B, kappa, d)`` of contiguous CUDA inputs (the 2-D form is
+    M=1), after checking what the launch grid takes."""
     for arg, x in (("z", z), ("w", w)):
         if not x.is_contiguous():
             raise ValueError(f"{arg} must be contiguous")
-    flat = z.dim() == 2
-    if flat:
-        z, w = z.unsqueeze(0), w.unsqueeze(0)
-    m, b, d = z.shape
-    kappa = w.shape[1]
+    m = z.shape[0] if z.dim() == 3 else 1
+    b, d = z.shape[-2:]
+    kappa = w.shape[-2]
     if m == 0 or b == 0 or kappa == 0 or d == 0:
         raise ValueError(f"{name} needs M, B, kappa and d > 0")
     if m > 65535 or -(-b // ROWS) > 65535:
         raise ValueError(f"M={m}, B={b} is past the launch grid's limits")
-    s = -(-kappa // KCHUNK)
+    return m, b, kappa, d
+
+
+def _launch(z: torch.Tensor, w: torch.Tensor, name: str, stats: bool,
+            kchunk: int | None = None):
+    """Launch ``vq_assign_f32`` (``stats`` False) or ``vq_delta_f32`` on
+    CUDA tensors; returns ``(counts, zsum, mind, assign)``, the first two
+    None without ``stats``.  Counts no launch (the wrappers do)."""
+    m, b, kappa, d = stacked_dims(z, w, name)
     dev = z.device
-    f32 = torch.float32
+    if kchunk is None:
+        kchunk = autotune.pick_tiles(b, kappa, d, m=m, device=dev,
+                                     kind="delta" if stats else "assign"
+                                     ).kchunk
+    mind, assign, w2, pmin, pidx = argmin_buffers(m, b, kappa, kchunk, dev)
     counts = zsum = None
-    mind = torch.empty((m, b), dtype=f32, device=dev)
-    assign = torch.empty((m, b), dtype=torch.int32, device=dev)
-    w2 = torch.empty((m, kappa), dtype=f32, device=dev)
-    pmin = torch.empty((m, b, s), dtype=f32, device=dev)
-    pidx = torch.empty((m, b, s), dtype=torch.int32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         tail = (w2.data_ptr(), pmin.data_ptr(), pidx.data_ptr(), m, b, kappa,
-                d, KCHUNK, stream)
+                d, kchunk, stream)
         if stats:
-            counts = torch.empty((m, kappa), dtype=f32, device=dev)
-            zsum = torch.empty((m, kappa, d), dtype=f32, device=dev)
+            counts = torch.empty((m, kappa), dtype=torch.float32, device=dev)
+            zsum = torch.empty((m, kappa, d), dtype=torch.float32, device=dev)
             rc = lib.vq_delta_f32(z.data_ptr(), w.data_ptr(),
                                   counts.data_ptr(), zsum.data_ptr(),
                                   mind.data_ptr(), assign.data_ptr(), *tail)
@@ -121,13 +162,13 @@ def _launch(z: torch.Tensor, w: torch.Tensor, name: str, stats: bool):
             rc = lib.vq_assign_f32(z.data_ptr(), w.data_ptr(),
                                    mind.data_ptr(), assign.data_ptr(), *tail)
     _build.check(rc, f"{name}_f32")
-    if flat:
+    if z.dim() == 2:
         return (None if counts is None else counts[0],
                 None if zsum is None else zsum[0], mind[0], assign[0])
     return counts, zsum, mind, assign
 
 
-def _device_ok(z: torch.Tensor, name: str) -> bool:
+def on_cuda(z: torch.Tensor, name: str) -> bool:
     """True for CUDA tensors (launch), False for CPU ones (plain version);
     raises for any other device."""
     if z.device.type not in ("cuda", "cpu"):
@@ -135,31 +176,32 @@ def _device_ok(z: torch.Tensor, name: str) -> bool:
     return z.device.type == "cuda"
 
 
-def vq_assign(z: torch.Tensor, w: torch.Tensor):
+def vq_assign(z: torch.Tensor, w: torch.Tensor, *, kchunk: int | None = None):
     """Nearest prototype of z (M, B, d) in w (M, kappa, d) (or the 2-D case
     M=1): ``(assign int32, mind f32)`` as ``vq_assign_plain``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     the current stream."""
     global launches_assign
-    _check(z, w, "vq_assign")
-    if not _device_ok(z, "vq_assign"):
+    check_inputs(z, w, "vq_assign")
+    if not on_cuda(z, "vq_assign"):
         return vq_assign_plain(z, w)
-    _, _, mind, assign = _launch(z, w, "vq_assign", stats=False)
+    _, _, mind, assign = _launch(z, w, "vq_assign", stats=False,
+                                 kchunk=kchunk)
     launches_assign += 1
     return assign, mind
 
 
-def vq_delta(z: torch.Tensor, w: torch.Tensor):
+def vq_delta(z: torch.Tensor, w: torch.Tensor, *, kchunk: int | None = None):
     """Assignment statistics of z (M, B, d) against w (M, kappa, d) (or the
     2-D case M=1): ``(counts, zsum, mind, assign)`` as ``vq_delta_plain``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     the current stream."""
     global launches
-    _check(z, w, "vq_delta")
-    if not _device_ok(z, "vq_delta"):
+    check_inputs(z, w, "vq_delta")
+    if not on_cuda(z, "vq_delta"):
         return vq_delta_plain(z, w)
-    out = _launch(z, w, "vq_delta", stats=True)
+    out = _launch(z, w, "vq_delta", stats=True, kchunk=kchunk)
     launches += 1
     return out

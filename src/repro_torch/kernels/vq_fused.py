@@ -1,14 +1,18 @@
-"""The window kernel (tau sequential eq.-1 steps for M stacked workers) and
-the top-k kernel (the sparse transport's per-worker selection).
+"""The window kernel (tau sequential eq.-1 steps for M stacked workers), the
+blocked assign+delta kernel (the delta step at any width) and the top-k
+kernel (the sparse transport's per-worker selection).
 
-Counterpart of the window and top-k parts of ``repro/kernels/vq_fused.py``
-(``_window_kernel`` / ``vq_window_pallas`` and ``_topk_kernel`` /
-``vq_topk_pallas``).  The CUDA sources are ``csrc/vq_window.cu`` and
-``csrc/vq_topk.cu``; each says what bounds its kernel and how.
+Counterpart of ``repro/kernels/vq_fused.py`` (``_window_kernel`` /
+``vq_window_pallas``, ``_fused_delta_kernel`` / ``vq_delta_blocked_pallas``
+and ``_topk_kernel`` / ``vq_topk_pallas``).  The CUDA sources are
+``csrc/vq_window.cu``, ``csrc/vq_blocked.cu`` and ``csrc/vq_topk.cu``; each
+says what bounds its kernel and how.
 
-``vq_window`` and ``vq_topk`` launch their kernels for CUDA tensors and take
-the plain versions ``vq_window_plain`` and ``vq_topk_plain`` for CPU tensors
-only.  ``launches`` and ``launches_topk`` count the kernels' launches.
+``vq_window``, ``vq_delta_blocked`` and ``vq_topk`` launch their kernels for
+CUDA tensors and take the plain versions ``vq_window_plain``,
+``vq_delta_blocked_plain`` and ``vq_topk_plain`` for CPU tensors only.
+``launches``, ``launches_blocked`` and ``launches_topk`` count the kernels'
+launches.
 """
 
 from __future__ import annotations
@@ -16,14 +20,21 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import vq
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
+from repro_torch.kernels import vq_assign as assign_kernels
 
 #: Blocks per worker (one thread-block cluster); mirrors csrc/vq_window.cu.
 CLUSTER_BLOCKS = 8
 #: Warps per block; mirrors csrc/vq_window.cu.
 WARPS = 16
+#: Codebook columns per owner block of the blocked kernel's accumulate
+#: sweep (one per thread); mirrors csrc/vq_blocked.cu.
+COLS = 256
+#: Assignments the accumulate sweep stages at once; mirrors the source.
+CHUNK = 256
 
 launches = 0
+launches_blocked = 0
 launches_topk = 0
 
 
@@ -96,6 +107,104 @@ def vq_window(zwin: torch.Tensor, w0: torch.Tensor,
     _build.check(rc, "vq_window_f32")
     launches += 1
     return wout
+
+
+def blocked_accumulate_smem_bytes(kappa: int, bk: int) -> int:
+    """Shared memory of one block of the blocked kernel's accumulate sweep
+    at tile ``bk``: the (min(bk, kappa), 256) zsum tile, its counts and 256
+    staged assignments; d does not enter."""
+    rows = min(bk, kappa)
+    return 4 * (rows * COLS + rows + CHUNK)
+
+
+def blocked_smem_bytes(kappa: int, d: int, bk: int) -> int:
+    """Shared memory of the blocked kernel's largest block: the accumulate
+    sweep's or the argmin pass's (``vq_assign.argmin_smem_bytes``), neither
+    of which grows with d past the argmin pass's staging limit."""
+    return max(blocked_accumulate_smem_bytes(kappa, bk),
+               assign_kernels.argmin_smem_bytes(d))
+
+
+def vq_delta_blocked_plain(z: torch.Tensor, w: torch.Tensor,
+                           residual: torch.Tensor | None = None):
+    """The blocked kernel's plain version: ``vq_assign.vq_delta_plain``,
+    and with ``residual`` the eager epilogue
+    ``counts.unsqueeze(-1) * w - zsum + residual``.
+
+    z (..., B, d), w (..., kappa, d) -> (counts, zsum, mind, assign[,
+    delta (..., kappa, d)])."""
+    out = assign_kernels.vq_delta_plain(z, w)
+    if residual is None:
+        return out
+    counts, zsum = out[0], out[1]
+    return (*out, counts.unsqueeze(-1) * w - zsum + residual)
+
+
+def _launch_blocked(z: torch.Tensor, w: torch.Tensor,
+                    residual: torch.Tensor | None, kchunk: int | None,
+                    bk: int | None):
+    """Launch ``vq_delta_blocked_f32`` on CUDA tensors; counts no launch."""
+    m, b, kappa, d = assign_kernels.stacked_dims(z, w, "vq_delta_blocked")
+    if residual is not None and not residual.is_contiguous():
+        raise ValueError("residual must be contiguous")
+    dev = z.device
+    if kchunk is None or bk is None:
+        tiles = autotune.pick_tiles(b, kappa, d, m=m, device=dev,
+                                    kind="delta_blocked")
+        kchunk = tiles.kchunk if kchunk is None else kchunk
+        bk = tiles.bk if bk is None else bk
+    if bk < 1:
+        raise ValueError(f"bk must be >= 1, got {bk}")
+    bk = min(bk, kappa)
+    if -(-d // COLS) > 65535:
+        raise ValueError(f"d={d} is past the launch grid's limit")
+    mind, assign, w2, pmin, pidx = assign_kernels.argmin_buffers(
+        m, b, kappa, kchunk, dev)
+    f32 = torch.float32
+    counts = torch.empty((m, kappa), dtype=f32, device=dev)
+    zsum = torch.empty((m, kappa, d), dtype=f32, device=dev)
+    delta = None if residual is None else torch.empty_like(zsum)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.vq_delta_blocked_f32(
+            z.data_ptr(), w.data_ptr(),
+            None if residual is None else residual.data_ptr(),
+            counts.data_ptr(), zsum.data_ptr(),
+            None if delta is None else delta.data_ptr(), mind.data_ptr(),
+            assign.data_ptr(), w2.data_ptr(), pmin.data_ptr(),
+            pidx.data_ptr(), m, b, kappa, d, kchunk, bk, stream)
+    _build.check(rc, "vq_delta_blocked_f32")
+    out = (counts, zsum, mind, assign) + (() if delta is None else (delta,))
+    return tuple(x[0] for x in out) if z.dim() == 2 else out
+
+
+def vq_delta_blocked(z: torch.Tensor, w: torch.Tensor, *,
+                     residual: torch.Tensor | None = None,
+                     kchunk: int | None = None, bk: int | None = None):
+    """Assignment statistics of z (M, B, d) against w (M, kappa, d) (or the
+    2-D case M=1) at any kappa and d: ``(counts, zsum, mind, assign)`` as
+    ``vq_assign.vq_delta`` gives them, bit for bit on the card; with
+    ``residual`` (shaped like w), also ``delta = counts * w - zsum +
+    residual`` as the eager expression rounds it.
+
+    The tiles (``kchunk``, ``bk``) come from ``kernels.autotune`` unless
+    given; they change no bit.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel on the current stream."""
+    global launches_blocked
+    assign_kernels.check_inputs(z, w, "vq_delta_blocked")
+    if residual is not None and (residual.shape != w.shape
+                                 or residual.dtype != torch.float32
+                                 or residual.device != w.device):
+        raise ValueError(
+            f"residual must be float32 shaped like w {tuple(w.shape)} on "
+            f"{w.device}, got {residual.dtype} {tuple(residual.shape)} on "
+            f"{residual.device}")
+    if not assign_kernels.on_cuda(z, "vq_delta_blocked"):
+        return vq_delta_blocked_plain(z, w, residual)
+    out = _launch_blocked(z, w, residual, kchunk, bk)
+    launches_blocked += 1
+    return out
 
 
 def vq_topk_plain(full: torch.Tensor, k: int

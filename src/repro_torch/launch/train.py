@@ -13,6 +13,18 @@ round lengths are drawn from the network with a CPU generator seeded by
 ``--seed``.  Data is drawn from ``--seed`` on the run's device (``--device
 cuda``, the default, or ``cpu``).  Prints the distortion-vs-ticks table, the
 wall time in us/point and the merge wire bytes, as the reference does.
+
+Any ``--dim`` runs: past the delta kernel's shared memory (d > 1,807) the
+per-step and per-tick steps take the blocked assign+delta kernel, e.g. eq. 9
+on a 3072-wide embedding codebook::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --mode vq \
+        --executor mesh --scheme async_delta --network geometric \
+        --p-delay 0.5 --workers 8 --points 2000 --dim 3072 --kappa 4096
+
+``--autotune {off,cache,search}`` picks the kernels' tiles
+(``kernels.autotune``; tiles change no bit) and ``--autotune-cache
+TILES.json`` keeps the picks in a file.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ from repro_torch import comm
 from repro_torch import device as device_lib
 from repro_torch.data import synthetic
 from repro_torch.engine import get_executor, get_network
+from repro_torch.kernels import autotune
 
 #: Eval points per worker (the reference's ``launch/train.py`` takes 1000).
 N_EVAL = 1000
@@ -57,6 +70,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--compress-frac", type=float, default=0.01,
                     help="sparse transport: fraction of entries each worker "
                          "ships per merge")
+    ap.add_argument("--autotune", choices=autotune.MODES, default="cache",
+                    help="kernel tile selection: 'off' pins the untuned "
+                         "tiles, 'cache' picks per shape from the model "
+                         "(memoized), 'search' also times the model's first "
+                         "candidates on the card and keeps the fastest")
+    ap.add_argument("--autotune-cache", default="", metavar="TILES.json",
+                    help="keep tuned tiles in this JSON file (read at "
+                         "start; keyed by shape and device name)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return ap.parse_args(argv)
@@ -93,6 +114,9 @@ def run_vq(args):
     """Run the scheme and print the reference's report; returns
     ``(result, executor, wall_s)``."""
     dev = device_lib.resolve(args.device)
+    autotune.set_mode(args.autotune)
+    if args.autotune_cache:
+        autotune.set_cache_path(args.autotune_cache)
     w0, data, eval_data = make_inputs(args, dev)
     executor = build_executor(args, dev)
     transport = getattr(executor, "transport", None)

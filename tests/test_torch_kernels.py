@@ -173,8 +173,15 @@ def test_residency_predicates_and_routing():
     # 62,500 norms per block of the 8-block cluster are 250,000 B
     assert not ops.window_fits(500_000, 8)
     assert not ops.delta_fits(2048)   # a (32, 2048) f32 tile is 256 KiB
-    with pytest.raises(NotImplementedError, match="queue 2, row 3"):
-        ops.vq_delta_routed(torch.zeros((1, 2048)), torch.zeros((3, 2048)))
+    # past the delta kernel's budget the blocked route answers, with the
+    # plain result
+    rng = np.random.default_rng(3)
+    z = torch.from_numpy(_mixture(rng, (5,), 2048))
+    w = torch.from_numpy(_mixture(rng, (3,), 2048))
+    assert ops.delta_route(2048) == "blocked"
+    counts, zsum = ops.vq_delta_routed(z, w)
+    pc, pz, _, _ = vq_assign.vq_delta_plain(z, w)
+    assert torch.equal(counts, pc) and torch.equal(zsum, pz)
     counts, zsum = ops.vq_delta_routed(torch.zeros((1, 4)), torch.zeros((3, 4)))
     assert counts.shape == (3,) and zsum.shape == (3, 4)
 
@@ -215,7 +222,8 @@ def test_assign_wrapper_validates_and_never_counts_cpu():
     ops.vq_assign(z[0], w[0])
     assert vq_assign.launches_assign == before
     assert set(_build.SIGNATURES) == {"vq_window_f32", "vq_delta_f32",
-                                      "vq_assign_f32", "vq_topk_f32"}
+                                      "vq_assign_f32", "vq_topk_f32",
+                                      "vq_delta_blocked_f32"}
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
@@ -227,7 +235,8 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     assert len(h) == 16 and h == _build.source_hash()
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {"vq_window.cu",
                                                           "vq_delta.cu",
-                                                          "vq_topk.cu"}
+                                                          "vq_topk.cu",
+                                                          "vq_blocked.cu"}
     assert os.path.basename(_build.BUILD_ROOT) == ".build"
 
 
@@ -344,8 +353,18 @@ def test_delta_topk_matches_reference(m):
                                    rtol=RTOL, atol=ATOL)
         np.testing.assert_allclose(new_res[j].numpy(), np.asarray(rr),
                                    rtol=RTOL, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="queue 2, row 3"):
-        ops.vq_delta_topk(torch.zeros((1, 2048)), torch.zeros((3, 2048)),
-                          torch.zeros((3, 2048)), frac=0.1)
+    # past the delta kernel's budget the blocked epilogue answers, with the
+    # plain payload and selection
+    zb = torch.from_numpy(_mixture(rng, (4,), 2048))
+    wb = torch.from_numpy(_mixture(rng, (3,), 2048))
+    rb = torch.from_numpy(
+        0.01 * rng.standard_normal((3, 2048)).astype(np.float32))
+    kb = max(1, int(0.1 * 3 * 2048))
+    c, s, _, _ = vq_assign.vq_delta_plain(zb, wb)
+    want = vq_fused.vq_topk_plain((c.unsqueeze(-1) * wb - s + rb).reshape(
+        1, -1), kb)
+    got = ops.vq_delta_topk(zb, wb, rb, frac=0.1)
+    for a, b in zip(got, (want[0][0], want[1][0], want[2].view(3, 2048))):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="residual"):
         ops.vq_delta_topk(zt[0], wt[0], rt[0, :3], frac=frac)
