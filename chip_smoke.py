@@ -75,12 +75,36 @@ PyTorch built for CUDA:
      bit;
   14. runs the tile tuner's search on the eq.-9 shape and shows the tuned
      tiles give the untuned tiles' bits;
-  15. times each kernel, its plain version, its bound and, for the top-k
-     kernel, ``torch.topk`` (selection only), and traces 200 windows of the
-     sync delta path, 1,000 ticks of the eq.-9 path, 200 windows of the
-     sparse eq.-8 path and 200 ticks of the 3072-wide eq.-9 path with
-     torch.profiler (device time by kernel, the device's idle share);
-  16. prints one ``{"kernels": [...]}`` line, the card line again, and last
+  15. holds the ring all-reduce kernel against its plain version, bit for
+     bit, with one launch a call, at (8, 524,288) (a window's displacement,
+     N(0, 1) entries, and N(0, 1) under a 0/1 mask), (8, 1) (the eval
+     payload), ragged (3, 40,040) and (5, 1,000,003), and (8, 12,582,912)
+     (the d=3072 payload, 402.7 MB), and prints the largest |ring -
+     torch.sum| as a read-out (the orders differ);
+  16. drives ``--scheme delta --transport ring`` on 8 x 125,000 points
+     through the launcher: 12,500 window and 25,000 ring launches (merge and
+     eval) and no other, 3,670,016 B of merge wire a window, its curve and
+     codebook held against the dense delta run's (CURVE_RTOL, ROWS_FRAC),
+     its first 200 windows equal bit for bit to runs over
+     ``RingTransport().plain()`` and ``quant[identity:ring]`` and held
+     against a dense run of those windows; ``--scheme average --transport
+     ring`` on 8 x 2,000 points (400 ring launches) against dense average;
+     eq. 9 over the masked ring for 20,000 ticks on the dense eq.-9 run's
+     round lengths (20,000 delta and 22,000 ring launches), its curve and
+     codebook held against a dense eq.-9 run of those ticks and its first
+     2,000 ticks equal to the plain-ring run bit for bit; and
+     ``--transport ring --wire-quant int8`` on 8 x 20,000 points (917,508 B
+     of wire a window, 4,000 ring launches, distortion falling);
+  17. times each kernel, its plain version, its bound and, for the top-k
+     kernel, ``torch.topk`` (selection only), for the ring kernel
+     ``torch.sum(x, dim=0)``, and traces 200 windows of the sync delta
+     path, 1,000 ticks of the eq.-9 path, 200 windows of the sparse eq.-8
+     path, 200 windows of the ring sync path and 200 ticks of the
+     3072-wide eq.-9 path with torch.profiler (device time by kernel, the
+     device's idle share), after timing 200 dense and ring sync windows in
+     turns on the host clock;
+  18. prints one ``{"kernels": [...]}`` line (window, delta, assign,
+      top-k, blocked and ring), the card line again, and last
       ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check exits non-zero before the result lines; an exception
@@ -123,6 +147,10 @@ BLOCKED_TICKS = 2000    # depth of the d=128 eq.-9 leg, blocked route
 # below the window kernel's (3,216 B at d=128, 26,768 B at d=3072) and the
 # delta kernel's (17,536 B at d=128) shared memory: forces the blocked route
 FORCE_BUDGET = 1024
+RING_PLAIN_WINDOWS = 200  # sync windows held bitwise against the plain ring
+RING_PLAIN_TICKS = 2000   # eq.-9 ticks held bitwise against the plain ring
+RING_AVG_POINTS = 2000    # depth of the ring average leg
+RING_MASK = (1.0, 0.0, 1.0, 1.0, 0.0, 0.0, 1.0, 0.0)  # a 0/1 mask over M=8
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
 # f32 FLOP/s outside the tensor cores (both kernels run on the f32 pipes)
@@ -471,19 +499,31 @@ def profile(label: str, run, units: int, unit: str) -> None:
 
 def zero_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
+    from repro_torch.comm import ring
     from repro_torch.kernels import vq_assign, vq_fused
     vq_fused.launches = vq_fused.launches_blocked = 0
     vq_fused.launches_topk = 0
     vq_assign.launches = vq_assign.launches_assign = 0
+    ring.launches_ring = 0
 
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count."""
+    from repro_torch.comm import ring
     from repro_torch.kernels import vq_assign, vq_fused
     return {"window": vq_fused.launches, "delta": vq_assign.launches,
             "assign": vq_assign.launches_assign,
             "blocked": vq_fused.launches_blocked,
-            "topk": vq_fused.launches_topk}
+            "topk": vq_fused.launches_topk, "ring": ring.launches_ring}
+
+
+def expect_counts(label: str, **want) -> dict:
+    """Every kernel's launch count since ``zero_counts``: those named in
+    ``want`` must equal it, every other must be 0."""
+    counts = launch_counts()
+    if counts != {k: want.get(k, 0) for k in counts}:
+        fail(f"{label}: launches {counts}, expected {want} and no other")
+    return counts
 
 
 def same_bits(a, b) -> bool:
@@ -494,6 +534,45 @@ def same_bits(a, b) -> bool:
     if a.dtype == torch.float32:
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
     return torch.equal(a, b)
+
+
+def check_ring(x, label: str, mask=None) -> None:
+    """The ring kernel against its plain version, bit for bit, with one
+    launch for the call; prints the largest |ring - torch.sum| (a read-out:
+    the two add in different orders)."""
+    import torch
+
+    from repro_torch.comm import ring
+
+    before = ring.launches_ring
+    got = ring.ring_all_reduce(x, mask)
+    launched = ring.launches_ring - before
+    want = ring.ring_all_reduce_plain(x, mask)
+    dense = torch.sum(x if mask is None else mask[:, None] * x, dim=0)
+    err = float((got - dense).abs().max())
+    print(f"check ring {label} {tuple(x.shape)}: == plain bitwise "
+          f"{same_bits(got, want)}, launches {launched}; max |ring - "
+          f"torch.sum| {err:.3e}")
+    if not (same_bits(got, want) and launched == 1):
+        fail(f"ring {label}: the kernel differs from the plain version, or "
+             f"it launched {launched} times")
+
+
+def held_to(label: str, curve, ref_curve, w=None, ref_w=None) -> None:
+    """A run against a reference run of the same inputs: the curve within
+    CURVE_RTOL and, where codebooks are given, all but ROWS_FRAC of their
+    rows within ROW_ATOL (the rule the oracle checks use)."""
+    c_err = float(((curve - ref_curve).abs() / ref_curve.abs()).max())
+    rows = 0
+    if w is not None:
+        rows = int(((w - ref_w).abs() > ROW_ATOL).any(dim=1).sum())
+    print(f"check {label}: max rel curve diff {c_err:.3e} (rtol "
+          f"{CURVE_RTOL}), curve bitwise equal {same_bits(curve, ref_curve)}"
+          + ("" if w is None else f", codebook rows off by > {ROW_ATOL}: "
+             f"{rows} of {w.shape[0]}"))
+    if c_err > CURVE_RTOL or rows > ROWS_FRAC * (0 if w is None
+                                                 else w.shape[0]):
+        fail(f"{label}: the runs disagree")
 
 
 def check_blocked(z, w, label: str, residual=None) -> float:
@@ -573,10 +652,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a "
              "CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
     from repro_torch import comm
+    from repro_torch import device as device_lib
+    from repro_torch.comm import ring
     from repro_torch.core import async_vq, schemes, vq
     from repro_torch.engine import get_executor
     from repro_torch.engine import merge as merge_lib
@@ -586,6 +664,7 @@ def main() -> None:
     from repro_torch.kernels import _build, autotune, ops, vq_assign, vq_fused
     from repro_torch.launch import serve, train
 
+    device_lib.pin_full_f32()
     dev = torch.device("cuda")
     card = card_line()
     print(f"card: {card}")
@@ -770,19 +849,14 @@ def main() -> None:
         oracle = oracle_fn(w0, head, eval_data, tau=TAU)
         short = MeshExecutor(InstantNetwork(), device=dev).run(
             scheme, w0, head, eval_data, tau=TAU)
-        main_curve = runs[scheme][0].distortion[:CHECK_WINDOWS]
-        c_err = float(((main_curve - oracle.distortion).abs()
-                       / oracle.distortion.abs()).max())
-        rows = int(((short.w_shared - oracle.w_shared).abs() > ROW_ATOL)
-                   .any(dim=1).sum())
+        held_to(f"{scheme} first {CHECK_WINDOWS} windows vs scheme_{scheme}",
+                runs[scheme][0].distortion[:CHECK_WINDOWS],
+                oracle.distortion, short.w_shared, oracle.w_shared)
+        ticks_ok = torch.equal(short.wall_ticks, oracle.wall_ticks)
         print(f"check {scheme} first {CHECK_WINDOWS} windows vs "
-              f"scheme_{scheme}: max rel curve diff {c_err:.3e} (rtol "
-              f"{CURVE_RTOL}), codebook rows off by > {ROW_ATOL}: {rows} of "
-              f"{KAPPA}, ticks equal "
-              f"{torch.equal(short.wall_ticks, oracle.wall_ticks)}")
-        if (c_err > CURVE_RTOL or rows > ROWS_FRAC * KAPPA
-                or not torch.equal(short.wall_ticks, oracle.wall_ticks)):
-            fail(f"{scheme}: first windows disagree with the oracle")
+              f"scheme_{scheme}: ticks equal {ticks_ok}")
+        if not ticks_ok:
+            fail(f"{scheme}: first windows' ticks differ from the oracle's")
 
     vq_fused.launches = vq_assign.launches = 0
     unfused = MeshExecutor(InstantNetwork(), fused=False, device=dev)
@@ -851,18 +925,13 @@ def main() -> None:
         "async_delta", w0, data[:, :n_c], eval_data, tau=TAU,
         lengths=lengths_c)
     head_a = res_a.distortion[: n_c // 10]
-    c_err = float(((head_a - oracle_a.distortion).abs()
-                   / oracle_a.distortion.abs()).max())
-    rows = int(((short_a.w_shared - oracle_a.w_shared).abs() > ROW_ATOL)
-               .any(dim=1).sum())
-    print(f"check async_delta first {n_c} ticks vs scheme_async: max rel "
-          f"curve diff {c_err:.3e} (rtol {CURVE_RTOL}), codebook rows off by "
-          f"> {ROW_ATOL}: {rows} of {KAPPA}, ticks equal "
-          f"{torch.equal(short_a.wall_ticks, oracle_a.wall_ticks)}, short "
-          f"run's curve == main run's head {torch.equal(short_a.distortion, head_a)}")
-    if (c_err > CURVE_RTOL or rows > ROWS_FRAC * KAPPA
-            or not torch.equal(short_a.wall_ticks, oracle_a.wall_ticks)
-            or not torch.equal(short_a.distortion, head_a)):
+    held_to(f"async_delta first {n_c} ticks vs scheme_async", head_a,
+            oracle_a.distortion, short_a.w_shared, oracle_a.w_shared)
+    ticks_ok = torch.equal(short_a.wall_ticks, oracle_a.wall_ticks)
+    head_ok = torch.equal(short_a.distortion, head_a)
+    print(f"check async_delta first {n_c} ticks: ticks equal {ticks_ok}, "
+          f"short run's curve == main run's head {head_ok}")
+    if not (ticks_ok and head_ok):
         fail("async_delta: first ticks disagree with the oracle")
 
     # -- 10. the sparse transport ---------------------------------------------
@@ -1040,7 +1109,7 @@ def main() -> None:
           f"wall {wall_f:.2f} s, launches {counts_f}; curve == dense eq.-9 "
           f"head {head_ok}")
     if counts_f != {"window": 0, "delta": 0, "assign": 0, "blocked": n_b,
-                    "topk": 0}:
+                    "topk": 0, "ring": 0}:
         fail(f"eq. 9 through the blocked route: launches {counts_f}")
     if not head_ok:
         fail("eq. 9 through the blocked route differs from the dense run")
@@ -1055,7 +1124,7 @@ def main() -> None:
           f"{float(curve_w[-1]):.6f}, wall {wall_w:.2f} s "
           f"({wall_w / WIDE_POINTS * 1e3:.3f} ms/tick), launches {counts_w}")
     if counts_w != {"window": 0, "delta": 0, "assign": 0,
-                    "blocked": WIDE_POINTS, "topk": 0}:
+                    "blocked": WIDE_POINTS, "topk": 0, "ring": 0}:
         fail(f"eq. 9 at d={WIDE_D}: launches {counts_w}, expected one "
              f"blocked launch per tick and nothing else")
     if (len(curve_w) != WIDE_POINTS // 10
@@ -1081,22 +1150,17 @@ def main() -> None:
         lengths=lengths_wc)
     counts_u = launch_counts()
     head_w = res_w.distortion[: n_c // 10]
-    c_err = float(((head_w - oracle_w.distortion).abs()
-                   / oracle_w.distortion.abs()).max())
-    rows = int(((short_w.w_shared - oracle_w.w_shared).abs() > ROW_ATOL)
-               .any(dim=1).sum())
+    held_to(f"eq. 9 at d={WIDE_D}, first {n_c} ticks vs scheme_async",
+            head_w, oracle_w.distortion, short_w.w_shared, oracle_w.w_shared)
+    ticks_ok = torch.equal(short_w.wall_ticks, oracle_w.wall_ticks)
+    head_ok = torch.equal(short_w.distortion, head_w)
     via_ok = (torch.equal(unfused_w.distortion, short_w.distortion)
               and same_bits(unfused_w.w_shared, short_w.w_shared))
-    print(f"check eq. 9 at d={WIDE_D}, first {n_c} ticks vs scheme_async: "
-          f"max rel curve diff {c_err:.3e} (rtol {CURVE_RTOL}), codebook "
-          f"rows off by > {ROW_ATOL}: {rows} of {KAPPA}, ticks equal "
-          f"{torch.equal(short_w.wall_ticks, oracle_w.wall_ticks)}, short "
-          f"run == main run's head {torch.equal(short_w.distortion, head_w)};"
-          f" fused=False (assign kernel + index_add_, launches {counts_u}) "
-          f"== blocked route bitwise {via_ok}")
-    if (c_err > CURVE_RTOL or rows > ROWS_FRAC * KAPPA
-            or not torch.equal(short_w.wall_ticks, oracle_w.wall_ticks)
-            or not torch.equal(short_w.distortion, head_w)):
+    print(f"check eq. 9 at d={WIDE_D}, first {n_c} ticks: ticks equal "
+          f"{ticks_ok}, short run == main run's head {head_ok}; fused=False "
+          f"(assign kernel + index_add_, launches {counts_u}) == blocked "
+          f"route bitwise {via_ok}")
+    if not (ticks_ok and head_ok):
         fail(f"eq. 9 at d={WIDE_D}: first ticks disagree with the oracle")
     if counts_u["assign"] != n_c or counts_u["blocked"] or not via_ok:
         fail(f"eq. 9 at d={WIDE_D}, fused=False: launches {counts_u}, equal "
@@ -1185,7 +1249,149 @@ def main() -> None:
           f"{ {str(k): [round(x, 4) for x in v]
               for k, v in tile_ms.items()} }")
 
-    # -- 15. timing at the main path's shapes ---------------------------------
+    # -- 15. the ring kernel against its plain version ------------------------
+    ring_mask = torch.tensor(RING_MASK, device=dev)
+    gen_r = torch.Generator(device=dev).manual_seed(SEED + 7)
+    wide_payload = torch.randn((M, KAPPA * WIDE_D), generator=gen_r,
+                               device=dev)
+    eval_payload = vq.distortion(eval_data, w0).view(M, 1).contiguous()
+    for x, label, mask in (
+            (payload, "window displacement", None),
+            (normal_payload, "N(0, 1)", None),
+            (normal_payload, "N(0, 1), 0/1 mask", ring_mask),
+            (eval_payload, "eval payload", None),
+            (torch.randn((3, 40_040), generator=gen_r, device=dev),
+             "ragged", None),
+            (torch.randn((5, 1_000_003), generator=gen_r, device=dev),
+             "ragged", None),
+            (wide_payload, f"d={WIDE_D} payload", None)):
+        check_ring(x, label, mask)
+
+    # -- 16. the ring transport: sync delta, average, eq. 9, int8 wire --------
+    n_windows = N_PER // TAU
+    ring_wire = comm.ring_wire_bytes(4 * KAPPA * D, M)
+    zero_counts()
+    res_r, ex_r, wall_r = train.run_vq(train.parse_args(
+        full + ["--scheme", "delta", "--transport", "ring"]))
+    counts_r = expect_counts("ring delta", window=n_windows,
+                             ring=2 * n_windows)
+    merge_r = ex_r.last_comm["by_tag"]["merge"]
+    res_d, _, wall_d = runs["delta"]
+    print(f"main path --scheme delta --transport ring: C first "
+          f"{float(res_r.distortion[0]):.6f} last "
+          f"{float(res_r.distortion[-1]):.6f}, wall {wall_r:.2f} s "
+          f"({wall_r / (M * N_PER) * 1e6:.3f} us/point; dense delta "
+          f"{wall_d / (M * N_PER) * 1e6:.3f}), launches {counts_r}, merge "
+          f"wire {ring_wire:,} B a window, {merge_r['wire_bytes']:,} B in all")
+    if merge_r["wire_bytes"] != n_windows * ring_wire:
+        fail(f"ring delta: merge wire {merge_r['wire_bytes']:,} B")
+    if (res_r.w_shared.shape != (KAPPA, D)
+            or not bool(torch.isfinite(res_r.distortion).all())
+            or not float(res_r.distortion[-1]) < float(res_r.distortion[0])):
+        fail("ring delta: result of the wrong shape, not finite or not "
+             "going down")
+    held_to(f"ring delta vs dense delta, all {n_windows} windows",
+            res_r.distortion, res_d.distortion, res_r.w_shared,
+            res_d.w_shared)
+    n_p = RING_PLAIN_WINDOWS
+    short = {}
+    for name, transport in (
+            ("ring", comm.get_transport("ring")),
+            ("dense", comm.get_transport("xla")),
+            ("plain ring", comm.RingTransport().plain()),
+            ("quant[identity:ring]",
+             comm.get_transport("quant", inner="ring", mode="identity"))):
+        zero_counts()
+        short[name] = MeshExecutor(InstantNetwork(), transport=transport,
+                                   device=dev).run(
+            "delta", w0, data[:, : n_p * TAU], eval_data, tau=TAU)
+        expect_counts(f"{name} delta, {n_p} windows", window=n_p,
+                      ring=0 if name in ("dense", "plain ring") else 2 * n_p)
+    held_to(f"ring delta vs dense delta, first {n_p} windows",
+            short["ring"].distortion, short["dense"].distortion,
+            short["ring"].w_shared, short["dense"].w_shared)
+    for name in ("plain ring", "quant[identity:ring]"):
+        same = (same_bits(short[name].distortion, res_r.distortion[:n_p])
+                and same_bits(short[name].w_shared, short["ring"].w_shared))
+        print(f"check ring delta first {n_p} windows == {name} run, bitwise "
+              f"(curve, codebook): {same}")
+        if not same:
+            fail(f"ring delta differs from the {name} run")
+
+    avg = ["--executor", "mesh", "--workers", str(M), "--points",
+           str(RING_AVG_POINTS), "--dim", str(D), "--kappa", str(KAPPA),
+           "--tau", str(TAU), "--seed", str(SEED), "--network", "instant",
+           "--scheme", "average"]
+    n_avg = RING_AVG_POINTS // TAU
+    zero_counts()
+    res_ra, _, wall_ra = train.run_vq(train.parse_args(
+        avg + ["--transport", "ring"]))
+    expect_counts("ring average", window=n_avg, ring=2 * n_avg)
+    res_da, _, _ = train.run_vq(train.parse_args(avg))
+    print(f"--scheme average --transport ring, {RING_AVG_POINTS} "
+          f"points/worker: wall {wall_ra:.2f} s, {2 * n_avg} ring launches")
+    held_to(f"ring average vs dense average, {n_avg} windows",
+            res_ra.distortion, res_da.distortion, res_ra.w_shared,
+            res_da.w_shared)
+
+    n_t = SPARSE_TICKS
+    zero_counts()
+    ring_async = MeshExecutor(GeometricDelayNetwork(P_DELAY),
+                              transport="ring", device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_rq = ring_async.run("async_delta", w0, data[:, :n_t], eval_data,
+                            tau=TAU, lengths=lengths[:, : n_t // TAU + 2])
+    curve_rq = res_rq.distortion.cpu()
+    wall_rq = time.perf_counter() - t0
+    counts_rq = expect_counts("ring eq. 9", delta=n_t, ring=n_t + n_t // 10)
+    merge_rq = ring_async.last_comm["by_tag"]["merge"]
+    print(f"eq. 9 --transport ring (masked ring every tick), {n_t} ticks: C "
+          f"last {float(curve_rq[-1]):.6f}, wall {wall_rq:.2f} s "
+          f"({wall_rq / (M * n_t) * 1e6:.3f} us/point; dense eq. 9 "
+          f"{wall_a / (M * N_PER) * 1e6:.3f}), launches {counts_rq}, merge "
+          f"wire {merge_rq['wire_bytes']:,} B")
+    if merge_rq["wire_bytes"] != n_t * ring_wire:
+        fail(f"ring eq. 9: merge wire {merge_rq['wire_bytes']:,} B")
+    dense_async = MeshExecutor(GeometricDelayNetwork(P_DELAY),
+                               device=dev).run(
+        "async_delta", w0, data[:, :n_t], eval_data, tau=TAU,
+        lengths=lengths[:, : n_t // TAU + 2])
+    held_to(f"ring eq. 9 vs dense eq. 9, {n_t} ticks", res_rq.distortion,
+            dense_async.distortion, res_rq.w_shared, dense_async.w_shared)
+    n_pt = RING_PLAIN_TICKS
+    plain_async = MeshExecutor(
+        GeometricDelayNetwork(P_DELAY), transport=comm.RingTransport().plain(),
+        device=dev).run("async_delta", w0, data[:, :n_pt], eval_data, tau=TAU,
+                        lengths=lengths[:, : n_pt // TAU + 2])
+    same = same_bits(plain_async.distortion, res_rq.distortion[: n_pt // 10])
+    print(f"check ring eq. 9 first {n_pt} ticks == the plain-ring run, "
+          f"bitwise: {same}")
+    if not same:
+        fail("ring eq. 9 differs from the plain-ring run")
+
+    q_args = train.parse_args(lossy_full + ["--transport", "ring",
+                                            "--wire-quant", "int8"])
+    lw = LOSSY_POINTS // TAU
+    zero_counts()
+    res_q, ex_q, wall_q = train.run_vq(q_args)
+    counts_q = expect_counts("int8 over ring", window=lw, ring=2 * lw)
+    merge_q = ex_q.last_comm["by_tag"]["merge"]
+    curve_q = res_q.distortion.cpu()
+    print(f"--transport ring --wire-quant int8, {LOSSY_POINTS} points/worker:"
+          f" C first {float(curve_q[0]):.6f} last {float(curve_q[-1]):.6f} "
+          f"(dense at the same depth {float(res_ld.distortion[-1]):.6f}), "
+          f"wall {wall_q:.2f} s, launches {counts_q}, merge wire "
+          f"{merge_q['wire_bytes'] // lw:,} B a window "
+          f"({merge_q['wire_bytes']:,} B in all)")
+    # int8: a quarter of the f32 ring's bytes and each worker's f32 scale
+    if merge_q["wire_bytes"] != lw * (ring_wire // 4 + 4):
+        fail(f"int8 over ring: merge wire {merge_q['wire_bytes']:,} B")
+    if not (bool(torch.isfinite(curve_q).all())
+            and float(curve_q[-1]) < float(curve_q[0])):
+        fail("int8 over ring: curve not finite or not going down")
+
+    # -- 17. timing at the main path's shapes ---------------------------------
     zwin = data[:, :TAU].contiguous()
     eps = eps_all[:TAU].contiguous()
     win_ms = time_ms(lambda: vq_fused.vq_window(zwin, w0, eps), 200)
@@ -1283,7 +1489,31 @@ def main() -> None:
               f"({tb[1]}), torch.topk(|x|) {tl:.4f} ms (selection only: no "
               f"signed values, no residual); kernel on N(0, 1) entries "
               f"{tn:.4f} ms")
+    ring_t = {}
+    for x, iters in ((normal_payload, 200), (wide_payload, 20)):
+        rk = time_ms(lambda: ring.ring_all_reduce(x), iters)
+        rp = time_ms(lambda: ring.ring_all_reduce_plain(x),
+                     max(3, iters // 20))
+        rl = time_ms(lambda: torch.sum(x, dim=0), iters)
+        # read x once, write one row; (M - 1) additions an entry
+        rb = bound(4 * (M + 1) * x.shape[1], (M - 1) * x.shape[1])
+        ring_t[x.shape[1]] = (rk, rp, rl, rb)
+        print(f"timing ring {tuple(x.shape)}: kernel {rk:.4f} ms, plain "
+              f"{rp:.4f} ms, bound {rb[0]:.4f} ms ({rb[1]}), torch.sum(x, "
+              f"dim=0) {rl:.4f} ms (another order)")
     sync_ex = MeshExecutor(InstantNetwork(), device=dev)
+    ring_ex = MeshExecutor(InstantNetwork(), transport="ring", device=dev)
+    turns = {sync_ex: [], ring_ex: []}
+    for ex in (sync_ex, ring_ex, ring_ex, sync_ex):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex.run("delta", w0, data[:, : PROFILE_WINDOWS * TAU], eval_data,
+               tau=TAU).distortion.cpu()
+        turns[ex].append((time.perf_counter() - t0) / PROFILE_WINDOWS * 1e6)
+    print(f"sync delta, {PROFILE_WINDOWS} windows in turns (dense, ring, "
+          f"ring, dense), us a window on the host clock: dense "
+          f"{[round(t, 1) for t in turns[sync_ex]]}, ring "
+          f"{[round(t, 1) for t in turns[ring_ex]]}")
     profile("--scheme delta, fused",
             lambda: sync_ex.run("delta", w0, data[:, : PROFILE_WINDOWS * TAU],
                                 eval_data, tau=TAU),
@@ -1301,6 +1531,10 @@ def main() -> None:
             lambda: sparse_ex.run("delta", w0,
                                   data[:, : PROFILE_WINDOWS * TAU],
                                   eval_data, tau=TAU),
+            PROFILE_WINDOWS, "window")
+    profile("--scheme delta --transport ring",
+            lambda: ring_ex.run("delta", w0, data[:, : PROFILE_WINDOWS * TAU],
+                                eval_data, tau=TAU),
             PROFILE_WINDOWS, "window")
     profile(f"--scheme async_delta --dim {WIDE_D}",
             lambda: async_ex.run("async_delta", w0w,
@@ -1340,6 +1574,14 @@ def main() -> None:
          "launches": counts_w["blocked"], "max_abs_err": blocked_err,
          "ms": bl_ms, "plain_ms": bl_plain, "bound_ms": bl_bound[0],
          "bound_by": bl_bound[1], "library_ms": None},
+        {"name": "vq_ring", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/vq_ring.cu",
+         "replaces": "src/repro/comm/ring.py:40",
+         "launches": counts_r["ring"], "max_abs_err": 0.0,
+         "ms": ring_t[KAPPA * D][0], "plain_ms": ring_t[KAPPA * D][1],
+         "bound_ms": ring_t[KAPPA * D][3][0],
+         "bound_by": ring_t[KAPPA * D][3][1],
+         "library_ms": ring_t[KAPPA * D][2]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

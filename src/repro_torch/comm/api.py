@@ -168,14 +168,19 @@ class Transport:
 
 
 def get_transport(name, **kwargs) -> Transport:
-    """Factory: 'xla' (dense) | 'sparse' (top-k + error feedback, ``frac=``).
+    """Factory: 'xla' (dense) | 'ring' (dense, the ring kernel) | 'sparse'
+    (top-k + error feedback, ``frac=``) | 'quant' (``inner=``, ``mode=``:
+    bf16/int8 deltas over another transport).
 
     An already-constructed ``Transport`` passes through unchanged."""
     if isinstance(name, Transport):
         return name
+    from repro_torch.comm.quant import QuantizedTransport
+    from repro_torch.comm.ring import RingTransport
     from repro_torch.comm.sparse import SparseTransport
     from repro_torch.comm.xla import XlaTransport
-    transports = {"xla": XlaTransport, "sparse": SparseTransport}
+    transports = {"xla": XlaTransport, "ring": RingTransport,
+                  "sparse": SparseTransport, "quant": QuantizedTransport}
     if name not in transports:
         raise ValueError(
             f"unknown transport {name!r}; choose from {sorted(transports)}")

@@ -2,7 +2,8 @@
 
 Entry points take ``device=None`` (meaning ``cuda``) or an explicit
 ``"cpu"``.  Asking for CUDA on a machine without a card raises; nothing
-quietly carries on on the CPU.
+quietly carries on on the CPU.  The launchers also pin f32 products to full
+f32 (``pin_full_f32``).
 """
 
 from __future__ import annotations
@@ -21,3 +22,12 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
             "CUDA was asked for (the default) but torch.cuda.is_available() "
             "is False; pass device='cpu' to run on the CPU")
     return dev
+
+
+def pin_full_f32() -> None:
+    """Run f32 matrix products and convolutions in full f32 for the rest of
+    the process, whatever the caller set before: TF32 keeps about three
+    decimal digits and would flip near-tie assignments against the f32
+    reference."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -30,12 +30,14 @@ workers of ``vq.distortion`` on each worker's eval points, reduced through
 the transport with tag ``"eval"``.
 
 The merge runs on the executor's transport: the dense ``XlaTransport`` by
-default, or the top-k ``SparseTransport`` (``transport="sparse"`` or an
-instance with its ``frac``).  A stateful transport's state (the sparse
-residual, f32 (M, kappa, d) on the device) is made once per run and threaded
-window by window, or tick by tick for eq. 9, as the reference threads it
-through its scans.  With ``use_kernels`` off the transport's selection is
-its plain version too (``Transport.plain``).
+default, the dense ``RingTransport`` (the ring kernel), the top-k
+``SparseTransport`` (``transport="sparse"`` or an instance with its
+``frac``), or a ``QuantizedTransport`` over any of them.  A stateful
+transport's state (the sparse or quantization residual, f32 (M, kappa, d)
+on the device) is made once per run and threaded window by window, or tick
+by tick for eq. 9, as the reference threads it through its scans.  With
+``use_kernels`` off the transport's kernels are their plain versions too
+(``Transport.plain``).
 
 The async scheme (``_run_async``, the reference's ``mesh.py:812-915``) has
 no window: every tick each worker takes one eq.-1 step at batch 1 (through

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures: name -> argument types (every entry point returns int)
 SIGNATURES = {
     # zwin, w0, eps, wout, M, tau, K, D, stream
@@ -48,6 +49,8 @@ SIGNATURES = {
     # M, B, K, D, kchunk, bk, stream (residual and delta may be NULL)
     "vq_delta_blocked_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                              _I, _I, _I, _I, _I, _P),
+    # x, mask, out, M, N, stream (mask may be NULL)
+    "vq_ring_f32": (_P, _P, _P, _I, _L, _P),
 }
 
 

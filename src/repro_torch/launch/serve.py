@@ -142,6 +142,7 @@ def run_vq(args, *, codebook: torch.Tensor | None = None,
 
 
 def main(argv=None) -> int:
+    device_lib.pin_full_f32()
     return run_vq(parse_args(argv)).rc
 
 

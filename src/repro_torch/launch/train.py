@@ -5,10 +5,12 @@
         --executor mesh --scheme delta --workers 8 --points 125000 \\
         --dim 128 --kappa 4096
 
-``--transport sparse --compress-frac F`` (mesh executor only) merges through
-the top-k/error-feedback transport, each worker shipping its F * kappa * d
-largest displacement entries.  ``--scheme async_delta`` runs eq. 9 with the
-per-tick masked merge; its
+``--transport ring`` (mesh executor only) merges through the ring
+all-reduce kernel, ``--transport sparse --compress-frac F`` through the
+top-k/error-feedback transport, each worker shipping its F * kappa * d
+largest displacement entries; ``--wire-quant {bf16,int8}`` (mesh only)
+encodes the merge deltas over either, with error feedback.  ``--scheme
+async_delta`` runs eq. 9 with the per-tick masked merge; its
 round lengths are drawn from the network with a CPU generator seeded by
 ``--seed``.  Data is drawn from ``--seed`` on the run's device (``--device
 cuda``, the default, or ``cpu``).  Prints the distortion-vs-ticks table, the
@@ -64,12 +66,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                     default="instant")
     ap.add_argument("--latency", type=int, default=1)
     ap.add_argument("--p-delay", type=float, default=0.5)
-    ap.add_argument("--transport", choices=("xla", "sparse"), default="xla",
-                    help="merge transport (mesh executor): dense, or top-k "
-                         "with error feedback")
+    ap.add_argument("--transport", choices=("xla", "ring", "sparse"),
+                    default="xla",
+                    help="merge transport (mesh executor): dense, dense "
+                         "through the ring kernel, or top-k with error "
+                         "feedback")
     ap.add_argument("--compress-frac", type=float, default=0.01,
                     help="sparse transport: fraction of entries each worker "
                          "ships per merge")
+    ap.add_argument("--wire-quant", choices=("off", "bf16", "int8"),
+                    default="off",
+                    help="quantize merge deltas on the wire (mesh "
+                         "executor): bf16 halves, int8 quarters the merge "
+                         "wire bytes, both with an error-feedback residual")
     ap.add_argument("--autotune", choices=autotune.MODES, default="cache",
                     help="kernel tile selection: 'off' pins the untuned "
                          "tiles, 'cache' picks per shape from the model "
@@ -102,9 +111,13 @@ def build_executor(args, dev: torch.device):
         net_kw["p_delay"] = args.p_delay
     kw = {}
     if args.executor == "mesh":
-        kw["transport"] = comm.get_transport(
+        transport = comm.get_transport(
             args.transport, **({"frac": args.compress_frac}
                                if args.transport == "sparse" else {}))
+        if args.wire_quant != "off":
+            transport = comm.get_transport("quant", inner=transport,
+                                           mode=args.wire_quant)
+        kw["transport"] = transport
     return get_executor(args.executor, network=get_network(args.network,
                                                            **net_kw),
                         device=dev, **kw)
@@ -151,6 +164,7 @@ def run_vq(args):
 
 
 def main(argv=None) -> int:
+    device_lib.pin_full_f32()
     args = parse_args(argv)
     if args.points < args.tau:
         print(f"error: --points {args.points} is less than one tau="
@@ -160,6 +174,10 @@ def main(argv=None) -> int:
         # the sim oracles issue no collective for a transport to reroute
         print(f"error: --transport {args.transport} needs --executor mesh "
               f"(the sim backend issues no collectives)")
+        return 2
+    if args.wire_quant != "off" and args.executor != "mesh":
+        print(f"error: --wire-quant quantizes the mesh transport's "
+              f"collectives; got --executor {args.executor}")
         return 2
     run_vq(args)
     return 0

@@ -220,6 +220,29 @@ def test_launch_train_cli_on_cpu():
         assert train.main(["--points", "5", "--device", "cpu"]) == 2
 
 
+def test_launchers_pin_tf32_off():
+    """Both launchers run f32 products in full f32 whatever the process set
+    before (TF32 would flip near-tie assignments against the reference)."""
+    from repro_torch.launch import serve
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.cudnn.allow_tf32)
+    try:
+        for main, argv in (
+                (train.main, ["--workers", "2", "--points", "20"]),
+                (serve.main, ["--smoke", "--requests", "4", "--dim", "8",
+                              "--kappa", "8", "--tick-ms", "0"])):
+            torch.set_float32_matmul_precision("high")
+            torch.backends.cudnn.allow_tf32 = True
+            assert torch.backends.cuda.matmul.allow_tf32
+            with contextlib.redirect_stdout(io.StringIO()):
+                assert main(argv + ["--device", "cpu"]) == 0
+            assert not torch.backends.cuda.matmul.allow_tf32
+            assert not torch.backends.cudnn.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+
+
 def test_synthetic_data_is_seeded_and_shaped():
     def draw(seed):
         gen = torch.Generator().manual_seed(seed)
@@ -269,7 +292,7 @@ def test_scheme_and_factory_validation():
     with pytest.raises(ValueError):
         get_executor("thread")
     with pytest.raises(ValueError):
-        comm.get_transport("ring")
+        comm.get_transport("pigeon")
     with pytest.raises(ValueError):
         merge_lib.get_merge("quorum")
     t = comm.get_transport("xla")

@@ -223,7 +223,7 @@ def test_assign_wrapper_validates_and_never_counts_cpu():
     assert vq_assign.launches_assign == before
     assert set(_build.SIGNATURES) == {"vq_window_f32", "vq_delta_f32",
                                       "vq_assign_f32", "vq_topk_f32",
-                                      "vq_delta_blocked_f32"}
+                                      "vq_delta_blocked_f32", "vq_ring_f32"}
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
@@ -236,7 +236,8 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {"vq_window.cu",
                                                           "vq_delta.cu",
                                                           "vq_topk.cu",
-                                                          "vq_blocked.cu"}
+                                                          "vq_blocked.cu",
+                                                          "vq_ring.cu"}
     assert os.path.basename(_build.BUILD_ROOT) == ".build"
 
 
