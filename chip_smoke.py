@@ -40,10 +40,14 @@ PyTorch built for CUDA:
      final distortion below the initial one and below twice the sync delta
      run's;
   9. holds the top-k kernel against its plain version on the card, bit for
-     bit (vals, idx, residual), at (8, 524,288) with k = 5,242, 524, 1 and
-     524,288, at a ragged (3, 40,040) with k = 37, and on a tie-heavy input
-     (mostly zeros of both signs, repeated magnitudes of both signs) with k
-     cutting through a tie;
+     bit (vals, idx, residual), with one counted launch a call, at (8,
+     524,288) with k = 5,242, 524, 1 and 524,288, the window displacement
+     also at k = its rows' non-zero counts and those +- 1 (the T = 0 early
+     exit on either side), at a ragged (3, 40,040) with k = 37, on a
+     tie-heavy input (mostly zeros of both signs, repeated magnitudes of
+     both signs) with k cutting through a tie, and on 0.5 tie runs across
+     every slice boundary of the (8, 524,288) row, cut at a boundary; and
+     prints the launch plan of each shape (8-block clusters, slice length);
   10. runs the sparse transport: ``--scheme delta --transport sparse
      --compress-frac 0.01`` on 8 x 125,000 points, which must give the
      dense delta run's curve and codebook bit for bit (k = 5,242 keeps every
@@ -78,9 +82,12 @@ PyTorch built for CUDA:
   15. holds the ring all-reduce kernel against its plain version, bit for
      bit, with one launch a call, at (8, 524,288) (a window's displacement,
      N(0, 1) entries, and N(0, 1) under a 0/1 mask), (8, 1) (the eval
-     payload), ragged (3, 40,040) and (5, 1,000,003), and (8, 12,582,912)
-     (the d=3072 payload, 402.7 MB), and prints the largest |ring -
-     torch.sum| as a read-out (the orders differ);
+     payload), ragged (3, 40,040) and (5, 1,000,003), (8, 524,285) (chunk
+     a multiple of 4, N not), (5, 999,996) (the float4 route with a short
+     last chunk, plain and masked), and (8, 12,582,912) (the d=3072
+     payload, 402.7 MB), and prints the largest |ring - torch.sum| as a
+     read-out (the orders differ); then the top-k kernel on the d=3072
+     payload at k = 1% (402.7 MB, past L2), bit for bit;
   16. drives ``--scheme delta --transport ring`` on 8 x 125,000 points
      through the launcher: 12,500 window and 25,000 ring launches (merge and
      eval) and no other, 3,670,016 B of merge wire a window, its curve and
@@ -96,11 +103,16 @@ PyTorch built for CUDA:
      ``--transport ring --wire-quant int8`` on 8 x 20,000 points (917,508 B
      of wire a window, 4,000 ring launches, distortion falling);
   17. times each kernel, its plain version, its bound and, for the top-k
-     kernel, ``torch.topk`` (selection only), for the ring kernel
-     ``torch.sum(x, dim=0)``, and traces 200 windows of the sync delta
-     path, 1,000 ticks of the eq.-9 path, 200 windows of the sparse eq.-8
-     path, 200 windows of the ring sync path and 200 ticks of the
-     3072-wide eq.-9 path with torch.profiler (device time by kernel, the
+     kernel, ``torch.topk`` (selection only, also on the d=3072 payload),
+     for the ring kernel ``torch.sum(x, dim=0)`` (each in turns with its
+     library call), all on one yardstick (``kernel_ms``: CUDA events around
+     each call, 1 GiB read before it to flush L2, so inputs come from
+     device memory as the bound assumes), beside each kernel's CUDA-event time
+     over back-to-back calls (L2 warm, the wrapper's host time included);
+     and traces 200 windows of the
+     sync delta path, 1,000 ticks of the eq.-9 path, 200 windows of the
+     sparse eq.-8 path, 200 windows of the ring sync path and 200 ticks of
+     the 3072-wide eq.-9 path with torch.profiler (device time by kernel, the
      device's idle share), after timing 200 dense and ring sync windows in
      turns on the host clock;
   18. prints one ``{"kernels": [...]}`` line (window, delta, assign,
@@ -156,6 +168,9 @@ RING_MASK = (1.0, 0.0, 1.0, 1.0, 0.0, 0.0, 1.0, 0.0)  # a 0/1 mask over M=8
 # f32 FLOP/s outside the tensor cores (both kernels run on the f32 pipes)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# read before each call kernel_ms times: 20 times the H100's 50 MB L2, and
+# ~0.3 ms of device time in which the host enqueues the call
+L2_FLUSH_BYTES = 1 << 30
 
 # Tolerances.  cuBLAS accumulates z @ w^T in another order than the
 # kernels, so a near-tie can flip an assignment: a flip is accepted when the
@@ -204,6 +219,53 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+_flush = []  # the buffer kernel_ms reads, made at its first call
+
+
+def kernel_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Median time of one call of fn, the yardstick of every kernel, plain
+    and library time this script reports: CUDA events just before and
+    after each of ``iters`` calls, with ``L2_FLUSH_BYTES`` read just before
+    the first event, so the call finds none of its inputs in L2, as the
+    bound (bytes over the HBM rate) assumes.  A read leaves L2 clean: a write would
+    leave dirty lines that the timed call pays to write back.  The read
+    also keeps the card busy while the host enqueues the call, so the
+    wrapper's host time is left out where it is shorter than the read
+    (~0.3 ms); ``time_ms`` counts it."""
+    import torch
+    if not _flush:
+        _flush.append(torch.zeros(L2_FLUSH_BYTES // 4, device="cuda"))
+    for _ in range(warmup):
+        fn()
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in marks:
+        _flush[0].sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sorted(a.elapsed_time(b) for a, b in marks)[iters // 2]
+
+
+def in_turns(kernel, library, iters: int) -> tuple[list, list]:
+    """``kernel_ms`` of a kernel and of the library call it is held
+    against, in turns (kernel, library, library, kernel): two readings
+    each, in ms."""
+    order = (kernel, library, library, kernel)
+    got = [kernel_ms(fn, iters) for fn in order]
+    return [got[0], got[3]], [got[1], got[2]]
+
+
+def mean(xs) -> float:
+    return sum(xs) / len(xs)
+
+
+def r4(xs) -> list:
+    """Readings in ms to 0.1 us, for printing."""
+    return [round(x, 4) for x in xs]
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -278,40 +340,87 @@ def tie_heavy(dev, m: int, n: int) -> tuple:
     return x, (1500, 4000, 6734)
 
 
-def topk_equal(full, k: int, label: str) -> None:
-    """The top-k kernel against its plain version, bit for bit."""
+def tie_runs(dev, m: int, n: int) -> tuple:
+    """(m, n) of zeros of both signs with a run of 64 entries of magnitude
+    0.5 (both signs) centred on every multiple of 32,768 inside the row
+    (every slice boundary of the 8-block cluster at n = 524,288, and the
+    midpoints between), and 3 distinct magnitudes in [1, 2) between each
+    pair of runs; and ks whose cut falls at a run's centre (a slice
+    boundary), 10 entries past it, at the last 0.5, and in the zeros
+    40,000 entries on (across many warps' segments)."""
     import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    sign = torch.where(torch.rand((m, n), generator=gen, device=dev) < 0.5,
+                       -1.0, 1.0)
+    x = torch.zeros((m, n), device=dev) * sign     # -0.0 where sign < 0
+    pos = torch.arange(n, device=dev)
+    run = ((pos + 32) % 32_768 < 64) & (pos >= 32) & (pos < n - 32)
+    x[:, run] = 0.5 * sign[:, run]
+    big = torch.tensor([b + 32_768 * j for j in range(n // 32_768)
+                        for b in (8_000, 16_000, 24_000)], device=dev)
+    x[:, big] = (1.0 + torch.rand((m, big.numel()), generator=gen,
+                                  device=dev)) * sign[:, big]
+    n_big, n_half = big.numel(), int(run.sum())
+    return x, (n_big + 7 * 64 + 32, n_big + 7 * 64 + 42, n_big + n_half,
+               n_big + n_half + 40_000)
 
+
+def topk_equal(full, k: int, label: str) -> None:
+    """The top-k kernel against its plain version, bit for bit, with one
+    counted launch for the call."""
     from repro_torch.kernels import vq_fused
+    before = vq_fused.launches_topk
     got = vq_fused.vq_topk(full, k)
+    launched = vq_fused.launches_topk - before
     want = vq_fused.vq_topk_plain(full, k)
-    same = [torch.equal(a.view(torch.int32), b.view(torch.int32))
-            for a, b in zip(got, want)]
-    if not all(same):
+    same = [same_bits(a, b) for a, b in zip(got, want)]
+    if not all(same) or launched != 1:
         fail(f"top-k {label}, k={k}: kernel differs from the plain version "
-             f"(vals, idx, residual bitwise equal: {same})")
+             f"(vals, idx, residual bitwise equal: {same}) or launched "
+             f"{launched} times")
+
+
+def topk_plan_line(full) -> str:
+    """The launch plan of the top-k kernel on full: cluster and slice."""
+    from repro_torch.kernels import vq_fused
+    m, n = full.shape
+    plan = vq_fused._topk_plan(m, n, 1)
+    return (f"({m}, {n}): {m} clusters of {plan.cluster} blocks, slice "
+            f"{plan.slice_len:,}")
 
 
 def check_topk(dev, payload, normal, ks) -> None:
     """The top-k kernel against its plain version at the main path's shape
-    (a window's displacement and N(0, 1) entries) at each of ``ks``, ragged
-    and tie-heavy."""
+    (a window's displacement and N(0, 1) entries) at each of ``ks``, the
+    displacement at k = its rows' non-zero counts and those counts +- 1
+    (the T = 0 early exit on either side), ragged, tie-heavy, and with tie
+    runs across the slice boundaries."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     n = KAPPA * D
-    for full, label in ((payload, "window displacement"),
-                        (normal, "N(0, 1)")):
-        for k in ks:
+    nz_rows = (payload != 0).sum(dim=1).tolist()
+    nz_ks = sorted({c + d for c in (min(nz_rows), max(nz_rows))
+                    for d in (-1, 0, 1) if 1 <= c + d <= n})
+    for full, label, kk in ((payload, "window displacement", ks + tuple(nz_ks)),
+                            (normal, "N(0, 1)", ks)):
+        for k in kk:
             topk_equal(full, k, f"({M}, {n}) {label}")
     ragged = torch.randn((3, 40_040), generator=gen, device=dev)
     topk_equal(ragged, 37, "ragged (3, 40040)")
     ties, tie_ks = tie_heavy(dev, 4, 100_003)
     for k in tie_ks:
         topk_equal(ties, k, "tie-heavy (4, 100003)")
-    print(f"check top-k vs plain, bitwise (vals, idx, residual): ({M}, {n}) "
-          f"window displacement ({int((payload != 0).sum())} non-zero) and "
-          f"N(0, 1) at k = {ks}; ragged (3, 40040) at k = 37; "
-          f"tie-heavy (4, 100003) at k = {tie_ks}: all equal")
+    runs, run_ks = tie_runs(dev, M, n)
+    for k in run_ks:
+        topk_equal(runs, k, f"tie runs ({M}, {n})")
+    print(f"check top-k vs plain, bitwise (vals, idx, residual), one launch "
+          f"a call: ({M}, {n}) window displacement (non-zero per row "
+          f"{nz_rows}) at k = {ks} and {nz_ks} and N(0, 1) at k = {ks}; "
+          f"ragged (3, 40040) at k = 37; tie-heavy (4, 100003) at k = "
+          f"{tie_ks}; 0.5 tie runs across every slice boundary ({M}, {n}) "
+          f"at k = {run_ks}: all equal")
+    print(f"top-k plans: {topk_plan_line(payload)}; "
+          f"{topk_plan_line(ragged)}; {topk_plan_line(ties)}")
 
 
 def check_assign(z, w, label: str) -> tuple[int, float]:
@@ -1264,8 +1373,20 @@ def main() -> None:
              "ragged", None),
             (torch.randn((5, 1_000_003), generator=gen_r, device=dev),
              "ragged", None),
+            (torch.randn((M, KAPPA * D - 3), generator=gen_r, device=dev),
+             "chunk a multiple of 4, N not", None),
+            (torch.randn((5, 999_996), generator=gen_r, device=dev),
+             "float4 route, short last chunk", None),
+            (torch.randn((5, 999_996), generator=gen_r, device=dev),
+             "float4 route, 0/1 mask", ring_mask[:5].contiguous()),
             (wide_payload, f"d={WIDE_D} payload", None)):
         check_ring(x, label, mask)
+    # the top-k kernel past its shared memory: the d=3072 payload at 1%
+    k_wide = max(1, int(SPARSE_FRAC * KAPPA * WIDE_D))
+    topk_equal(wide_payload, k_wide, f"d={WIDE_D} payload")
+    print(f"check top-k vs plain, bitwise, one launch: ({M}, "
+          f"{KAPPA * WIDE_D}) d={WIDE_D} payload at k = {k_wide}: equal; "
+          f"plan {topk_plan_line(wide_payload)}")
 
     # -- 16. the ring transport: sync delta, average, eq. 9, int8 wire --------
     n_windows = N_PER // TAU
@@ -1392,15 +1513,20 @@ def main() -> None:
         fail("int8 over ring: curve not finite or not going down")
 
     # -- 17. timing at the main path's shapes ---------------------------------
+    # every kernel, plain and library time by kernel_ms (L2 cold, host time
+    # hidden); "warm" is time_ms over back-to-back wrapper calls (L2 warm,
+    # the wrapper's host time included), a read-out beside it
     zwin = data[:, :TAU].contiguous()
     eps = eps_all[:TAU].contiguous()
-    win_ms = time_ms(lambda: vq_fused.vq_window(zwin, w0, eps), 200)
-    win_plain = time_ms(lambda: vq_fused.vq_window_plain(zwin, w0, eps), 10)
+    win_ms = kernel_ms(lambda: vq_fused.vq_window(zwin, w0, eps), 200)
+    win_warm = time_ms(lambda: vq_fused.vq_window(zwin, w0, eps), 200)
+    win_plain = kernel_ms(lambda: vq_fused.vq_window_plain(zwin, w0, eps), 10)
     win_bound = bound(4 * (M * TAU * D + KAPPA * D + TAU + M * KAPPA * D),
                       TAU * M * KAPPA * (2 * D + 3))
     z1 = data[:, :1].contiguous()
-    d1_ms = time_ms(lambda: vq_assign.vq_delta(z1, wb), 200)
-    d1_plain = time_ms(lambda: vq_assign.vq_delta_plain(z1, wb), 50)
+    d1_ms = kernel_ms(lambda: vq_assign.vq_delta(z1, wb), 200)
+    d1_warm = time_ms(lambda: vq_assign.vq_delta(z1, wb), 200)
+    d1_plain = kernel_ms(lambda: vq_assign.vq_delta_plain(z1, wb), 50)
 
     def delta_bound(b):
         return bound(4 * (M * b * D + M * KAPPA * D + M * KAPPA
@@ -1408,32 +1534,34 @@ def main() -> None:
                      M * b * KAPPA * (2 * D + 3) + M * b * D)
 
     d1_bound = delta_bound(1)
-    de_ms = time_ms(lambda: vq_assign.vq_delta(eval_data, wb), 20)
-    de_plain = time_ms(lambda: vq_assign.vq_delta_plain(eval_data, wb), 10)
+    de_ms = kernel_ms(lambda: vq_assign.vq_delta(eval_data, wb), 20)
+    de_plain = kernel_ms(lambda: vq_assign.vq_delta_plain(eval_data, wb), 10)
     de_bound = delta_bound(N_EVAL)
     print(f"timing window (M={M}, tau={TAU}, kappa={KAPPA}, d={D}): kernel "
-          f"{win_ms:.4f} ms, plain {win_plain:.4f} ms, bound "
-          f"{win_bound[0]:.4f} ms ({win_bound[1]})")
-    print(f"timing delta batch 1: kernel {d1_ms:.4f} ms, plain "
-          f"{d1_plain:.4f} ms, bound {d1_bound[0]:.4f} ms ({d1_bound[1]})")
+          f"{win_ms:.4f} ms (warm {win_warm:.4f}), plain {win_plain:.4f} ms, "
+          f"bound {win_bound[0]:.4f} ms ({win_bound[1]})")
+    print(f"timing delta batch 1: kernel {d1_ms:.4f} ms (warm "
+          f"{d1_warm:.4f}), plain {d1_plain:.4f} ms, bound "
+          f"{d1_bound[0]:.4f} ms ({d1_bound[1]})")
     print(f"timing delta batch {N_EVAL}: kernel {de_ms:.4f} ms, plain "
           f"{de_plain:.4f} ms, bound {de_bound[0]:.4f} ms ({de_bound[1]})")
     zf = torch.randn((FLUSH_ROWS, D), device=dev)
     wt = trained.contiguous()
-    af_ms = time_ms(lambda: vq_assign.vq_assign(zf, wt), 200)
-    af_plain = time_ms(lambda: vq_assign.vq_assign_plain(zf, wt), 200)
+    af_ms = kernel_ms(lambda: vq_assign.vq_assign(zf, wt), 200)
+    af_warm = time_ms(lambda: vq_assign.vq_assign(zf, wt), 200)
+    af_plain = kernel_ms(lambda: vq_assign.vq_assign_plain(zf, wt), 200)
 
     def assign_bound(m, b):
         return bound(4 * (m * b * D + m * KAPPA * D + 2 * m * b),
                      m * b * KAPPA * (2 * D + 3) + m * b * D)
 
     af_bound = assign_bound(1, FLUSH_ROWS)
-    ae_ms = time_ms(lambda: vq_assign.vq_assign(eval_data, wb), 20)
-    ae_plain = time_ms(lambda: vq_assign.vq_assign_plain(eval_data, wb), 10)
+    ae_ms = kernel_ms(lambda: vq_assign.vq_assign(eval_data, wb), 20)
+    ae_plain = kernel_ms(lambda: vq_assign.vq_assign_plain(eval_data, wb), 10)
     ae_bound = assign_bound(M, N_EVAL)
     print(f"timing assign flush ({FLUSH_ROWS} x {KAPPA} x {D}): kernel "
-          f"{af_ms:.4f} ms, plain {af_plain:.4f} ms, bound "
-          f"{af_bound[0]:.4f} ms ({af_bound[1]})")
+          f"{af_ms:.4f} ms (warm {af_warm:.4f}), plain {af_plain:.4f} ms, "
+          f"bound {af_bound[0]:.4f} ms ({af_bound[1]})")
     print(f"timing assign eval (({M}, {N_EVAL}) x {KAPPA} x {D}): kernel "
           f"{ae_ms:.4f} ms, plain {ae_plain:.4f} ms, bound "
           f"{ae_bound[0]:.4f} ms ({ae_bound[1]})")
@@ -1447,25 +1575,28 @@ def main() -> None:
         flops = M * KAPPA * (2 * d + 3) + M * d + (3 * big if epilogue else 0)
         return bound(4 * (n_in + n_out), flops)
 
-    bl_ms = time_ms(lambda: vq_fused.vq_delta_blocked(z1w, ww), 100)
-    bl_plain = time_ms(lambda: vq_fused.vq_delta_blocked_plain(z1w, ww), 20)
+    bl_ms = kernel_ms(lambda: vq_fused.vq_delta_blocked(z1w, ww), 100)
+    bl_warm = time_ms(lambda: vq_fused.vq_delta_blocked(z1w, ww), 100)
+    bl_plain = kernel_ms(lambda: vq_fused.vq_delta_blocked_plain(z1w, ww), 20)
     bl_bound = blocked_bound(WIDE_D, False)
-    be_ms = time_ms(lambda: vq_fused.vq_delta_blocked(
+    be_ms = kernel_ms(lambda: vq_fused.vq_delta_blocked(
         z1w, ww, residual=resid_w), 100)
-    be_plain = time_ms(lambda: vq_fused.vq_delta_blocked_plain(
+    be_plain = kernel_ms(lambda: vq_fused.vq_delta_blocked_plain(
         z1w, ww, resid_w), 20)
     be_bound = blocked_bound(WIDE_D, True)
     pair = {"blocked": [], "delta": []}
     for name in ("blocked", "delta", "delta", "blocked"):
         fn = vq_fused.vq_delta_blocked if name == "blocked" else (
             vq_assign.vq_delta)
-        pair[name].append(time_ms(lambda: fn(z1, wb), 200))
-    b128_plain = time_ms(lambda: vq_fused.vq_delta_blocked_plain(z1, wb), 50)
+        pair[name].append(kernel_ms(lambda: fn(z1, wb), 200))
+    b128_plain = kernel_ms(lambda: vq_fused.vq_delta_blocked_plain(z1, wb),
+                           50)
     b128_bound = blocked_bound(D, False)
     print(f"timing blocked ({M}, 1) x {KAPPA} x {WIDE_D}: kernel {bl_ms:.4f} "
-          f"ms, plain {bl_plain:.4f} ms, bound {bl_bound[0]:.4f} ms "
-          f"({bl_bound[1]}); with the epilogue: kernel {be_ms:.4f} ms, plain "
-          f"{be_plain:.4f} ms, bound {be_bound[0]:.4f} ms ({be_bound[1]})")
+          f"ms (warm {bl_warm:.4f}), plain {bl_plain:.4f} ms, bound "
+          f"{bl_bound[0]:.4f} ms ({bl_bound[1]}); with the epilogue: kernel "
+          f"{be_ms:.4f} ms, plain {be_plain:.4f} ms, bound {be_bound[0]:.4f} "
+          f"ms ({be_bound[1]})")
     print(f"timing blocked ({M}, 1) x {KAPPA} x {D} beside the delta kernel "
           f"(order blocked, delta, delta, blocked): blocked {pair['blocked']}"
           f" ms, delta {pair['delta']} ms, plain {b128_plain:.4f} ms, bound "
@@ -1475,32 +1606,49 @@ def main() -> None:
           "fused with a scatter, a loop of dependent steps, and the "
           "squared-distance argmin with its min: torch.cdist returns "
           "distances, not the argmin and min)")
+    # top-k and ring: the kernel and its library call in turns (kernel,
+    # library, library, kernel)
     topk_t = {}
     n_flat = KAPPA * D
     for k in (k_main, k_l):
-        tk = time_ms(lambda: vq_fused.vq_topk(payload, k), 100)
-        tp = time_ms(lambda: vq_fused.vq_topk_plain(payload, k), 10)
-        tl = time_ms(lambda: torch.topk(payload.abs(), k, dim=1), 100)
+        warm = time_ms(lambda: vq_fused.vq_topk(payload, k), 100)
+        tk, tl = in_turns(lambda: vq_fused.vq_topk(payload, k),
+                          lambda: torch.topk(payload.abs(), k, dim=1), 50)
+        tp = kernel_ms(lambda: vq_fused.vq_topk_plain(payload, k), 5)
         tb = bound(4 * 2 * M * n_flat + 8 * M * k, M * n_flat)
-        tn = time_ms(lambda: vq_fused.vq_topk(normal_payload, k), 100)
-        topk_t[k] = (tk, tp, tl, tb)
+        tn = kernel_ms(lambda: vq_fused.vq_topk(normal_payload, k), 50)
+        topk_t[k] = (mean(tk), tp, mean(tl), tb)
         print(f"timing top-k ({M}, {n_flat}), k={k}, window displacement: "
-              f"kernel {tk:.4f} ms, plain {tp:.4f} ms, bound {tb[0]:.4f} ms "
-              f"({tb[1]}), torch.topk(|x|) {tl:.4f} ms (selection only: no "
-              f"signed values, no residual); kernel on N(0, 1) entries "
-              f"{tn:.4f} ms")
+              f"kernel {r4(tk)} ms, torch.topk(|x|) {r4(tl)} ms (in turns; "
+              f"selection only: no signed values, no residual), plain "
+              f"{tp:.4f} ms, bound {tb[0]:.4f} ms ({tb[1]}); kernel on N(0, "
+              f"1) entries {tn:.4f} ms; warm {warm:.4f} ms")
+    n_wide = KAPPA * WIDE_D
+    warm = time_ms(lambda: vq_fused.vq_topk(wide_payload, k_wide), 20)
+    tk, tl = in_turns(lambda: vq_fused.vq_topk(wide_payload, k_wide),
+                      lambda: torch.topk(wide_payload.abs(), k_wide, dim=1),
+                      10)
+    tp = kernel_ms(lambda: vq_fused.vq_topk_plain(wide_payload, k_wide), 2)
+    tb = bound(4 * 2 * M * n_wide + 8 * M * k_wide, M * n_wide)
+    print(f"timing top-k ({M}, {n_wide}), k={k_wide}, d={WIDE_D} payload "
+          f"(N(0, 1)): kernel {r4(tk)} ms, torch.topk(|x|) {r4(tl)} ms (in "
+          f"turns), plain {tp:.4f} ms, bound {tb[0]:.4f} ms ({tb[1]}); warm "
+          f"{warm:.4f} ms")
     ring_t = {}
     for x, iters in ((normal_payload, 200), (wide_payload, 20)):
-        rk = time_ms(lambda: ring.ring_all_reduce(x), iters)
-        rp = time_ms(lambda: ring.ring_all_reduce_plain(x),
-                     max(3, iters // 20))
-        rl = time_ms(lambda: torch.sum(x, dim=0), iters)
+        re_ = time_ms(lambda: ring.ring_all_reduce(x), iters)
+        le = time_ms(lambda: torch.sum(x, dim=0), iters)
+        rk, rl = in_turns(lambda: ring.ring_all_reduce(x),
+                          lambda: torch.sum(x, dim=0), iters)
+        rp = kernel_ms(lambda: ring.ring_all_reduce_plain(x),
+                       max(3, iters // 20))
         # read x once, write one row; (M - 1) additions an entry
         rb = bound(4 * (M + 1) * x.shape[1], (M - 1) * x.shape[1])
-        ring_t[x.shape[1]] = (rk, rp, rl, rb)
-        print(f"timing ring {tuple(x.shape)}: kernel {rk:.4f} ms, plain "
-              f"{rp:.4f} ms, bound {rb[0]:.4f} ms ({rb[1]}), torch.sum(x, "
-              f"dim=0) {rl:.4f} ms (another order)")
+        ring_t[x.shape[1]] = (mean(rk), rp, mean(rl), rb)
+        print(f"timing ring {tuple(x.shape)}: kernel {r4(rk)} ms, "
+              f"torch.sum(x, dim=0) {r4(rl)} ms (in turns; another order), "
+              f"plain {rp:.4f} ms, bound {rb[0]:.4f} ms ({rb[1]}); warm: "
+              f"kernel {re_:.4f} ms, torch.sum {le:.4f} ms")
     sync_ex = MeshExecutor(InstantNetwork(), device=dev)
     ring_ex = MeshExecutor(InstantNetwork(), transport="ring", device=dev)
     turns = {sync_ex: [], ring_ex: []}

@@ -2,27 +2,30 @@
 
 Counterpart of ``repro/comm/ring.py``.  The reference runs the
 bandwidth-optimal two-phase ring between TPU devices (``_ring_kernel``,
-neighbour remote copies) and falls back to XLA's psum elsewhere.  Here the
-M workers are the leading dimension of one tensor on one card, and
-``ring_all_reduce`` runs the reduce-scatter hops on it in one launch of
-``kernels/csrc/vq_ring.cu``: in hop s (M-1 hops) worker i folds its left
+neighbour remote copies) and falls back to XLA's psum elsewhere.  In its
+reduce-scatter hops (``ring.py:80-94``), hop s has worker i fold its left
 neighbour's partial of chunk ``(i - s - 1) % M`` into its own, the received
 partial as the left operand.  Each worker's payload is cut into M chunks of
 ``ceil(N / M)`` entries, so chunk c sums as the left fold ``(...((x_c +
-x_{c+1}) + x_{c+2}) ... + x_{c-1})`` (worker indices mod M) and ends
-complete on worker ``(c - 1) % M``, which stores it.  The reference's
-all-gather hops only copy completed chunks to every device; with the
-workers on one card the one stored copy is the result, so the copies are
-left out.  The fold order is the contract: it differs from ``torch.sum``'s,
-so the ring and the dense transport agree to rounding, not bit for bit.
-The hop indices and the fold order are the reference's
-(``ring.py:80-94``); its two-slot buffer scheme is not carried over.
+x_{c+1}) + x_{c+2}) ... + x_{c-1})`` (worker indices mod M); the all-gather
+hops only copy completed chunks.  The fold order is the contract: it differs
+from ``torch.sum``'s, so the ring and the dense transport agree to rounding,
+not bit for bit.
+
+Here the M workers are the leading dimension of one tensor on one card.
+``ring_all_reduce`` computes the result of the hops in one launch of
+``kernels/csrc/vq_ring.cu`` without running them: offset p of chunk c only
+ever meets offset p of chunk c on the other workers, and every partial a hop
+would send already lies in the same memory, so each entry is folded in the
+ring's order straight from the M rows and stored once.  The hops come back
+as moves over peer memory only across cards (ROADMAP queue 1, item 9b).
+``ring_all_reduce_plain`` runs the hops themselves in PyTorch; the two agree
+bit for bit.  The reference's two-slot buffer scheme is not carried over.
 
 ``ring_all_reduce`` launches the kernel for a CUDA tensor and takes the
-plain version ``ring_all_reduce_plain`` (the same hops in PyTorch) for a CPU
-tensor only; ``launches_ring`` counts the kernel's launches.  Wire and
-logical bytes are the dense convention's: a ring moves exactly the bytes
-``CommRecord`` charges a dense all-reduce.
+plain version for a CPU tensor only; ``launches_ring`` counts the kernel's
+launches.  Wire and logical bytes are the dense convention's: a ring moves
+exactly the bytes ``CommRecord`` charges a dense all-reduce.
 """
 
 from __future__ import annotations

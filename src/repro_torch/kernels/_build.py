@@ -43,8 +43,9 @@ SIGNATURES = {
                      _P),
     # z, w, mind, assign, w2, pmin, pidx, M, B, K, D, kchunk, stream
     "vq_assign_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # full, vals, idx, residual, M, N, k, stream
-    "vq_topk_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # full, vals, idx, residual, M, N, k, slice length (vq_fused._topk_plan),
+    # stream
+    "vq_topk_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # z, w, residual, counts, zsum, delta, mind, assign, w2, pmin, pidx,
     # M, B, K, D, kchunk, bk, stream (residual and delta may be NULL)
     "vq_delta_blocked_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

@@ -10,12 +10,15 @@ says what bounds its kernel and how.
 
 ``vq_window``, ``vq_delta_blocked`` and ``vq_topk`` launch their kernels for
 CUDA tensors and take the plain versions ``vq_window_plain``,
-``vq_delta_blocked_plain`` and ``vq_topk_plain`` for CPU tensors only.
+``vq_delta_blocked_plain`` and ``vq_topk_plain`` for CPU tensors only; the
+top-k kernel's launch plan is the pure function ``_topk_plan``.
 ``launches``, ``launches_blocked`` and ``launches_topk`` count the kernels'
 launches.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -32,6 +35,10 @@ WARPS = 16
 COLS = 256
 #: Assignments the accumulate sweep stages at once; mirrors the source.
 CHUNK = 256
+
+#: Threads per block of the top-k kernel, and its blocks a row (a thread
+#: block cluster); mirror csrc/vq_topk.cu.
+TOPK_THREADS, TOPK_CLUSTER = 1024, 8
 
 launches = 0
 launches_blocked = 0
@@ -223,6 +230,28 @@ def vq_topk_plain(full: torch.Tensor, k: int
     return vals, idx.to(torch.int32), full - kept
 
 
+class TopkPlan(NamedTuple):
+    """One launch of the top-k kernel: ``cluster`` blocks a row, block r
+    owning entries ``[r * slice_len, (r + 1) * slice_len)`` of it."""
+    cluster: int
+    slice_len: int
+
+
+def _topk_plan(m: int, n: int, k: int) -> TopkPlan:
+    """The top-k kernel's launch for full (m, n) at k: m clusters of
+    ``TOPK_CLUSTER`` blocks, a row split into slices of ``ceil(n / 8)``
+    entries rounded up to a multiple of 4, so that float4 loads stay
+    aligned.  Every pass reads its slice from device memory (from L2 after
+    the first where the rows fit it: at n = 524,288 the 16.8 MB of full
+    do).  There is one route; the plan changes no bit."""
+    if not 1 <= k <= n:
+        raise ValueError(f"vq_topk needs 1 <= k <= N={n}, got k={k}")
+    if not 1 <= m * TOPK_CLUSTER <= 2**31 - 1:
+        raise ValueError(f"M={m} clusters of {TOPK_CLUSTER} blocks are past "
+                         f"the launch grid's limit")
+    return TopkPlan(TOPK_CLUSTER, 4 * -(-n // (4 * TOPK_CLUSTER)))
+
+
 def vq_topk(full: torch.Tensor, k: int
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The k largest-|x| entries of each row of full (M, N) f32, 1 <= k <= N:
@@ -230,7 +259,7 @@ def vq_topk(full: torch.Tensor, k: int
     ``vq_topk_plain``, the pairs in ascending index order.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream."""
+    the current stream, with the plan ``_topk_plan`` gives."""
     global launches_topk
     if full.dim() != 2 or full.dtype != torch.float32:
         raise ValueError(f"vq_topk takes full (M, N) float32, got "
@@ -244,8 +273,10 @@ def vq_topk(full: torch.Tensor, k: int
         raise ValueError(f"vq_topk runs on cuda or cpu, got {full.device}")
     if not full.is_contiguous():
         raise ValueError("full must be contiguous")
-    if m == 0 or m > 2**31 - 1:
-        raise ValueError(f"vq_topk needs 1 <= M < 2**31, got M={m}")
+    if m == 0 or n > 2**31 - 1 - 4 * TOPK_THREADS:
+        raise ValueError(f"vq_topk needs M >= 1 and N < 2**31 - 4096, got "
+                         f"({m}, {n})")
+    plan = _topk_plan(m, n, k)
     vals = torch.empty((m, k), dtype=torch.float32, device=full.device)
     idx = torch.empty((m, k), dtype=torch.int32, device=full.device)
     residual = torch.empty_like(full)
@@ -253,7 +284,8 @@ def vq_topk(full: torch.Tensor, k: int
     with torch.cuda.device(full.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.vq_topk_f32(full.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                             residual.data_ptr(), m, n, k, stream)
+                             residual.data_ptr(), m, n, k, plan.slice_len,
+                             stream)
     _build.check(rc, "vq_topk_f32")
     launches_topk += 1
     return vals, idx, residual

@@ -1,5 +1,6 @@
-"""The port stands alone: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the ``repro`` package."""
+"""The port stands alone: no file of ``src/repro_torch``, nor
+``chip_smoke.py`` or ``kernel_ab.py``, imports JAX or the ``repro``
+package."""
 
 import ast
 from pathlib import Path
@@ -8,7 +9,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "kernel_ab.py"]
 
 
 def _imported_modules(path: Path) -> list[str]:

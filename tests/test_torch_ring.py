@@ -126,6 +126,50 @@ def test_masked_ring_is_the_fold_of_mask_times_x(m):
         ring.ring_all_reduce(xt[:, :12].contiguous(), mt).numpy())
 
 
+def _rotated_fold(x, mask=None):
+    """What ``csrc/vq_ring.cu`` computes, entry by entry: entry g of chunk
+    c = g // chunk is m_c * x_c[g], then + m_{c+j} * x_{c+j}[g] for j = 1 ..
+    m - 1 (worker indices mod m), in float32; no hop is run."""
+    m, n = x.shape
+    mx = x if mask is None else mask[:, None] * x
+    assert mx.dtype == np.float32
+    chunk = -(-n // m)
+    out = np.full(n, np.nan, np.float32)
+    for c in range(m):
+        lo, hi = c * chunk, min(n, (c + 1) * chunk)
+        if lo >= hi:
+            continue
+        acc = mx[c, lo:hi].copy()
+        for j in range(1, m):
+            acc = acc + mx[(c + j) % m, lo:hi]
+        out[lo:hi] = acc
+    return out
+
+
+# (m, n): N and chunk multiples of 4 (the kernel's float4 route), a short
+# last chunk on that route (5, 36), chunk a multiple of 4 while N is not
+# (8, 4,093), ragged chunks, the (8, 1) eval payload, and (2, 7)
+FOLD_SHAPES = [(8, 4096), (5, 36), (8, 4093), (3, 40_040), (5, 10_003),
+               (8, 1), (2, 7)]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("m,n", FOLD_SHAPES)
+def test_rotated_fold_equals_plain_ring_bitwise(m, n, masked):
+    rng = np.random.default_rng(m * 100_003 + n)
+    x, _ = _mixed(rng, m, n)
+    x[:, rng.random(n) < 0.2] = -0.0       # -0.0 in every row
+    x[0, : min(n, 3)] = 0.0                # and +0.0 against it
+    mask = (np.arange(m) % 3 != 1).astype(np.float32) if masked else None
+    want = _rotated_fold(x, mask)
+    got = ring.ring_all_reduce_plain(
+        torch.from_numpy(x), None if mask is None else torch.from_numpy(mask))
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    if masked:
+        np.testing.assert_array_equal(
+            _bits(want), _bits(_numpy_ring(mask[:, None] * x)[0]))
+
+
 def test_ring_wrapper_validates():
     x = torch.zeros((3, 5))
     with pytest.raises(ValueError, match="float32"):
