@@ -14,7 +14,19 @@ PyTorch built for CUDA:
      shape) and batch 1000 (the eval shape), and both at a ragged shape
      that divides none of their block sizes;
   3. checks that the window kernel gives the same codebook, bit for bit, as
-     the per-step path through the delta kernel, window by window;
+     the per-step path through the delta kernel, window by window; then
+     the delta kernel's two routes (the one-launch sweep at B = 1, 2 and 8,
+     the passes at B = 9), each against the plain version and, bit for
+     bit, against the assign kernel's (assign, mind); the sweep called
+     1,000 times back to back on new points, each result against the
+     plain version, and replayed 10 times from a CUDA graph holding two
+     sweeps, each replay equal to eager calls bit for bit and the tickets
+     0 after; the window plan (``vq_fused._window_plan``) at d=128, at
+     d=3072 and under a 100,000 B budget, with how many resident clusters
+     the card holds at once; and the window kernel's resident route at M =
+     1 and 3, at a ragged kappa with register rows and at kappa = 5, and
+     its streaming route at d=128 under that budget, against the per-step
+     path, bit for bit;
   4. holds the assign kernel against its plain version at the serving
      flush shape (128 x 4096 x 128), the eval shape ((8, 1000) x 4096 x
      128) and the ragged shape, and against the delta kernel's
@@ -102,7 +114,8 @@ PyTorch built for CUDA:
      2,000 ticks equal to the plain-ring run bit for bit; and
      ``--transport ring --wire-quant int8`` on 8 x 20,000 points (917,508 B
      of wire a window, 4,000 ring launches, distortion falling);
-  17. times each kernel, its plain version, its bound and, for the top-k
+  17. times each kernel (the delta sweep also at each kchunk the tuner
+     weighs), its plain version, its bound and, for the top-k
      kernel, ``torch.topk`` (selection only, also on the d=3072 payload),
      for the ring kernel ``torch.sum(x, dim=0)`` (each in turns with its
      library call), all on one yardstick (``kernel_ms``: CUDA events around
@@ -156,9 +169,13 @@ SPARSE_TICKS = 20_000   # depth of the sparse eq.-9 leg
 WIDE_D = 3072
 WIDE_POINTS = 2000      # ticks (points) per worker, cut for time
 BLOCKED_TICKS = 2000    # depth of the d=128 eq.-9 leg, blocked route
-# below the window kernel's (3,216 B at d=128, 26,768 B at d=3072) and the
-# delta kernel's (17,536 B at d=128) shared memory: forces the blocked route
+# below the window kernel's smallest block (the streaming route's 3,216 B at
+# d=128, 26,768 B at d=3072) and the delta kernel's (17,536 B at d=128)
+# shared memory: forces the blocked route
 FORCE_BUDGET = 1024
+# below the resident window block (232,436 B at d=128), above the streaming
+# one: the window kernel streams its codebook at d=128
+STREAM_BUDGET = 100_000
 RING_PLAIN_WINDOWS = 200  # sync windows held bitwise against the plain ring
 RING_PLAIN_TICKS = 2000   # eq.-9 ticks held bitwise against the plain ring
 RING_AVG_POINTS = 2000    # depth of the ring average leg
@@ -320,6 +337,152 @@ def check_ragged(dev) -> None:
         fail("ragged shapes: delta kernel disagrees with the plain version")
     if not win_plain:
         fail("ragged shapes: window kernel differs from the plain version")
+
+
+def check_routes(dev, data, w0, wb) -> None:
+    """The delta kernel's two routes and the window kernel's plans.
+
+    Delta: the one-launch sweep (B <= 8) at B = 1, 2 and 8 and the passes
+    at B = 9, each against the plain version (flips only at near-ties,
+    counts and zsum exact where the assignments agree) and, bit for bit,
+    against the assign kernel's (assign, mind), which always takes the
+    passes; then the sweep at B = 1 called 1,000 times back to back, on a
+    new point each call, each result against the plain version (a ticket
+    or partial left stale by a call would show in the next), and replayed
+    from a CUDA graph two sweeps a replay, its tickets read back as 0.
+    Window: the plan at the slice's width, at d=3072 and under
+    ``STREAM_BUDGET``, with how many resident clusters the card holds at
+    once (M must fit one wave); the resident route at M = 1 and 3 (M = 8
+    runs in phase 2), at a ragged kappa with register rows and at kappa = 5
+    (blocks with no row), and the streaming route at d=128 under
+    ``STREAM_BUDGET`` at M = 1 and 3, each against the per-step path
+    through the delta kernel, bit for bit."""
+    import torch
+
+    from repro_torch.core import vq
+    from repro_torch.kernels import vq_assign, vq_fused
+
+    def against_plain(z, w, label):
+        ck, zk, mk, ak = vq_assign.vq_delta(z, w)
+        cp, zp, mp, ap = vq_assign.vq_delta_plain(z, w)
+        aa, ma = vq_assign.vq_assign(z, w)
+        if not (same_bits(ak, aa) and same_bits(mk, ma)):
+            fail(f"delta {label}: (assign, mind) differ from the assign "
+                 f"kernel's")
+        flipped = (ak != ap).nonzero().tolist()
+        for j, b in flipped:
+            ok, gap = flip_gap_ok(z[j, b], w[j], int(ak[j, b]), int(ap[j, b]))
+            if not ok:
+                fail(f"delta {label}: worker {j} point {b}: {int(ak[j, b])} "
+                     f"vs plain {int(ap[j, b])}, gap {gap:.3e}")
+        if not flipped and not (torch.equal(ck, cp) and torch.equal(zk, zp)):
+            fail(f"delta {label}: counts/zsum differ from the plain version")
+        return len(flipped), float((mk - mp).abs().max())
+
+    for b in (1, 2, 8, 9):
+        route = "sweep" if b <= vq_assign.SMALL_B else "passes"
+        n_flip, err = against_plain(data[:, 100:100 + b].contiguous(), wb,
+                                    f"B={b}")
+        print(f"check delta route {route} at ({M}, {b}) x {KAPPA} x {D}: "
+              f"== assign kernel bitwise, {n_flip} flips vs plain, max "
+              f"|mind diff| {err:.3e}")
+    bad, flips = [], 0
+    for i in range(1000):
+        z = data[:, 200 + i:201 + i].contiguous()
+        ck, zk, mk, ak = vq_assign.vq_delta(z, wb)
+        cp, zp, mp, ap = vq_assign.vq_delta_plain(z, wb)
+        agree = ak == ap
+        exact = (torch.equal(ck[agree[:, 0]], cp[agree[:, 0]])
+                 and torch.equal(zk[agree[:, 0]], zp[agree[:, 0]]))
+        if not bool(agree.all()):
+            flips += int((~agree).sum())
+            for j in (~agree[:, 0]).nonzero()[:, 0].tolist():
+                ok, gap = flip_gap_ok(z[j, 0], wb[j], int(ak[j, 0]),
+                                      int(ap[j, 0]))
+                if not ok:
+                    bad.append((i, j, gap))
+        # one point a worker: one count of 1 in each worker's row
+        if not exact or not torch.equal(ck.sum(dim=1),
+                                        torch.ones_like(mk[:, 0])):
+            bad.append((i, "counts/zsum"))
+    print(f"check delta sweep, 1,000 calls back to back at ({M}, 1): "
+          f"{len(bad)} bad, {flips} flips at near-ties")
+    if bad:
+        fail(f"delta sweep back to back: {bad[:5]}")
+    # two sweeps captured in one CUDA graph, as a graph of eq.-9 ticks will
+    # hold them, replayed on 10 new pairs of points.  The warm-up runs on
+    # the capture stream, so the sweep's scratch (tickets zeroed once) is
+    # made there before the capture and the graph holds the two launches
+    # only: a ticket the kernel did not put back would leave no last block
+    # in the next sweep, and the tickets must read 0 after the replays.
+    z1 = data[:, 1300:1301].contiguous()
+    z2 = data[:, 1400:1401].contiguous()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        vq_assign.vq_delta(z1, wb)
+    side.synchronize()
+    tickets = vq_assign._scratch[(z1.device, side.cuda_stream)][0]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = (vq_assign.vq_delta(z1, wb), vq_assign.vq_delta(z2, wb))
+    if vq_assign._scratch[(z1.device, side.cuda_stream)][0] is not tickets:
+        fail("the delta sweep made new scratch inside the graph capture")
+    replays = 0
+    for i in range(10):
+        z1.copy_(data[:, 1301 + i:1302 + i])
+        z2.copy_(data[:, 1401 + i:1402 + i])
+        graph.replay()
+        eager = (vq_assign.vq_delta(z1.clone(), wb),
+                 vq_assign.vq_delta(z2.clone(), wb))
+        replays += all(same_bits(a, b) for got, want in zip(captured, eager)
+                       for a, b in zip(got, want))
+    torch.cuda.synchronize()
+    left = int(tickets.count_nonzero())
+    print(f"check delta sweep in a CUDA graph (2 sweeps a replay): "
+          f"{replays} of 10 replays == eager calls bitwise, {left} tickets "
+          f"left non-zero")
+    if replays != 10 or left:
+        fail("the delta sweep replayed from a CUDA graph differs from an "
+             "eager call, or left a ticket behind")
+
+    main = vq_fused._window_plan(M, KAPPA, D)
+    held = vq_fused.window_clusters(main)
+    print(f"window plan ({M}, {KAPPA}, {D}): {main}; the card holds {held} "
+          f"such clusters at once; ({M}, {KAPPA}, {WIDE_D}): "
+          f"{vq_fused._window_plan(M, KAPPA, WIDE_D)}; ({M}, {KAPPA}, {D}) "
+          f"under a {STREAM_BUDGET:,} B budget: "
+          f"{vq_fused._window_plan(M, KAPPA, D, STREAM_BUDGET)}")
+    if not main.resident or held < M:
+        fail(f"the window plan {main} does not run M={M} workers in one wave "
+             f"({held} clusters at once)")
+    eps = vq.default_steps(torch.arange(1, TAU + 1, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    cases = [(m, data[:m, :TAU].contiguous(), w0, smem) for m in (1, 3)
+             for smem in (vq_assign.SMEM_MAX, STREAM_BUDGET)]
+    w_rag = torch.rand((4001, D), generator=gen, device=dev)
+    cases.append((3, torch.rand((3, TAU, D), generator=gen, device=dev),
+                  w_rag, vq_assign.SMEM_MAX))
+    # 5 rows: blocks 5-7 of each cluster hold none
+    cases.append((2, data[:2, :TAU].contiguous(), w0[:5].contiguous(),
+                  vq_assign.SMEM_MAX))
+    for m, zwin, w_start, smem in cases:
+        plan = vq_fused._window_plan(m, w_start.shape[0], D, smem)
+        route = "resident" if plan.resident else "streaming"
+        wk = vq_fused.vq_window(zwin, w_start, eps, smem)
+        w = w_start.expand(m, *w_start.shape).contiguous()
+        for s in range(TAU):
+            counts, zsum, _, _ = vq_assign.vq_delta(
+                zwin[:, s].unsqueeze(1).contiguous(), w)
+            w = w - eps[s] * (counts.unsqueeze(-1) * w - zsum)
+        print(f"check window {route} M={m}, kappa={w_start.shape[0]} "
+              f"({plan.rows} rows a block, {plan.reg_rows} in registers, "
+              f"{smem:,} B budget): == per-step delta path bitwise "
+              f"{same_bits(wk, w)}")
+        if plan.resident != (smem == vq_assign.SMEM_MAX) or not same_bits(
+                wk, w):
+            fail(f"window M={m}, kappa={w_start.shape[0]}: the {route} "
+                 f"route differs from the per-step path")
 
 
 def tie_heavy(dev, m: int, n: int) -> tuple:
@@ -871,6 +1034,7 @@ def main() -> None:
         fail("the window kernel and the per-step delta-kernel path differ")
 
     check_ragged(dev)
+    check_routes(dev, data, w0, wk.contiguous())
     # the first window's displacement w0 - w_local: the sparse transport's
     # payload, zero outside the <= tau rows each worker touched
     # -- 9. the top-k kernel ----------------------------------------------------
@@ -979,7 +1143,7 @@ def main() -> None:
     print(f"main path fused=False (per-step delta kernel), --scheme delta, "
           f"{UNFUSED_POINTS} points/worker: C last {float(curve_u[-1]):.6f}, "
           f"wall {wall_u:.2f} s, launches {counts_u} (one delta launch "
-          f"is four CUDA kernel launches)")
+          f"at batch 1 is one CUDA kernel launch, the sweep)")
     if counts_u["delta"] != (UNFUSED_POINTS // TAU) * TAU or counts_u["window"]:
         fail(f"fused=False leg: launches {counts_u}")
     fused_head = runs["delta"][0].distortion[: UNFUSED_POINTS // TAU].cpu()
@@ -1534,6 +1698,11 @@ def main() -> None:
                      M * b * KAPPA * (2 * D + 3) + M * b * D)
 
     d1_bound = delta_bound(1)
+    by_kchunk = {kc: round(kernel_ms(
+        lambda: vq_assign.vq_delta(z1, wb, kchunk=kc), 100), 4)
+        for kc in autotune.KCHUNK_CANDIDATES}
+    kc_pick = autotune.pick_tiles(1, KAPPA, D, m=M, device=dev,
+                                  kind="delta").kchunk
     de_ms = kernel_ms(lambda: vq_assign.vq_delta(eval_data, wb), 20)
     de_plain = kernel_ms(lambda: vq_assign.vq_delta_plain(eval_data, wb), 10)
     de_bound = delta_bound(N_EVAL)
@@ -1542,7 +1711,8 @@ def main() -> None:
           f"bound {win_bound[0]:.4f} ms ({win_bound[1]})")
     print(f"timing delta batch 1: kernel {d1_ms:.4f} ms (warm "
           f"{d1_warm:.4f}), plain {d1_plain:.4f} ms, bound "
-          f"{d1_bound[0]:.4f} ms ({d1_bound[1]})")
+          f"{d1_bound[0]:.4f} ms ({d1_bound[1]}); the sweep by kchunk "
+          f"{by_kchunk} ms, the tuner's pick {kc_pick}")
     print(f"timing delta batch {N_EVAL}: kernel {de_ms:.4f} ms, plain "
           f"{de_plain:.4f} ms, bound {de_bound[0]:.4f} ms ({de_bound[1]})")
     zf = torch.randn((FLUSH_ROWS, D), device=dev)

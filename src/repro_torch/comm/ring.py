@@ -102,8 +102,8 @@ def ring_all_reduce(x: torch.Tensor,
         raise ValueError("x must be contiguous")
     out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
     lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _build.on_device(x.device):
+        stream = _build.current_stream(x.device)
         rc = lib.vq_ring_f32(x.data_ptr(),
                              None if mask is None else mask.data_ptr(),
                              out.data_ptr(), m, x.numel() // m, stream)

@@ -104,7 +104,8 @@ class MeshExecutor:
         if (self.use_kernels and self.fused
                 and ops.window_fits(kappa, d,
                                     budget_bytes=self.smem_budget_bytes)):
-            return ops.vq_window(zwin, w0, eps)
+            return ops.vq_window(zwin, w0, eps,
+                                 budget_bytes=self.smem_budget_bytes)
         w = w0.expand(m, kappa, d).contiguous()
         for s in range(tau):
             w = w - eps[s] * self._h(zwin[:, s], w)

@@ -15,6 +15,7 @@ that is not 0.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -23,6 +24,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / ".build"
@@ -35,12 +38,18 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C signatures: name -> argument types (every entry point returns int)
 SIGNATURES = {
-    # zwin, w0, eps, wout, M, tau, K, D, stream
-    "vq_window_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # z, w, counts, zsum, mind, assign, w2, pmin, pidx, M, B, K, D, kchunk,
-    # stream
-    "vq_delta_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                     _P),
+    # zwin, w0, eps, wout, M, tau, K, D, then the plan (vq_fused._window_plan:
+    # resident (0/1), threads, rows, rows in shared memory, stride4, smem
+    # bytes), stream
+    "vq_window_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _P),
+    # threads, smem bytes, register rows (0/1), int* out: 8-block clusters
+    # the card holds at once
+    "vq_window_clusters": (_I, _I, _I, _P),
+    # z, w, counts, zsum, mind, assign, w2, pmin, pidx, tickets, M, B, K, D,
+    # kchunk, stream (w2 may be NULL for B <= 8, tickets for B > 8)
+    "vq_delta_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _I, _P),
     # z, w, mind, assign, w2, pmin, pidx, M, B, K, D, kchunk, stream
     "vq_assign_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # full, vals, idx, residual, M, N, k, slice length (vq_fused._topk_plan),
@@ -132,3 +141,19 @@ def check(rc: int, name: str) -> None:
     """Raise when a C entry point reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def current_stream(dev: torch.device) -> int:
+    """The raw handle of ``dev``'s current CUDA stream, the one every
+    wrapper's launch takes: ``torch.cuda.current_stream(dev).cuda_stream``
+    without its Python layers, a few microseconds of every launch's host
+    time."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def on_device(dev: torch.device):
+    """``torch.cuda.device(dev)`` around a launch, or nothing where ``dev``
+    is the current device already (the runtime launches there)."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)

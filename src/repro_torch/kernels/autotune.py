@@ -4,8 +4,9 @@ Counterpart of ``repro/kernels/autotune.py``.
 The tiles are the runtime tile sizes of the port's CUDA kernels:
 
   * ``kchunk``: codebook rows per block of the distance sweep (the argmin
-    pass the assign, delta and blocked kernels share), the kappa split that
-    gives a small batch its parallelism;
+    pass the assign, delta and blocked kernels share, and the delta
+    kernel's one-launch sweep at B <= 8), the kappa split that gives a
+    small batch its parallelism;
   * ``bk``: codebook rows per owner block of the blocked kernel's
     accumulate sweep (``csrc/vq_blocked.cu``).  The delta kernel's own
     accumulate tile is fixed (``vq_assign.OWN_ROWS``).
@@ -67,6 +68,10 @@ SM_WARPS = 64
 #: Warps of 256-thread blocks each SM needs in flight to reach the memory
 #: rate in the model (a sweep with fewer reaches that share of it).
 FULL_WARPS = 32
+#: The same for the delta kernel's one-launch sweep, whose warps each keep 8
+#: rows' loads in flight (a pass's warp one row's), fitted to the H100's
+#: times of kchunk 64-512 at (8, 1) x 4096 x 128 (PERF.md).
+SWEEP_FULL_WARPS = 12
 BLOCK_WARPS = 8
 
 
@@ -83,6 +88,9 @@ class _TunerState:
         self.cache_path: str | None = None
         self.file_loaded = False
         self.searches = 0            # cache misses resolved
+        # (kind, batch, kappa, d, m, device) -> the pick: a launch's hit
+        # without the key string, the device's name or the lock
+        self.hits: dict[tuple, TileConfig] = {}
         self.lock = threading.Lock()
 
 
@@ -93,6 +101,7 @@ def set_mode(mode: str) -> None:
     if mode not in MODES:
         raise ValueError(f"autotune mode must be one of {MODES}, got {mode!r}")
     _STATE.mode = mode
+    _STATE.hits.clear()
 
 
 def get_mode() -> str:
@@ -103,6 +112,7 @@ def set_cache_path(path: str | None) -> None:
     """Point the tuner at a JSON cache file (None: in memory only)."""
     _STATE.cache_path = path
     _STATE.file_loaded = False
+    _STATE.hits.clear()
 
 
 def reset(mode: str | None = None) -> None:
@@ -111,6 +121,7 @@ def reset(mode: str | None = None) -> None:
         _STATE.cache.clear()
         _STATE.searches = 0
         _STATE.file_loaded = False
+        _STATE.hits.clear()
         if mode is not None:
             set_mode(mode)
 
@@ -148,14 +159,15 @@ def tune_key(kind: str, batch: int, kappa: int, d: int, *, m: int = 1,
             f"{device_kind(device)}")
 
 
-def _sweep_s(blocks: int, nbytes: float, flops: float, smem: int) -> float:
+def _sweep_s(blocks: int, nbytes: float, flops: float, smem: int,
+             full_warps: int = FULL_WARPS) -> float:
     """Model time of one sweep: its roofline time over the share of the
     card its blocks keep busy (infinite where no block fits an SM)."""
     resident = min(SM_WARPS // BLOCK_WARPS, SM_SMEM_BYTES // (smem + 1024))
     if resident == 0:
         return float("inf")
     per_sm = min(float(resident), blocks / SMS)
-    busy = min(1.0, per_sm * BLOCK_WARPS / FULL_WARPS)
+    busy = min(1.0, per_sm * BLOCK_WARPS / full_warps)
     return max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS) / busy
 
 
@@ -164,8 +176,18 @@ def model_time(cfg: TileConfig, batch: int, kappa: int, d: int, *,
     """Model time (s) of one launch of ``kind`` at these tiles."""
     from repro_torch.kernels import vq_assign, vq_fused
 
-    nb = -(-batch // vq_assign.ROWS)
     s = -(-kappa // cfg.kchunk)
+    if kind == "delta" and batch <= vq_assign.SMALL_B:
+        # the one-launch sweep: a block per kappa chunk reads its rows once
+        # (norms folded in) and writes their zsum and counts, each stages
+        # the B points; partials written and combined
+        sweep_bytes = 4 * m * (2 * kappa * d + kappa + s * batch * d
+                               + 2 * batch * s + 2 * batch)
+        return _sweep_s(s * m, sweep_bytes,
+                        2.0 * m * (batch + 1) * kappa * d,
+                        vq_assign.sweep_smem_bytes(batch, d),
+                        SWEEP_FULL_WARPS)
+    nb = -(-batch // vq_assign.ROWS)
     # distance sweep: every (kappa chunk, 8-point block) block streams its
     # codebook rows and its points; partials written and combined
     dist_bytes = 4 * m * (nb * kappa * d + s * batch * d + 4 * batch * s
@@ -285,15 +307,24 @@ def pick_tiles(batch: int, kappa: int, d: int, *, m: int = 1,
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     if _STATE.mode == "off":
         return legacy_tiles()
+    fast = (kind, batch, kappa, d, m, device)
+    hit = _STATE.hits.get(fast)
+    if hit is not None:
+        return hit
     from repro_torch.kernels import ops
 
     device = torch.device(device)
+    # a bare "cuda" follows the current card, so only a named device's
+    # pick is kept for the fast path
+    hits = (_STATE.hits if device.type == "cpu" or device.index is not None
+            else {})
     key = tune_key(kind, batch, kappa, d, m=m, device=device)
     with _STATE.lock:
         if not _STATE.file_loaded:
             _load_file_cache()
         hit = _STATE.cache.get(key)
         if hit is not None:
+            hits[fast] = hit
             return hit
         mode = _STATE.mode
     # rank and time outside the lock, so a hit never waits on a search
@@ -309,8 +340,9 @@ def pick_tiles(batch: int, kappa: int, d: int, *, m: int = 1,
     with _STATE.lock:
         hit = _STATE.cache.get(key)
         if hit is not None:        # another thread resolved it first
+            hits[fast] = hit
             return hit
         _STATE.searches += 1
-        _STATE.cache[key] = best
+        _STATE.cache[key] = hits[fast] = best
         _save_file_cache()
         return best

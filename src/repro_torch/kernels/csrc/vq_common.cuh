@@ -26,6 +26,18 @@ __device__ __forceinline__ float warp_sum(float acc) {
   return acc;
 }
 
+// warp_sum of N values at once: each value takes warp_sum's additions in
+// its order, with the N butterflies' shuffles interleaved.
+template <int N>
+__device__ __forceinline__ void warp_sum_n(float* v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      v[i] = __fadd_rn(v[i], __shfl_xor_sync(VQ_FULL_MASK, v[i], off));
+  }
+}
+
 // The one row dot product of both kernels: lane l accumulates
 // k = l, l + 32, l + 64, ... in that order with fma, then warp_sum.
 __device__ __forceinline__ float warp_dot(const float* a, const float* b,
@@ -44,6 +56,15 @@ __device__ __forceinline__ float sq_dist(float z2, float cross, float w2) {
 // jnp.argmin and torch.argmin break them.
 __device__ __forceinline__ bool better(float d, int i, float bd, int bi) {
   return d < bd || (d == bd && i < bi);
+}
+
+// (distance, index) as one 64-bit key whose unsigned order is `better`'s
+// on distances that are not NaN: the distance's bits made order-preserving
+// (-0.0 taken as +0.0, which `better` holds equal to it) above the index.
+__device__ __forceinline__ unsigned long long argmin_key(float d, int i) {
+  unsigned u = __float_as_uint(d == 0.f ? 0.f : d);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(u) << 32) | static_cast<unsigned>(i);
 }
 
 // Warp-wide argmin under `better`; every lane ends with the winner.
@@ -73,9 +94,10 @@ cudaError_t allow_smem(Kernel* fn, size_t bytes) {
 
 // Passes 1-3 of the delta kernel, defined in vq_delta.cu: row norms, partial
 // (min, argmin) over kchunk-row kappa chunks, and the fixed-order combine
-// into assign and mind.  vq_delta_f32, vq_assign_f32 and
-// vq_delta_blocked_f32 all assign through it, so they assign with the same
-// bits.
+// into assign and mind.  vq_delta_f32 past 8 points, vq_assign_f32 and
+// vq_delta_blocked_f32 assign through it; the delta kernel's sweep (8
+// points or fewer) takes every distance in the same order, so all of them
+// assign with the same bits.
 cudaError_t launch_assign(const float* z, const float* w, float* mind,
                           int* assign, float* w2, float* pmin, int* pidx,
                           int M, int B, int K, int D, int kchunk,

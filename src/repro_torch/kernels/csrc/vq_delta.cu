@@ -14,7 +14,9 @@
 // Inputs:  z (M, B, d) f32, w (M, kappa, d) f32.
 // Outputs: counts (M, kappa) f32, zsum (M, kappa, d) f32 (delta only),
 //          mind (M, B) f32, assign (M, B) int32.
-// Scratch: w2 (M, kappa), pmin/pidx (M, B, S) with S = ceil(kappa/kchunk).
+// Scratch: pmin/pidx (M, B, S) with S = ceil(kappa/kchunk); w2 (M, kappa)
+//          for the passes; tickets (M) uint32, all 0, for the sweep (below),
+//          which leaves them 0 again.
 // The port does not pad rows, so no row needs masking; codebook rows past
 // kappa in a block are skipped, which is the reference's BIG mask.
 //
@@ -28,18 +30,38 @@
 //
 // What the design does about it.  A TPU kernel revisits one accumulator
 // block after block in order; GPU blocks run in no order, and float atomics
-// would make the sums depend on the schedule.  So the work goes in passes,
-// each deterministic without atomics:
+// would make the sums depend on the schedule.  Two routes, by B:
+//
+// B <= 8, the per-step shape: one launch, the sweep (delta_sweep_kernel).
+//   A block takes all B points and one chunk of kchunk codebook rows, so a
+//   batch of one spreads over ceil(kappa/kchunk) * M blocks and does no
+//   arithmetic for padding points.  Each warp walks 8 rows at a time with
+//   all their loads in flight, and computes each row's norm ||w||^2 from
+//   the same loads as its dot products with the points, in warp_dot's
+//   order, so the codebooks are read once and every distance keeps its
+//   bits.  The block writes zeros to its own rows of zsum and counts as it
+//   sweeps them: the dense zsum, written once by every SM at once.  It then
+//   leaves its (min, argmin) partials in pmin/pidx and takes a ticket
+//   (after __threadfence); the last block of a worker combines the S
+//   partials, one warp a point, and writes the winners' counts and zsum
+//   rows and mind and assign, then puts the ticket back to 0.  `better` is
+//   a strict total order on (distance, index), so the combine's tree finds
+//   the winner the fixed order finds, whatever block is last; and the
+//   ticket's fence orders every block's zeros before the winners' rows.
+// B > 8: four passes, each deterministic without atomics:
 //   1. row norms ||w||^2, one warp per row (the routine the window kernel
 //      uses, so both kernels see the same bits);
 //   2. partial (min, argmin): a block takes 8 points and one chunk of
-//      kchunk codebook rows, so a batch of one still spreads over
-//      ceil(kappa/kchunk) * M blocks.  The 8 points are staged in shared
-//      memory while 8 * d floats fit (d <= 7,247) and read in place from
-//      global memory past that, in the same order, so the bits agree;
+//      kchunk codebook rows.  The 8 points are staged in shared memory
+//      while 8 * d floats fit (d <= 7,247) and read in place from global
+//      memory past that, in the same order, so the bits agree;
 //   3. the S partials of each point combined in a fixed order;
 //   4. one owner block per 32 codebook rows scans every point's assignment
 //      in point order and accumulates counts and zsum in shared memory.
+// Both routes add each zsum row's points in point order from 0, and both
+// take every distance from the same fma order, so they agree to the bit.
+#include <cstdint>
+
 #include "vq_common.cuh"
 
 namespace {
@@ -49,7 +71,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 8;      // points per block in pass 2 (== kWarps)
 constexpr int kOwnRows = 32;  // codebook rows per owner block in pass 4
 constexpr int kChunk = 256;   // assignments staged in shared memory at once
-// The three above are mirrored in kernels/vq_assign.py.
+constexpr int kSmallB = 8;    // largest batch the sweep takes
+constexpr int kSweepRows = 8;  // rows a warp of the sweep has in flight
+// The five above are mirrored in kernels/vq_assign.py.
 static_assert(kRows == kWarps, "pass 2 gives each warp one point's norm");
 
 __global__ void __launch_bounds__(kThreads)
@@ -217,6 +241,229 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = threadIdx.x; i < nown * D; i += kThreads) zsm[i] = acc[i];
 }
 
+// Zeros n floats from p; `stride` threads from thread t share the stores,
+// 16 bytes a store where p is aligned for it.
+__device__ __forceinline__ void zero_floats(float* p, size_t n, int t,
+                                            int stride) {
+  size_t head = 0;
+  if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    float4* p4 = reinterpret_cast<float4*>(p);
+    head = n & ~static_cast<size_t>(3);
+    for (size_t i = t; i < head / 4; i += stride)
+      p4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (size_t i = head + t; i < n; i += stride) p[i] = 0.f;
+}
+
+constexpr int kSweepCols = 4;  // columns a lane loads per row and step
+
+// The B <= 8 route, one launch (see the header): block (s, m) sweeps rows
+// [s * kchunk, (s + 1) * kchunk) of worker m's codebook against its kB
+// points (B of them live), zeroing those rows of zsum and counts; the last
+// block of worker m to take a ticket combines and writes the winners.
+template <int kB>
+__global__ void __launch_bounds__(kThreads)
+    delta_sweep_kernel(const float* __restrict__ z,
+                       const float* __restrict__ w, float* __restrict__ counts,
+                       float* __restrict__ zsum, float* __restrict__ mind,
+                       int* __restrict__ assign, float* __restrict__ pmin,
+                       int* __restrict__ pidx, unsigned* __restrict__ tickets,
+                       int B, int K, int D, int kchunk, int S) {
+  static_assert(kB <= kWarps, "one warp a point for its norm and combine");
+  const int s = blockIdx.x;
+  const int m = blockIdx.y;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  extern __shared__ float zs[];  // [B][D] the points
+  __shared__ float z2s[kB];
+  __shared__ float wmin[kWarps][kB];
+  __shared__ int widx[kWarps][kB];
+  __shared__ int won[kB];
+  __shared__ bool last;
+
+  const float* zm = z + static_cast<size_t>(m) * B * D;
+  for (int i = threadIdx.x; i < B * D; i += kThreads) zs[i] = zm[i];
+  __syncthreads();
+  if (warp < B) {
+    const float v = vq::warp_dot(zs + warp * D, zs + warp * D, D, lane);
+    if (lane == 0) z2s[warp] = v;
+  }
+  __syncthreads();
+
+  float best[kB];
+  int bidx[kB];
+#pragma unroll
+  for (int j = 0; j < kB; ++j) {
+    best[j] = VQ_BIG;
+    bidx[j] = INT_MAX;
+  }
+  const int k0 = s * kchunk;
+  const int k1 = min(K, k0 + kchunk);
+  const float* wm = w + static_cast<size_t>(m) * K * D;
+  float* zsm = zsum + static_cast<size_t>(m) * K * D;
+  float* cm = counts + static_cast<size_t>(m) * K;
+  for (int r0 = k0 + warp * kSweepRows; r0 < k1;
+       r0 += kWarps * kSweepRows) {
+    const int nr = min(kSweepRows, k1 - r0);  // uniform across the warp
+    // sums[i * (kB + 1)] is row i's norm, sums[i * (kB + 1) + 1 + j] its
+    // product with point j
+    constexpr int kSums = kSweepRows * (kB + 1);
+    float sums[kSums];
+#pragma unroll
+    for (int q = 0; q < kSums; ++q) sums[q] = 0.f;
+    // warp_dot's order for every (row, point) pair and for each row's
+    // norm: lane l takes k = l, l + 32, ... with fma; all kSweepRows *
+    // kSweepCols loads of a step are issued before the first fma
+    for (int k = lane; k < D; k += 32 * kSweepCols) {
+      float wv[kSweepRows][kSweepCols];
+#pragma unroll
+      for (int i = 0; i < kSweepRows; ++i) {
+#pragma unroll
+        for (int c = 0; c < kSweepCols; ++c) {
+          const int kk = k + 32 * c;
+          wv[i][c] = i < nr && kk < D
+                         ? wm[static_cast<size_t>(r0 + i) * D + kk]
+                         : 0.f;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kSweepCols; ++c) {
+        const int kk = k + 32 * c;
+        if (kk < D) {
+#pragma unroll
+          for (int i = 0; i < kSweepRows; ++i) {
+            float* si = sums + i * (kB + 1);
+            si[0] = __fmaf_rn(wv[i][c], wv[i][c], si[0]);
+#pragma unroll
+            for (int j = 0; j < kB; ++j)
+              if (j < B) si[1 + j] = __fmaf_rn(zs[j * D + kk], wv[i][c],
+                                               si[1 + j]);
+          }
+        }
+      }
+    }
+    // every row's sums in one interleaved butterfly (rows past nr and
+    // points past B sum zeros, and are dropped below)
+    vq::warp_sum_n<kSums>(sums);
+#pragma unroll
+    for (int i = 0; i < kSweepRows; ++i) {
+      if (i < nr) {
+        const float* si = sums + i * (kB + 1);
+#pragma unroll
+        for (int j = 0; j < kB; ++j) {
+          if (j < B) {
+            const float d2 = vq::sq_dist(z2s[j], si[1 + j], si[0]);
+            if (vq::better(d2, r0 + i, best[j], bidx[j])) {
+              best[j] = d2;
+              bidx[j] = r0 + i;
+            }
+          }
+        }
+      }
+    }
+    // these rows stay 0 unless they win: the last block writes winners
+    zero_floats(zsm + static_cast<size_t>(r0) * D,
+                static_cast<size_t>(nr) * D, lane, 32);
+    if (lane < nr) cm[r0 + lane] = 0.f;
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      wmin[warp][j] = best[j];
+      widx[warp][j] = bidx[j];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < B) {
+    const int j = threadIdx.x;
+    float v = VQ_BIG;
+    int i = INT_MAX;
+    for (int q = 0; q < kWarps; ++q) {
+      if (vq::better(wmin[q][j], widx[q][j], v, i)) {
+        v = wmin[q][j];
+        i = widx[q][j];
+      }
+    }
+    const size_t o = (static_cast<size_t>(m) * B + j) * S + s;
+    pmin[o] = v;
+    pidx[o] = i;
+  }
+  // every thread's zeros and partials are visible before the ticket
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(&tickets[m], 1u) == static_cast<unsigned>(S - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // The last block of worker m: warp j combines point j's S partials
+  // (lane l takes s = l, l + 32, ...; any order meets the same winner
+  // under `better`), then the winners' rows.
+  if (warp < B) {
+    const int j = warp;
+    const size_t o = (static_cast<size_t>(m) * B + j) * S;
+    float v = VQ_BIG;
+    int i = INT_MAX;
+    for (int q = lane; q < S; q += 32) {
+      const float pv = __ldcg(pmin + o + q);
+      const int pi = __ldcg(pidx + o + q);
+      if (vq::better(pv, pi, v, i)) {
+        v = pv;
+        i = pi;
+      }
+    }
+    vq::warp_argmin(v, i);
+    if (lane == 0) {
+      won[j] = i;
+      mind[static_cast<size_t>(m) * B + j] = v;
+      assign[static_cast<size_t>(m) * B + j] = i;
+    }
+  }
+  __syncthreads();
+  // Each winning row once, by the warp of its first point: its points in
+  // point order from 0, the sums and count pass 4 forms.  A point that met
+  // no row (every distance NaN) keeps INT_MAX and adds nowhere, as there.
+  if (warp < B) {
+    const int j = warp;
+    const int a = won[j];
+    bool first = a >= 0 && a < K;
+    for (int q = 0; q < j; ++q) first = first && won[q] != a;
+    if (first) {
+      float* row = zsm + static_cast<size_t>(a) * D;
+      for (int k = lane; k < D; k += 32) {
+        float sum = 0.f;
+        for (int q = j; q < B; ++q)
+          if (won[q] == a) sum = __fadd_rn(sum, zs[q * D + k]);
+        row[k] = sum;
+      }
+      if (lane == 0) {
+        float c = 0.f;
+        for (int q = j; q < B; ++q)
+          if (won[q] == a) c = __fadd_rn(c, 1.f);
+        cm[a] = c;
+      }
+    }
+  }
+  if (threadIdx.x == 0) tickets[m] = 0;  // as the launch found it
+}
+
+template <int kB>
+cudaError_t launch_sweep(const float* z, const float* w, float* counts,
+                         float* zsum, float* mind, int* assign, float* pmin,
+                         int* pidx, unsigned* tickets, int M, int B, int K,
+                         int D, int kchunk, cudaStream_t st) {
+  const int S = (K + kchunk - 1) / kchunk;
+  const size_t smem = sizeof(float) * static_cast<size_t>(B) * D;
+  cudaError_t e = vq::allow_smem(delta_sweep_kernel<kB>, smem);
+  if (e != cudaSuccess) return e;
+  delta_sweep_kernel<kB><<<dim3(S, M), kThreads, smem, st>>>(
+      z, w, counts, zsum, mind, assign, pmin, pidx, tickets, B, K, D, kchunk,
+      S);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 cudaError_t vq::launch_assign(const float* z, const float* w, float* mind,
@@ -265,9 +512,17 @@ extern "C" int vq_assign_f32(const float* z, const float* w, float* mind,
 
 extern "C" int vq_delta_f32(const float* z, const float* w, float* counts,
                             float* zsum, float* mind, int* assign, float* w2,
-                            float* pmin, int* pidx, int M, int B, int K, int D,
-                            int kchunk, void* stream) {
+                            float* pmin, int* pidx, unsigned* tickets, int M,
+                            int B, int K, int D, int kchunk, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= kSmallB) {  // the sweep; w2 is not read
+    if (tickets == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        B == 1 ? launch_sweep<1>(z, w, counts, zsum, mind, assign, pmin, pidx,
+                                 tickets, M, B, K, D, kchunk, st)
+               : launch_sweep<kSmallB>(z, w, counts, zsum, mind, assign, pmin,
+                                       pidx, tickets, M, B, K, D, kchunk, st));
+  }
   cudaError_t e = vq::launch_assign(z, w, mind, assign, w2, pmin, pidx, M, B,
                                     K, D, kchunk, st);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -7,10 +7,13 @@ for the TPU's sublanes (``_bm_floor``).  Neither applies on Hopper.  Here a
 kernel "fits" when each of its blocks fits the shared memory one block may
 use, by default an H100's 227 KB (232,448 bytes), counting what the port's
 own kernels hold there (``delta_smem_bytes``, ``vq_fused.smem_bytes``).
-Every kernel streams the codebook from global memory, so the budget bounds
-kappa/8 + 2d floats for the window kernel and a (32, d) tile for the
-full-codebook delta kernel, which holds up to d = 1,807.  The port does not
-pad batches, so no row floor exists.
+The window kernel's block holds what ``vq_fused._window_plan`` lays out
+under the budget: its rows of the codebook where the cluster holds the
+codebook on chip (232,436 B at kappa=4096, d=128), else their norms as the
+rows stream from global memory (3,216 B there under a smaller budget,
+26,768 B at d=3072).  The full-codebook delta kernel's
+largest block holds a (32, d) tile, which fits up to d = 1,807.  The port
+does not pad batches, so no row floor exists.
 
 ``vq_delta_routed`` routes as the reference's does (``delta_route``): the
 full-codebook delta kernel where it fits the budget; past it the blocked
@@ -61,8 +64,10 @@ def delta_smem_bytes(kappa: int, d: int, *, bk: int | None = None) -> int:
 
 def window_fits(kappa: int, d: int, *, budget_bytes: int | None = None
                 ) -> bool:
-    """Can the window kernel run a (kappa, d) codebook?"""
-    return vq_fused.smem_bytes(kappa, d) <= smem_budget_bytes(budget_bytes)
+    """Can the window kernel run a (kappa, d) codebook within the budget,
+    by either of its routes?"""
+    budget = smem_budget_bytes(budget_bytes)
+    return vq_fused.smem_bytes(kappa, d, budget) <= budget
 
 
 def delta_fits(d: int, *, budget_bytes: int | None = None) -> bool:
@@ -194,8 +199,8 @@ def vq_delta_topk(z: torch.Tensor, w: torch.Tensor, residual: torch.Tensor,
     return vals, idx, new_res.view(w.shape)
 
 
-def vq_window(zwin: torch.Tensor, w0: torch.Tensor,
-              eps: torch.Tensor) -> torch.Tensor:
-    """One window for every worker in a single launch; callers check
-    ``window_fits`` first."""
-    return vq_fused.vq_window(zwin, w0, eps)
+def vq_window(zwin: torch.Tensor, w0: torch.Tensor, eps: torch.Tensor, *,
+              budget_bytes: int | None = None) -> torch.Tensor:
+    """One window for every worker in a single launch, its blocks held to
+    the budget; callers check ``window_fits`` at the same budget first."""
+    return vq_fused.vq_window(zwin, w0, eps, smem_budget_bytes(budget_bytes))

@@ -12,9 +12,12 @@ two assign with the same bits.
 take the plain versions (``vq_assign_plain``, ``vq_delta_plain``) for CPU
 tensors only.  ``launches_assign`` and ``launches`` count the wrappers'
 launches; an assign launch is three CUDA kernel launches in a row (row
-norms, partial argmin, combine), a delta launch four (then accumulate).
-The argmin pass's kappa chunk (``kchunk``) comes from ``kernels.autotune``
-unless the caller gives one; it changes no bit.
+norms, partial argmin, combine), a delta launch one at B <= ``SMALL_B``
+(the sweep) and four past it (then accumulate).  The kappa chunk
+(``kchunk``) comes from ``kernels.autotune`` unless the caller gives one;
+it changes no bit.  The sweep's tickets and partials are kept per device
+and stream (``_sweep_scratch``); the kernel leaves the tickets as it found
+them, so no launch depends on host work.
 """
 
 from __future__ import annotations
@@ -34,6 +37,9 @@ ROWS = 8
 OWN_ROWS = 32
 #: Assignments staged per sweep of the accumulate pass; mirrors the source.
 CHUNK = 256
+#: Largest batch the delta kernel's one-launch sweep takes; mirrors the
+#: source (kSmallB).
+SMALL_B = 8
 #: Shared memory one block may use on an H100 (dynamic, after opting in);
 #: mirrors csrc/vq_common.cuh's kSmemMax.
 SMEM_MAX = 232_448
@@ -57,12 +63,21 @@ def accumulate_smem_bytes(d: int) -> int:
     return 4 * (OWN_ROWS * d + CHUNK + OWN_ROWS)
 
 
+def sweep_smem_bytes(b: int, d: int) -> int:
+    """Shared memory of one block of the delta kernel's sweep (B <= 8): its
+    B points, and for ``kB`` = 1 or 8 point slots the norms, the per-warp
+    partials, the winners and a flag."""
+    kb = 1 if b == 1 else SMALL_B
+    return 4 * b * d + 4 * kb * (2 + 2 * ROWS) + 4
+
+
 def smem_bytes(d: int) -> int:
-    """Shared memory of the delta kernel's largest block, the accumulate
-    pass's (the argmin pass holds at most 8 points and 8x8 partials,
-    less).  The codebook streams from global memory, so kappa does not
-    enter."""
-    return max(accumulate_smem_bytes(d), argmin_smem_bytes(d))
+    """Shared memory of the delta kernel's largest block at any batch, the
+    accumulate pass's (the argmin pass and the sweep hold at most 8 points
+    and their partials, less).  The codebook streams from global memory, so
+    kappa does not enter."""
+    return max(accumulate_smem_bytes(d), argmin_smem_bytes(d),
+               sweep_smem_bytes(SMALL_B, d))
 
 
 def vq_assign_plain(z: torch.Tensor, w: torch.Tensor):
@@ -134,6 +149,28 @@ def stacked_dims(z: torch.Tensor, w: torch.Tensor, name: str
     return m, b, kappa, d
 
 
+_scratch: dict[tuple, tuple[torch.Tensor, ...]] = {}  # (device, stream)
+
+
+def _sweep_scratch(dev: torch.device, stream: int, m: int, n: int
+                   ) -> tuple[torch.Tensor, ...]:
+    """The sweep's ``(tickets (>= M,) int32, all 0; pmin (>= n,) f32; pidx
+    (>= n,) int32)`` for launches on ``stream``, kept across calls: the
+    kernel puts every ticket back to 0, and overwrites the partials before
+    it reads them.  Grown, never shrunk; a launch on another stream gets
+    its own, so two streams never share a ticket."""
+    key = (dev, stream)
+    got = _scratch.get(key)
+    if got is None or got[0].numel() < m or got[1].numel() < n:
+        mc = max(m, 0 if got is None else got[0].numel())
+        nc = max(n, 0 if got is None else got[1].numel())
+        got = _scratch[key] = (
+            torch.zeros(mc, dtype=torch.int32, device=dev),
+            torch.empty(nc, dtype=torch.float32, device=dev),
+            torch.empty(nc, dtype=torch.int32, device=dev))
+    return got
+
+
 def _launch(z: torch.Tensor, w: torch.Tensor, name: str, stats: bool,
             kchunk: int | None = None):
     """Launch ``vq_assign_f32`` (``stats`` False) or ``vq_delta_f32`` on
@@ -145,22 +182,42 @@ def _launch(z: torch.Tensor, w: torch.Tensor, name: str, stats: bool,
         kchunk = autotune.pick_tiles(b, kappa, d, m=m, device=dev,
                                      kind="delta" if stats else "assign"
                                      ).kchunk
-    mind, assign, w2, pmin, pidx = argmin_buffers(m, b, kappa, kchunk, dev)
-    counts = zsum = None
+    elif kchunk < 1:
+        raise ValueError(f"kchunk must be >= 1, got {kchunk}")
+    f32 = torch.float32
     lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        tail = (w2.data_ptr(), pmin.data_ptr(), pidx.data_ptr(), m, b, kappa,
-                d, kchunk, stream)
-        if stats:
-            counts = torch.empty((m, kappa), dtype=torch.float32, device=dev)
-            zsum = torch.empty((m, kappa, d), dtype=torch.float32, device=dev)
+    with _build.on_device(dev):
+        stream = _build.current_stream(dev)
+        if stats and b <= SMALL_B:   # the sweep: no norms, no scratch made
+            tickets, pmin, pidx = _sweep_scratch(dev, stream, m,
+                                                 m * b * -(-kappa // kchunk))
+            counts = torch.empty((m, kappa), dtype=f32, device=dev)
+            zsum = torch.empty((m, kappa, d), dtype=f32, device=dev)
+            mind = torch.empty((m, b), dtype=f32, device=dev)
+            assign = torch.empty((m, b), dtype=torch.int32, device=dev)
             rc = lib.vq_delta_f32(z.data_ptr(), w.data_ptr(),
                                   counts.data_ptr(), zsum.data_ptr(),
-                                  mind.data_ptr(), assign.data_ptr(), *tail)
+                                  mind.data_ptr(), assign.data_ptr(), None,
+                                  pmin.data_ptr(), pidx.data_ptr(),
+                                  tickets.data_ptr(), m, b, kappa, d, kchunk,
+                                  stream)
         else:
-            rc = lib.vq_assign_f32(z.data_ptr(), w.data_ptr(),
-                                   mind.data_ptr(), assign.data_ptr(), *tail)
+            mind, assign, w2, pmin, pidx = argmin_buffers(m, b, kappa, kchunk,
+                                                          dev)
+            counts = zsum = None
+            tail = (w2.data_ptr(), pmin.data_ptr(), pidx.data_ptr())
+            dims = (m, b, kappa, d, kchunk, stream)
+            if stats:
+                counts = torch.empty((m, kappa), dtype=f32, device=dev)
+                zsum = torch.empty((m, kappa, d), dtype=f32, device=dev)
+                rc = lib.vq_delta_f32(z.data_ptr(), w.data_ptr(),
+                                      counts.data_ptr(), zsum.data_ptr(),
+                                      mind.data_ptr(), assign.data_ptr(),
+                                      *tail, None, *dims)
+            else:
+                rc = lib.vq_assign_f32(z.data_ptr(), w.data_ptr(),
+                                       mind.data_ptr(), assign.data_ptr(),
+                                       *tail, *dims)
     _build.check(rc, f"{name}_f32")
     if z.dim() == 2:
         return (None if counts is None else counts[0],

@@ -11,13 +11,15 @@ says what bounds its kernel and how.
 ``vq_window``, ``vq_delta_blocked`` and ``vq_topk`` launch their kernels for
 CUDA tensors and take the plain versions ``vq_window_plain``,
 ``vq_delta_blocked_plain`` and ``vq_topk_plain`` for CPU tensors only; the
-top-k kernel's launch plan is the pure function ``_topk_plan``.
+window and top-k kernels' launch plans are the pure functions
+``_window_plan`` and ``_topk_plan``.
 ``launches``, ``launches_blocked`` and ``launches_topk`` count the kernels'
 launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -26,10 +28,24 @@ from repro_torch.core import vq
 from repro_torch.kernels import _build, autotune
 from repro_torch.kernels import vq_assign as assign_kernels
 
-#: Blocks per worker (one thread-block cluster); mirrors csrc/vq_window.cu.
+#: Blocks a worker of the window kernel, both routes (a thread-block
+#: cluster; mirrors csrc/vq_window.cu).  An H100 holds 15 resident clusters
+#: at once (``window_clusters``), so M = 8 workers run in one wave.
 CLUSTER_BLOCKS = 8
-#: Warps per block; mirrors csrc/vq_window.cu.
-WARPS = 16
+#: Threads per block of the window kernel, both routes at most; mirrors
+#: csrc/vq_window.cu.
+WINDOW_THREADS = 512
+#: Warps per block of the streaming route.
+WARPS = WINDOW_THREADS // 32
+#: Rows a warp of the resident route holds in registers, and the columns a
+#: lane holds of each (so only d <= 128); mirror csrc/vq_window.cu.
+REG_ROWS, REG_COLS = 5, 4
+#: The window kernel's static shared memory: the streaming route's per-warp
+#: and per-block argmin partials (16 (min, argmin) pairs and 2 more), the
+#: resident route's three 64-bit keys and two point norms, to the 16 bytes
+#: that align the dynamic shared memory after them.
+STREAM_STATIC_SMEM = 8 * (WARPS + 2)
+RESIDENT_STATIC_SMEM = 32
 #: Codebook columns per owner block of the blocked kernel's accumulate
 #: sweep (one per thread); mirrors csrc/vq_blocked.cu.
 COLS = 256
@@ -45,13 +61,74 @@ launches_blocked = 0
 launches_topk = 0
 
 
-def smem_bytes(kappa: int, d: int) -> int:
-    """Shared memory one block of the window kernel holds: the norms of its
-    ``ceil(kappa / 8)`` rows, the double-buffered point, the per-warp and
-    per-block argmin partials.  The codebook itself streams from global
-    memory, so ``tau`` does not enter."""
+class WindowPlan(NamedTuple):
+    """One launch of the window kernel: ``CLUSTER_BLOCKS`` blocks a worker
+    of ``threads`` threads, block r owning codebook rows ``[r * rows, (r +
+    1) * rows)`` (none past kappa).  ``resident`` keeps them on chip for
+    the whole window: the first ``rows - reg_rows`` in shared memory at
+    ``stride4`` float4s a row, the last ``reg_rows`` in registers; else they
+    stream from global memory.  ``smem_bytes`` is what one block holds,
+    dynamic and static."""
+    resident: bool
+    threads: int
+    rows: int
+    reg_rows: int
+    stride4: int
+    smem_bytes: int
+
+
+def _resident_smem(srows: int, d: int) -> tuple[int, int]:
+    """``(stride4, bytes)`` of a resident block with ``srows`` rows in
+    shared memory: each row padded to an odd number of float4s (8
+    neighbouring rows then meet 32 distinct banks), four point buffers,
+    the rows' norms and the static keys."""
+    n4 = -(-d // 4)
+    stride4 = n4 | 1
+    return stride4, (16 * srows * stride4 + 4 * 16 * n4 + 4 * srows
+                     + RESIDENT_STATIC_SMEM)
+
+
+def _window_plan(m: int, kappa: int, d: int,
+                 budget_bytes: int = assign_kernels.SMEM_MAX) -> WindowPlan:
+    """The window kernel's launch for M workers at (kappa, d), its blocks
+    held to ``budget_bytes`` of shared memory where they can be.
+
+    Resident where a block's ``ceil(kappa / 8)`` rows fit the shared memory
+    one block may use (``vq_assign.SMEM_MAX``) and, at d <= 128, its 16
+    warps' registers past that (``REG_ROWS`` rows a warp), and the block
+    fits the budget.  At (8, 4096, 128): 512 rows a block, 433 in shared
+    memory (232,436 B) and 79 in registers.  Otherwise the streaming route:
+    its rows' norms in shared memory (at d=3072: 26,768 B; at d=128: 3,216
+    B), which may still exceed the budget (``ops.window_fits`` then
+    refuses the kernel).  The plan changes no bit; a launch the card
+    refuses raises."""
+    if m < 1 or kappa < 1 or d < 1:
+        raise ValueError(f"vq_window needs M, kappa and d > 0, got "
+                         f"({m}, {kappa}, {d})")
+    if m > 65535:
+        raise ValueError(f"M={m} is past the launch grid's limit of 65535")
+    n4 = -(-d // 4)
     rows = -(-kappa // CLUSTER_BLOCKS)
-    return 4 * (rows + 2 * d) + 8 * (WARPS + 2)
+    room = assign_kernels.SMEM_MAX - RESIDENT_STATIC_SMEM - 64 * n4
+    fit = max(0, room // (16 * (n4 | 1) + 4))  # rows shared memory holds
+    reg_cap = WARPS * REG_ROWS if d <= 32 * REG_COLS else 0
+    srows = min(rows, fit)
+    stride4, nbytes = _resident_smem(srows, d)
+    if rows - srows <= reg_cap and nbytes <= budget_bytes:
+        threads = (WINDOW_THREADS if srows < rows
+                   else min(WINDOW_THREADS, 32 * -(-rows // 32)))
+        return WindowPlan(True, threads, rows, rows - srows, stride4, nbytes)
+    return WindowPlan(False, WINDOW_THREADS, rows, 0, 0,
+                      4 * (rows + 2 * d) + STREAM_STATIC_SMEM)
+
+
+def smem_bytes(kappa: int, d: int,
+               budget_bytes: int = assign_kernels.SMEM_MAX) -> int:
+    """Shared memory one block of the window kernel holds at (kappa, d)
+    under ``budget_bytes``, as ``_window_plan`` lays it out: a resident
+    block's rows, or a streaming block's norms; ``tau`` and M do not
+    enter."""
+    return _window_plan(1, kappa, d, budget_bytes).smem_bytes
 
 
 def vq_window_plain(zwin: torch.Tensor, w0: torch.Tensor,
@@ -83,13 +160,14 @@ def _check(zwin: torch.Tensor, w0: torch.Tensor, eps: torch.Tensor) -> None:
             raise ValueError(f"{name} is on {x.device}, zwin on {zwin.device}")
 
 
-def vq_window(zwin: torch.Tensor, w0: torch.Tensor,
-              eps: torch.Tensor) -> torch.Tensor:
+def vq_window(zwin: torch.Tensor, w0: torch.Tensor, eps: torch.Tensor,
+              budget_bytes: int = assign_kernels.SMEM_MAX) -> torch.Tensor:
     """One window for every worker: zwin (M, tau, d), w0 (kappa, d), eps
     (tau,) f32 -> w (M, kappa, d) after tau sequential eq.-1 steps.
 
-    Callers check ``ops.window_fits`` first.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel on the current stream."""
+    Callers check ``ops.window_fits`` first, at the same ``budget_bytes``.
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the current stream, with the plan ``_window_plan`` gives."""
     global launches
     _check(zwin, w0, eps)
     if zwin.device.type == "cpu":
@@ -101,19 +179,34 @@ def vq_window(zwin: torch.Tensor, w0: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     m, tau, d = zwin.shape
     kappa = w0.shape[0]
-    if m == 0 or kappa == 0 or d == 0:
-        raise ValueError("vq_window needs M, kappa and d > 0")
-    if m > 65535:
-        raise ValueError(f"M={m} is past the launch grid's limit of 65535")
+    plan = _window_plan(m, kappa, d, budget_bytes)
     wout = torch.empty((m, kappa, d), dtype=torch.float32, device=zwin.device)
     lib = _build.library()
-    with torch.cuda.device(zwin.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vq_window_f32(zwin.data_ptr(), w0.data_ptr(), eps.data_ptr(),
-                               wout.data_ptr(), m, tau, kappa, d, stream)
+    with _build.on_device(zwin.device):
+        stream = _build.current_stream(zwin.device)
+        rc = lib.vq_window_f32(
+            zwin.data_ptr(), w0.data_ptr(), eps.data_ptr(), wout.data_ptr(),
+            m, tau, kappa, d, int(plan.resident), plan.threads, plan.rows,
+            plan.rows - plan.reg_rows, plan.stride4,
+            plan.smem_bytes - (RESIDENT_STATIC_SMEM if plan.resident
+                               else STREAM_STATIC_SMEM), stream)
     _build.check(rc, "vq_window_f32")
     launches += 1
     return wout
+
+
+def window_clusters(plan: WindowPlan) -> int:
+    """How many clusters of ``plan``'s resident route the card holds at
+    once (``cudaOccupancyMaxActiveClusters``): M clusters run in one wave
+    when it is at least M.  Needs a CUDA card."""
+    if not plan.resident:
+        raise ValueError("the streaming route's clusters are 8 blocks of "
+                         "16 warps; only the resident route is asked")
+    out = ctypes.c_int(0)
+    _build.check(_build.library().vq_window_clusters(
+        plan.threads, plan.smem_bytes - RESIDENT_STATIC_SMEM,
+        int(plan.reg_rows > 0), ctypes.byref(out)), "vq_window_clusters")
+    return out.value
 
 
 def blocked_accumulate_smem_bytes(kappa: int, bk: int) -> int:
@@ -172,8 +265,8 @@ def _launch_blocked(z: torch.Tensor, w: torch.Tensor,
     zsum = torch.empty((m, kappa, d), dtype=f32, device=dev)
     delta = None if residual is None else torch.empty_like(zsum)
     lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _build.on_device(dev):
+        stream = _build.current_stream(dev)
         rc = lib.vq_delta_blocked_f32(
             z.data_ptr(), w.data_ptr(),
             None if residual is None else residual.data_ptr(),
@@ -281,8 +374,8 @@ def vq_topk(full: torch.Tensor, k: int
     idx = torch.empty((m, k), dtype=torch.int32, device=full.device)
     residual = torch.empty_like(full)
     lib = _build.library()
-    with torch.cuda.device(full.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _build.on_device(full.device):
+        stream = _build.current_stream(full.device)
         rc = lib.vq_topk_f32(full.data_ptr(), vals.data_ptr(), idx.data_ptr(),
                              residual.data_ptr(), m, n, k, plan.slice_len,
                              stream)

@@ -169,7 +169,10 @@ def test_window_plain_equals_per_step_delta_scan_bitwise(m):
 def test_residency_predicates_and_routing():
     # the slice's width fits both kernels by far
     assert ops.window_fits(4096, 128) and ops.delta_fits(128)
-    assert vq_fused.smem_bytes(4096, 128) == 4 * (512 + 256) + 8 * 18
+    # 433 of a block's 512 rows in shared memory, padded to 33 float4s, with
+    # their norms, four point buffers and the keys (79 rows in registers)
+    assert vq_fused.smem_bytes(4096, 128) == (16 * 433 * 33 + 4 * 433
+                                              + 4 * 512 + 32)
     # 62,500 norms per block of the 8-block cluster are 250,000 B
     assert not ops.window_fits(500_000, 8)
     assert not ops.delta_fits(2048)   # a (32, 2048) f32 tile is 256 KiB
@@ -221,9 +224,10 @@ def test_assign_wrapper_validates_and_never_counts_cpu():
     vq_assign.vq_assign(z, w)
     ops.vq_assign(z[0], w[0])
     assert vq_assign.launches_assign == before
-    assert set(_build.SIGNATURES) == {"vq_window_f32", "vq_delta_f32",
-                                      "vq_assign_f32", "vq_topk_f32",
-                                      "vq_delta_blocked_f32", "vq_ring_f32"}
+    assert set(_build.SIGNATURES) == {"vq_window_f32", "vq_window_clusters",
+                                      "vq_delta_f32", "vq_assign_f32",
+                                      "vq_topk_f32", "vq_delta_blocked_f32",
+                                      "vq_ring_f32"}
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
