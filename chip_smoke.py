@@ -15,9 +15,10 @@ PyTorch built for CUDA:
      that divides none of their block sizes;
   3. checks that the window kernel gives the same codebook, bit for bit, as
      the per-step path through the delta kernel, window by window; then
-     the delta kernel's two routes (the one-launch sweep at B = 1, 2 and 8,
-     the passes at B = 9), each against the plain version and, bit for
-     bit, against the assign kernel's (assign, mind); the sweep called
+     the argmin engine's two routes in the delta kernel (the one-launch
+     sweep at B = 1, 2 and 8, the tiled argmin at B = 9), each against the
+     plain version and, bit for bit, against the assign kernel's (assign,
+     mind); the sweep called
      1,000 times back to back on new points, each result against the
      plain version, and replayed 10 times from a CUDA graph holding two
      sweeps, each replay equal to eager calls bit for bit and the tickets
@@ -29,8 +30,13 @@ PyTorch built for CUDA:
      path, bit for bit;
   4. holds the assign kernel against its plain version at the serving
      flush shape (128 x 4096 x 128), the eval shape ((8, 1000) x 4096 x
-     128) and the ragged shape, and against the delta kernel's
-     (assign, min distance), which it must equal bit for bit;
+     128), the ragged shape and the eq.-9 tick's (8, 1) x 4096 x 3072 (the
+     last against the plain version in float64, see BLOCKED_REF), and
+     against the delta kernel's (assign, min distance), which it must
+     equal bit for bit; then the tiled argmin (B > 8) at B = 9, 128 and
+     1000 (and 9 at d=3072) against the sweep over the same points taken 8
+     at a time, (assign, mind) bit for bit, each call one CUDA launch (the
+     engine's host count, ``vq_assign.cuda_launches``);
   5. drives the main path, ``repro_torch.launch.train --mode vq --executor
      mesh``, on 8 x 125,000 points for ``--scheme delta`` and then
      ``--scheme average``, and the per-step (``fused=False``) route on the
@@ -72,11 +78,13 @@ PyTorch built for CUDA:
      round lengths, whose curve must equal the dense run's head bit for bit;
   11. holds the blocked assign+delta kernel against the delta kernel, bit
      for bit (assign, mind, counts, zsum), at (8, 1) and (8, 1000) x 4096 x
-     128; against its plain version at d=3072 ((8, 1) and (8, 1000) x 4096)
-     and at two ragged shapes, one past the argmin pass's staging limit
-     (d=8000), with its epilogue equal to the eager expression on its own
-     outputs bit for bit; and ``ops.vq_delta_topk``'s blocked branch against
-     its full-kernel branch at d=128, bit for bit;
+     128; against its plain version at d=3072 ((8, 1), (8, 8) and (8,
+     1000) x 4096, the epilogue also on a residual with +0 and -0 entries)
+     and at ragged shapes, past the sweep's staging limit (d=8000 at B =
+     1, 9 and 13), with its epilogue equal to the eager expression on its
+     own outputs bit for bit; each blocked call at B <= 8 one CUDA launch;
+     and ``ops.vq_delta_topk``'s blocked branch
+     against its full-kernel branch at d=128, bit for bit;
   12. runs eq. 9 at d=128 through the blocked route (the shared-memory
      budget forced down) for 2,000 ticks, which must equal the dense run's
      head bit for bit with one blocked launch per tick;
@@ -115,7 +123,10 @@ PyTorch built for CUDA:
      ``--transport ring --wire-quant int8`` on 8 x 20,000 points (917,508 B
      of wire a window, 4,000 ring launches, distortion falling);
   17. times each kernel (the delta sweep also at each kchunk the tuner
-     weighs), its plain version, its bound and, for the top-k
+     weighs; the assign kernel at the flush, the eval and (8, 1) x 4096 x
+     3072; the blocked kernel at (8, 1) x 4096 x 3072 with and without the
+     epilogue and at (8, 1) x 4096 x 128), its plain version, its bound
+     and, for the top-k
      kernel, ``torch.topk`` (selection only, also on the d=3072 payload),
      for the ring kernel ``torch.sum(x, dim=0)`` (each in turns with its
      library call), all on one yardstick (``kernel_ms``: CUDA events around
@@ -380,7 +391,7 @@ def check_routes(dev, data, w0, wb) -> None:
         return len(flipped), float((mk - mp).abs().max())
 
     for b in (1, 2, 8, 9):
-        route = "sweep" if b <= vq_assign.SMALL_B else "passes"
+        route = vq_assign.argmin_plan(M, b, KAPPA, D, 1).route
         n_flip, err = against_plain(data[:, 100:100 + b].contiguous(), wb,
                                     f"B={b}")
         print(f"check delta route {route} at ({M}, {b}) x {KAPPA} x {D}: "
@@ -586,17 +597,19 @@ def check_topk(dev, payload, normal, ks) -> None:
           f"{topk_plan_line(ragged)}; {topk_plan_line(ties)}")
 
 
-def check_assign(z, w, label: str) -> tuple[int, float]:
+def check_assign(z, w, label: str, f64: bool = False) -> tuple[int, float]:
     """The assign kernel against its plain version (flips only at
-    near-ties, min distances within FLIP_REL of the cancelled magnitude)
-    and against the delta kernel's (assign, mind), bit for bit.  Returns
-    (flips, max |mind diff| off flipped rows)."""
+    near-ties, min distances within FLIP_REL of the cancelled magnitude;
+    with ``f64`` the plain version run on the inputs cast to float64, see
+    BLOCKED_REF) and against the delta kernel's (assign, mind), bit for
+    bit.  Returns (flips, max |mind diff| off flipped rows)."""
     import torch
 
     from repro_torch.kernels import vq_assign
 
     ak, mk = vq_assign.vq_assign(z, w)
-    ap, mp = vq_assign.vq_assign_plain(z, w)
+    ap, mp = (vq_assign.vq_assign_plain(z.double(), w.double()) if f64
+              else vq_assign.vq_assign_plain(z, w))
     _, _, md, ad = vq_assign.vq_delta(z, w)
     same = torch.equal(ak, ad) and torch.equal(mk, md)
     if z.dim() == 2:
@@ -614,7 +627,8 @@ def check_assign(z, w, label: str) -> tuple[int, float]:
     if bool(((err > FLIP_REL * scale) & keep).any()):
         fail(f"assign {label}: min distances differ from the plain version")
     max_err = float(err[keep].max()) if bool(keep.any()) else 0.0
-    print(f"check assign {label} vs plain: {len(flips)} flips of "
+    print(f"check assign {label} vs plain{' in f64' if f64 else ''}: "
+          f"{len(flips)} flips of "
           f"{ak.numel()}, max |mind diff| {max_err:.3e}; == delta kernel's "
           f"(assign, mind) bitwise: {same}")
     if not same:
@@ -806,6 +820,17 @@ def same_bits(a, b) -> bool:
     if a.dtype == torch.float32:
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
     return torch.equal(a, b)
+
+
+def one_launch(fn, label: str) -> None:
+    """Fail unless one call of fn launches one CUDA kernel (the argmin
+    engine's host count, ``vq_assign.cuda_launches``)."""
+    from repro_torch.kernels import vq_assign
+    before = vq_assign.cuda_launches()
+    fn()
+    launched = vq_assign.cuda_launches() - before
+    if launched != 1:
+        fail(f"{label}: {launched} CUDA kernel launches, expected one")
 
 
 def check_ring(x, label: str, mask=None) -> None:
@@ -1080,6 +1105,12 @@ def main() -> None:
           f"{b_mind:.3e}")
 
     # -- 4. the assign kernel: flush, eval and ragged shapes ------------------
+    wide = ["--executor", "mesh", "--workers", str(M), "--points",
+            str(WIDE_POINTS), "--dim", str(WIDE_D), "--kappa", str(KAPPA),
+            "--tau", str(TAU), "--seed", str(SEED)]
+    wide_async = wide + ["--scheme", "async_delta", "--network", "geometric",
+                         "--p-delay", str(P_DELAY)]
+    w0w, dataw, evalw = train.make_inputs(train.parse_args(wide_async), dev)
     zq = data[0, :FLUSH_ROWS].contiguous()
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     zr = torch.rand((3, 37, 40), generator=gen, device=dev)
@@ -1090,6 +1121,45 @@ def main() -> None:
                                         f"{D}"),
                         (zr, wr, "ragged (M=3, kappa=1001, d=40, B=37)")):
         assign_err = max(assign_err, check_assign(z, w, label)[1])
+    # the eq.-9 tick's shape at d=3072 (the fused=False leg's), the sweep;
+    # against the plain version in float64 and the blocked kernel, bitwise
+    w_tick = (w0w + 0.01 * torch.randn(
+        (M, KAPPA, WIDE_D), generator=torch.Generator(device=dev).manual_seed(
+            SEED + 12), device=dev)).contiguous()
+    z_tick = dataw[:, :1].contiguous()
+    check_assign(z_tick, w_tick, f"({M}, 1) x {KAPPA} x {WIDE_D}", f64=True)
+    a_t, m_t = vq_assign.vq_assign(z_tick, w_tick)
+    _, _, m_b, a_b = vq_fused.vq_delta_blocked(z_tick, w_tick)
+    if not (same_bits(a_t, a_b) and same_bits(m_t, m_b)):
+        fail(f"assign ({M}, 1) x {KAPPA} x {WIDE_D} differs from the blocked "
+             f"kernel's (assign, mind)")
+    one_launch(lambda: vq_assign.vq_assign(z_tick, w_tick),
+               f"assign ({M}, 1) x {WIDE_D}")
+    del w_tick
+    # the tiled argmin (B > 8) against the sweep over the same points
+    # taken 8 at a time: one engine, one order, the same bits
+    w_wide9 = w0w.expand(M, KAPPA, WIDE_D).contiguous()
+    for z, w, label in ((eval_data[:, :9].contiguous(), wb, f"B=9, d={D}"),
+                        (eval_data[:, :128].contiguous(), wb,
+                         f"B=128, d={D}"),
+                        (eval_data, wb, f"B={N_EVAL}, d={D}"),
+                        (evalw[:, :9].contiguous(), w_wide9,
+                         f"B=9, d={WIDE_D}")):
+        a_k, m_k = vq_assign.vq_assign(z, w)
+        parts = [vq_assign.vq_assign(
+            z[:, i:i + vq_assign.SMALL_B].contiguous(), w)
+            for i in range(0, z.shape[1], vq_assign.SMALL_B)]
+        same = (same_bits(a_k, torch.cat([q[0] for q in parts], dim=1))
+                and same_bits(m_k, torch.cat([q[1] for q in parts], dim=1)))
+        print(f"check tiled argmin ({M}, {label}) == the sweep over the same "
+              f"points 8 at a time, bitwise (assign, mind): {same}")
+        if not same:
+            fail(f"the tiled argmin ({label}) differs from the sweep")
+    del w_wide9
+    one_launch(lambda: vq_assign.vq_assign(zq, wb[0]), "assign flush")
+    one_launch(lambda: vq_assign.vq_assign(eval_data, wb), "assign eval")
+    print(f"check assign launches: one CUDA kernel a call at ({M}, 1) x "
+          f"{WIDE_D} (the sweep), the flush and the eval (the tiled argmin)")
 
     # -- 5+6. the main path, and its first windows against the oracles -------
     runs = {}
@@ -1338,12 +1408,6 @@ def main() -> None:
         if not all(same):
             fail(f"vq_delta_topk's blocked branch differs, {label}")
 
-    wide = ["--executor", "mesh", "--workers", str(M), "--points",
-            str(WIDE_POINTS), "--dim", str(WIDE_D), "--kappa", str(KAPPA),
-            "--tau", str(TAU), "--seed", str(SEED)]
-    wide_async = wide + ["--scheme", "async_delta", "--network", "geometric",
-                         "--p-delay", str(P_DELAY)]
-    w0w, dataw, evalw = train.make_inputs(train.parse_args(wide_async), dev)
     if ops.delta_fits(WIDE_D) or not ops.window_fits(KAPPA, WIDE_D):
         fail(f"d={WIDE_D}: expected the blocked route and the window kernel")
     ww = (w0w + 0.01 * torch.randn((M, KAPPA, WIDE_D), generator=gen_b,
@@ -1363,6 +1427,36 @@ def main() -> None:
               for shape in ((2, 13, 8000), (2, 300, 8000)))
     check_blocked(zr, wr, "points read in place (M=2, kappa=300, d=8000, "
                   "B=13)")
+    # the epilogue at B <= 8 on +0 and -0 residual entries (and w's own
+    # signs), at the tick's width and past the sweep's staging limit
+    resid_pm = resid_w.clone()
+    resid_pm[..., 0::3] = 0.0
+    resid_pm[..., 1::3] = -0.0
+    for b in (1, 8):
+        check_blocked(dataw[:, :b].contiguous(), ww,
+                      f"({M}, {b}) x {KAPPA} x {WIDE_D}, residual with +-0 "
+                      f"entries", resid_pm)
+    for b in (1, 9):
+        zr, wr, rr = (torch.randn(shape, generator=gen_b, device=dev)
+                      for shape in ((2, b, 8000), (2, 300, 8000),
+                                    (2, 300, 8000)))
+        rr[..., 0::3] = 0.0
+        rr[..., 1::3] = -0.0
+        check_blocked(zr, wr, f"(M=2, kappa=300, d=8000, B={b}), residual "
+                      f"with +-0 entries", rr)
+    del resid_pm
+    z8w = dataw[:, :8].contiguous()
+    for fn, label in (
+            (lambda: vq_fused.vq_delta_blocked(z1w, ww), f"({M}, 1)"),
+            (lambda: vq_fused.vq_delta_blocked(z1w, ww, residual=resid_w),
+             f"({M}, 1) with the epilogue"),
+            (lambda: vq_fused.vq_delta_blocked(z8w, ww, residual=resid_w),
+             f"({M}, 8) with the epilogue"),
+            (lambda: vq_fused.vq_delta_blocked(z1, wb), f"({M}, 1), d={D}")):
+        one_launch(fn, f"blocked {label}")
+    print(f"check blocked launches at B <= 8: one CUDA kernel a call at "
+          f"({M}, 1) and ({M}, 8) x {KAPPA} x {WIDE_D}, with and without the "
+          f"epilogue, and at ({M}, 1) x {KAPPA} x {D}")
 
     # -- 12. eq. 9 at d=128 through the blocked route -------------------------
     n_b = BLOCKED_TICKS
@@ -1735,6 +1829,14 @@ def main() -> None:
     print(f"timing assign eval (({M}, {N_EVAL}) x {KAPPA} x {D}): kernel "
           f"{ae_ms:.4f} ms, plain {ae_plain:.4f} ms, bound "
           f"{ae_bound[0]:.4f} ms ({ae_bound[1]})")
+    # the fused=False leg's shape at d=3072: read the codebooks once
+    at_ms = kernel_ms(lambda: vq_assign.vq_assign(z1w, ww), 100)
+    at_plain = kernel_ms(lambda: vq_assign.vq_assign_plain(z1w, ww), 20)
+    at_bound = bound(4 * (M * WIDE_D + M * KAPPA * WIDE_D + 2 * M),
+                     M * KAPPA * (2 * WIDE_D + 3) + M * WIDE_D)
+    print(f"timing assign ({M}, 1) x {KAPPA} x {WIDE_D}: kernel "
+          f"{at_ms:.4f} ms, plain {at_plain:.4f} ms, bound "
+          f"{at_bound[0]:.4f} ms ({at_bound[1]})")
     def blocked_bound(d, epilogue):
         # batch 1: read z, w (and the residual); write counts, zsum, mind,
         # assign (and delta); the distance and the one-point sums (and the

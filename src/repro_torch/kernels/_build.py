@@ -46,21 +46,26 @@ SIGNATURES = {
     # threads, smem bytes, register rows (0/1), int* out: 8-block clusters
     # the card holds at once
     "vq_window_clusters": (_I, _I, _I, _P),
-    # z, w, counts, zsum, mind, assign, w2, pmin, pidx, tickets, M, B, K, D,
-    # kchunk, stream (w2 may be NULL for B <= 8, tickets for B > 8)
-    "vq_delta_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                     _I, _P),
-    # z, w, mind, assign, w2, pmin, pidx, M, B, K, D, kchunk, stream
+    # z, w, counts, zsum, mind, assign, pmin, pidx, tickets, M, B, K, D,
+    # kchunk, stream (pmin, pidx and tickets: vq_assign.argmin_plan's
+    # scratch)
+    "vq_delta_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _P),
+    # z, w, mind, assign, pmin, pidx, tickets, M, B, K, D, kchunk, stream
     "vq_assign_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # full, vals, idx, residual, M, N, k, slice length (vq_fused._topk_plan),
     # stream
     "vq_topk_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # z, w, residual, counts, zsum, delta, mind, assign, w2, pmin, pidx,
-    # M, B, K, D, kchunk, bk, stream (residual and delta may be NULL)
+    # z, w, residual, counts, zsum, delta, mind, assign, pmin, pidx,
+    # tickets, M, B, K, D, kchunk, bk, stream (residual and delta may be
+    # NULL)
     "vq_delta_blocked_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                              _I, _I, _I, _I, _I, _P),
     # x, mask, out, M, N, stream (mask may be NULL)
     "vq_ring_f32": (_P, _P, _P, _I, _L, _P),
+    # long long* out: CUDA kernels the argmin engine's entries (assign,
+    # delta, blocked) have launched in this process
+    "vq_argmin_launches": (_P,),
 }
 
 

@@ -3,13 +3,14 @@ Counterpart of ``repro/kernels/autotune.py``.
 
 The tiles are the runtime tile sizes of the port's CUDA kernels:
 
-  * ``kchunk``: codebook rows per block of the distance sweep (the argmin
-    pass the assign, delta and blocked kernels share, and the delta
-    kernel's one-launch sweep at B <= 8), the kappa split that gives a
-    small batch its parallelism;
+  * ``kchunk``: codebook rows per block of the argmin engine (the sweep
+    at B <= 8 and the tiled argmin past it, which the assign, delta and
+    blocked kernels share), the kappa split that gives a small batch its
+    parallelism;
   * ``bk``: codebook rows per owner block of the blocked kernel's
-    accumulate sweep (``csrc/vq_blocked.cu``).  The delta kernel's own
-    accumulate tile is fixed (``vq_assign.OWN_ROWS``).
+    accumulate sweep (``csrc/vq_blocked.cu``), which runs past 8 points.
+    The delta kernel's own accumulate tile is fixed
+    (``vq_assign.OWN_ROWS``).
 
 Neither changes a bit: the argmin is a strict total order of (distance,
 index), so any kappa split finds the same winner, and every sum runs in
@@ -17,14 +18,15 @@ point order whatever the tile.  The tuner only changes time.
 
 The pick comes from a model of the H100 (the port's copy of the
 reference's ``VqCell.delta_grid``, ``delta_flops`` and ``delta_hbm_bytes``,
-``distributed/roofline.py``, re-derived for the port's tiling): each sweep
+``distributed/roofline.py``, re-derived for the port's tiling): each launch
 takes the larger of its bytes over the memory rate and its operations over
 the f32 rate, divided by the share of the card its blocks keep busy, which
 counts blocks against the 132 SMs (the eq.-9 tick at batch 1 has only
-``ceil(kappa / kchunk) * M`` distance blocks) and the warps that shared
-memory lets each SM hold.  Among the tiles whose shared memory fits the
-budget (``ops.delta_smem_bytes``, the model the router uses), the least
-model time wins, then the larger tiles (fewer blocks).
+``ceil(kappa / kchunk) * M`` sweep blocks) and the warps that shared
+memory and registers let each SM hold.  The launch's shape comes from the
+engine's plan (``vq_assign.argmin_plan``).  Among the tiles whose shared
+memory fits the budget (``ops.delta_smem_bytes``, the model the router
+uses), the least model time wins, then the larger tiles (fewer blocks).
 
 Three modes, set once at launch (``--autotune {off,cache,search}``):
 
@@ -68,10 +70,13 @@ SM_WARPS = 64
 #: Warps of 256-thread blocks each SM needs in flight to reach the memory
 #: rate in the model (a sweep with fewer reaches that share of it).
 FULL_WARPS = 32
-#: The same for the delta kernel's one-launch sweep, whose warps each keep 8
-#: rows' loads in flight (a pass's warp one row's), fitted to the H100's
-#: times of kchunk 64-512 at (8, 1) x 4096 x 128 (PERF.md).
+#: The same for the argmin engine's sweep, whose warps each keep 8 rows'
+#: loads in flight (an accumulate pass's warp one row's), fitted to the
+#: H100's times of kchunk 64-512 at (8, 1) x 4096 x 128 (PERF.md).
 SWEEP_FULL_WARPS = 12
+#: The tiled argmin's blocks an SM holds (its launch bounds: 128 registers
+#: a thread), which keep its f32 pipes busy: 64 independent fmas a lane.
+TILED_BLOCKS = 2
 BLOCK_WARPS = 8
 
 
@@ -160,10 +165,11 @@ def tune_key(kind: str, batch: int, kappa: int, d: int, *, m: int = 1,
 
 
 def _sweep_s(blocks: int, nbytes: float, flops: float, smem: int,
-             full_warps: int = FULL_WARPS) -> float:
+             full_warps: int = FULL_WARPS,
+             max_blocks: int = SM_WARPS // BLOCK_WARPS) -> float:
     """Model time of one sweep: its roofline time over the share of the
     card its blocks keep busy (infinite where no block fits an SM)."""
-    resident = min(SM_WARPS // BLOCK_WARPS, SM_SMEM_BYTES // (smem + 1024))
+    resident = min(max_blocks, SM_SMEM_BYTES // (smem + 1024))
     if resident == 0:
         return float("inf")
     per_sm = min(float(resident), blocks / SMS)
@@ -176,25 +182,34 @@ def model_time(cfg: TileConfig, batch: int, kappa: int, d: int, *,
     """Model time (s) of one launch of ``kind`` at these tiles."""
     from repro_torch.kernels import vq_assign, vq_fused
 
-    s = -(-kappa // cfg.kchunk)
-    if kind == "delta" and batch <= vq_assign.SMALL_B:
-        # the one-launch sweep: a block per kappa chunk reads its rows once
-        # (norms folded in) and writes their zsum and counts, each stages
-        # the B points; partials written and combined
-        sweep_bytes = 4 * m * (2 * kappa * d + kappa + s * batch * d
-                               + 2 * batch * s + 2 * batch)
+    plan = vq_assign.argmin_plan(m, batch, kappa, d, cfg.kchunk)
+    s = plan.grid[0]
+    stats = kind != "assign"
+    if plan.route == "sweep":
+        # one launch for every kind: a block per kappa chunk reads its rows
+        # once (norms folded in) and, with the statistics, writes their
+        # zsum and counts; each stages the B points; partials written and
+        # combined
+        sweep_bytes = 4 * m * (kappa * d + s * batch * d + 2 * batch * s
+                               + 2 * batch
+                               + (kappa * d + kappa if stats else 0))
         return _sweep_s(s * m, sweep_bytes,
-                        2.0 * m * (batch + 1) * kappa * d,
-                        vq_assign.sweep_smem_bytes(batch, d),
+                        2.0 * m * (batch + 1) * kappa * d, plan.smem_bytes,
                         SWEEP_FULL_WARPS)
-    nb = -(-batch // vq_assign.ROWS)
-    # distance sweep: every (kappa chunk, 8-point block) block streams its
-    # codebook rows and its points; partials written and combined
-    dist_bytes = 4 * m * (nb * kappa * d + s * batch * d + 4 * batch * s
-                          + kappa)
-    t = _sweep_s(s * nb * m, dist_bytes, 2.0 * m * batch * kappa * d,
-                 vq_assign.argmin_smem_bytes(d))
-    if kind == "assign":
+    # the tiled argmin: every (kappa chunk, point tile) block streams its
+    # rows and stages its points (once where d <= 128, else for each row
+    # group); four warps a row group take each row's norm; partials written
+    # and combined
+    tiles = plan.grid[1]
+    groups = -(-kappa // vq_assign.TILE_ROWS)
+    point_reads = s if plan.staged else groups
+    dist_bytes = 4 * m * (tiles * kappa * d
+                          + point_reads * batch * d + 4 * batch * s)
+    norm_warps = vq_assign.TILE_POINTS // 8
+    t = _sweep_s(s * tiles * m, dist_bytes,
+                 2.0 * m * kappa * d * (batch + norm_warps * tiles),
+                 plan.smem_bytes, TILED_BLOCKS * BLOCK_WARPS, TILED_BLOCKS)
+    if not stats:
         return t
     if kind == "delta":
         blocks = -(-kappa // vq_assign.OWN_ROWS) * m

@@ -14,38 +14,40 @@
 // Outputs: counts (M, kappa) f32, zsum (M, kappa, d) f32, delta
 //          (M, kappa, d) f32 when residual is given, mind (M, B) f32,
 //          assign (M, B) int32.
-// Scratch: w2 (M, kappa), pmin/pidx (M, B, S) with S = ceil(kappa/kchunk).
+// Scratch: pmin/pidx (M, B, S) with S = ceil(kappa/kchunk); tickets, all 0
+//          (M at B <= 8, M * ceil(B / 32) past it), left 0.
 //
 // Where it is needed.  The delta kernel (vq_delta.cu) accumulates a
-// (32, d) tile in shared memory, which outgrows a block's 227 KB past
-// d = 1,807; this kernel's shared memory does not grow with d, so the
-// router (kernels/ops.py) sends every width past that here.
+// (32, d) tile in shared memory past 8 points, which outgrows a block's 227
+// KB past d = 1,807; this kernel's shared memory does not grow with d past
+// the argmin engine's staging limits, so the router (kernels/ops.py) sends
+// every width past that here.
 //
 // What bounds it on an H100.  At the eq.-9 tick (B = 1, M = 8, kappa =
 // 4096, d = 3072) it must read the codebooks and write zsum, 805 MB, and
-// with the epilogue also read the residual and w again and write delta,
-// 2.01 GB: bytes.  At batch 1000 the distance product, 2*B*kappa*d flops
-// per worker, on the f32 pipes: operations.
+// with the epilogue also read the residual and write delta, 1.61 GB:
+// bytes.  At batch 1000 the distance product, 2*B*kappa*d flops per
+// worker, on the f32 pipes: operations.
 //
-// What the design does about it.  As in the delta kernel, the work goes in
-// passes, each deterministic without atomics:
-//   1-3. the delta kernel's own passes (vq::launch_assign): row norms,
-//      partial (min, argmin) over kchunk-row kappa chunks, the fixed-order
-//      combine; so (assign, mind) have the delta kernel's bits;
-//   4. one owner block per (bk codebook rows x 256 columns) tile per
-//      worker scans every point's assignment in point order; thread t owns
-//      column t of the tile and adds z with __fadd_rn, thread 0 the count.
-//      Each zsum element adds the same points in the same order as the
-//      delta kernel's, so the two agree bit for bit, and the tile's shared
-//      memory, 4 * (256 * bk + bk + 256) bytes, does not depend on d.  Every
-//      column tile counts its rows (the epilogue needs them); the column-0
-//      tiles write counts.  The epilogue is spelled
-//      __fadd_rn(__fsub_rn(__fmul_rn(cnt, w), zs), res), the rounding of
-//      eager counts * w - zsum + residual, which nvcc then cannot contract
-//      into an fma.
-// Neither tile (kchunk, bk) changes a bit: the argmin is a strict total
-// order and every sum runs in point order.  They are chosen by
-// kernels/autotune.py.
+// What the design does about it.  It runs the argmin engine of the delta
+// kernel (vq_delta.cu), so (assign, mind) have the delta kernel's bits:
+//   B <= 8: the sweep, one launch, the codebooks read once with the norms
+//      folded in; the statistics and the epilogue written by the same
+//      launch (the swept rows' zeros and count-0 displacement, then the
+//      winners' rows by the last block);
+//   B > 8: the tiled argmin, then one owner block per (bk codebook rows x
+//      256 columns) tile per worker scans every point's assignment in point
+//      order; thread t owns column t of the tile and adds z with __fadd_rn,
+//      thread 0 the count.  Each zsum element adds the same points in the
+//      same order as the delta kernel's, so the two agree bit for bit, and
+//      the tile's shared memory, 4 * (256 * bk + bk + 256) bytes, does not
+//      depend on d.  Every column tile counts its rows (the epilogue needs
+//      them); the column-0 tiles write counts.
+// The epilogue is spelled __fadd_rn(__fsub_rn(__fmul_rn(cnt, w), zs), res),
+// the rounding of eager counts * w - zsum + residual, which nvcc then cannot
+// contract into an fma.  Neither tile (kchunk, bk) changes a bit: the
+// argmin is a strict total order and every sum runs in point order.  They
+// are chosen by kernels/autotune.py.
 #include "vq_common.cuh"
 
 namespace {
@@ -116,14 +118,19 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int vq_delta_blocked_f32(const float* z, const float* w,
                                     const float* residual, float* counts,
                                     float* zsum, float* delta, float* mind,
-                                    int* assign, float* w2, float* pmin,
-                                    int* pidx, int M, int B, int K, int D,
-                                    int kchunk, int bk, void* stream) {
+                                    int* assign, float* pmin, int* pidx,
+                                    unsigned* tickets, int M, int B, int K,
+                                    int D, int kchunk, int bk, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((residual == nullptr) != (delta == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = vq::launch_assign(z, w, mind, assign, w2, pmin, pidx, M, B,
-                                    K, D, kchunk, st);
+  if (B <= vq::kSmallB)
+    return static_cast<int>(vq::launch_sweep(z, w, residual, counts, zsum,
+                                             delta, mind, assign, pmin, pidx,
+                                             tickets, M, B, K, D, kchunk,
+                                             st));
+  cudaError_t e = vq::launch_tiled(z, w, mind, assign, pmin, pidx, tickets,
+                                   M, B, K, D, kchunk, st);
   if (e != cudaSuccess) return static_cast<int>(e);
 
   const size_t smem4 = sizeof(float) * (static_cast<size_t>(bk) * kCols + bk) +
@@ -134,5 +141,6 @@ extern "C" int vq_delta_blocked_f32(const float* z, const float* w,
                                    M),
                               kThreads, smem4, st>>>(
       z, w, residual, assign, counts, zsum, delta, B, K, D, bk);
+  ++vq::argmin_launches;
   return static_cast<int>(cudaGetLastError());
 }

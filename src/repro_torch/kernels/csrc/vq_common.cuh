@@ -1,11 +1,12 @@
-// Device routines shared by the window kernel (vq_window.cu), the delta
-// kernel (vq_delta.cu) and the blocked assign+delta kernel (vq_blocked.cu).
+// Device routines shared by the window kernel (vq_window.cu), the delta and
+// assign kernels (vq_delta.cu) and the blocked assign+delta kernel
+// (vq_blocked.cu).
 //
-// Both kernels must give a row the same squared distance to the last bit, so
+// All of them must give a row the same squared distance to the last bit, so
 // that the window kernel and the per-step path through the delta kernel
 // produce the same codebook.  Every floating-point operation here is spelled
 // with a round-to-nearest intrinsic so that nvcc cannot contract or reorder
-// it differently in the two translation units.
+// it differently in the translation units.
 #pragma once
 
 #include <climits>
@@ -47,6 +48,33 @@ __device__ __forceinline__ float warp_dot(const float* a, const float* b,
   return warp_sum(acc);
 }
 
+// warp_sum of N outputs held transposed, one shuffle-add an output a lane
+// where warp_sum_n pays five.  Slot i of lane l holds output i ^ f(l), where
+// f puts lane bit 4 on the slot's top bit, lane bit 3 on the next, and so on
+// for the first log2(N) offsets (at most five).  At offset 16 the lane keeps
+// v[0, N/2) and adds its partner's v[N/2 + i]: the partner, lane l ^ 16,
+// holds the same output there, so the pair adds what warp_sum's first level
+// adds for that output, and each later level halves again; once one slot is
+// left the levels go on as warp_sum's.  Every output gets warp_sum's tree
+// (IEEE addition commutes).  After the call v[i], i < max(1, N / 32), holds
+// output i ^ f(l).
+template <int N, int kOff = 16>
+__device__ __forceinline__ void warp_sum_transposed(float* v) {
+  static_assert(N >= 1 && (N & (N - 1)) == 0, "N is a power of two");
+  if constexpr (kOff > 0) {
+    if constexpr (N > 1) {
+      constexpr int h = N / 2;
+#pragma unroll
+      for (int i = 0; i < h; ++i)
+        v[i] = __fadd_rn(v[i], __shfl_xor_sync(VQ_FULL_MASK, v[h + i], kOff));
+      warp_sum_transposed<h, kOff / 2>(v);
+    } else {
+      v[0] = __fadd_rn(v[0], __shfl_xor_sync(VQ_FULL_MASK, v[0], kOff));
+      warp_sum_transposed<1, kOff / 2>(v);
+    }
+  }
+}
+
 // ||z||^2 - 2 z.w + ||w||^2, in the reference's order.
 __device__ __forceinline__ float sq_dist(float z2, float cross, float w2) {
   return __fadd_rn(__fsub_rn(z2, __fmul_rn(2.f, cross)), w2);
@@ -84,23 +112,52 @@ __device__ __forceinline__ void warp_argmin(float& v, int& i) {
 // static and dynamic together.
 constexpr size_t kSmemMax = 232448;
 
-// Opt a kernel in to more than 48 KB of dynamic shared memory.
+// Opt a kernel in to `bytes` of dynamic shared memory where the default
+// 48 KB, which holds its static shared memory too, may not be enough (no
+// kernel here holds more than 2 KB static).
 template <typename Kernel>
 cudaError_t allow_smem(Kernel* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (bytes + 2048 <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
 
-// Passes 1-3 of the delta kernel, defined in vq_delta.cu: row norms, partial
-// (min, argmin) over kchunk-row kappa chunks, and the fixed-order combine
-// into assign and mind.  vq_delta_f32 past 8 points, vq_assign_f32 and
-// vq_delta_blocked_f32 assign through it; the delta kernel's sweep (8
-// points or fewer) takes every distance in the same order, so all of them
-// assign with the same bits.
-cudaError_t launch_assign(const float* z, const float* w, float* mind,
-                          int* assign, float* w2, float* pmin, int* pidx,
-                          int M, int B, int K, int D, int kchunk,
-                          cudaStream_t st);
+// Largest batch the argmin engine's sweep takes; past it the tiled route.
+constexpr int kSmallB = 8;
+
+// CUDA kernel launches the entries of vq_delta.cu and vq_blocked.cu have
+// made, counted on the host after each launch and read through the C entry
+// vq_argmin_launches, so that a caller can show how many kernels one
+// wrapper call launches.
+extern long long argmin_launches;
+
+// The argmin engine, defined in vq_delta.cu: the nearest row of w (M, K, D)
+// for each point of z (M, B, D), into mind and assign (M, B), every distance
+// in warp_dot's order, so that every route and kernel assigns with the same
+// bits.  Both routes leave (min, argmin) partials of each kappa chunk of
+// kchunk rows in pmin/pidx (M, B, S), S = ceil(K / kchunk), and the last
+// block of a worker (sweep) or of a point tile (tiled) to take a ticket
+// combines them; the tickets, all 0 at the launch, are left 0.
+//
+// launch_sweep, B <= kSmallB: one launch, a block per (kappa chunk, worker)
+// with all B points, the rows' norms folded into the same loads.  With
+// counts and zsum it also writes the delta statistics: the rows it sweeps
+// zeroed, the winners' counts and point sums (in point order from 0) by the
+// last block; with residual and delta too, the displacement
+// counts * w - zsum + residual, as eager PyTorch rounds it.  Tickets: M.
+cudaError_t launch_sweep(const float* z, const float* w, const float* residual,
+                         float* counts, float* zsum, float* delta,
+                         float* mind, int* assign, float* pmin, int* pidx,
+                         unsigned* tickets, int M, int B, int K, int D,
+                         int kchunk, cudaStream_t st);
+
+// launch_tiled, B > kSmallB: one launch, a block per (kappa chunk, tile of
+// kTilePoints points, worker), register-tiled, reduced by
+// warp_sum_transposed.  Tickets: M * ceil(B / kTilePoints).
+constexpr int kTilePoints = 32;
+cudaError_t launch_tiled(const float* z, const float* w, float* mind,
+                         int* assign, float* pmin, int* pidx,
+                         unsigned* tickets, int M, int B, int K, int D,
+                         int kchunk, cudaStream_t st);
 
 }  // namespace vq

@@ -5,22 +5,28 @@ Counterpart of ``repro/kernels/vq_assign.py`` (``_assign_kernel`` /
 ``vq_assign_pallas`` and ``_delta_kernel`` / ``vq_delta_pallas``), with a
 leading worker dimension: the reference's 2-D signatures are the case M=1.
 Both kernels live in ``csrc/vq_delta.cu``, which says what bounds them and
-how; the assign kernel is the delta kernel's first three passes, so the
-two assign with the same bits.
+how; both, and the blocked kernel, assign through one argmin engine, so
+they assign with the same bits.  Its launch plan, the route (the sweep at
+B <= ``SMALL_B``, the tiled argmin past it), its grid, shared memory,
+tickets and partials, is the pure function ``argmin_plan``, which the
+wrappers, the tuner and the tests read.
 
 ``vq_assign`` and ``vq_delta`` launch their kernels for CUDA tensors and
 take the plain versions (``vq_assign_plain``, ``vq_delta_plain``) for CPU
 tensors only.  ``launches_assign`` and ``launches`` count the wrappers'
-launches; an assign launch is three CUDA kernel launches in a row (row
-norms, partial argmin, combine), a delta launch one at B <= ``SMALL_B``
-(the sweep) and four past it (then accumulate).  The kappa chunk
-(``kchunk``) comes from ``kernels.autotune`` unless the caller gives one;
-it changes no bit.  The sweep's tickets and partials are kept per device
-and stream (``_sweep_scratch``); the kernel leaves the tickets as it found
-them, so no launch depends on host work.
+launches; an assign launch is one CUDA kernel launch, a delta launch one
+at B <= ``SMALL_B`` (the sweep) and two past it (the tiled argmin, then
+the accumulate pass).  The kappa chunk (``kchunk``) comes from
+``kernels.autotune`` unless the caller gives one; it changes no bit.  The
+engine's tickets and partials are kept per device and stream
+(``_sweep_scratch``); the kernels leave the tickets as they found them, so
+no launch depends on host work.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -28,18 +34,25 @@ import torch.nn.functional as F
 from repro_torch.core import vq
 from repro_torch.kernels import _build, autotune
 
-#: Codebook rows per block of the argmin pass before tuning (the kappa split
-#: that gives a batch of one its parallelism); ``autotune``'s ``off`` tiles.
+#: Codebook rows per block of the argmin engine before tuning (the kappa
+#: split that gives a small batch its parallelism); ``autotune``'s ``off``
+#: tiles.
 KCHUNK = 256
-#: Points per block of the argmin pass; mirrors csrc/vq_delta.cu.
-ROWS = 8
-#: Codebook rows per owner block of the accumulate pass; mirrors the source.
+#: Codebook rows per owner block of the accumulate pass; mirrors
+#: csrc/vq_delta.cu.
 OWN_ROWS = 32
 #: Assignments staged per sweep of the accumulate pass; mirrors the source.
 CHUNK = 256
-#: Largest batch the delta kernel's one-launch sweep takes; mirrors the
-#: source (kSmallB).
+#: Largest batch the argmin engine's sweep takes; mirrors the source
+#: (vq::kSmallB).
 SMALL_B = 8
+#: The tiled route (B > SMALL_B): points per block, the codebook rows and
+#: columns a block stages at once, and the stages its ring holds; mirror
+#: the source.
+TILE_POINTS, TILE_ROWS, TILE_COLS, TILE_STAGES = 32, 16, 128, 4
+#: Bound on the static shared memory of a sweep or tiled block (partials,
+#: norms, the ticket's flag); mirrors the source's kStaticSmem.
+STATIC_SMEM = 1024
 #: Shared memory one block may use on an H100 (dynamic, after opting in);
 #: mirrors csrc/vq_common.cuh's kSmemMax.
 SMEM_MAX = 232_448
@@ -48,13 +61,55 @@ launches = 0
 launches_assign = 0
 
 
+class ArgminPlan(NamedTuple):
+    """One launch of the argmin engine.  ``route`` "sweep" (B <=
+    ``SMALL_B``: a block per kappa chunk and worker, with all B points,
+    ``staged`` in shared memory where they fit, else read in place) or
+    "tiled" (a block per kappa chunk, ``TILE_POINTS`` points and worker;
+    ``staged``: the point tile staged once, d <= ``TILE_COLS``, else beside
+    each column tile).  ``grid`` is (kappa chunks, point tiles, M);
+    ``smem_bytes`` a block's dynamic shared memory plus the bound on its
+    static; ``tickets`` and ``partials`` the scratch the launch takes."""
+    route: str
+    staged: bool
+    grid: tuple[int, int, int]
+    smem_bytes: int
+    tickets: int
+    partials: int
+
+
+def argmin_plan(m: int, b: int, kappa: int, d: int, kchunk: int
+                ) -> ArgminPlan:
+    """The argmin engine's launch for z (M, B, d) against w (M, kappa, d)
+    at kappa chunk ``kchunk``, as csrc/vq_delta.cu makes it: the sweep
+    exactly at B <= 8, every block within 232,448 B of shared memory.  The
+    plan changes no bit."""
+    if min(m, b, kappa, d) < 1:
+        raise ValueError(f"the argmin needs M, B, kappa and d > 0, got "
+                         f"({m}, {b}, {kappa}, {d})")
+    if kchunk < 1:
+        raise ValueError(f"kchunk must be >= 1, got {kchunk}")
+    s = -(-kappa // kchunk)
+    if b <= SMALL_B:
+        staged = 4 * b * d + STATIC_SMEM <= SMEM_MAX
+        return ArgminPlan("sweep", staged, (s, 1, m),
+                          (4 * b * d if staged else 0) + STATIC_SMEM, m,
+                          m * b * s)
+    tiles = -(-b // TILE_POINTS)
+    once = d <= TILE_COLS
+    point_bufs = 1 if once else TILE_STAGES
+    smem = 4 * (TILE_STAGES * TILE_ROWS * TILE_COLS
+                + point_bufs * TILE_POINTS * TILE_COLS)
+    return ArgminPlan("tiled", once, (s, tiles, m), smem + STATIC_SMEM,
+                      m * tiles, m * b * s)
+
+
 def argmin_smem_bytes(d: int) -> int:
-    """Shared memory of one argmin-pass block: its 8 points when they fit
-    (d <= 7,247), plus the 8 norms and the 8x8 per-warp partials; past
-    that the points are read in place and only the rest stays."""
-    fixed = 4 * ROWS + 8 * ROWS * ROWS
-    staged = 4 * ROWS * d + fixed
-    return staged if staged <= SMEM_MAX else fixed
+    """Shared memory of the argmin engine's largest block at width d, over
+    every batch: the sweep's staged points (at most 8 of them, while they
+    fit) or the tiled route's tiles, which do not grow with d."""
+    return max(argmin_plan(1, b, 1, d, 1).smem_bytes
+               for b in range(1, SMALL_B + 2))
 
 
 def accumulate_smem_bytes(d: int) -> int:
@@ -63,21 +118,11 @@ def accumulate_smem_bytes(d: int) -> int:
     return 4 * (OWN_ROWS * d + CHUNK + OWN_ROWS)
 
 
-def sweep_smem_bytes(b: int, d: int) -> int:
-    """Shared memory of one block of the delta kernel's sweep (B <= 8): its
-    B points, and for ``kB`` = 1 or 8 point slots the norms, the per-warp
-    partials, the winners and a flag."""
-    kb = 1 if b == 1 else SMALL_B
-    return 4 * b * d + 4 * kb * (2 + 2 * ROWS) + 4
-
-
 def smem_bytes(d: int) -> int:
-    """Shared memory of the delta kernel's largest block at any batch, the
-    accumulate pass's (the argmin pass and the sweep hold at most 8 points
-    and their partials, less).  The codebook streams from global memory, so
-    kappa does not enter."""
-    return max(accumulate_smem_bytes(d), argmin_smem_bytes(d),
-               sweep_smem_bytes(SMALL_B, d))
+    """Shared memory of the delta kernel's largest block at any batch: the
+    accumulate pass's (32, d) tile or the argmin engine's.  The codebook
+    streams through, so kappa does not enter."""
+    return max(accumulate_smem_bytes(d), argmin_smem_bytes(d))
 
 
 def vq_assign_plain(z: torch.Tensor, w: torch.Tensor):
@@ -116,22 +161,6 @@ def check_inputs(z: torch.Tensor, w: torch.Tensor, name: str) -> None:
         raise ValueError(f"z is on {z.device}, w on {w.device}")
 
 
-def argmin_buffers(m: int, b: int, kappa: int, kchunk: int,
-                   dev: torch.device) -> tuple[torch.Tensor, ...]:
-    """Outputs and scratch of the argmin passes on ``dev``:
-    ``(mind (M, B), assign (M, B) int32, w2 (M, kappa), pmin, pidx
-    (M, B, ceil(kappa / kchunk)))``."""
-    if kchunk < 1:
-        raise ValueError(f"kchunk must be >= 1, got {kchunk}")
-    s = -(-kappa // kchunk)
-    f32 = torch.float32
-    return (torch.empty((m, b), dtype=f32, device=dev),
-            torch.empty((m, b), dtype=torch.int32, device=dev),
-            torch.empty((m, kappa), dtype=f32, device=dev),
-            torch.empty((m, b, s), dtype=f32, device=dev),
-            torch.empty((m, b, s), dtype=torch.int32, device=dev))
-
-
 def stacked_dims(z: torch.Tensor, w: torch.Tensor, name: str
                  ) -> tuple[int, int, int, int]:
     """``(M, B, kappa, d)`` of contiguous CUDA inputs (the 2-D form is
@@ -144,7 +173,7 @@ def stacked_dims(z: torch.Tensor, w: torch.Tensor, name: str
     kappa = w.shape[-2]
     if m == 0 or b == 0 or kappa == 0 or d == 0:
         raise ValueError(f"{name} needs M, B, kappa and d > 0")
-    if m > 65535 or -(-b // ROWS) > 65535:
+    if m > 65535 or -(-b // TILE_POINTS) > 65535:
         raise ValueError(f"M={m}, B={b} is past the launch grid's limits")
     return m, b, kappa, d
 
@@ -154,10 +183,11 @@ _scratch: dict[tuple, tuple[torch.Tensor, ...]] = {}  # (device, stream)
 
 def _sweep_scratch(dev: torch.device, stream: int, m: int, n: int
                    ) -> tuple[torch.Tensor, ...]:
-    """The sweep's ``(tickets (>= M,) int32, all 0; pmin (>= n,) f32; pidx
-    (>= n,) int32)`` for launches on ``stream``, kept across calls: the
-    kernel puts every ticket back to 0, and overwrites the partials before
-    it reads them.  Grown, never shrunk; a launch on another stream gets
+    """The argmin engine's ``(tickets (>= m,) int32, all 0; pmin (>= n,)
+    f32; pidx (>= n,) int32)`` for launches on ``stream``, kept across
+    calls (``m`` and ``n`` are a plan's ``tickets`` and ``partials``): the
+    kernels put every ticket back to 0, and overwrite the partials before
+    they read them.  Grown, never shrunk; a launch on another stream gets
     its own, so two streams never share a ticket."""
     key = (dev, stream)
     got = _scratch.get(key)
@@ -169,6 +199,16 @@ def _sweep_scratch(dev: torch.device, stream: int, m: int, n: int
             torch.empty(nc, dtype=torch.float32, device=dev),
             torch.empty(nc, dtype=torch.int32, device=dev))
     return got
+
+
+def engine_scratch(m: int, b: int, kappa: int, d: int, kchunk: int,
+                   dev: torch.device, stream: int) -> tuple[int, int, int]:
+    """Pointers ``(pmin, pidx, tickets)`` of the argmin engine's scratch for
+    one launch on ``stream`` at these dimensions (``argmin_plan``)."""
+    plan = argmin_plan(m, b, kappa, d, kchunk)
+    tickets, pmin, pidx = _sweep_scratch(dev, stream, plan.tickets,
+                                         plan.partials)
+    return pmin.data_ptr(), pidx.data_ptr(), tickets.data_ptr()
 
 
 def _launch(z: torch.Tensor, w: torch.Tensor, name: str, stats: bool,
@@ -185,44 +225,40 @@ def _launch(z: torch.Tensor, w: torch.Tensor, name: str, stats: bool,
     elif kchunk < 1:
         raise ValueError(f"kchunk must be >= 1, got {kchunk}")
     f32 = torch.float32
+    mind = torch.empty((m, b), dtype=f32, device=dev)
+    assign = torch.empty((m, b), dtype=torch.int32, device=dev)
+    counts = zsum = None
     lib = _build.library()
     with _build.on_device(dev):
         stream = _build.current_stream(dev)
-        if stats and b <= SMALL_B:   # the sweep: no norms, no scratch made
-            tickets, pmin, pidx = _sweep_scratch(dev, stream, m,
-                                                 m * b * -(-kappa // kchunk))
+        scratch = engine_scratch(m, b, kappa, d, kchunk, dev, stream)
+        dims = (m, b, kappa, d, kchunk, stream)
+        if stats:
             counts = torch.empty((m, kappa), dtype=f32, device=dev)
             zsum = torch.empty((m, kappa, d), dtype=f32, device=dev)
-            mind = torch.empty((m, b), dtype=f32, device=dev)
-            assign = torch.empty((m, b), dtype=torch.int32, device=dev)
             rc = lib.vq_delta_f32(z.data_ptr(), w.data_ptr(),
                                   counts.data_ptr(), zsum.data_ptr(),
-                                  mind.data_ptr(), assign.data_ptr(), None,
-                                  pmin.data_ptr(), pidx.data_ptr(),
-                                  tickets.data_ptr(), m, b, kappa, d, kchunk,
-                                  stream)
+                                  mind.data_ptr(), assign.data_ptr(),
+                                  *scratch, *dims)
         else:
-            mind, assign, w2, pmin, pidx = argmin_buffers(m, b, kappa, kchunk,
-                                                          dev)
-            counts = zsum = None
-            tail = (w2.data_ptr(), pmin.data_ptr(), pidx.data_ptr())
-            dims = (m, b, kappa, d, kchunk, stream)
-            if stats:
-                counts = torch.empty((m, kappa), dtype=f32, device=dev)
-                zsum = torch.empty((m, kappa, d), dtype=f32, device=dev)
-                rc = lib.vq_delta_f32(z.data_ptr(), w.data_ptr(),
-                                      counts.data_ptr(), zsum.data_ptr(),
-                                      mind.data_ptr(), assign.data_ptr(),
-                                      *tail, None, *dims)
-            else:
-                rc = lib.vq_assign_f32(z.data_ptr(), w.data_ptr(),
-                                       mind.data_ptr(), assign.data_ptr(),
-                                       *tail, *dims)
+            rc = lib.vq_assign_f32(z.data_ptr(), w.data_ptr(),
+                                   mind.data_ptr(), assign.data_ptr(),
+                                   *scratch, *dims)
     _build.check(rc, f"{name}_f32")
     if z.dim() == 2:
         return (None if counts is None else counts[0],
                 None if zsum is None else zsum[0], mind[0], assign[0])
     return counts, zsum, mind, assign
+
+
+def cuda_launches() -> int:
+    """CUDA kernels the assign, delta and blocked entries have launched in
+    this process (the C library's host count; a launch of ``vq_delta`` is
+    one at B <= ``SMALL_B`` and two past it).  Needs the built library."""
+    out = ctypes.c_longlong(0)
+    _build.check(_build.library().vq_argmin_launches(ctypes.byref(out)),
+                 "vq_argmin_launches")
+    return out.value
 
 
 def on_cuda(z: torch.Tensor, name: str) -> bool:

@@ -219,8 +219,8 @@ def blocked_accumulate_smem_bytes(kappa: int, bk: int) -> int:
 
 def blocked_smem_bytes(kappa: int, d: int, bk: int) -> int:
     """Shared memory of the blocked kernel's largest block: the accumulate
-    sweep's or the argmin pass's (``vq_assign.argmin_smem_bytes``), neither
-    of which grows with d past the argmin pass's staging limit."""
+    sweep's or the argmin engine's (``vq_assign.argmin_smem_bytes``),
+    neither of which grows with d past the engine's staging limits."""
     return max(blocked_accumulate_smem_bytes(kappa, bk),
                assign_kernels.argmin_smem_bytes(d))
 
@@ -256,11 +256,13 @@ def _launch_blocked(z: torch.Tensor, w: torch.Tensor,
     if bk < 1:
         raise ValueError(f"bk must be >= 1, got {bk}")
     bk = min(bk, kappa)
+    if kchunk < 1:
+        raise ValueError(f"kchunk must be >= 1, got {kchunk}")
     if -(-d // COLS) > 65535:
         raise ValueError(f"d={d} is past the launch grid's limit")
-    mind, assign, w2, pmin, pidx = assign_kernels.argmin_buffers(
-        m, b, kappa, kchunk, dev)
     f32 = torch.float32
+    mind = torch.empty((m, b), dtype=f32, device=dev)
+    assign = torch.empty((m, b), dtype=torch.int32, device=dev)
     counts = torch.empty((m, kappa), dtype=f32, device=dev)
     zsum = torch.empty((m, kappa, d), dtype=f32, device=dev)
     delta = None if residual is None else torch.empty_like(zsum)
@@ -272,8 +274,10 @@ def _launch_blocked(z: torch.Tensor, w: torch.Tensor,
             None if residual is None else residual.data_ptr(),
             counts.data_ptr(), zsum.data_ptr(),
             None if delta is None else delta.data_ptr(), mind.data_ptr(),
-            assign.data_ptr(), w2.data_ptr(), pmin.data_ptr(),
-            pidx.data_ptr(), m, b, kappa, d, kchunk, bk, stream)
+            assign.data_ptr(),
+            *assign_kernels.engine_scratch(m, b, kappa, d, kchunk, dev,
+                                           stream),
+            m, b, kappa, d, kchunk, bk, stream)
     _build.check(rc, "vq_delta_blocked_f32")
     out = (counts, zsum, mind, assign) + (() if delta is None else (delta,))
     return tuple(x[0] for x in out) if z.dim() == 2 else out

@@ -153,12 +153,15 @@ def test_routing_helpers():
     assert ops.delta_route(1807, fused=False) == "full"
     assert ops.delta_route(8, budget_bytes=1024) == "blocked"
     assert not ops.window_fits(16, 8, budget_bytes=64)
-    # the blocked kernel's shared memory does not grow with d; past 7,247
-    # the argmin pass reads its points in place
+    # the blocked kernel's shared memory does not grow with d past the
+    # argmin engine's staging: 8 points staged up to d = 7,232, read in
+    # place past it; the tiled route's tiles (a ring of 4 stages of 16
+    # rows and 32 point rows) do not depend on d past 128
+    tiled = 4 * (4 * 16 * 128 + 4 * 32 * 128) + 1024
     assert (ops.delta_smem_bytes(4096, 3072, bk=32)
-            == vq_assign.argmin_smem_bytes(3072) == 4 * (8 * 3072 + 8) + 512)
-    assert ops.delta_smem_bytes(4096, 7247, bk=32) == 232_448
-    assert ops.delta_smem_bytes(4096, 100_000, bk=32) == 4 * (32 * 256 + 288)
+            == vq_assign.argmin_smem_bytes(3072) == tiled)
+    assert ops.delta_smem_bytes(4096, 7232, bk=32) == 232_448
+    assert ops.delta_smem_bytes(4096, 100_000, bk=32) == tiled
     assert (ops.delta_smem_bytes(4096, 128, bk=64)
             > ops.delta_smem_bytes(4096, 128, bk=32))
     assert ops.delta_smem_bytes(16, 128, bk=64) == ops.delta_smem_bytes(

@@ -227,7 +227,7 @@ def test_assign_wrapper_validates_and_never_counts_cpu():
     assert set(_build.SIGNATURES) == {"vq_window_f32", "vq_window_clusters",
                                       "vq_delta_f32", "vq_assign_f32",
                                       "vq_topk_f32", "vq_delta_blocked_f32",
-                                      "vq_ring_f32"}
+                                      "vq_ring_f32", "vq_argmin_launches"}
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):

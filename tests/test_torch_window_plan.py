@@ -403,13 +403,19 @@ def test_sweep_combine_any_order_gives_the_fixed_combine(kappa):
 
 
 def test_sweep_smem_and_route_limits():
-    """The sweep holds at most 8 points; the delta kernel's largest block is
-    still the accumulate pass's, so ``delta_fits`` keeps its edge."""
+    """The sweep holds at most 8 points; from d = 1,807 on the delta
+    kernel's largest block is still the accumulate pass's, so
+    ``delta_fits`` keeps its edge (below it the tiled argmin's tiles are
+    the largest)."""
     assert vq_assign.SMALL_B == 8
-    assert vq_assign.sweep_smem_bytes(1, 128) == 4 * 128 + 4 * 18 + 4
-    assert vq_assign.sweep_smem_bytes(8, 128) == 4 * 8 * 128 + 4 * 8 * 18 + 4
-    for d in (1, 128, 1807, 3072):
+    plan = vq_assign.argmin_plan
+    assert plan(8, 1, 4096, 128, 128).smem_bytes == 4 * 128 + 1024
+    assert plan(8, 8, 4096, 128, 128).smem_bytes == 4 * 8 * 128 + 1024
+    for d in (1807, 3072):
         assert vq_assign.smem_bytes(d) == vq_assign.accumulate_smem_bytes(d)
+    for d in (1, 128):
+        assert (vq_assign.smem_bytes(d) == plan(1, 9, 1, d, 1).smem_bytes
+                == 4 * (4 * 16 * 128 + 32 * 128) + 1024)
     assert ops.delta_fits(1807) and not ops.delta_fits(1808)
 
 
