@@ -122,7 +122,30 @@ PyTorch built for CUDA:
      2,000 ticks equal to the plain-ring run bit for bit; and
      ``--transport ring --wire-quant int8`` on 8 x 20,000 points (917,508 B
      of wire a window, 4,000 ring launches, distortion falling);
-  17. times each kernel (the delta sweep also at each kchunk the tuner
+  17. runs the comm layer at full width, M = 8 as 2 host groups of 4
+     (``--hosts 2``): the top-k kernel on a tier-1 payload ((2, 524,288),
+     k = 1,024, and (2, 1) at k = 1) and the ring kernel on a host group's
+     rows ((4, 524,288)) against their plain versions, bit for bit; both
+     tiers dense on 8 x 20,000 points, equal bit for bit to the flat dense
+     run (3,145,728 / 2,097,152 B a window on tiers 0 / 1), and over
+     ``--transport ring`` to the flat ring run with the same ring launches;
+     a sparse tier 1 (k = 1,024) at full depth: 12,500 window and top-k
+     launches, 3,145,728 / 8,192 B a window, its first 20 windows held
+     against ``use_kernels=False`` and its final distortion within 25% of
+     the flat dense run's; eq. 9 over the hierarchy for 20,000 ticks (a
+     delta and a top-k launch a tick) and, with a dense tier 1, equal to the
+     flat eq.-9 run over 2,000 ticks bit for bit; ``--merge dynamic`` at
+     threshold 0 equal to plain delta bit for bit (7 B of probe a window),
+     then at full depth at T, the median probe of that leg, and over
+     ``--wire-quant int8`` (cut); ``--quorum`` without lateness equal to
+     plain delta bit for bit, then ``--network geometric --p-delay 0.2`` at
+     full depth (late worker-windows as the numpy late matrix counts them,
+     3,670,023 B a window); the ``Tier1BudgetController`` from frac 0.5 in
+     chunks of 100 windows, its trajectory equal to the ladder replayed on
+     the host, the top-k kernel at each k of it against plain; times the
+     two new kernel shapes and traces 200 windows of the sparse-tier-1
+     leg;
+  18. times each kernel (the delta sweep also at each kchunk the tuner
      weighs; the assign kernel at the flush, the eval and (8, 1) x 4096 x
      3072; the blocked kernel at (8, 1) x 4096 x 3072 with and without the
      epilogue and at (8, 1) x 4096 x 128), its plain version, its bound
@@ -139,7 +162,7 @@ PyTorch built for CUDA:
      the 3072-wide eq.-9 path with torch.profiler (device time by kernel, the
      device's idle share), after timing 200 dense and ring sync windows in
      turns on the host clock;
-  18. prints one ``{"kernels": [...]}`` line (window, delta, assign,
+  19. prints one ``{"kernels": [...]}`` line (window, delta, assign,
       top-k, blocked and ring), the card line again, and last
       ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -191,6 +214,14 @@ RING_PLAIN_WINDOWS = 200  # sync windows held bitwise against the plain ring
 RING_PLAIN_TICKS = 2000   # eq.-9 ticks held bitwise against the plain ring
 RING_AVG_POINTS = 2000    # depth of the ring average leg
 RING_MASK = (1.0, 0.0, 1.0, 1.0, 0.0, 0.0, 1.0, 0.0)  # a 0/1 mask over M=8
+# the comm layer's legs: M = 8 as 2 host groups of 4 workers
+HOSTS = 2
+COMM_POINTS = 20_000    # points (or ticks) per worker of a cut leg
+COMM_CHECK_TICKS = 2000  # eq.-9 ticks of the dense-tier-1 == flat check
+QUORUM_P_DELAY = 0.2    # 0.8^11 = 8.6% of worker-windows late at tau = 10
+CTL_FRAC0 = 0.5         # the controller leg's starting tier-1 frac
+CTL_DCN = 262_144       # its tier-1 bytes a tick: frac 0.5 takes 8 ticks
+CTL_PUBLISH = 100       # its windows a chunk
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
 # f32 FLOP/s outside the tensor cores (both kernels run on the f32 pipes)
@@ -938,6 +969,315 @@ def check_blocked(z, w, label: str, residual=None) -> float:
           f"version (cuBLAS) against the f64 one: {f32_flips} flips, max "
           f"|mind diff| {f32_err:.3e}")
     return m_err
+
+
+def comm_layer_legs(dev, w0, data, eval_data, runs, lengths, payload,
+                    normal_payload) -> None:
+    """The comm layer on stacked workers at full width: M = 8 as 2 host
+    groups of 4, the dynamic and the quorum merge, the tier-1 controller
+    (the module docstring's item 17)."""
+    import torch
+
+    from repro_torch import comm
+    from repro_torch.comm import ring
+    from repro_torch.comm.sweep import acceptance_sparse_frac
+    from repro_torch.core import vq
+    from repro_torch.engine import Tier1BudgetController, Topology
+    from repro_torch.engine import merge as merge_lib
+    from repro_torch.engine.mesh import MeshExecutor
+    from repro_torch.engine.network import (FixedLatencyNetwork,
+                                            GeometricDelayNetwork,
+                                            InstantNetwork)
+    from repro_torch.kernels import vq_fused
+    from repro_torch.launch import train
+
+    topo = Topology.from_spec(M, hosts=HOSTS)
+    wph = topo.workers_per_host
+    n_flat = KAPPA * D
+    logical = 4 * n_flat
+    t0_wire = comm.ring_wire_bytes(logical, wph)          # 3,145,728
+    t1_dense = comm.ring_wire_bytes(logical, HOSTS)       # 2,097,152
+    frac1 = acceptance_sparse_frac(KAPPA, D)              # 1/512
+    k1 = comm.topk_count(n_flat, frac1)                   # 1,024
+    t1_sparse = (HOSTS - 1) * k1 * 8                      # 8,192
+    n_windows = N_PER // TAU
+    cw = COMM_POINTS // TAU
+
+    # the kernels at the slice's new shapes: a tier-1 payload (the host
+    # groups' summed displacements) and a host group's rows
+    partial = payload.view(HOSTS, wph, -1).sum(1).contiguous()
+    normal1 = normal_payload[:HOSTS].contiguous()
+    for full, label in ((partial, "tier-1 partial"), (normal1, "N(0, 1)")):
+        topk_equal(full, k1, f"({HOSTS}, {n_flat}) {label}")
+    topk_equal(partial[:, :1].contiguous(), 1, f"({HOSTS}, 1) one-entry leaf")
+    print(f"check top-k vs plain, bitwise, one launch: ({HOSTS}, {n_flat}) "
+          f"tier-1 partial and N(0, 1) at k = {k1}, ({HOSTS}, 1) at k = 1: "
+          f"equal; plan {topk_plan_line(partial)}")
+    for x, label in ((payload[:wph].contiguous(), "a host group's "
+                      "displacement"),
+                     (normal_payload[:wph].contiguous(), "a host group, "
+                      "N(0, 1)")):
+        check_ring(x, label)
+
+    def flat_args(points, *extra):
+        return ["--executor", "mesh", "--workers", str(M), "--points",
+                str(points), "--dim", str(D), "--kappa", str(KAPPA), "--tau",
+                str(TAU), "--seed", str(SEED)] + list(extra)
+
+    def leg(label, argv, **want):
+        zero_counts()
+        res, ex, wall = train.run_vq(train.parse_args(argv))
+        counts = expect_counts(label, **want)
+        pts = M * int(argv[argv.index("--points") + 1])
+        print(f"leg {label}: wall {wall:.2f} s ({wall / pts * 1e6:.3f} "
+              f"us/point), launches {counts}, C first "
+              f"{float(res.distortion[0]):.6f} last "
+              f"{float(res.distortion[-1]):.6f}")
+        if not (bool(torch.isfinite(res.distortion).all())
+                and res.w_shared.shape == (KAPPA, D)
+                and float(res.distortion[-1]) < float(res.distortion[0])):
+            fail(f"{label}: result not finite, of the wrong shape, or not "
+                 f"going down")
+        return res, ex, counts
+
+    def tiers(ex, windows):
+        by = ex.last_comm["by_tag"]["merge"]["by_tier"]
+        return (by[0]["wire_bytes"] // windows, by[1]["wire_bytes"] // windows,
+                by[0]["wire_bytes"] % windows + by[1]["wire_bytes"] % windows)
+
+    def same_run(a, b):
+        return (same_bits(a.distortion, b.distortion)
+                and same_bits(a.w_shared, b.w_shared))
+
+    # -- leg 1: both tiers dense == the flat run, bit for bit -----------------
+    inst = ["--network", "instant", "--scheme", "delta"]
+    cut = flat_args(COMM_POINTS, *inst)
+    flat, _, _ = leg("flat delta (cut)", cut, window=cw)
+    hier_d, ex_hd, _ = leg("--hosts 2 --tier1-transport xla (cut)",
+                           cut + ["--hosts", str(HOSTS), "--tier1-transport",
+                                  "xla"], window=cw)
+    per0, per1, rem = tiers(ex_hd, cw)
+    print(f"check hier dense == flat dense, bitwise (curve, codebook): "
+          f"{same_run(hier_d, flat)}; tier wire a window {per0:,} / {per1:,} "
+          f"B")
+    if not same_run(hier_d, flat) or (per0, per1, rem) != (t0_wire, t1_dense,
+                                                            0):
+        fail("hier dense: differs from the flat run, or tier bytes wrong")
+    flat_r, _, cr = leg("flat ring delta (cut)", cut + ["--transport", "ring"],
+                        window=cw, ring=2 * cw)
+    hier_r, ex_hr, chr_ = leg(
+        "--transport ring --hosts 2 --tier1-transport xla (cut)",
+        cut + ["--transport", "ring", "--hosts", str(HOSTS),
+               "--tier1-transport", "xla"], window=cw, ring=2 * cw)
+    print(f"check hier ring (one ring launch over {M} rows a reduce) == flat "
+          f"ring, bitwise: {same_run(hier_r, flat_r)}; ring launches "
+          f"{chr_['ring']} == {cr['ring']}")
+    if not same_run(hier_r, flat_r) or tiers(ex_hr, cw) != (t0_wire,
+                                                           t1_dense, 0):
+        fail("hier ring: differs from the flat ring run")
+
+    # -- leg 2: a sparse tier 1 at full depth (the headline) -----------------
+    sp_args = flat_args(N_PER, *inst) + ["--hosts", str(HOSTS)]
+    hier_s, ex_hs, _ = leg("--hosts 2 (sparse tier 1, k = "
+                                   f"{k1:,}), full depth", sp_args,
+                                   window=n_windows, topk=n_windows)
+    per0, per1, rem = tiers(ex_hs, n_windows)
+    c_flat = float(runs["delta"][0].distortion[-1])
+    gap = float(hier_s.distortion[-1]) / c_flat - 1.0
+    print(f"check hier sparse: tier wire a window {per0:,} / {per1:,} B "
+          f"({t1_dense // per1}x less than dense tier 1); final C "
+          f"{float(hier_s.distortion[-1]):.6f} vs flat dense {c_flat:.6f} "
+          f"({gap:+.4f})")
+    if (per0, per1, rem) != (t0_wire, t1_sparse, 0) or abs(gap) >= 0.25:
+        fail("hier sparse: tier bytes wrong or final distortion past 25% of "
+             "the flat dense run's")
+    head = data[:, : CHECK_WINDOWS * TAU]
+    plain = MeshExecutor(InstantNetwork(), use_kernels=False, device=dev,
+                         transport=comm.HierarchicalTransport(
+                             "xla", comm.get_transport("sparse", frac=frac1),
+                             topology=topo)).run(
+        "delta", w0, head, eval_data, tau=TAU)
+    held_to(f"hier sparse first {CHECK_WINDOWS} windows vs use_kernels=False",
+            hier_s.distortion[:CHECK_WINDOWS], plain.distortion)
+
+    # -- leg 3: eq. 9 over the hierarchy --------------------------------------
+    geo = ["--scheme", "async_delta", "--network", "geometric", "--p-delay",
+           str(P_DELAY)]
+    n_t = COMM_POINTS
+    res_ha, ex_ha, _ = leg("eq. 9 --hosts 2 (sparse tier 1), cut",
+                           flat_args(n_t, *geo) + ["--hosts", str(HOSTS)],
+                           delta=n_t, topk=n_t)
+    per0, per1, _ = tiers(ex_ha, n_t)
+    print(f"eq. 9 over the hierarchy: tier wire a tick {per0:,} / {per1:,} "
+          f"B, one delta and one top-k launch a tick")
+    if (per0, per1) != (t0_wire, t1_sparse):
+        fail("eq. 9 hier: tier bytes wrong")
+    n_c = COMM_CHECK_TICKS
+    lc = lengths[:, : n_c // TAU + 2]
+    flat_a = MeshExecutor(GeometricDelayNetwork(P_DELAY), device=dev).run(
+        "async_delta", w0, data[:, :n_c], eval_data, tau=TAU, lengths=lc)
+    hier_a = MeshExecutor(GeometricDelayNetwork(P_DELAY), device=dev,
+                          transport=comm.HierarchicalTransport(
+                              "xla", "xla", topology=topo)).run(
+        "async_delta", w0, data[:, :n_c], eval_data, tau=TAU, lengths=lc)
+    print(f"check eq. 9 hier dense == flat, {n_c} ticks, bitwise: "
+          f"{same_run(hier_a, flat_a)}")
+    if not same_run(hier_a, flat_a):
+        fail("eq. 9 hier dense differs from the flat run")
+
+    # -- leg 4: the dynamic merge ---------------------------------------------
+    dyn0, ex_d0, _ = leg("--merge dynamic --divergence-thresh 0 (cut)",
+                         cut + ["--merge", "dynamic"], window=cw)
+    probe = ex_d0.last_comm["by_tag"]["probe"]
+    print(f"check dynamic at 0 == plain delta, bitwise: "
+          f"{same_run(dyn0, flat)}; probe wire {probe['wire_bytes'] // cw} B "
+          f"a window, merges {ex_d0.last_comm['by_tag']['merge']['calls']}")
+    if (not same_run(dyn0, flat) or probe["wire_bytes"] != 7 * cw
+            or ex_d0.last_comm["by_tag"]["merge"]["calls"] != cw):
+        fail("dynamic at threshold 0 differs from the plain delta run")
+    # T: the median probe of the threshold-0 leg, sum_i ||Delta_i||^2 a
+    # window, from the plain delta loop written out over the same points
+    w_srd, data_c, _ = train.make_inputs(train.parse_args(cut), dev)
+    drifts = []
+    eps_c = vq.default_steps(torch.arange(1, cw * TAU + 1, device=dev))
+    for i in range(cw):
+        span = slice(i * TAU, (i + 1) * TAU)
+        delta = merge_lib.tree_sub_f32(w_srd, vq_fused.vq_window(
+            data_c[:, span].contiguous(), w_srd, eps_c[span]))
+        drifts.append((delta * delta).sum(dim=(1, 2)).sum())
+        w_srd = merge_lib.tree_apply_delta(w_srd, torch.sum(delta, dim=0))
+    drifts = torch.stack(drifts).cpu()
+    thresh = float(drifts.median())
+    if not same_bits(w_srd, flat.w_shared):
+        fail("the loop written out for the probe differs from the delta run")
+    print(f"dynamic threshold T = {thresh:.6e}: the median probe of the "
+          f"threshold-0 leg's {cw} windows (first {float(drifts[0]):.4e}, "
+          f"last {float(drifts[-1]):.4e})")
+    dyn_args = ["--merge", "dynamic", "--divergence-thresh", repr(thresh)]
+    zero_counts()
+    res_dt, ex_dt, wall_dt = train.run_vq(train.parse_args(
+        flat_args(N_PER, *inst) + dyn_args))
+    counts_dt = expect_counts("dynamic at T", window=n_windows)
+    n_trig = int(ex_dt.last_triggers.sum())
+    by = ex_dt.last_comm["by_tag"]
+    dense_w = comm.ring_wire_bytes(logical, M)
+    print(f"leg --merge dynamic at T, full depth: wall {wall_dt:.2f} s "
+          f"({wall_dt / (M * N_PER) * 1e6:.3f} us/point), launches "
+          f"{counts_dt}, n_triggered {n_trig} of {n_windows}, merge wire "
+          f"{by['merge']['wire_bytes']:,} B, probe wire "
+          f"{by['probe']['wire_bytes']:,} B (plain delta "
+          f"{n_windows * dense_w:,} B); final C "
+          f"{float(res_dt.distortion[-1]):.6f} vs plain delta {c_flat:.6f}")
+    if (by["merge"]["wire_bytes"] != n_trig * dense_w
+            or by["probe"]["wire_bytes"] != 7 * n_windows
+            or not bool(torch.isfinite(res_dt.distortion).all())):
+        fail("dynamic at T: wire not re-priced to the triggered windows")
+    zero_counts()
+    res_dq, ex_dq, wall_dq = train.run_vq(train.parse_args(
+        cut + dyn_args + ["--wire-quant", "int8"]))
+    expect_counts("dynamic at T over int8", window=cw)
+    n_trig_q = int(ex_dq.last_triggers.sum())
+    by_q = ex_dq.last_comm["by_tag"]
+    print(f"leg --merge dynamic at T --wire-quant int8 (cut): wall "
+          f"{wall_dq:.2f} s, n_triggered {n_trig_q} of {cw}, merge wire "
+          f"{by_q['merge']['wire_bytes']:,} B, probe wire "
+          f"{by_q['probe']['wire_bytes']:,} B; final C "
+          f"{float(res_dq.distortion[-1]):.6f}")
+    if (by_q["merge"]["wire_bytes"] != n_trig_q * (dense_w // 4 + 4)
+            or by_q["probe"]["wire_bytes"] != 5 * cw
+            or not bool(torch.isfinite(res_dq.distortion).all())):
+        fail("dynamic over int8: wire wrong or curve not finite")
+
+    # -- leg 5: the quorum merge ----------------------------------------------
+    q0, ex_q0, _ = leg("--quorum --network instant (cut)", cut + ["--quorum"],
+                       window=cw)
+    print(f"check quorum without lateness == plain delta, bitwise: "
+          f"{same_run(q0, flat)}")
+    if not same_run(q0, flat):
+        fail("quorum without lateness differs from the plain delta run")
+    q_args = flat_args(N_PER, "--scheme", "delta", "--network", "geometric",
+                       "--p-delay", str(QUORUM_P_DELAY), "--quorum")
+    res_q, ex_q, _ = leg("--quorum --network geometric --p-delay "
+                                f"{QUORUM_P_DELAY}, full depth", q_args,
+                                window=n_windows)
+    late = GeometricDelayNetwork(QUORUM_P_DELAY).late_matrix(M, n_windows,
+                                                             TAU)
+    q_wire = comm.ring_wire_bytes(logical + 4, M)
+    merge_q = ex_q.last_comm["by_tag"]["merge"]
+    print(f"quorum: late worker-windows {ex_q.last_late_worker_windows:,} "
+          f"(numpy late_matrix {int(late.sum()):,}, "
+          f"{late.mean():.4f} of {late.size:,}); merge wire "
+          f"{merge_q['wire_bytes'] // n_windows:,} B a window; final C "
+          f"{float(res_q.distortion[-1]):.6f} vs plain delta {c_flat:.6f}")
+    if (ex_q.last_late_worker_windows != int(late.sum())
+            or merge_q["wire_bytes"] != n_windows * q_wire
+            or q_wire != 3_670_023):
+        fail("quorum: late count or merge wire wrong")
+
+    # -- leg 6: the tier-1 controller -----------------------------------------
+    net = FixedLatencyNetwork(latency_ticks=1, dcn_bytes_per_tick=CTL_DCN)
+    ctl = Tier1BudgetController(net)
+    hier_c = comm.HierarchicalTransport(
+        "xla", comm.get_transport("sparse", frac=CTL_FRAC0), topology=topo)
+    ex_c = MeshExecutor(net, transport=hier_c, tier1_controller=ctl,
+                        publish_every=CTL_PUBLISH, device=dev)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_c = ex_c.run("delta", w0, data[:, :COMM_POINTS], eval_data, tau=TAU)
+    res_c.distortion.cpu()
+    wall_c = time.perf_counter() - t0
+    counts_c = expect_counts("tier-1 controller", window=cw, topk=cw)
+    replay, ks = [], []
+    shadow = comm.get_transport("sparse", frac=CTL_FRAC0)
+    replica = Tier1BudgetController(net)
+    for _ in range(cw // CTL_PUBLISH):
+        k = comm.topk_count(n_flat, shadow.frac)
+        ks.append(k)
+        replay.append(replica.update(shadow, (HOSTS - 1) * k * 8))
+    by_c = ex_c.last_comm["by_tag"]["merge"]["by_tier"][1]
+    want_wire = sum(CTL_PUBLISH * (HOSTS - 1) * k * 8 for k in ks)
+    print(f"leg tier-1 controller ({cw // CTL_PUBLISH} chunks of "
+          f"{CTL_PUBLISH} windows, dcn {CTL_DCN:,} B a tick): wall "
+          f"{wall_c:.2f} s, launches {counts_c}, frac after each chunk "
+          f"{ex_c.last_tier1_fracs}, host replay {replay}; tier-1 wire "
+          f"{by_c['wire_bytes']:,} B (replayed {want_wire:,}); ticks a "
+          f"window {int(res_c.wall_ticks[0])}")
+    if ex_c.last_tier1_fracs != replay or by_c["wire_bytes"] != want_wire:
+        fail("tier-1 controller: trajectory or bytes differ from the host "
+             "replay")
+    for k in sorted(set(ks)):
+        topk_equal(partial, k, f"({HOSTS}, {n_flat}) controller ladder")
+    print(f"check top-k vs plain, bitwise, at every k of the ladder "
+          f"{sorted(set(ks))}: equal")
+
+    # -- the new kernel shapes, timed -----------------------------------------
+    warm = time_ms(lambda: vq_fused.vq_topk(partial, k1), 100)
+    tk, tl = in_turns(lambda: vq_fused.vq_topk(partial, k1),
+                      lambda: torch.topk(partial.abs(), k1, dim=1), 50)
+    tp = kernel_ms(lambda: vq_fused.vq_topk_plain(partial, k1), 5)
+    tb = bound(4 * 2 * HOSTS * n_flat + 8 * HOSTS * k1, HOSTS * n_flat)
+    print(f"timing top-k ({HOSTS}, {n_flat}), k={k1}, tier-1 partial: kernel "
+          f"{r4(tk)} ms, torch.topk(|x|) {r4(tl)} ms (in turns), plain "
+          f"{tp:.4f} ms, bound {tb[0]:.4f} ms ({tb[1]}); warm {warm:.4f} ms")
+    xg = normal_payload[:wph].contiguous()
+    rk, rl = in_turns(lambda: ring.ring_all_reduce(xg),
+                      lambda: torch.sum(xg, dim=0), 200)
+    rp = kernel_ms(lambda: ring.ring_all_reduce_plain(xg), 10)
+    rb = bound(4 * (wph + 1) * n_flat, (wph - 1) * n_flat)
+    print(f"timing ring ({wph}, {n_flat}): kernel {r4(rk)} ms, "
+          f"torch.sum(x, dim=0) {r4(rl)} ms (in turns), plain {rp:.4f} ms, "
+          f"bound {rb[0]:.4f} ms ({rb[1]})")
+
+    # where the time goes: 200 windows of leg 2
+    hs_ex = MeshExecutor(InstantNetwork(), device=dev,
+                         transport=comm.HierarchicalTransport(
+                             "xla", comm.get_transport("sparse", frac=frac1),
+                             topology=topo))
+    profile("--hosts 2, sparse tier 1",
+            lambda: hs_ex.run("delta", w0, data[:, : PROFILE_WINDOWS * TAU],
+                              eval_data, tau=TAU),
+            PROFILE_WINDOWS, "window")
 
 
 def main() -> None:
@@ -1770,7 +2110,10 @@ def main() -> None:
             and float(curve_q[-1]) < float(curve_q[0])):
         fail("int8 over ring: curve not finite or not going down")
 
-    # -- 17. timing at the main path's shapes ---------------------------------
+    comm_layer_legs(dev, w0, data, eval_data, runs, lengths, payload,
+                    normal_payload)
+
+    # -- 18. timing at the main path's shapes ---------------------------------
     # every kernel, plain and library time by kernel_ms (L2 cold, host time
     # hidden); "warm" is time_ms over back-to-back wrapper calls (L2 warm,
     # the wrapper's host time included), a read-out beside it

@@ -21,12 +21,23 @@ state is the per-worker error-feedback residual) is seeded with
 ``init_state(x)`` and fed its state back every call; a stateless one
 (``XlaTransport``) takes and returns ``None``.
 
+Both calls also take a tuple of stacked ``(M, ...)`` tensors, the leaves
+form, and return a tuple: one collective over several payloads, as the
+reference reduces a pytree.  It is one record whose ``logical_bytes`` is
+the sum of the leaves' f32 bytes; a dense transport charges the ring on
+that sum, the sparse one its top-k per leaf.  The quorum merge ships its
+displacement and a one-entry arrival count this way.
+
 Each call logs one ``CommRecord`` with ``calls=1``; the log folds a repeat
 of a collective since its latest mark into the first record's ``calls``, so
 a run keeps one record per distinct collective, as the reference's does
 (it traces a collective once and puts the window count in ``calls``), and
 its totals stay exact however many windows it runs.  ``tag`` separates
-merge traffic ("merge") from the distortion curve's reduce ("eval").
+merge traffic ("merge") from the distortion curve's reduce ("eval") and
+the dynamic merge's per-window divergence probe ("probe", the scalar every
+worker pays whether or not the window merges).  ``tier`` is set on the
+records of a ``HierarchicalTransport``: 0 inside a host group, 1 across
+host groups, ``None`` for a flat collective.
 """
 
 from __future__ import annotations
@@ -39,11 +50,40 @@ import torch
 WORKER_AXIS = "workers"
 
 
-def tree_f32_bytes(tree: torch.Tensor, *, floating_only: bool = False) -> int:
-    """Dense f32 payload bytes of a tensor (the ``logical_bytes`` unit)."""
-    if floating_only and not tree.is_floating_point():
-        return 0
-    return 4 * tree.numel()
+def as_leaves(x) -> tuple[tuple[torch.Tensor, ...], bool]:
+    """``(the leaves, whether x was a tuple)``: a tensor is one leaf.  The
+    leaves must share their worker dimension (dimension 0)."""
+    is_tuple = isinstance(x, tuple)
+    leaves = x if is_tuple else (x,)
+    if not leaves or any(leaf.dim() < 1 or leaf.shape[0] != leaves[0].shape[0]
+                         for leaf in leaves):
+        raise ValueError(
+            f"a payload is a stacked (M, ...) tensor or a tuple of them with "
+            f"one M, got shapes {[tuple(leaf.shape) for leaf in leaves]}")
+    return leaves, is_tuple
+
+
+def from_leaves(outs, is_tuple: bool):
+    """The inverse of ``as_leaves`` for a call's per-leaf results."""
+    return tuple(outs) if is_tuple else outs[0]
+
+
+def tree_f32_bytes(tree, *, floating_only: bool = False) -> int:
+    """Dense f32 payload bytes of a tensor or a tuple of tensors (the
+    ``logical_bytes`` unit)."""
+    total = 0
+    for leaf in (tree if isinstance(tree, tuple) else (tree,)):
+        if floating_only and not leaf.is_floating_point():
+            continue
+        total += 4 * leaf.numel()
+    return total
+
+
+def worker_f32_bytes(x, *, floating_only: bool = False) -> int:
+    """``tree_f32_bytes`` of one worker's slice of a stacked payload."""
+    leaves, _ = as_leaves(x)
+    return tree_f32_bytes(tuple(leaf[0] for leaf in leaves),
+                          floating_only=floating_only)
 
 
 def ring_wire_bytes(logical_bytes: int, m: int) -> int:
@@ -65,7 +105,10 @@ class CommRecord:
     logical_bytes: int     # dense f32 payload per participant per call
     wire_bytes: int        # bytes per participant per call on the wire
     calls: int = 1
-    tag: str = "merge"     # 'merge' | 'eval'
+    tag: str = "merge"     # 'merge' | 'eval' | 'probe'
+    # a hierarchical transport's link class: 0 = inside a host group,
+    # 1 = across host groups; None = a flat collective
+    tier: int | None = None
 
 
 class CommLog:
@@ -117,15 +160,43 @@ class CommLog:
     def since(self, mark: int) -> list[CommRecord]:
         return list(self.records[max(0, mark - self._dropped):])
 
+    def rewrite_since(self, mark: int, fn) -> None:
+        """Replace each record appended after ``mark`` with ``fn(rec)``
+        (the record itself to keep it, another to swap it, ``None`` to drop
+        it).  A folded record's ``calls`` is what ``fn`` re-prices: the
+        dynamic merge runs its merge collective every window and, once the
+        trigger bits are read, re-prices it to the windows that merged.  A
+        rewrite closes the folding window, as ``mark`` does."""
+        start = max(0, mark - self._dropped)
+        kept = [fn(r) for r in self.records[start:]]
+        self.records[start:] = [r for r in kept if r is not None]
+        self._open.clear()
+
+    def logical_bytes_by_tag(self, records=None) -> dict[str, int]:
+        """Total logical payload (``logical_bytes * calls``) per tag, over
+        ``records`` or the whole log."""
+        out: dict[str, int] = {}
+        for r in (self.records if records is None else records):
+            out[r.tag] = out.get(r.tag, 0) + r.logical_bytes * r.calls
+        return out
+
     @staticmethod
     def summarize(records) -> dict:
-        """Totals (``wire/logical bytes * calls``) overall and per tag."""
-        out: dict = {"calls": 0, "logical_bytes": 0, "wire_bytes": 0,
-                     "by_tag": {}}
+        """Totals (``wire/logical bytes * calls``) overall and per tag.
+        Tiered records also land in a ``by_tier`` dict under their tag, so
+        a hierarchical run reads intra-host (0) and inter-host (1) traffic
+        apart; untiered records add nothing there."""
+        def zero():
+            return {"calls": 0, "logical_bytes": 0, "wire_bytes": 0}
+
+        out: dict = {**zero(), "by_tag": {}}
         for r in records:
-            for t in (out, out["by_tag"].setdefault(
-                    r.tag, {"calls": 0, "logical_bytes": 0,
-                            "wire_bytes": 0})):
+            by_tag = out["by_tag"].setdefault(r.tag, zero())
+            totals = [out, by_tag]
+            if r.tier is not None:
+                totals.append(by_tag.setdefault("by_tier", {}).setdefault(
+                    r.tier, zero()))
+            for t in totals:
                 t["calls"] += r.calls
                 t["logical_bytes"] += r.logical_bytes * r.calls
                 t["wire_bytes"] += r.wire_bytes * r.calls
@@ -141,9 +212,10 @@ class Transport:
     def __init__(self):
         self.log = CommLog()
 
-    def init_state(self, x: torch.Tensor):
+    def init_state(self, x):
         """The state a stateful transport threads from call to call, for a
-        stacked payload shaped like ``x``; ``None`` for a stateless one."""
+        stacked payload shaped like ``x`` (a tensor or a tuple of them);
+        ``None`` for a stateless one."""
         return None
 
     def plain(self) -> "Transport":
@@ -152,35 +224,38 @@ class Transport:
         through it).  A transport that launches no kernel returns itself."""
         return self
 
-    def all_reduce(self, x: torch.Tensor, *, op: str = "sum", state=None,
-                   tag: str = "merge") -> tuple[torch.Tensor, object]:
-        """x (M, ...) -> ``(the reduction over workers, new state)``."""
+    def all_reduce(self, x, *, op: str = "sum", state=None,
+                   tag: str = "merge"):
+        """x (M, ...), or a tuple of them -> ``(the reduction over workers,
+        a tuple for a tuple, new state)``."""
         raise NotImplementedError
 
-    def masked_all_reduce(self, x: torch.Tensor, mask: torch.Tensor, *,
-                          state=None, tag: str = "merge"
-                          ) -> tuple[torch.Tensor, object]:
+    def masked_all_reduce(self, x, mask: torch.Tensor, *, state=None,
+                          tag: str = "merge"):
         """The eq.-9 reducer: ``(the f32 sum over workers of mask[i] * x[i],
         new state)`` (mask (M,), 1.0 for the workers whose round lands this
-        tick).  Every participant joins the collective whatever its bit, so
-        it is charged as a full call."""
+        tick; x a tensor or a tuple of them).  Every participant joins the
+        collective whatever its bit, so it is charged as a full call."""
         raise NotImplementedError
 
 
 def get_transport(name, **kwargs) -> Transport:
     """Factory: 'xla' (dense) | 'ring' (dense, the ring kernel) | 'sparse'
     (top-k + error feedback, ``frac=``) | 'quant' (``inner=``, ``mode=``:
-    bf16/int8 deltas over another transport).
+    bf16/int8 deltas over another transport) | 'hier' (``topology=``,
+    ``tier0=``, ``tier1=``, ``tier1_frac=``: two tiers over host groups).
 
     An already-constructed ``Transport`` passes through unchanged."""
     if isinstance(name, Transport):
         return name
+    from repro_torch.comm.hier import HierarchicalTransport
     from repro_torch.comm.quant import QuantizedTransport
     from repro_torch.comm.ring import RingTransport
     from repro_torch.comm.sparse import SparseTransport
     from repro_torch.comm.xla import XlaTransport
     transports = {"xla": XlaTransport, "ring": RingTransport,
-                  "sparse": SparseTransport, "quant": QuantizedTransport}
+                  "sparse": SparseTransport, "quant": QuantizedTransport,
+                  "hier": HierarchicalTransport}
     if name not in transports:
         raise ValueError(
             f"unknown transport {name!r}; choose from {sorted(transports)}")

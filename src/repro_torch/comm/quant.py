@@ -22,10 +22,13 @@ Wire accounting: the inner transport's records since the call's mark are
 copied into this transport's log, re-priced at the quantized width
 (``_requant``): dense records ``wire * width // 4``; sparse records (value
 f32 + index int32 pairs, only the value narrows) ``wire * (width + 4) //
-8``; int8 adds 4 bytes of scale when the record moved any wire.  Means
-pass through unquantized and unchanged: they are consensus values, not
-displacements, so ``AverageMerge`` and the eval reduce are the inner
-transport's own.  A ``QuantizedTransport`` inside another is refused.
+8``; int8 adds 4 bytes of scale a leaf when the record moved any wire (a
+tuple payload is coded leaf by leaf, each leaf with its own scale and
+residual).  A record keeps its ``tier``, so quantization over a
+``HierarchicalTransport`` keeps the per-tier split.  Means pass through
+unquantized and unchanged: they are consensus values, not displacements,
+so ``AverageMerge`` and the eval reduce are the inner transport's own.  A
+``QuantizedTransport`` inside another is refused.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.comm.api import CommRecord, Transport, get_transport
+from repro_torch.comm.api import (CommRecord, Transport, as_leaves,
+                                  from_leaves, get_transport)
 
 #: wire bytes per payload entry under each codec (dense f32 is 4)
 QUANT_WIDTH = {"identity": 4, "bf16": 2, "int8": 1}
@@ -107,9 +111,15 @@ class QuantizedTransport(Transport):
 
     # -- state threading: residual + inner state in one carry ---------------
 
-    def init_state(self, x: torch.Tensor):
-        res = (torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-               if self.error_feedback else None)
+    @staticmethod
+    def _zeros(x):
+        leaves, is_tuple = as_leaves(x)
+        return from_leaves([torch.zeros(leaf.shape, dtype=torch.float32,
+                                        device=leaf.device)
+                            for leaf in leaves], is_tuple)
+
+    def init_state(self, x):
+        res = self._zeros(x) if self.error_feedback else None
         inner = self.inner.init_state(x)
         if res is None:
             return inner
@@ -134,7 +144,7 @@ class QuantizedTransport(Transport):
 
     # -- wire re-pricing ----------------------------------------------------
 
-    def _requant(self, r: CommRecord) -> CommRecord:
+    def _requant(self, r: CommRecord, n_leaves: int) -> CommRecord:
         """Re-price one delegated sum record at the quantized width."""
         if r.op == "mean":
             return r                       # rides dense, unquantized
@@ -145,22 +155,33 @@ class QuantizedTransport(Transport):
         else:
             wire = r.wire_bytes * width // 4
         if self.mode == "int8" and r.wire_bytes > 0:
-            wire += 4                      # the worker's scale
+            wire += 4 * n_leaves           # the worker's scale, a leaf
         return dataclasses.replace(
             r, transport=f"{r.transport}+{self.mode}", wire_bytes=wire)
 
-    def _delegated(self, mark: int) -> None:
+    def _delegated(self, mark: int, n_leaves: int) -> None:
         for r in self.inner.log.since(mark):
-            self.log.append(self._requant(r))
+            self.log.append(self._requant(r, n_leaves))
 
     # -- encode + delegate --------------------------------------------------
 
-    def _encode(self, x: torch.Tensor, residual: torch.Tensor | None,
-                mask: torch.Tensor | None):
-        """(dequantized payload, new residual).  A masked-out worker
-        contributes zero downstream (the inner masked reduce applies the
-        mask) and keeps its residual untouched, as ``SparseTransport``'s
+    def _encode(self, x, residual, mask: torch.Tensor | None):
+        """(dequantized payload, new residual), leaf by leaf.  A masked-out
+        worker contributes zero downstream (the inner masked reduce applies
+        the mask) and keeps its residual untouched, as ``SparseTransport``'s
         masked workers do."""
+        leaves, is_tuple = as_leaves(x)
+        res = ([None] * len(leaves) if residual is None
+               else as_leaves(residual)[0])
+        outs = [self._encode_leaf(leaf, r, mask)
+                for leaf, r in zip(leaves, res, strict=True)]
+        deq = from_leaves([o[0] for o in outs], is_tuple)
+        if residual is None:
+            return deq, None
+        return deq, from_leaves([o[1] for o in outs], is_tuple)
+
+    def _encode_leaf(self, x: torch.Tensor, residual: torch.Tensor | None,
+                     mask: torch.Tensor | None):
         payload = x.to(torch.float32)
         if residual is not None:
             payload = payload + residual
@@ -179,8 +200,7 @@ class QuantizedTransport(Transport):
         # convention every stateful transport follows)
         residual = None
         if self.error_feedback:
-            residual = (torch.zeros(x.shape, dtype=torch.float32,
-                                    device=x.device) if res is None else res)
+            residual = self._zeros(x) if res is None else res
         deq, new_res = self._encode(x, residual, mask)
         mark = self.inner.log.mark()
         if mask is None:
@@ -189,29 +209,28 @@ class QuantizedTransport(Transport):
         else:
             total, inner_state = self.inner.masked_all_reduce(
                 deq, mask, state=inner_state, tag=tag)
-        self._delegated(mark)
+        self._delegated(mark, len(as_leaves(x)[0]))
         if state is None:
             return total, None
         return total, self._join_state(new_res, inner_state)
 
     # -- Transport API ------------------------------------------------------
 
-    def all_reduce(self, x: torch.Tensor, *, op: str = "sum", state=None,
-                   tag: str = "merge") -> tuple[torch.Tensor, object]:
+    def all_reduce(self, x, *, op: str = "sum", state=None,
+                   tag: str = "merge"):
         if op == "mean":
             mark = self.inner.log.mark()
             out, _ = self.inner.all_reduce(x, op="mean", tag=tag)
-            self._delegated(mark)
+            self._delegated(mark, len(as_leaves(x)[0]))
             return out, state
         if op != "sum":
             raise ValueError(
                 f"unknown reduce op {op!r}; choose 'sum' or 'mean'")
         return self._quant_reduce(x, mask=None, state=state, tag=tag)
 
-    def masked_all_reduce(self, x: torch.Tensor, mask: torch.Tensor, *,
-                          state=None, tag: str = "merge"
-                          ) -> tuple[torch.Tensor, object]:
-        m = x.shape[0]
+    def masked_all_reduce(self, x, mask: torch.Tensor, *, state=None,
+                          tag: str = "merge"):
+        m = as_leaves(x)[0][0].shape[0]
         if mask.shape != (m,):
             raise ValueError(f"mask must be ({m},), got {tuple(mask.shape)}")
         return self._quant_reduce(x, mask=mask.to(torch.float32), state=state,

@@ -17,6 +17,9 @@ payload (error feedback), so nothing is lost, only delayed.
   * ``masked_all_reduce`` is eq. 9's masked merge: every worker selects (the
     wire is paid either way), a worker whose bit is 0 contributes zeros and
     keeps its residual.
+  * A tuple payload selects leaf by leaf (k per leaf, one residual per
+    leaf, the state a tuple) under one record, charged the sum over leaves
+    of ``(M-1) * k * 8``, as the reference charges a pytree.
 
 The reference all-gathers the pairs and scatter-adds them.  Here the
 workers are one stacked tensor: each worker's values are scattered at its
@@ -37,7 +40,7 @@ import copy
 import torch
 
 from repro_torch.comm.api import (WORKER_AXIS, CommRecord, Transport,
-                                  tree_f32_bytes)
+                                  as_leaves, from_leaves, worker_f32_bytes)
 from repro_torch.comm.xla import XlaTransport
 from repro_torch.kernels import ops, vq_fused
 
@@ -86,8 +89,11 @@ class SparseTransport(Transport):
         self._dense = XlaTransport()
         self._dense.log = self.log
 
-    def init_state(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    def init_state(self, x):
+        leaves, is_tuple = as_leaves(x)
+        return from_leaves([torch.zeros(leaf.shape, dtype=torch.float32,
+                                        device=leaf.device)
+                            for leaf in leaves], is_tuple)
 
     def plain(self) -> SparseTransport:
         out = copy.copy(self)    # shares the log and the dense sidecar
@@ -95,20 +101,23 @@ class SparseTransport(Transport):
         return out
 
     def _sparse_sum(self, x, mask, *, op: str, state, tag: str):
-        m = x.shape[0]
-        n = x[0].numel()
+        leaves, is_tuple = as_leaves(x)
+        m = leaves[0].shape[0]
+        wire = sum((m - 1) * topk_count(leaf[0].numel(), self.frac) * 8
+                   for leaf in leaves) if m > 1 else 0
         self.log.append(CommRecord(
             op=op, transport=self.name, axis=WORKER_AXIS, participants=m,
-            logical_bytes=tree_f32_bytes(x[0]),
-            wire_bytes=(m - 1) * topk_count(n, self.frac) * 8 if m > 1 else 0,
-            tag=tag))
-        residual = self.init_state(x) if state is None else state
-        summed, new_res = sparse_allsum(x, residual, self.frac, mask,
-                                        select=self.select)
-        return summed, (None if state is None else new_res)
+            logical_bytes=worker_f32_bytes(x), wire_bytes=wire, tag=tag))
+        residuals, _ = as_leaves(self.init_state(x) if state is None
+                                 else state)
+        outs = [sparse_allsum(leaf, res, self.frac, mask, select=self.select)
+                for leaf, res in zip(leaves, residuals, strict=True)]
+        new_state = from_leaves([o[1] for o in outs], is_tuple)
+        return (from_leaves([o[0] for o in outs], is_tuple),
+                None if state is None else new_state)
 
-    def all_reduce(self, x: torch.Tensor, *, op: str = "sum", state=None,
-                   tag: str = "merge") -> tuple[torch.Tensor, object]:
+    def all_reduce(self, x, *, op: str = "sum", state=None,
+                   tag: str = "merge"):
         if op == "mean":
             out, _ = self._dense.all_reduce(x, op="mean", tag=tag)
             return out, state
@@ -117,10 +126,9 @@ class SparseTransport(Transport):
                 f"unknown reduce op {op!r}; choose 'sum' or 'mean'")
         return self._sparse_sum(x, None, op="sum", state=state, tag=tag)
 
-    def masked_all_reduce(self, x: torch.Tensor, mask: torch.Tensor, *,
-                          state=None, tag: str = "merge"
-                          ) -> tuple[torch.Tensor, object]:
-        m = x.shape[0]
+    def masked_all_reduce(self, x, mask: torch.Tensor, *, state=None,
+                          tag: str = "merge"):
+        m = as_leaves(x)[0][0].shape[0]
         if mask.shape != (m,):
             raise ValueError(f"mask must be ({m},), got {tuple(mask.shape)}")
         return self._sparse_sum(x, mask, op="masked_sum", state=state,

@@ -7,7 +7,8 @@ stock XLA), and the eq.-9 masked sum the same way.  Means cast back to the
 input dtype.  The record name stays ``"xla"`` so byte summaries compare
 with the reference's one for one.  ``_sum`` and ``_mean`` are the hooks
 ``RingTransport`` overrides, as the reference's ``_sum_leaf`` and
-``_mean_leaf`` are.
+``_mean_leaf`` are; a tuple payload reduces leaf by leaf under one record
+whose wire is the ring's on the leaves' summed bytes.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.comm.api import (WORKER_AXIS, CommRecord, Transport,
-                                  ring_wire_bytes, tree_f32_bytes)
+                                  as_leaves, from_leaves, ring_wire_bytes,
+                                  worker_f32_bytes)
 
 
 class XlaTransport(Transport):
@@ -40,29 +42,36 @@ class XlaTransport(Transport):
             logical_bytes=logical, wire_bytes=ring_wire_bytes(logical, m),
             tag=tag))
 
-    def all_reduce(self, x: torch.Tensor, *, op: str = "sum", state=None,
-                   tag: str = "merge") -> tuple[torch.Tensor, object]:
-        """x (M, ...) -> (the f32 sum over workers, or their mean cast back
-        to x's dtype; the state, passed through)."""
-        m = x.shape[0]
+    def all_reduce(self, x, *, op: str = "sum", state=None,
+                   tag: str = "merge"):
+        """x (M, ...) or a tuple of them -> (the f32 sum over workers, or
+        their mean cast back to x's dtype, per leaf; the state, passed
+        through)."""
+        leaves, is_tuple = as_leaves(x)
+        m = leaves[0].shape[0]
         if op == "sum":
-            self._record("sum", m, tree_f32_bytes(x[0]), tag=tag)
-            return self._sum(x), state
+            self._record("sum", m, worker_f32_bytes(x), tag=tag)
+            return from_leaves([self._sum(leaf) for leaf in leaves],
+                               is_tuple), state
         if op == "mean":
-            if not x.is_floating_point():
-                raise ValueError(f"a mean reduces floats, got {x.dtype}")
-            self._record("mean", m, tree_f32_bytes(x[0], floating_only=True),
+            if not all(leaf.is_floating_point() for leaf in leaves):
+                raise ValueError(
+                    f"a mean reduces floats, got "
+                    f"{[leaf.dtype for leaf in leaves]}")
+            self._record("mean", m, worker_f32_bytes(x, floating_only=True),
                          tag=tag)
-            return self._mean(x), state
+            return from_leaves([self._mean(leaf) for leaf in leaves],
+                               is_tuple), state
         raise ValueError(f"unknown reduce op {op!r}; choose 'sum' or 'mean'")
 
-    def masked_all_reduce(self, x: torch.Tensor, mask: torch.Tensor, *,
-                          state=None, tag: str = "merge"
-                          ) -> tuple[torch.Tensor, object]:
-        """x (M, ...), mask (M,) -> (sum_i mask[i] * x[i] in f32, the state,
-        passed through)."""
-        m = x.shape[0]
+    def masked_all_reduce(self, x, mask: torch.Tensor, *, state=None,
+                          tag: str = "merge"):
+        """x (M, ...) or a tuple of them, mask (M,) -> (sum_i mask[i] * x[i]
+        in f32 per leaf, the state, passed through)."""
+        leaves, is_tuple = as_leaves(x)
+        m = leaves[0].shape[0]
         if mask.shape != (m,):
             raise ValueError(f"mask must be ({m},), got {tuple(mask.shape)}")
-        self._record("masked_sum", m, tree_f32_bytes(x[0]), tag=tag)
-        return self._sum(x, mask), state
+        self._record("masked_sum", m, worker_f32_bytes(x), tag=tag)
+        return from_leaves([self._sum(leaf, mask) for leaf in leaves],
+                           is_tuple), state

@@ -1,5 +1,12 @@
+from repro_torch.comm import HierarchicalTransport  # noqa: F401
 from repro_torch.engine.api import (SCHEMES, Executor,  # noqa: F401
                                     get_executor, validate_scheme)
+from repro_torch.engine.merge import (AverageMerge, DeltaMerge,  # noqa: F401
+                                      DynamicMerge, MergeStrategy,
+                                      QuorumMerge, SparseDeltaMerge,
+                                      get_merge)
 from repro_torch.engine.network import (FixedLatencyNetwork,  # noqa: F401
                                         GeometricDelayNetwork, InstantNetwork,
-                                        NetworkModel, get_network)
+                                        NetworkModel, Tier1BudgetController,
+                                        get_network)
+from repro_torch.topology import Topology  # noqa: F401

@@ -1,21 +1,27 @@
 """Merge strategies, the paper's reducing phases.  Counterpart of
-``repro/engine/merge.py`` for the sync strategies and the sparse delta merge.
+``repro/engine/merge.py`` for the sync strategies: averaging, delta, sparse
+delta, the straggler-tolerant quorum merge and the divergence-triggered
+dynamic merge.
 
 A strategy is ``(merged, state) = strategy(w0, w_local, state=None)``:
 ``w0`` is the window's shared starting codebook (kappa, d), ``w_local`` the
 workers' codebooks after tau local steps, stacked (M, kappa, d).  The
 strategy decides what to reduce; its ``Transport`` reduces over the worker
-dimension and accounts the bytes.  ``state`` is the transport's (the sparse
-transport's per-worker residual, (M, kappa, d)): a ``stateful`` strategy is
-seeded with ``init_state(w_local)`` and fed its state back every window.
-No ported strategy owns state of its own yet.
+dimension and accounts the bytes.  ``state`` threads the strategy's own
+state (the quorum and dynamic merges' per-worker carry) and the transport's
+(the sparse transport's per-worker residual), ``{"own": ..., "comm": ...}``
+when both are present: a ``stateful`` strategy is seeded with
+``init_state(w_local)`` and fed its state back every window.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch import comm
+from repro_torch.distributed.elastic import staleness_scale
 
 
 def tree_sub_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -28,10 +34,22 @@ def tree_apply_delta(base: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     return (base.to(torch.float32) - delta).to(base.dtype)
 
 
+def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
+    """An f32 scalar on like's device (filled there, no host copy), so the
+    product with it is an f32 multiply, as the reference's."""
+    return torch.full((), v, dtype=torch.float32, device=like.device)
+
+
+def _per_worker(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """v (M,) shaped to broadcast over x (M, ...)."""
+    return v.view(x.shape[0], *(1,) * (x.dim() - 1))
+
+
 class MergeStrategy:
     """Base strategy over a ``repro_torch.comm`` transport (default: dense)."""
 
     name = "base"
+    own_state = False  # strategy-owned state, beside the transport's
 
     def __init__(self, transport: comm.Transport | None = None):
         self.transport = (transport if transport is not None
@@ -39,11 +57,40 @@ class MergeStrategy:
 
     @property
     def stateful(self) -> bool:
-        return self.transport.stateful
+        return self.own_state or self.transport.stateful
+
+    def _init_own_state(self, w_local: torch.Tensor):
+        return None
+
+    def _init_comm_state(self, w_local: torch.Tensor):
+        """The transport's state for this strategy's payload."""
+        return self.transport.init_state(w_local)
 
     def init_state(self, w_local: torch.Tensor):
-        """The transport's state for stacked codebooks like ``w_local``."""
-        return self.transport.init_state(w_local)
+        """The strategy's and the transport's state for stacked codebooks
+        like ``w_local``."""
+        own = self._init_own_state(w_local)
+        tsp = self._init_comm_state(w_local)
+        if own is None:
+            return tsp
+        if tsp is None:
+            return own
+        return {"own": own, "comm": tsp}
+
+    def _split_state(self, state):
+        if self.own_state and self.transport.stateful:
+            state = {} if state is None else state
+            return state.get("own"), state.get("comm")
+        if self.own_state:
+            return state, None
+        return None, state
+
+    def _join_state(self, own, tsp):
+        if self.own_state and self.transport.stateful:
+            return {"own": own, "comm": tsp}
+        if self.own_state:
+            return own
+        return tsp
 
     def __call__(self, w0: torch.Tensor, w_local: torch.Tensor, state=None
                  ) -> tuple[torch.Tensor, object]:
@@ -94,13 +141,142 @@ class SparseDeltaMerge(DeltaMerge):
         super().__init__(transport)
 
 
+class QuorumMerge(MergeStrategy):
+    """Straggler-tolerant eq. (8): proceed when K of M deltas arrive.
+
+    Each window every worker ships its displacement plus its carried (not
+    yet landed) delta, masked by its arrival bit (``1 - late``, ``late`` the
+    window's column of the network's ``late_matrix``); the arrivals are
+    counted on the same masked reduce, as a one-entry leaf beside the
+    delta, so its 4 bytes are part of the merge's wire.  The landed sum
+    applies only when at least ``ceil(quorum_frac * M)`` workers made it.
+    A late worker's delta is not lost: it rides the worker's carry, damped
+    by one ``staleness_scale(1, gamma)`` a window it waits, and lands with
+    the next quorum.  With no ``late`` every worker arrives and the merge
+    is the plain ``DeltaMerge``, bit for bit.
+
+    Own state: the per-worker carry, f32 (M, kappa, d).  A stateful
+    transport's state is made for the (delta, count) payload."""
+
+    name = "quorum"
+    own_state = True
+
+    def __init__(self, transport: comm.Transport | None = None, *,
+                 quorum_frac: float = 0.6, gamma: float = 0.5):
+        if not 0.0 < quorum_frac <= 1.0:
+            raise ValueError(
+                f"quorum_frac must be in (0, 1], got {quorum_frac}")
+        super().__init__(transport)
+        self.quorum_frac = quorum_frac
+        self.gamma = gamma
+
+    def _init_own_state(self, w_local):
+        return torch.zeros(w_local.shape, dtype=torch.float32,
+                           device=w_local.device)
+
+    def _init_comm_state(self, w_local):
+        return self.transport.init_state(
+            (w_local, w_local.new_ones(w_local.shape[0])))
+
+    def __call__(self, w0, w_local, state=None, *, late=None):
+        carry, tsp = self._split_state(state)
+        if carry is None:
+            raise ValueError("QuorumMerge needs its pending-delta state; "
+                             "seed it with init_state(w_local)")
+        m = w_local.shape[0]
+        k_quorum = max(1, int(math.ceil(self.quorum_frac * m - 1e-9)))
+        s = _scalar(staleness_scale(1, gamma=self.gamma), w_local)
+        # this window's displacement plus the backlog, one window staler
+        ship = tree_sub_f32(w0, w_local) + s * carry
+        ones = torch.ones(m, dtype=torch.float32, device=w_local.device)
+        arrive = ones if late is None else 1.0 - late.to(torch.float32)
+        (landed, n), tsp = self.transport.masked_all_reduce(
+            (ship, ones), arrive, state=tsp)
+        met = (n >= k_quorum).to(torch.float32)
+        merged = (w0.to(torch.float32) - met * landed).to(w0.dtype)
+        # an arrived worker whose quorum landed owes nothing; everyone else
+        # keeps the whole ship
+        keep = 1.0 - met * arrive
+        return merged, self._join_state(_per_worker(keep, ship) * ship, tsp)
+
+
+class DynamicMerge(MergeStrategy):
+    """Dynamic averaging for eq. (8): merge on measured drift, not on a
+    clock.
+
+    Every window each worker's pending displacement is this window's delta
+    plus its carried, staleness-damped backlog; the workers agree on a
+    global drift, the sum over workers of ``||pending||^2``, through a
+    probe: a (M,) payload reduced with tag "probe" (4 bytes a worker, paid
+    every window).  The window merges when the drift reaches ``thresh`` or
+    ``max_stale`` windows have passed since the last merge.  The decision
+    is a device scalar used as the mask of the transport's masked reduce,
+    so no window waits on the host; ``last_trigger`` holds it for the
+    executor, which reads the bits once after its loop and re-prices the
+    merge records to the windows that triggered.
+
+    A skipped window's displacement rides the worker's carry, damped by one
+    ``staleness_scale(1, gamma)`` a window it waits.  With ``thresh=0``
+    every window triggers with a zero carry and the merge is the plain
+    ``DeltaMerge``, bit for bit.
+
+    Own state: ``{"carry": f32 (M, kappa, d), "stale": windows since the
+    last merge, an f32 scalar}``."""
+
+    name = "dynamic"
+    own_state = True
+
+    def __init__(self, transport: comm.Transport | None = None, *,
+                 thresh: float = 0.0, gamma: float = 0.5,
+                 max_stale: int = 8):
+        if thresh < 0.0:
+            raise ValueError(f"divergence thresh must be >= 0, got {thresh}")
+        if max_stale < 1:
+            raise ValueError(f"max_stale must be >= 1, got {max_stale}")
+        super().__init__(transport)
+        self.thresh = thresh
+        self.gamma = gamma
+        self.max_stale = max_stale
+        self.last_trigger: torch.Tensor | None = None
+
+    def _init_own_state(self, w_local):
+        return {"carry": torch.zeros(w_local.shape, dtype=torch.float32,
+                                     device=w_local.device),
+                "stale": torch.zeros((), dtype=torch.float32,
+                                     device=w_local.device)}
+
+    def __call__(self, w0, w_local, state=None):
+        own, tsp = self._split_state(state)
+        if own is None:
+            raise ValueError("DynamicMerge needs its carry/staleness state; "
+                             "seed it with init_state(w_local)")
+        carry, stale = own["carry"], own["stale"]
+        s = _scalar(staleness_scale(1, gamma=self.gamma), w_local)
+        pend = tree_sub_f32(w0, w_local) + s * carry
+        local = (pend * pend).sum(dim=tuple(range(1, pend.dim())))
+        drift, _ = self.transport.all_reduce(local, op="sum", tag="probe")
+        trig = torch.logical_or(drift >= self.thresh,
+                                stale + 1.0 >= self.max_stale
+                                ).to(torch.float32)
+        landed, tsp = self.transport.masked_all_reduce(
+            pend, trig.expand(pend.shape[0]), state=tsp)
+        merged = (w0.to(torch.float32) - trig * landed).to(w0.dtype)
+        keep = 1.0 - trig
+        self.last_trigger = trig
+        return merged, self._join_state(
+            {"carry": keep * pend, "stale": keep * (stale + 1.0)}, tsp)
+
+
 _STRATEGIES = {"average": AverageMerge, "delta": DeltaMerge,
-               "delta_sparse": SparseDeltaMerge}
+               "delta_sparse": SparseDeltaMerge, "quorum": QuorumMerge,
+               "dynamic": DynamicMerge}
 
 
 def get_merge(name: str, transport: comm.Transport | None = None, **kwargs
               ) -> MergeStrategy:
-    """Factory: 'average' | 'delta' | 'delta_sparse' (``frac=``)."""
+    """Factory: 'average' | 'delta' | 'delta_sparse' (``frac=``) | 'quorum'
+    (``quorum_frac=``, ``gamma=``) | 'dynamic' (``thresh=``, ``gamma=``,
+    ``max_stale=``)."""
     if name not in _STRATEGIES:
         raise ValueError(
             f"unknown merge strategy {name!r}; choose from "

@@ -39,6 +39,25 @@ by tick for eq. 9, as the reference threads it through its scans.  With
 ``use_kernels`` off the transport's kernels are their plain versions too
 (``Transport.plain``).
 
+The merge override (``merge=``) swaps the delta scheme's merge for the
+straggler-tolerant ``QuorumMerge`` (``quorum_frac``; each window's late
+bits are a column of the network's ``late_matrix``, drawn once for the run
+and moved to the device once) or the divergence-triggered ``DynamicMerge``
+(``divergence_thresh``, ``max_stale``; the trigger bits stay on the device
+until the loop ends, are read once, and the merge records are re-priced
+to the windows that merged through ``CommLog.rewrite_since``).  Both merge
+eq.-8 displacements and refuse any other scheme.
+
+A ``topology=`` splits the workers into host groups for a
+``HierarchicalTransport``, which must carry the same topology; the merge
+wire is then charged per tier, each at its link class's bandwidth
+(``NetworkModel.transfer_ticks(tier=)``).  A ``tier1_controller=``
+(``Tier1BudgetController``) runs the sync loop in chunks of
+``publish_every`` windows, the merge state threaded across them, and
+re-sizes the sparse tier's ``frac`` between chunks from the chunk's
+measured tier-1 bytes; ``last_tier1_fracs`` keeps the value after each
+chunk.
+
 The async scheme (``_run_async``, the reference's ``mesh.py:812-915``) has
 no window: every tick each worker takes one eq.-1 step at batch 1 (through
 ``ops.vq_delta_routed``, or ``vq.H`` with ``use_kernels`` off), then the
@@ -52,6 +71,9 @@ them.
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from repro_torch import comm
@@ -62,6 +84,15 @@ from repro_torch.engine import api
 from repro_torch.engine import merge as merge_lib
 from repro_torch.engine.network import GeometricDelayNetwork, NetworkModel
 from repro_torch.kernels import ops
+from repro_torch.topology import Topology
+
+
+def _hier_of(transport: comm.Transport):
+    """The ``HierarchicalTransport`` under transport (a quantized wire is
+    transparent), or None."""
+    transport = getattr(transport, "inner", transport)
+    return (transport if isinstance(transport, comm.HierarchicalTransport)
+            else None)
 
 
 class MeshExecutor:
@@ -74,7 +105,27 @@ class MeshExecutor:
                  use_kernels: bool = True, fused: bool = True,
                  eval_every: int = 10,
                  smem_budget_bytes: int | None = None,
+                 merge: str | None = None, quorum_frac: float = 0.6,
+                 staleness_gamma: float = 0.5,
+                 divergence_thresh: float = 0.0, max_stale: int = 8,
+                 topology: Topology | None = None,
+                 tier1_controller=None, publish_every: int = 1,
                  device: str | torch.device | None = None):
+        if merge not in (None, "quorum", "dynamic"):
+            raise ValueError(
+                f"merge override must be None (scheme default), 'quorum', "
+                f"or 'dynamic', got {merge!r}")
+        if not 0.0 < quorum_frac <= 1.0:
+            raise ValueError(
+                f"quorum_frac must be in (0, 1], got {quorum_frac}")
+        if divergence_thresh < 0.0:
+            raise ValueError(
+                f"divergence_thresh must be >= 0, got {divergence_thresh}")
+        if max_stale < 1:
+            raise ValueError(f"max_stale must be >= 1, got {max_stale}")
+        if publish_every < 1:
+            raise ValueError(f"publish_every must be >= 1, "
+                             f"got {publish_every}")
         self.network = network or GeometricDelayNetwork()
         # use_kernels=False is the reference's use_pallas=False: the plain
         # vq.H step, and the transport's plain selection.  fused=False keeps
@@ -85,6 +136,30 @@ class MeshExecutor:
             transport if transport is not None else "xla")
         if not use_kernels:
             self.transport = self.transport.plain()
+        hier = _hier_of(self.transport)
+        if hier is not None:
+            if topology is not None and topology != hier.topology:
+                raise ValueError(
+                    f"topology {topology.describe()} differs from the "
+                    f"hierarchical transport's {hier.topology.describe()}; "
+                    f"configure one place only")
+            topology = hier.topology
+        self.topology = topology
+        # merge override: None = the scheme's own strategy; "quorum" and
+        # "dynamic" replace the delta scheme's (see the module docstring)
+        self.merge = merge
+        self.quorum_frac = quorum_frac
+        self.staleness_gamma = staleness_gamma
+        self.divergence_thresh = divergence_thresh
+        self.max_stale = max_stale
+        self.tier1_controller = tier1_controller
+        self.publish_every = publish_every
+        # of the last run: the sparse tier's frac after each chunk, the
+        # dynamic merge's trigger bit of each window (a host tensor), the
+        # quorum merge's late worker-windows
+        self.last_tier1_fracs: list[float] = []
+        self.last_triggers: torch.Tensor | None = None
+        self.last_late_worker_windows = 0
         self.use_kernels = use_kernels
         self.fused = fused
         # None: REPRO_SMEM_BUDGET_BYTES or the H100's (ops.smem_budget_bytes)
@@ -188,6 +263,13 @@ class MeshExecutor:
         n_windows = n // tau
         if n_windows == 0:
             raise ValueError(f"need at least one tau={tau} window, got n={n}")
+        if self.topology is not None and m != self.topology.total_workers:
+            raise ValueError(
+                f"data has M={m} worker streams but the topology "
+                f"{self.topology.describe()} holds "
+                f"{self.topology.total_workers} workers")
+        if self.merge is not None and scheme != "delta":
+            self._strategy(scheme)             # raises: delta only
         w0, data, eval_data = (x.to(self.device, torch.float32).contiguous()
                                for x in (w0, data, eval_data))
         if scheme == "async_delta":
@@ -201,28 +283,139 @@ class MeshExecutor:
             finally:
                 self.last_comm = comm.CommLog.summarize(
                     self.transport.log.since(mark))
-        strategy = merge_lib.get_merge(scheme, transport=self.transport)
-        # every window's step sizes at once: eps_t for t = 1 .. n_windows*tau
-        eps_all = vq.default_steps(
-            torch.arange(1, n_windows * tau + 1, device=self.device),
-            eps0=eps0, decay=decay)
+        strategy = self._strategy(scheme)
         log = self.transport.log
         mark = log.mark()
-        w_srd, curve = w0, []
         state = strategy.init_state(w0.expand(m, *w0.shape))
+        self.last_tier1_fracs = []
+        self.last_triggers = None
+        self.last_late_worker_windows = 0
         try:
-            for i in range(n_windows):
-                span = slice(i * tau, (i + 1) * tau)
-                w_fin = self._local_window(w_srd, data[:, span].contiguous(),
-                                           eps_all[span])
-                w_srd, state = strategy(w_srd, w_fin, state=state)
-                curve.append(self._eval(eval_data, w_srd))
+            if self.tier1_controller is None:
+                res, _ = self._run_sync(strategy, w0, data, eval_data,
+                                        tau=tau, eps0=eps0, decay=decay,
+                                        t0=0, state=state)
+            else:
+                res = self._run_sync_published(strategy, w0, data, eval_data,
+                                               tau=tau, eps0=eps0,
+                                               decay=decay, state=state)
         finally:
             self.last_comm = comm.CommLog.summarize(log.since(mark))
-        merge_wire = self.last_comm["by_tag"].get(
-            "merge", {"wire_bytes": 0})["wire_bytes"]
-        wt = (self.network.window_ticks(tau)
-              + self.network.transfer_ticks(merge_wire / n_windows))
+        return res
+
+    def _strategy(self, scheme: str) -> merge_lib.MergeStrategy:
+        if self.merge is None:
+            return merge_lib.get_merge(scheme, transport=self.transport)
+        if scheme != "delta":
+            raise ValueError(
+                f"the {self.merge} merge folds eq.-8 displacements, so it "
+                f"rides scheme 'delta' only; got scheme {scheme!r}")
+        if self.merge == "quorum":
+            return merge_lib.get_merge(
+                "quorum", transport=self.transport,
+                quorum_frac=self.quorum_frac, gamma=self.staleness_gamma)
+        return merge_lib.get_merge(
+            "dynamic", transport=self.transport,
+            thresh=self.divergence_thresh, gamma=self.staleness_gamma,
+            max_stale=self.max_stale)
+
+    def _run_sync(self, strategy, w0, data, eval_data, *, tau: int,
+                  eps0: float, decay: float, t0: int, state
+                  ) -> tuple[SchemeResult, object]:
+        """The sync windows of data (M, n, d) from the shared w0, the step
+        schedule continuing from step ``t0``; returns ``(result, the merge
+        state after them)``."""
+        m, n, _ = data.shape
+        n_windows = n // tau
+        quorum = isinstance(strategy, merge_lib.QuorumMerge)
+        dynamic = isinstance(strategy, merge_lib.DynamicMerge)
+        # every window's step sizes at once: eps_t for t = t0+1 .. t0+n
+        eps_all = vq.default_steps(
+            torch.arange(t0 + 1, t0 + n_windows * tau + 1,
+                         device=self.device), eps0=eps0, decay=decay)
+        late = None
+        if quorum:
+            # the (M, n_windows) lateness bits, keyed by global window, drawn
+            # on the host once and moved to the device once
+            late_np = np.asarray(self.network.late_matrix(
+                m, n_windows, tau, window0=t0 // tau), np.float32)
+            self.last_late_worker_windows += int(late_np.sum())
+            late = torch.from_numpy(late_np).to(self.device)
+        log = self.transport.log
+        mark = log.mark()
+        w_srd, curve, trigs = w0, [], []
+        for i in range(n_windows):
+            span = slice(i * tau, (i + 1) * tau)
+            w_fin = self._local_window(w_srd, data[:, span].contiguous(),
+                                       eps_all[span])
+            if quorum:
+                w_srd, state = strategy(w_srd, w_fin, state=state,
+                                        late=late[:, i])
+            else:
+                w_srd, state = strategy(w_srd, w_fin, state=state)
+            if dynamic:
+                trigs.append(strategy.last_trigger)
+            curve.append(self._eval(eval_data, w_srd))
+        tags = ("merge",)
+        if dynamic:
+            # the merge ran every window; re-price its records to the
+            # windows whose probe triggered (the probe stays at every
+            # window: it ran every window)
+            bits = torch.stack(trigs).cpu()
+            self.last_triggers = (bits if self.last_triggers is None
+                                  else torch.cat([self.last_triggers, bits]))
+            n_trig = int(bits.sum())
+            tags = ("merge", "probe")
+
+            def reprice(r):
+                if r.tag != "merge" or r.calls == n_trig:
+                    return r
+                return (dataclasses.replace(r, calls=n_trig) if n_trig
+                        else None)
+
+            log.rewrite_since(mark, reprice)
+        # each tier's bytes a window charged at its link class's bandwidth
+        tier_wire: dict = {}
+        for r in log.since(mark):
+            if r.tag in tags:
+                tier_wire[r.tier] = (tier_wire.get(r.tier, 0)
+                                     + r.wire_bytes * r.calls)
+        wt = self.network.window_ticks(tau)
+        for tier, total in tier_wire.items():
+            wt += self.network.transfer_ticks(total / n_windows, tier=tier)
         ticks = torch.arange(1, n_windows + 1, dtype=torch.int32) * wt
         return SchemeResult(w_shared=w_srd, wall_ticks=ticks,
-                            distortion=torch.stack(curve))
+                            distortion=torch.stack(curve)), state
+
+    def _run_sync_published(self, strategy, w0, data, eval_data, *,
+                            tau: int, eps0: float, decay: float, state
+                            ) -> SchemeResult:
+        """``_run_sync`` in chunks of ``publish_every`` windows, the merge
+        state threaded across them (same numerics), with one
+        ``Tier1BudgetController`` step after each chunk: the sparse tier's
+        ``frac`` changes only between chunks."""
+        n_windows = data.shape[1] // tau
+        w, done, wt = w0, 0, None
+        curves, ticks = [], []
+        while done < n_windows:
+            k = min(self.publish_every, n_windows - done)
+            seg = data[:, done * tau:(done + k) * tau]
+            cmark = self.transport.log.mark()
+            res, state = self._run_sync(strategy, w, seg, eval_data, tau=tau,
+                                        eps0=eps0, decay=decay, t0=done * tau,
+                                        state=state)
+            if wt is None:
+                # the window's tick cost as the first chunk charged it
+                wt = int(res.wall_ticks[0])
+            curves.append(res.distortion)
+            ticks.append(done * wt + res.wall_ticks)
+            w = res.w_shared
+            done += k
+            recs = self.transport.log.since(cmark)
+            wire1 = sum(r.wire_bytes * r.calls for r in recs
+                        if r.tag in ("merge", "probe") and r.tier == 1)
+            frac = self.tier1_controller.update(self.transport, wire1 / k)
+            if frac is not None:
+                self.last_tier1_fracs.append(frac)
+        return SchemeResult(w_shared=w, wall_ticks=torch.cat(ticks),
+                            distortion=torch.cat(curves))

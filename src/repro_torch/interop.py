@@ -6,8 +6,10 @@ contiguous tensors on a device, after checking their shapes and types;
 ``result_from_reference`` does the same for a reference ``SchemeResult``,
 ``lengths_from_reference`` for a ``NetworkModel.round_lengths`` draw (the
 async scheme's round lengths, which torch cannot redraw from a JAX key) and
-``codebook_from_reference`` for a codebook to publish into a store.
-``to_numpy`` turns a port ``SchemeResult`` into numpy arrays.  The device
+``codebook_from_reference`` for a codebook to publish into a store, and
+``merge_state_from_reference`` for a sync merge's state (the quorum carry,
+the dynamic merge's carry and staleness, a hierarchical transport's
+per-tier residuals).  ``to_numpy`` turns a port ``SchemeResult`` into numpy arrays.  The device
 is ``cuda`` unless the caller passes ``device="cpu"``.  Nothing here
 imports JAX.
 """
@@ -79,6 +81,52 @@ def lengths_from_reference(lengths, *, device="cpu") -> torch.Tensor:
 def codebook_from_reference(w, *, device=None) -> torch.Tensor:
     """A reference (kappa, d) codebook -> an f32 tensor on ``device``."""
     return _tensor(w, "codebook", 2, "f", torch.float32, device)
+
+
+def merge_state_from_reference(state, *, topology=None, device=None):
+    """A reference sync merge state, as its mesh executor keeps it between
+    segments (every leaf with a leading per-worker (M, ...) dimension,
+    nested in dicts), -> the port's, on ``device``.
+
+    Leaves map to f32 tensors, keeping their (M, ...) shape, except:
+    ``"stale"`` (the dynamic merge's windows since the last merge, the
+    same on every worker) becomes one scalar, and ``"t1"`` (a hierarchical
+    transport's tier-1 state, the same on every worker of a host group)
+    becomes one row a host, (hosts, ...), under ``topology``.  Both are
+    checked to agree across the rows they fold."""
+    def rows_equal(a, groups, name):
+        # groups: (n_groups, group_size, ...); every row equals its first
+        if not np.array_equal(groups, np.broadcast_to(groups[:, :1],
+                                                      groups.shape)):
+            raise ValueError(f"{name}: rows differ within a group, so they "
+                             f"do not fold to one")
+        return groups[:, 0]
+
+    def convert(x, key):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: convert(v, k) for k, v in x.items()}
+        a = np.asarray(x)
+        if a.dtype.kind != "f" or a.ndim < 1:
+            raise TypeError(f"{key}: expected a float (M, ...) array, got "
+                            f"{a.dtype} {a.shape}")
+        if key == "stale":
+            a = rows_equal(a, a[None], key)[0]
+        elif key == "t1":
+            if topology is None:
+                raise ValueError("a tier-1 state needs topology=")
+            if a.shape[0] != topology.total_workers:
+                raise ValueError(
+                    f"t1: {a.shape[0]} rows, the topology holds "
+                    f"{topology.total_workers} workers")
+            a = rows_equal(a, a.reshape(topology.hosts,
+                                        topology.workers_per_host,
+                                        *a.shape[1:]), key)
+        return torch.from_numpy(np.array(a, np.float32, order="C")).to(
+            device_lib.resolve(device))
+
+    return convert(state, "state")
 
 
 def to_numpy(result: SchemeResult) -> SchemeResult:

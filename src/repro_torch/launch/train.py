@@ -24,6 +24,18 @@ on a 3072-wide embedding codebook::
         --executor mesh --scheme async_delta --network geometric \
         --p-delay 0.5 --workers 8 --points 2000 --dim 3072 --kappa 4096
 
+``--hosts H`` (mesh only) splits the workers into H host groups: merges
+run inside each group over ``--transport`` (tier 0) and across groups over
+``--tier1-transport`` (tier 1; sparse by default, at ``--tier1-frac``, by
+default ``acceptance_sparse_frac(kappa, d)``), and the report prints each
+tier's wire; ``--tier1-frac auto`` sizes tier 1's top-k to
+``--tier1-budget-ticks`` of the network's tier-1 bandwidth, a chunk of
+windows at a time.  ``--quorum [--quorum-frac F]`` merges eq. 8 when a
+quorum of the workers' deltas arrives (the network's late matrix decides
+who is late); ``--merge dynamic --divergence-thresh T --max-stale S``
+merges only when the workers' drift reaches T.  Both need ``--scheme
+delta``.
+
 ``--autotune {off,cache,search}`` picks the kernels' tiles
 (``kernels.autotune``; tiles change no bit) and ``--autotune-cache
 TILES.json`` keeps the picks in a file.
@@ -38,8 +50,10 @@ import torch
 
 from repro_torch import comm
 from repro_torch import device as device_lib
+from repro_torch.comm.sweep import acceptance_sparse_frac
 from repro_torch.data import synthetic
-from repro_torch.engine import get_executor, get_network
+from repro_torch.engine import (Tier1BudgetController, Topology,
+                                get_executor, get_network)
 from repro_torch.kernels import autotune
 
 #: Eval points per worker (the reference's ``launch/train.py`` takes 1000).
@@ -74,6 +88,47 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--compress-frac", type=float, default=0.01,
                     help="sparse transport: fraction of entries each worker "
                          "ships per merge")
+    ap.add_argument("--hosts", type=int, default=1,
+                    help="split the M workers into this many host groups "
+                         "(M must divide evenly): merges run over "
+                         "--transport inside a group (tier 0) and over "
+                         "--tier1-transport across groups (tier 1), with "
+                         "per-tier wire accounting (mesh executor)")
+    ap.add_argument("--tier1-transport", choices=("xla", "ring", "sparse"),
+                    default="sparse",
+                    help="--hosts > 1: the tier-1 transport across host "
+                         "groups; sparse (top-k with error feedback), or "
+                         "dense")
+    ap.add_argument("--tier1-frac", nargs="?", default=None, const=None,
+                    help="sparse tier 1: fraction of entries kept per merge "
+                         "(given without a value, or not given: kappa/4 "
+                         "entries of the kappa x d "
+                         "displacement), or 'auto' to size it from the "
+                         "measured tier-1 bytes so the transfer stays on "
+                         "--tier1-budget-ticks wall ticks a window")
+    ap.add_argument("--tier1-budget-ticks", type=int, default=2,
+                    help="--tier1-frac auto: wall ticks a window for the "
+                         "tier-1 transfer")
+    ap.add_argument("--quorum", action="store_true",
+                    help="the straggler-tolerant quorum merge (delta "
+                         "scheme): merge when --quorum-frac of the deltas "
+                         "arrive, late deltas folded in damped")
+    ap.add_argument("--quorum-frac", type=float, default=0.6,
+                    help="quorum merge: fraction of workers whose deltas "
+                         "must arrive")
+    ap.add_argument("--merge", choices=("quorum", "dynamic"), default=None,
+                    help="merge override (delta scheme, mesh executor): "
+                         "'quorum' (as --quorum) or 'dynamic', merging only "
+                         "when the workers' drift reaches "
+                         "--divergence-thresh, at the latest every "
+                         "--max-stale windows")
+    ap.add_argument("--divergence-thresh", type=float, default=0.0,
+                    help="--merge dynamic: global squared drift that "
+                         "triggers a merge; 0 merges every window (the "
+                         "plain delta merge bit for bit)")
+    ap.add_argument("--max-stale", type=int, default=8,
+                    help="--merge dynamic: merge after this many skipped "
+                         "windows")
     ap.add_argument("--wire-quant", choices=("off", "bf16", "int8"),
                     default="off",
                     help="quantize merge deltas on the wire (mesh "
@@ -104,22 +159,57 @@ def make_inputs(args, dev: torch.device):
 
 
 def build_executor(args, dev: torch.device):
+    """The run's executor; raises ValueError on a configuration the
+    reference refuses (``main`` prints it and exits 2)."""
     net_kw = {}
     if args.network == "fixed":
         net_kw["latency_ticks"] = args.latency
     elif args.network == "geometric":
         net_kw["p_delay"] = args.p_delay
+    network = get_network(args.network, **net_kw)
+    if args.executor != "mesh":
+        return get_executor(args.executor, network=network, device=dev)
+    transport = comm.get_transport(
+        args.transport, **({"frac": args.compress_frac}
+                           if args.transport == "sparse" else {}))
+    tier1_auto = args.tier1_frac == "auto"
     kw = {}
-    if args.executor == "mesh":
-        transport = comm.get_transport(
-            args.transport, **({"frac": args.compress_frac}
-                               if args.transport == "sparse" else {}))
-        if args.wire_quant != "off":
-            transport = comm.get_transport("quant", inner=transport,
-                                           mode=args.wire_quant)
-        kw["transport"] = transport
-    return get_executor(args.executor, network=get_network(args.network,
-                                                           **net_kw),
+    if args.hosts > 1:
+        if args.tier1_frac is None or tier1_auto:
+            tier1_frac = acceptance_sparse_frac(args.kappa, args.dim)
+        else:
+            try:
+                tier1_frac = float(args.tier1_frac)
+            except ValueError:
+                raise ValueError(f"--tier1-frac must be a float or 'auto', "
+                                 f"got {args.tier1_frac!r}") from None
+        # the tier-1 transport first: a bad --tier1-frac reports as such
+        tier1 = (comm.get_transport("sparse", frac=tier1_frac)
+                 if args.tier1_transport == "sparse"
+                 else args.tier1_transport)
+        topology = Topology.from_spec(args.workers, hosts=args.hosts)
+        transport = comm.HierarchicalTransport(transport, tier1,
+                                               topology=topology)
+        kw["topology"] = topology
+    if args.wire_quant != "off":
+        # the narrow wire decorates the whole stack, flat or hierarchical
+        transport = comm.get_transport("quant", inner=transport,
+                                       mode=args.wire_quant)
+    if tier1_auto:
+        if args.hosts <= 1 and args.transport != "sparse":
+            raise ValueError(
+                "--tier1-frac auto needs a sparse tier to adapt (--hosts > "
+                "1 with a sparse --tier1-transport, or a flat --transport "
+                "sparse)")
+        kw["tier1_controller"] = Tier1BudgetController(
+            network, budget_ticks=args.tier1_budget_ticks)
+    merge = "quorum" if args.quorum else args.merge
+    if merge == "quorum":
+        kw.update(merge=merge, quorum_frac=args.quorum_frac)
+    elif merge == "dynamic":
+        kw.update(merge=merge, divergence_thresh=args.divergence_thresh,
+                  max_stale=args.max_stale)
+    return get_executor("mesh", network=network, transport=transport,
                         device=dev, **kw)
 
 
@@ -130,13 +220,16 @@ def run_vq(args):
     autotune.set_mode(args.autotune)
     if args.autotune_cache:
         autotune.set_cache_path(args.autotune_cache)
-    w0, data, eval_data = make_inputs(args, dev)
     executor = build_executor(args, dev)
+    w0, data, eval_data = make_inputs(args, dev)
     transport = getattr(executor, "transport", None)
+    topology = getattr(executor, "topology", None)
     print(f"executor={executor.name} scheme={args.scheme} M={args.workers} "
           f"tau={args.tau} network={args.network} n={args.points} "
           f"d={args.dim} kappa={args.kappa} device={dev} "
-          f"transport={transport.name if transport else 'none'}")
+          f"transport={transport.name if transport else 'none'}"
+          + (f" topology={topology.describe()} tier1={args.tier1_transport}"
+             if topology is not None else ""))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -160,6 +253,14 @@ def run_vq(args):
               f"{merge_b['wire_bytes']:,} B / logical "
               f"{merge_b['logical_bytes']:,} B per worker "
               f"({last_comm['calls']} collective calls, measured)")
+        for tier, t in sorted(merge_b.get("by_tier", {}).items()):
+            label = "intra-host" if tier == 0 else "inter-host"
+            print(f"  tier {tier} ({label}): wire {t['wire_bytes']:,} B "
+                  f"/ logical {t['logical_bytes']:,} B per worker")
+        probe = last_comm["by_tag"].get("probe")
+        if probe:
+            print(f"  probe: wire {probe['wire_bytes']:,} B over "
+                  f"{probe['calls']} windows, merges {merge_b.get('calls', 0)}")
     return res, executor, wall
 
 
@@ -179,7 +280,34 @@ def main(argv=None) -> int:
         print(f"error: --wire-quant quantizes the mesh transport's "
               f"collectives; got --executor {args.executor}")
         return 2
-    run_vq(args)
+    if args.hosts > 1 and args.executor != "mesh":
+        print(f"error: --hosts {args.hosts} needs --executor mesh (the sim "
+              f"backend issues no collectives)")
+        return 2
+    merge = args.merge
+    if args.quorum:
+        if merge == "dynamic":
+            print("error: --merge dynamic conflicts with --quorum (the "
+                  "dynamic merge has no lateness channel)")
+            return 2
+        merge = "quorum"
+    if merge is not None and args.scheme != "delta":
+        print(f"error: the {merge} merge folds eq.-8 displacements, so it "
+              f"needs --scheme delta; got {args.scheme!r}")
+        return 2
+    if merge is not None and args.executor != "mesh":
+        print(f"error: --merge {merge} runs in the mesh executor's merge; "
+              f"got --executor {args.executor}")
+        return 2
+    if args.tier1_frac == "auto" and args.executor != "mesh":
+        print(f"error: --tier1-frac auto adapts the mesh transport's sparse "
+              f"tier; got --executor {args.executor}")
+        return 2
+    try:
+        run_vq(args)
+    except ValueError as e:  # a configuration the executor refuses
+        print(f"error: {e}")
+        return 2
     return 0
 
 

@@ -294,7 +294,8 @@ def test_scheme_and_factory_validation():
     with pytest.raises(ValueError):
         comm.get_transport("pigeon")
     with pytest.raises(ValueError):
-        merge_lib.get_merge("quorum")
+        merge_lib.get_merge("pigeon")
+    assert merge_lib.get_merge("quorum").name == "quorum"
     t = comm.get_transport("xla")
     assert comm.get_transport(t) is t
     with pytest.raises(ValueError):
