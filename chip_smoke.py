@@ -145,7 +145,27 @@ PyTorch built for CUDA:
      the host, the top-k kernel at each k of it against plain; times the
      two new kernel shapes and traces 200 windows of the sparse-tier-1
      leg;
-  18. times each kernel (the delta sweep also at each kchunk the tuner
+  18. runs chaos, elastic resizes and checkpoints (``elastic_legs``), each
+     leg with the launch counts set to 0 before it and read after: E1,
+     ``--resize 4000:4,8000:8 --ckpt-dir`` at full depth through the
+     launcher (14,499 windows, 40 late points, 14,500 window launches: one
+     is the late delta's, over the departing workers' (4, tau, d) stack),
+     its first 4,000 windows equal bit for bit to the fixed-M delta run,
+     its final distortion within 1e-2 of it, one 2,097,152 B ``late_delta``
+     record, checkpoints at 4,000 and 8,000, each resize's ``wall_s`` and
+     checkpoint save time printed; E2, ``--resume`` from step 8,000, equal
+     to E1's last 6,499 windows bit for bit; E3, ``checkpoint_every=750``
+     on 20,000 points a worker (cut), resumed from step 1,500 bit for bit;
+     E4, ``--hosts 2 --tier1-transport xla --resize 500:4,1000:8`` on
+     20,000 points (cut), equal bit for bit to the flat elastic run, its
+     late delta charged 2,097,152 B on tier 1; E5, ``--chaos
+     7:kill=2,slow=1,part=1`` at full depth, resizes with cause
+     ``chaos_kill`` at the kill windows and the late worker-windows equal
+     to the segments' numpy late matrices; E6, eq. 9 over a
+     ``ChaosNetwork`` (a slowdown, a kill) for 20,000 ticks (cut), one
+     delta launch a tick, the dead worker's rounds never completing, its
+     first 200 ticks held against ``scheme_async``;
+  19. times each kernel (the delta sweep also at each kchunk the tuner
      weighs; the assign kernel at the flush, the eval and (8, 1) x 4096 x
      3072; the blocked kernel at (8, 1) x 4096 x 3072 with and without the
      epilogue and at (8, 1) x 4096 x 128), its plain version, its bound
@@ -162,7 +182,7 @@ PyTorch built for CUDA:
      the 3072-wide eq.-9 path with torch.profiler (device time by kernel, the
      device's idle share), after timing 200 dense and ring sync windows in
      turns on the host clock;
-  19. prints one ``{"kernels": [...]}`` line (window, delta, assign,
+  20. prints one ``{"kernels": [...]}`` line (window, delta, assign,
       top-k, blocked and ring), the card line again, and last
       ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -177,6 +197,7 @@ import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -222,6 +243,15 @@ QUORUM_P_DELAY = 0.2    # 0.8^11 = 8.6% of worker-windows late at tau = 10
 CTL_FRAC0 = 0.5         # the controller leg's starting tier-1 frac
 CTL_DCN = 262_144       # its tier-1 bytes a tick: frac 0.5 takes 8 ticks
 CTL_PUBLISH = 100       # its windows a chunk
+# the elastic legs (queue 1, item 5a): E1's schedule at full depth, the
+# periodic checkpoint of E3, E4's host-group schedule on COMM_POINTS, E5's
+# chaos spec, and E6's faults over eq. 9 (a slowdown inside the ticks held
+# against the oracle, a kill later)
+ELASTIC_RESIZE = ((4000, 4), (8000, 8))
+CKPT_EVERY = 750
+HIER_RESIZE = ((500, 4), (1000, 8))
+CHAOS_SPEC = "7:kill=2,slow=1,part=1"
+E6_FAULTS = ((5, "slow", 3, 10), (500, "kill", 6))
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
 # f32 FLOP/s outside the tensor cores (both kernels run on the f32 pipes)
@@ -1280,6 +1310,238 @@ def comm_layer_legs(dev, w0, data, eval_data, runs, lengths, payload,
             PROFILE_WINDOWS, "window")
 
 
+def pool_windows(total: int, m: int, boundaries) -> tuple[int, int]:
+    """``(windows, late points)`` an elastic run takes from a pool of
+    ``total`` points starting at ``m`` workers, with ``boundaries`` the
+    ``(window, new M)`` resizes in order: a shrink first takes its departing
+    workers' window of points, where the pool still holds it."""
+    cursor = win = late = 0
+    for at, new_m in boundaries:
+        seg = min((total - cursor) // (m * TAU), at - win)
+        cursor += seg * m * TAU
+        win += seg
+        if win < at:
+            return win, late
+        need = (m - new_m) * TAU
+        if new_m < m and total - cursor >= need:
+            cursor += need
+            late += need
+        m = new_m
+    return win + (total - cursor) // (m * TAU), late
+
+
+def elastic_legs(dev, w0, data, eval_data, runs) -> None:
+    """Chaos, elastic resizes and checkpoints on stacked workers at full
+    width (the module docstring's item 18, legs E1-E6)."""
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import async_vq
+    from repro_torch.engine import (ChaosNetwork, ChaosSchedule,
+                                    ElasticMeshExecutor,
+                                    GeometricDelayNetwork, InstantNetwork)
+    from repro_torch.engine.mesh import MeshExecutor
+    from repro_torch.launch import train
+
+    late_b = 4 * KAPPA * D                                # 2,097,152
+    fixed = runs["delta"][0]
+    c_fixed = float(fixed.distortion[-1])
+
+    def argv(points, *extra):
+        return ["--executor", "mesh", "--workers", str(M), "--points",
+                str(points), "--dim", str(D), "--kappa", str(KAPPA), "--tau",
+                str(TAU), "--seed", str(SEED), "--network", "instant",
+                "--scheme", "delta"] + list(extra)
+
+    def spec(schedule):
+        return ",".join(f"{w}:{m}" for w, m in schedule)
+
+    def events(ex):
+        return [(e.window, e.old_m, e.new_m, e.late_points, e.cause)
+                for e in ex.resize_events]
+
+    def same_run(a, b):
+        return (same_bits(a.distortion, b.distortion)
+                and same_bits(a.w_shared, b.w_shared))
+
+    def elastic(label, args, windows, late_launches):
+        zero_counts()
+        res, ex, wall = train.run_vq(train.parse_args(args))
+        counts = expect_counts(label, window=windows + late_launches)
+        curve = res.distortion
+        print(f"leg {label}: wall {wall:.2f} s, {windows:,} windows, "
+              f"launches {counts}, C first {float(curve[0]):.6f} last "
+              f"{float(curve[-1]):.6f}; resizes "
+              + "; ".join(f"@{e.window} M {e.old_m} -> {e.new_m} "
+                          f"({e.cause}, late points {e.late_points}, wall_s "
+                          f"{e.wall_s * 1e3:.2f} ms, checkpoint save "
+                          f"{e.checkpoint_s * 1e3:.2f} ms)"
+                          for e in ex.resize_events))
+        if not (len(curve) == windows and res.w_shared.shape == (KAPPA, D)
+                and bool(torch.isfinite(curve).all())
+                and float(curve[-1]) < float(curve[0])):
+            fail(f"{label}: result not finite, of the wrong length, or not "
+                 f"going down")
+        return res, ex, wall
+
+    with tempfile.TemporaryDirectory(prefix="elastic_ckpt_") as tmp:
+        # -- E1: --resize at full depth through the launcher -----------------
+        ck1 = str(Path(tmp) / "e1")
+        e1_args = argv(N_PER, "--resize", spec(ELASTIC_RESIZE), "--ckpt-dir",
+                       ck1)
+        n1, late1 = pool_windows(M * N_PER, M, ELASTIC_RESIZE)
+        res1, ex1, _ = elastic("E1 --resize " + spec(ELASTIC_RESIZE), e1_args,
+                               n1, 1)
+        w_first = ELASTIC_RESIZE[0][0]
+        head_ok = same_bits(res1.distortion[:w_first],
+                            fixed.distortion[:w_first])
+        gap = float(res1.distortion[-1]) / c_fixed - 1.0
+        late = ex1.last_comm["by_tag"].get("late_delta")
+        steps = Checkpointer(ck1).all_steps()
+        print(f"check E1: first {w_first} windows == the fixed-M delta run "
+              f"bitwise {head_ok}; final C {float(res1.distortion[-1]):.6f} "
+              f"vs fixed-M {c_fixed:.6f} ({gap:+.4%}); late points "
+              f"{late1}; late_delta {late}; checkpoints {steps}")
+        want_ev, m_prev = [], M
+        for w, m_new in ELASTIC_RESIZE:
+            want_ev.append((w, m_prev, m_new, max(0, m_prev - m_new) * TAU,
+                            "schedule"))
+            m_prev = m_new
+        if (not head_ok or abs(gap) > 1e-2 or events(ex1) != want_ev
+                or late != {"calls": 1, "logical_bytes": late_b,
+                            "wire_bytes": late_b}
+                or steps != [w for w, _ in ELASTIC_RESIZE]):
+            fail(f"E1: events {events(ex1)} (expected {want_ev}), the head, "
+                 f"the final distortion, the late-delta record or the "
+                 f"checkpoints are wrong")
+
+        # -- E2: resume from E1's last checkpoint -----------------------------
+        n2 = n1 - ELASTIC_RESIZE[-1][0]
+        res2, ex2, _ = elastic("E2 --resume", e1_args + ["--resume"], n2, 0)
+        ok2 = (same_bits(res2.distortion, res1.distortion[-n2:])
+               and same_bits(res2.w_shared, res1.w_shared)
+               and ex2.resize_events == [])
+        print(f"check E2: the resumed {n2:,} windows == E1's suffix, curve "
+              f"and codebook bitwise: {ok2}")
+        if not ok2:
+            fail("E2: the resumed run differs from E1's suffix")
+
+        # -- E3: periodic checkpoints, no resize (cut) ------------------------
+        cut = data[:, :COMM_POINTS]
+        ck3 = Checkpointer(str(Path(tmp) / "e3"))
+        n3 = COMM_POINTS // TAU
+
+        def e3(resume):
+            return ElasticMeshExecutor(
+                [], network=InstantNetwork(), checkpointer=ck3,
+                checkpoint_every=CKPT_EVERY, resume=resume, device=dev)
+
+        zero_counts()
+        t0 = time.perf_counter()
+        res3 = e3(False).run("delta", w0, cut, eval_data, tau=TAU)
+        res3.distortion.cpu()
+        wall3 = time.perf_counter() - t0
+        expect_counts("E3", window=n3)
+        steps3 = ck3.all_steps()
+        last3 = n3 // CKPT_EVERY * CKPT_EVERY
+        zero_counts()
+        res3b = e3(True).run("delta", w0, cut, eval_data, tau=TAU)
+        expect_counts("E3 resume", window=n3 - last3)
+        ok3 = (same_bits(res3b.distortion, res3.distortion[last3:])
+               and same_bits(res3b.w_shared, res3.w_shared)
+               and same_bits(res3.distortion, fixed.distortion[:n3]))
+        print(f"check E3 (checkpoint_every={CKPT_EVERY}, {n3:,} windows, "
+              f"wall {wall3:.2f} s): checkpoints {steps3}; resumed from "
+              f"{last3} == the suffix, and the run == the fixed-M run's "
+              f"head, bitwise: {ok3}")
+        if not ok3 or steps3[-1] != last3:
+            fail("E3: periodic checkpoint or resume differs")
+
+    # -- E4: whole host groups leave and return, dense tiers (cut) ------------
+    n4, late4 = pool_windows(M * COMM_POINTS, M, HIER_RESIZE)
+    flat4, _, _ = elastic("E4 flat --resize " + spec(HIER_RESIZE),
+                          argv(COMM_POINTS, "--resize", spec(HIER_RESIZE)),
+                          n4, 1)
+    hier4, ex4, _ = elastic(
+        f"E4 --hosts {HOSTS} --tier1-transport xla",
+        argv(COMM_POINTS, "--resize", spec(HIER_RESIZE), "--hosts",
+             str(HOSTS), "--tier1-transport", "xla"), n4, 1)
+    late4b = ex4.last_comm["by_tag"]["late_delta"]
+    print(f"check E4: hier dense == flat elastic, bitwise: "
+          f"{same_run(hier4, flat4)}; late points {late4}; late_delta "
+          f"{late4b}")
+    if (not same_run(hier4, flat4)
+            or late4b["by_tier"] != {1: {"calls": 1, "logical_bytes": late_b,
+                                         "wire_bytes": late_b}}):
+        fail("E4: hier differs from the flat elastic run, or the late delta "
+             "is not charged to tier 1")
+
+    # -- E5: chaos at full depth ----------------------------------------------
+    sched = ChaosSchedule.from_spec(CHAOS_SPEC, windows=N_PER // TAU, m=M,
+                                    hosts=2)
+    kills = [e.window for e in sched.kill_events]
+    bounds = [(w, M - 1 - i) for i, w in enumerate(kills)]
+    n5, late5 = pool_windows(M * N_PER, M, bounds)
+    res5, ex5, _ = elastic(f"E5 --chaos {CHAOS_SPEC}",
+                           argv(N_PER, "--chaos", CHAOS_SPEC), n5,
+                           len(kills))
+    net5 = ChaosNetwork(InstantNetwork(), sched)
+    want_late, lo = 0, 0
+    for (at, _), m in zip(bounds + [(n5, None)], [M] + [m for _, m in
+                                                         bounds]):
+        want_late += int(net5.late_matrix(m, at - lo, TAU,
+                                          window0=lo).sum())
+        lo = at
+    fired = [(e.window, e.cause) for e in ex5.resize_events]
+    print(f"check E5: {sched.describe()}; resizes {fired}; late "
+          f"worker-windows {ex5.last_late_worker_windows:,} (numpy late "
+          f"matrices of the segments {want_late:,}); final C "
+          f"{float(res5.distortion[-1]):.6f} vs the plain delta run's "
+          f"{c_fixed:.6f}")
+    if (fired != [(w, "chaos_kill") for w in kills]
+            or ex5.last_late_worker_windows != want_late
+            or sum(e.late_points for e in ex5.resize_events) != late5):
+        fail("E5: chaos kills or late worker-windows differ")
+
+    # -- E6: eq. 9 over a ChaosNetwork (cut) ----------------------------------
+    net6 = ChaosNetwork(GeometricDelayNetwork(P_DELAY),
+                        ChaosSchedule(E6_FAULTS, hosts=2))
+    n6 = COMM_POINTS
+    lengths6 = net6.round_lengths(torch.Generator().manual_seed(SEED), M,
+                                  n6 // TAU + 2, TAU)
+    zero_counts()
+    t0 = time.perf_counter()
+    res6 = MeshExecutor(net6, device=dev).run(
+        "async_delta", w0, data[:, :n6], eval_data, tau=TAU,
+        lengths=lengths6)
+    curve6 = res6.distortion.cpu()
+    wall6 = time.perf_counter() - t0
+    counts6 = expect_counts("E6", delta=n6)
+    dones = async_vq.done_mask(lengths6, M, n6, TAU, torch.device("cpu"))
+    (k_win, _, k_target), = [f for f in E6_FAULTS if f[1] == "kill"]
+    last = int(lengths6[k_target, :k_win].to(torch.int64).sum())
+    dead_ok = bool(dones[last, k_target]) and not bool(
+        dones[last + 1:, k_target].any())
+    print(f"leg E6 eq. 9 over ChaosNetwork {E6_FAULTS}, {n6:,} ticks: wall "
+          f"{wall6:.2f} s, launches {counts6}, C first {float(curve6[0]):.6f}"
+          f" last {float(curve6[-1]):.6f}; worker {k_target}'s last round "
+          f"lands at tick {last}, none after: {dead_ok}")
+    if not (dead_ok and bool(torch.isfinite(curve6).all())
+            and float(curve6[-1]) < float(curve6[0])):
+        fail("E6: the dead worker's rounds complete, or the curve is wrong")
+    n_c = ASYNC_CHECK_TICKS
+    lc = lengths6[:, : n_c // TAU + 2]
+    oracle = async_vq.scheme_async(w0, data[:, :n_c], eval_data, tau=TAU,
+                                   lengths=lc)
+    short = MeshExecutor(net6, device=dev).run(
+        "async_delta", w0, data[:, :n_c], eval_data, tau=TAU, lengths=lc)
+    held_to(f"E6 first {n_c} ticks vs scheme_async", res6.distortion[
+        : n_c // 10], oracle.distortion, short.w_shared, oracle.w_shared)
+    if not (torch.equal(short.wall_ticks, oracle.wall_ticks)
+            and same_bits(short.distortion, res6.distortion[: n_c // 10])):
+        fail("E6: the first ticks' run differs from the main run's head")
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch is not beside chip_smoke.py; run it from a "
@@ -2112,8 +2374,9 @@ def main() -> None:
 
     comm_layer_legs(dev, w0, data, eval_data, runs, lengths, payload,
                     normal_payload)
+    elastic_legs(dev, w0, data, eval_data, runs)
 
-    # -- 18. timing at the main path's shapes ---------------------------------
+    # -- 19. timing at the main path's shapes ---------------------------------
     # every kernel, plain and library time by kernel_ms (L2 cold, host time
     # hidden); "warm" is time_ms over back-to-back wrapper calls (L2 warm,
     # the wrapper's host time included), a read-out beside it

@@ -35,9 +35,10 @@ a run keeps one record per distinct collective, as the reference's does
 its totals stay exact however many windows it runs.  ``tag`` separates
 merge traffic ("merge") from the distortion curve's reduce ("eval") and
 the dynamic merge's per-window divergence probe ("probe", the scalar every
-worker pays whether or not the window merges).  ``tier`` is set on the
-records of a ``HierarchicalTransport``: 0 inside a host group, 1 across
-host groups, ``None`` for a flat collective.
+worker pays whether or not the window merges) and, through
+``record_host_transfer``, an elastic resize's late deltas ("late_delta").
+``tier`` is set on the records of a ``HierarchicalTransport``: 0 inside a
+host group, 1 across host groups, ``None`` for a flat collective.
 """
 
 from __future__ import annotations
@@ -98,14 +99,14 @@ def ring_wire_bytes(logical_bytes: int, m: int) -> int:
 class CommRecord:
     """One collective call: what it moved, per participant, per call."""
 
-    op: str                # 'sum' | 'mean' | 'masked_sum'
+    op: str                # 'sum' | 'mean' | 'masked_sum' | 'host'
     transport: str
     axis: str
     participants: int
     logical_bytes: int     # dense f32 payload per participant per call
     wire_bytes: int        # bytes per participant per call on the wire
     calls: int = 1
-    tag: str = "merge"     # 'merge' | 'eval' | 'probe'
+    tag: str = "merge"     # 'merge' | 'eval' | 'probe' | 'late_delta'
     # a hierarchical transport's link class: 0 = inside a host group,
     # 1 = across host groups; None = a flat collective
     tier: int | None = None
@@ -237,6 +238,19 @@ class Transport:
         tick; x a tensor or a tuple of them).  Every participant joins the
         collective whatever its bit, so it is charged as a full call."""
         raise NotImplementedError
+
+    def record_host_transfer(self, *, logical_bytes: int, wire_bytes: int,
+                             participants: int, axis: str = WORKER_AXIS,
+                             calls: int = 1, tag: str = "late_delta",
+                             tier: int | None = None) -> None:
+        """Account a transfer that bypasses the collectives (an elastic
+        resize moving the departing workers' late deltas) as one ``op="host"``
+        record; ``tier`` is the link class it crossed (1 when the departing
+        workers were whole host groups, ``None`` for a flat worker set)."""
+        self.log.append(CommRecord(
+            op="host", transport=self.name, axis=axis,
+            participants=participants, logical_bytes=logical_bytes,
+            wire_bytes=wire_bytes, calls=calls, tag=tag, tier=tier))
 
 
 def get_transport(name, **kwargs) -> Transport:

@@ -18,7 +18,10 @@ the split of that dimension into host groups lives here: the transport is
 given its ``Topology`` when it is made (``topology=``, in place of the
 reference's ``host_axis=``/``worker_axis=``, whose names it carries), and
 reshapes a stacked ``(M, ...)`` payload to ``(hosts, workers_per_host,
-...)`` (``Topology.view``).
+...)`` (``Topology.view``).  ``regroup(topology)`` gives the same tiers
+over another topology, writing into the same log: the elastic executor
+runs each worker count through one, as the reference runs each of its
+per-M meshes through one shared transport.
 
 Every delegated call's ``CommRecord``s are copied into this transport's log
 with ``tier=`` set (and the axis and participants of their tier), so
@@ -141,6 +144,20 @@ class HierarchicalTransport(Transport):
         out = copy.copy(self)    # shares the log
         out.tier0 = self.tier0.plain()
         out.tier1 = self.tier1.plain()
+        return out
+
+    def regroup(self, topology: Topology) -> HierarchicalTransport:
+        """This transport over another topology: the same tier transports,
+        and this transport's log, so one ``CommLog`` covers every worker
+        count of an elastic run (the reference shares one transport across
+        its per-M meshes, whose axes carry the grouping)."""
+        if not isinstance(topology, Topology):
+            raise TypeError(
+                f"topology= must be a Topology, got {type(topology).__name__}")
+        out = copy.copy(self)    # shares the log and the tiers
+        out.topology = topology
+        out.host_axis = topology.host_axis
+        out.worker_axis = topology.worker_axis
         return out
 
     # -- shapes and state ---------------------------------------------------

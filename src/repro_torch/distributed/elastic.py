@@ -1,11 +1,51 @@
 """Elastic-training helpers, counterpart of ``repro/distributed/elastic.py``.
 
-Only ``staleness_scale`` is ported so far: the quorum and dynamic merges
-damp a late or skipped delta by it.  The rest of the module (resharding,
-``merge_weights``) comes with the elastic executor (ROADMAP queue 1,
-item 5)."""
+  * ``plan_remesh``: given the surviving worker count, the largest valid
+    (data, model) grid, biased to keep the model (tensor-parallel) axis
+    intact: changing its width invalidates head shardings, while shrinking
+    the data axis only re-spreads shards.  The elastic executor's workers
+    form a 1-D grid (model = 1).
+  * ``staleness_scale``: the damping of a late delta.
+  * ``merge_late_delta``: the paper's rule for integrating a late worker's
+    delta, eq. 8 applied to its stale window, scaled by staleness.
+
+``build_mesh`` builds a JAX device mesh; its process-group counterpart
+comes with ROADMAP queue 1, item 9b.
+"""
 
 from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class RemeshPlan:
+    data: int
+    model: int
+    dropped_hosts: int
+    tp_preserved: bool
+
+
+def plan_remesh(n_devices: int, *, prev_data: int, prev_model: int
+                ) -> RemeshPlan:
+    """Largest (data, model) grid over the survivors, keeping ``model``
+    where ``n_devices`` allows it, else the largest power of two that
+    fits."""
+    del prev_data
+    if n_devices >= prev_model and prev_model > 0:
+        data = n_devices // prev_model
+        return RemeshPlan(data=data, model=prev_model,
+                          dropped_hosts=n_devices - data * prev_model,
+                          tp_preserved=True)
+    model = 1
+    while model * 2 <= n_devices:
+        model *= 2
+    data = n_devices // model
+    return RemeshPlan(data=data, model=model,
+                      dropped_hosts=n_devices - data * model,
+                      tp_preserved=False)
 
 
 def staleness_scale(delay_windows: int, *, gamma: float = 0.5) -> float:
@@ -15,3 +55,22 @@ def staleness_scale(delay_windows: int, *, gamma: float = 0.5) -> float:
     weight one round late; heavier staleness is damped as in asynchronous
     SGD practice."""
     return float(1.0 / (1.0 + delay_windows) ** gamma)
+
+
+def merge_late_delta(w_shared, delta, *, delay_windows: int = 0,
+                     gamma: float = 0.5):
+    """Paper eq. (8)/(9) merge of one (possibly stale) delta:
+    ``w - s * delta`` in f32, cast back to ``w``'s dtype, with ``s =
+    staleness_scale(delay_windows)``.  ``w_shared`` and ``delta`` are
+    tensors, or dicts or tuples of them with one structure."""
+    s = staleness_scale(delay_windows, gamma=gamma)
+    if isinstance(w_shared, dict):
+        return {k: merge_late_delta(w_shared[k], delta[k],
+                                    delay_windows=delay_windows, gamma=gamma)
+                for k in w_shared}
+    if isinstance(w_shared, tuple):
+        return tuple(merge_late_delta(w, d, delay_windows=delay_windows,
+                                      gamma=gamma)
+                     for w, d in zip(w_shared, delta, strict=True))
+    return (w_shared.to(torch.float32)
+            - s * delta.to(torch.float32)).to(w_shared.dtype)

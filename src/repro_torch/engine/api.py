@@ -1,12 +1,14 @@
 """The ``Executor`` protocol, counterpart of ``repro/engine/api.py``.
 
 An executor runs one of the paper's schemes over M worker streams and
-returns a ``SchemeResult``.  Two backends are ported:
+returns a ``SchemeResult``.  Three backends are ported:
 
   * ``SimExecutor``  (``engine.sim``): the plain PyTorch oracles of
     ``core.schemes``;
   * ``MeshExecutor`` (``engine.mesh``): the workers stacked on one card,
-    inner loop on the port's kernels, merges through a ``Transport``.
+    inner loop on the port's kernels, merges through a ``Transport``;
+  * ``ElasticMeshExecutor`` (``engine.elastic``): ``MeshExecutor`` with a
+    ``ResizeSchedule``, the worker count changing between windows.
 
 Scheme names are the reference's: ``average`` (eq. 3), ``delta`` (eq. 8)
 and ``async_delta`` (eq. 9).  ``run`` also takes the async scheme's round
@@ -61,13 +63,28 @@ class Executor(Protocol):
 
 
 def get_executor(name: str, **kwargs) -> Executor:
-    """Factory: 'sim' | 'mesh' (+ backend kwargs; ``transport=`` a name or
-    a ``comm.Transport`` reaches the mesh executor's merges, the sim
-    oracles have no collective to route)."""
+    """Factory: 'sim' | 'mesh' | 'elastic' (+ backend kwargs; ``transport=``
+    a name or a ``comm.Transport`` reaches the mesh and elastic executors'
+    merges, the sim oracles have no collective to route).
+
+    'elastic' needs ``schedule=``: a ``ResizeSchedule``, a list of
+    ``(window, new_m)`` pairs, or a ``"WINDOW:M,..."`` string."""
     if name == "sim":
         from repro_torch.engine.sim import SimExecutor
         return SimExecutor(**kwargs)
     if name == "mesh":
         from repro_torch.engine.mesh import MeshExecutor
         return MeshExecutor(**kwargs)
-    raise ValueError(f"unknown executor {name!r}; choose from ('sim', 'mesh')")
+    if name == "elastic":
+        from repro_torch.engine.elastic import (ElasticMeshExecutor,
+                                                ResizeSchedule)
+        schedule = kwargs.pop("schedule", None)
+        if schedule is None:
+            raise ValueError(
+                "the elastic executor needs a schedule= kwarg "
+                "(ResizeSchedule, [(window, new_m), ...], or 'WINDOW:M,...')")
+        if isinstance(schedule, str):
+            schedule = ResizeSchedule.parse(schedule)
+        return ElasticMeshExecutor(schedule, **kwargs)
+    raise ValueError(
+        f"unknown executor {name!r}; choose from ('sim', 'mesh', 'elastic')")

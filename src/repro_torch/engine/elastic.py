@@ -1,0 +1,548 @@
+"""``ElasticMeshExecutor``: the worker set grows and shrinks between merge
+windows, without a restart.  Counterpart of ``repro/engine/elastic.py``.
+
+A cloud deployment of the paper's schemes sees workers appear and
+disappear, and the displacement merge (eq. 8) stays sound under stale and
+late contributions, so a change of worker count is a resharding event:
+
+    window k merge complete
+        |
+        v
+    the schedule (or a chaos kill) says M -> M' at window k
+        |
+        +- 1. late deltas: the departing workers' in-flight window, computed
+        |     from the shared version, merged by eq. 8 damped by
+        |     ``staleness_scale`` (``late_policy="merge"``)
+        +- 2. the executor for M' (one ``MeshExecutor`` a worker count)
+        +- 3. checkpoint {w_srd, t, cursor, window, m, tick_offset}
+        +- 4. reslice the global sample pool into M' streams
+        |
+        v
+    window k+1 runs on M' stacked workers (the step schedule continues)
+
+On one card a resize re-slices the stacked worker dimension.  The executor
+consumes one time-major global pool of ``M0 * n`` points (the input streams
+interleaved point by point), so an elastic run and a fixed-M run on the
+same ``data`` see the same sample budget, and a schedule that never fires
+is the fixed-M run bit for bit.  Each segment's streams are cut from the
+pool and made contiguous once; the eval pool is split over the current M,
+so every M scores (almost) all of it.  The late deltas go through the
+executor's own window route: on the card the window kernel, in one launch
+over the departing workers' ``(n_dep, tau, d)`` stack.  Nothing leaves the
+device but the checkpoints.
+
+A hierarchical ``topology`` resizes whole host groups: targets round down
+to a multiple of ``workers_per_host``, each worker count runs on its own
+``Topology`` through the ``HierarchicalTransport`` regrouped onto it
+(``regroup``), so one ``CommLog`` holds the whole run, and the late deltas
+are charged to tier 1.  ``max_workers`` caps the worker count, the
+counterpart of the reference's device count (``None``: the card holds any
+M).
+
+``chaos`` (a ``ChaosSchedule``): each kill is an unscheduled shrink by one
+at the next window barrier; slow and partition faults ride the quorum
+merge's late matrix through a ``ChaosNetwork`` given as ``network``.
+
+Checkpoints: one after every resize event (the post-event state, so a
+resume continues bit for bit), and with ``checkpoint_every`` one every N
+global windows through the segments' ``on_window`` hook.  ``resume=True``
+restores the latest and skips the consumed prefix.  ``ResizeStats.wall_s``
+is a resize's own time: the card is drained before it starts and synced at
+its end; ``checkpoint_s`` is the part the save took (it copies the
+codebook to the host).
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import comm
+from repro_torch import device as device_lib
+from repro_torch.comm.api import WORKER_AXIS
+from repro_torch.core import vq
+from repro_torch.core.schemes import SchemeResult
+from repro_torch.distributed import elastic as elastic_lib
+from repro_torch.engine import api
+from repro_torch.engine.mesh import MeshExecutor, _hier_of
+from repro_torch.engine.network import InstantNetwork, NetworkModel
+from repro_torch.topology import Topology
+
+ELASTIC_SCHEMES = ("average", "delta")
+
+
+@dataclasses.dataclass(frozen=True)
+class ResizeEvent:
+    """At the end of global window ``window``, the worker set becomes
+    ``new_m`` (clamped by ``max_workers`` and, on a hierarchical topology,
+    to whole host groups)."""
+
+    window: int
+    new_m: int
+
+
+class ResizeSchedule:
+    """An ordered list of ``ResizeEvent``s, e.g. ``[(20, 4), (40, 8)]``."""
+
+    def __init__(self, events):
+        evs = [e if isinstance(e, ResizeEvent) else ResizeEvent(*e)
+               for e in events]
+        for e in evs:
+            if e.window < 1:
+                raise ValueError(
+                    f"resize window must be >= 1 (after at least one merge), "
+                    f"got {e.window}")
+            if e.new_m < 1:
+                raise ValueError(f"resize target M must be >= 1, "
+                                 f"got {e.new_m}")
+        windows = [e.window for e in evs]
+        if sorted(windows) != windows or len(set(windows)) != len(windows):
+            raise ValueError(
+                f"resize windows must be strictly increasing, got {windows}")
+        self.events: tuple[ResizeEvent, ...] = tuple(evs)
+
+    @classmethod
+    def parse(cls, spec: str) -> ResizeSchedule:
+        """Parse the CLI form ``"WINDOW:M,WINDOW:M,..."`` (e.g. "20:4,40:8")."""
+        events = []
+        for part in spec.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            try:
+                win, m = part.split(":")
+                events.append(ResizeEvent(int(win), int(m)))
+            except ValueError as e:
+                raise ValueError(
+                    f"bad resize spec {part!r} (want 'WINDOW:M'): {e}") from None
+        if not events:
+            raise ValueError(f"empty resize spec {spec!r}")
+        return cls(events)
+
+    def __iter__(self):
+        return iter(self.events)
+
+    def __len__(self):
+        return len(self.events)
+
+
+@dataclasses.dataclass
+class ResizeStats:
+    """What one resize event did (filled in at run time)."""
+
+    window: int
+    old_m: int
+    new_m: int
+    # from plan_remesh; the workers form a 1-D grid, so always True here
+    tp_preserved: bool
+    late_points: int
+    checkpoint_step: int | None
+    wall_s: float
+    # 'merge' was asked for but the pool had too few points left for the
+    # departing workers' window: the event degraded to 'drop'
+    late_skipped: bool = False
+    # 'schedule' (a ResizeEvent) or 'chaos_kill' (an injected death)
+    cause: str = "schedule"
+    # the part of wall_s the checkpoint save took
+    checkpoint_s: float = 0.0
+
+
+def _regrouped(transport: comm.Transport, topology: Topology
+               ) -> comm.Transport:
+    """``transport`` over ``topology``: its hierarchical transport (under a
+    quantized wire, if any) regrouped, sharing the logs."""
+    hier = _hier_of(transport)
+    if hier is None:
+        return transport
+    if transport is hier:
+        return hier.regroup(topology)
+    out = copy.copy(transport)
+    out.inner = hier.regroup(topology)
+    return out
+
+
+class ElasticMeshExecutor:
+    """``MeshExecutor`` with a ``ResizeSchedule``.
+
+    Parameters
+    ----------
+    schedule:          a ``ResizeSchedule`` (or what its constructor takes).
+    network:           ``NetworkModel`` for the tick accounting (default
+                       instant); a ``ChaosNetwork`` feeds the quorum merge.
+    transport:         one transport for every segment, so the run streams
+                       into one ``CommLog`` (segments and late deltas).
+    topology:          a hierarchical one resizes whole host groups.
+    checkpointer:      a ``repro_torch.checkpoint.Checkpointer``; every
+                       resize saves the post-event state (blocking, timed).
+    resume:            restore the latest checkpoint and skip the consumed
+                       prefix.
+    late_policy:       'merge' (default) or 'drop' the departing workers'
+                       in-flight window.
+    staleness_gamma:   the late deltas' and the quorum merge's damping.
+    resize_cost_ticks: wall ticks charged a resize on the curve's axis.
+    on_window:         ``on_window(global window, w_shared)`` after every
+                       chunk of ``publish_every`` windows.
+    chaos:             a ``ChaosSchedule`` whose kills shrink the run.
+    checkpoint_every:  a periodic checkpoint every N global windows.
+    merge:             None or 'quorum', for every segment.
+    max_workers:       the largest worker count (None: any).
+    use_kernels, fused, smem_budget_bytes, device: as ``MeshExecutor``.
+    """
+
+    name = "elastic"
+
+    def __init__(self, schedule, network: NetworkModel | None = None, *,
+                 use_kernels: bool = True, fused: bool = True,
+                 transport: comm.Transport | str | None = None,
+                 topology: Topology | None = None,
+                 checkpointer=None, resume: bool = False,
+                 late_policy: str = "merge", staleness_gamma: float = 0.5,
+                 resize_cost_ticks: int = 0, on_window=None,
+                 publish_every: int = 1, chaos=None,
+                 checkpoint_every: int | None = None,
+                 merge: str | None = None, quorum_frac: float = 0.6,
+                 max_workers: int | None = None,
+                 smem_budget_bytes: int | None = None,
+                 device: str | torch.device | None = None):
+        if not isinstance(schedule, ResizeSchedule):
+            schedule = ResizeSchedule(schedule)
+        if late_policy not in ("merge", "drop"):
+            raise ValueError(
+                f"late_policy must be 'merge' or 'drop', got {late_policy!r}")
+        if resume and checkpointer is None:
+            raise ValueError(
+                "resume=True needs a checkpointer to restore from — "
+                "silently restarting from scratch is not a resume")
+        if publish_every < 1:
+            raise ValueError(f"publish_every must be >= 1, "
+                             f"got {publish_every}")
+        if checkpoint_every is not None:
+            if checkpoint_every < 1:
+                raise ValueError(f"checkpoint_every must be >= 1, "
+                                 f"got {checkpoint_every}")
+            if checkpointer is None:
+                raise ValueError(
+                    "checkpoint_every needs a checkpointer to save to")
+        if merge not in (None, "quorum"):
+            raise ValueError(
+                f"merge override must be None (scheme default) or 'quorum', "
+                f"got {merge!r}")
+        if max_workers is not None and max_workers < 1:
+            raise ValueError(f"max_workers must be >= 1, got {max_workers}")
+        self.schedule = schedule
+        self.network = network or InstantNetwork()
+        self.transport = comm.get_transport(
+            transport if transport is not None else "xla")
+        hier = _hier_of(self.transport)
+        if hier is not None:
+            if topology is not None and topology != hier.topology:
+                raise ValueError(
+                    f"topology {topology.describe()} differs from the "
+                    f"hierarchical transport's {hier.topology.describe()}; "
+                    f"configure one place only")
+            topology = hier.topology
+        self.topology = topology
+        self.use_kernels = use_kernels
+        self.fused = fused
+        self.smem_budget_bytes = smem_budget_bytes
+        self.device = device_lib.resolve(device)
+        self.checkpointer = checkpointer
+        self.resume = resume
+        self.late_policy = late_policy
+        self.staleness_gamma = staleness_gamma
+        self.resize_cost_ticks = resize_cost_ticks
+        # fires with the GLOBAL window index, continuous across resizes
+        self.on_window = on_window
+        self.publish_every = publish_every
+        self.chaos = chaos
+        self.checkpoint_every = checkpoint_every
+        self._last_ckpt_window = -1
+        self.merge = merge
+        self.quorum_frac = quorum_frac
+        self.max_workers = max_workers
+        # one MeshExecutor a worker count
+        self._mesh_ex: dict[int, MeshExecutor] = {}
+        # of the last run
+        self.resize_events: list[ResizeStats] = []
+        self.last_comm: dict | None = None
+        self.last_late_worker_windows = 0
+
+    # -- internals ----------------------------------------------------------
+
+    @property
+    def _hierarchical(self) -> bool:
+        return self.topology is not None and not self.topology.is_flat
+
+    @property
+    def _axis(self) -> str:
+        return (self.topology.worker_axis if self.topology is not None
+                else WORKER_AXIS)
+
+    def _executor_for(self, m: int) -> MeshExecutor:
+        """The executor for ``m`` workers (cached): on a hierarchical
+        topology it holds ``m // workers_per_host`` whole host groups."""
+        if m not in self._mesh_ex:
+            topo = None
+            if self._hierarchical:
+                topo = Topology.from_spec(
+                    m, hosts=max(1, m // self.topology.workers_per_host),
+                    host_axis=self.topology.host_axis,
+                    worker_axis=self.topology.worker_axis)
+            transport = _regrouped(self.transport, topo or Topology.flat(
+                m, worker_axis=self._axis))
+            self._mesh_ex[m] = MeshExecutor(
+                self.network, transport=transport,
+                use_kernels=self.use_kernels, fused=self.fused,
+                smem_budget_bytes=self.smem_budget_bytes, merge=self.merge,
+                quorum_frac=self.quorum_frac,
+                staleness_gamma=self.staleness_gamma, topology=topo,
+                device=self.device)
+        return self._mesh_ex[m]
+
+    def _clamp_m(self, requested: int
+                 ) -> tuple[int, elastic_lib.RemeshPlan]:
+        cap = self.max_workers
+        m_req = requested if cap is None else min(requested, cap)
+        if self._hierarchical:
+            # whole host groups: round down to a multiple of
+            # workers_per_host, at least one group
+            wph = self.topology.workers_per_host
+            m = max(wph, m_req // wph * wph)
+            if cap is not None and m > cap:
+                raise ValueError(
+                    f"one host group needs {wph} workers, max_workers={cap}")
+            return m, elastic_lib.plan_remesh(m, prev_data=requested,
+                                              prev_model=1)
+        plan = elastic_lib.plan_remesh(m_req, prev_data=requested,
+                                       prev_model=1)
+        return plan.data * plan.model, plan
+
+    @staticmethod
+    def _eval_streams(eval_pool: torch.Tensor, m: int) -> torch.Tensor:
+        """The shared eval pool split over m workers, (m, n_ev, d)."""
+        n_ev = eval_pool.shape[0] // m
+        if n_ev == 0:
+            raise ValueError(
+                f"eval pool of {eval_pool.shape[0]} points cannot feed "
+                f"M={m} workers")
+        return eval_pool[: n_ev * m].reshape(m, n_ev, eval_pool.shape[-1])
+
+    @staticmethod
+    def _state(w_srd, t: int, cursor: int, window: int, m: int,
+               tick_offset: int) -> dict:
+        """The checkpointed state, the reference's leaves and names."""
+        return {"w_srd": w_srd, "t": np.asarray(t, np.int64),
+                "cursor": np.asarray(cursor, np.int64),
+                "window": np.asarray(window, np.int64),
+                "m": np.asarray(m, np.int64),
+                "tick_offset": np.asarray(tick_offset, np.int64)}
+
+    def _sync_device(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _segment_hook(self, window_idx: int, t0: int, cursor: int, m: int,
+                      tau: int, wt: int, tick_offset: int):
+        """One segment's ``on_window``: forwards the caller's hook with the
+        global window, and with ``checkpoint_every`` saves the state every N
+        global windows (a save copies the codebook to the host)."""
+        periodic = (self.checkpointer is not None
+                    and self.checkpoint_every is not None)
+        if self.on_window is None and not periodic:
+            return None
+
+        def hook(wi: int, w: torch.Tensor) -> None:
+            gw = window_idx + wi
+            if self.on_window is not None:
+                self.on_window(gw, w)
+            if (periodic and gw % self.checkpoint_every == 0
+                    and gw > self._last_ckpt_window):
+                self.checkpointer.save(gw, self._state(
+                    w, t0 + wi * tau, cursor + wi * m * tau, gw, m,
+                    tick_offset + wi * wt))
+                self._last_ckpt_window = gw
+
+        return hook
+
+    # -- public API ---------------------------------------------------------
+
+    def run(self, scheme: str, w0: torch.Tensor, data: torch.Tensor,
+            eval_data: torch.Tensor, *, tau: int, eps0: float = 0.5,
+            decay: float = 1.0, generator: torch.Generator | None = None,
+            lengths: torch.Tensor | None = None) -> SchemeResult:
+        del generator, lengths  # the sync schemes draw nothing
+        api.validate_scheme(scheme)
+        if scheme not in ELASTIC_SCHEMES:
+            raise ValueError(
+                f"elastic execution supports {ELASTIC_SCHEMES}; "
+                f"async_delta has no window barrier to resize at")
+        if data.dim() != 3:
+            raise ValueError(f"data must be (M, n, d), got {tuple(data.shape)}")
+        if eval_data.dim() != 3:
+            raise ValueError(f"eval_data must be (M, n_eval, d), got "
+                             f"{tuple(eval_data.shape)}")
+        m0, n, d = data.shape
+        if n < tau:
+            raise ValueError(
+                f"need at least one tau={tau} window per worker, got n={n}")
+        w0, data, eval_data = (x.to(self.device, torch.float32)
+                               for x in (w0, data, eval_data))
+        # one global pool, time-major: elastic and fixed-M runs on the same
+        # data consume the same sample budget
+        pool = data.transpose(0, 1).reshape(-1, d)
+        eval_pool = eval_data.reshape(-1, d)
+        total = pool.shape[0]
+        wt = self.network.window_ticks(tau)
+
+        cur_m, _ = self._clamp_m(m0)
+        w_srd, t0, cursor, window_idx, tick_offset = w0, 0, 0, 0, 0
+        self.resize_events = []
+        self.last_late_worker_windows = 0
+        comm_mark = self.transport.log.mark()
+        resumed = False
+        if self.resume:
+            latest = self.checkpointer.latest_step()
+            if latest is None:
+                raise ValueError(
+                    f"resume=True but no checkpoint found in "
+                    f"{self.checkpointer.dir!r} — silently restarting from "
+                    f"scratch is not a resume (drop resume for a fresh run)")
+            st = self.checkpointer.restore(latest, self._state(
+                torch.zeros_like(w0), 0, 0, 0, 0, 0), device=self.device)
+            w_srd = st["w_srd"]
+            t0, cursor = int(st["t"]), int(st["cursor"])
+            window_idx, tick_offset = int(st["window"]), int(st["tick_offset"])
+            cur_m, _ = self._clamp_m(int(st["m"]))
+            resumed = True
+
+        # one boundary list: scheduled resizes and injected deaths, each a
+        # (window, cause, target M) barrier; a kill's target is resolved
+        # when it fires (the current M less one)
+        boundaries = [(e.window, "schedule", e.new_m)
+                      for e in self.schedule if e.window > window_idx]
+        if self.chaos is not None:
+            boundaries += [(ce.window, "chaos_kill", -1)
+                           for ce in self.chaos.kill_events
+                           if ce.window > window_idx]
+        boundaries.sort(key=lambda b: (b[0], b[1] != "schedule"))
+        ei = 0
+        curves: list[torch.Tensor] = []
+        ticks: list[torch.Tensor] = []
+        self._last_ckpt_window = window_idx
+
+        while True:
+            target = boundaries[ei][0] if ei < len(boundaries) else None
+            max_w = (total - cursor) // (cur_m * tau)
+            seg_w = max_w if target is None else min(max_w,
+                                                     target - window_idx)
+            if seg_w > 0:
+                seg_pts = cur_m * seg_w * tau
+                # the pool's next seg_pts points as cur_m time-major streams
+                seg_data = pool[cursor: cursor + seg_pts].reshape(
+                    seg_w * tau, cur_m, d).transpose(0, 1).contiguous()
+                mex = self._executor_for(cur_m)
+                # assigned every segment: the executors are cached, so a
+                # previous run's hook must not survive into this one
+                mex.on_window = self._segment_hook(
+                    window_idx, t0, cursor, cur_m, tau, wt, tick_offset)
+                mex.publish_every = self.publish_every
+                res = mex.run_segment(
+                    scheme, w_srd, seg_data,
+                    self._eval_streams(eval_pool, cur_m), tau=tau,
+                    eps0=eps0, decay=decay, t0=t0)
+                self.last_late_worker_windows += mex.last_late_worker_windows
+                w_srd = res.w_shared
+                curves.append(res.distortion)
+                ticks.append(tick_offset + res.wall_ticks)
+                tick_offset += seg_w * wt
+                cursor += seg_pts
+                t0 += seg_w * tau
+                window_idx += seg_w
+            if target is None or window_idx < target:
+                break  # no more events, or the pool ran dry before the next
+            win, cause, new_m = boundaries[ei]
+            ei += 1
+            if cause == "chaos_kill":
+                new_m = max(1, cur_m - 1)
+            w_srd, cur_m, cursor = self._do_resize(
+                ResizeEvent(win, new_m), w_srd, cur_m, pool, cursor, t0,
+                window_idx, tick_offset, tau=tau, eps0=eps0, decay=decay,
+                cause=cause)
+            tick_offset += self.resize_cost_ticks
+
+        self.last_comm = comm.CommLog.summarize(
+            self.transport.log.since(comm_mark))
+        if not curves:
+            if resumed:
+                # the checkpoint holds a complete run: report its state
+                return SchemeResult(
+                    w_shared=w_srd,
+                    wall_ticks=torch.tensor([tick_offset], dtype=torch.int32),
+                    distortion=vq.distortion(eval_pool, w_srd).reshape(1))
+            raise ValueError(
+                "elastic run produced no windows — pool exhausted before the "
+                "first merge (reduce tau or provide more data)")
+        return SchemeResult(w_shared=w_srd, wall_ticks=torch.cat(ticks),
+                            distortion=torch.cat(curves))
+
+    # -- resize event -------------------------------------------------------
+
+    def _do_resize(self, ev: ResizeEvent, w_srd: torch.Tensor, cur_m: int,
+                   pool: torch.Tensor, cursor: int, t0: int, window_idx: int,
+                   tick_offset: int, *, tau: int, eps0: float, decay: float,
+                   cause: str):
+        self._sync_device()
+        t_start = time.perf_counter()
+        new_m, plan = self._clamp_m(ev.new_m)
+        late_pts, late_skipped = 0, False
+        if new_m < cur_m and self.late_policy == "merge":
+            # the departing workers were mid-window when the resize fired:
+            # their deltas, computed from the shared version, arrive one
+            # window late and are summed in by eq. 8, damped
+            n_dep = cur_m - new_m
+            need = n_dep * tau
+            if pool.shape[0] - cursor >= need:
+                late = pool[cursor: cursor + need].reshape(
+                    n_dep, tau, pool.shape[-1])
+                cursor += need
+                late_pts = need
+                eps = vq.default_steps(
+                    torch.arange(t0 + 1, t0 + tau + 1, device=self.device),
+                    eps0=eps0, decay=decay)
+                w_fin = self._executor_for(cur_m)._local_window(w_srd, late,
+                                                                eps)
+                w_srd = elastic_lib.merge_late_delta(
+                    w_srd, torch.sum(w_srd - w_fin, dim=0), delay_windows=1,
+                    gamma=self.staleness_gamma)
+                # each departing worker uploads one (kappa, d) f32 delta; on
+                # a hierarchical topology they were whole host groups, so
+                # the upload crossed tier 1
+                self.transport.record_host_transfer(
+                    logical_bytes=4 * w_srd.numel(),
+                    wire_bytes=4 * w_srd.numel(), participants=n_dep,
+                    axis=self._axis, tag="late_delta",
+                    tier=1 if self._hierarchical else None)
+            else:
+                late_skipped = True  # the pool is too dry; recorded
+        self._executor_for(new_m)
+        ckpt_step, ckpt_s = None, 0.0
+        if self.checkpointer is not None:
+            # the post-event state: a resume from here continues bit for bit
+            t_ck = time.perf_counter()
+            self.checkpointer.save(window_idx, self._state(
+                w_srd, t0, cursor, window_idx, new_m,
+                tick_offset + self.resize_cost_ticks))
+            ckpt_s = time.perf_counter() - t_ck
+            ckpt_step = window_idx
+        self._sync_device()
+        self.resize_events.append(ResizeStats(
+            window=window_idx, old_m=cur_m, new_m=new_m,
+            tp_preserved=plan.tp_preserved, late_points=late_pts,
+            checkpoint_step=ckpt_step,
+            wall_s=time.perf_counter() - t_start, late_skipped=late_skipped,
+            cause=cause, checkpoint_s=ckpt_s))
+        return w_srd, new_m, cursor

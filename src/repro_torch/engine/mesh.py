@@ -56,7 +56,11 @@ wire is then charged per tier, each at its link class's bandwidth
 ``publish_every`` windows, the merge state threaded across them, and
 re-sizes the sparse tier's ``frac`` between chunks from the chunk's
 measured tier-1 bytes; ``last_tier1_fracs`` keeps the value after each
-chunk.
+chunk.  An ``on_window(windows_done, w_shared)`` hook rides the same
+chunks (a ``CodebookStore.publisher()``, or the elastic executor's
+periodic checkpoint), and fires once after an eq.-9 run; a hook that reads
+``w_shared`` on the host syncs the card once a chunk.  ``run_segment`` is
+the elastic executor's sync run from a global step ``t0``.
 
 The async scheme (``_run_async``, the reference's ``mesh.py:812-915``) has
 no window: every tick each worker takes one eq.-1 step at batch 1 (through
@@ -110,6 +114,7 @@ class MeshExecutor:
                  divergence_thresh: float = 0.0, max_stale: int = 8,
                  topology: Topology | None = None,
                  tier1_controller=None, publish_every: int = 1,
+                 on_window=None,
                  device: str | torch.device | None = None):
         if merge not in (None, "quorum", "dynamic"):
             raise ValueError(
@@ -154,6 +159,9 @@ class MeshExecutor:
         self.max_stale = max_stale
         self.tier1_controller = tier1_controller
         self.publish_every = publish_every
+        # on_window(windows_done, w_shared) fires after every chunk of
+        # publish_every sync windows, and once after an eq.-9 run
+        self.on_window = on_window
         # of the last run: the sparse tier's frac after each chunk, the
         # dynamic merge's trigger bit of each window (a host tensor), the
         # quorum merge's late worker-windows
@@ -245,10 +253,9 @@ class MeshExecutor:
         return self.transport.all_reduce(vq.distortion(eval_data, w_srd),
                                          op="mean", tag="eval")[0]
 
-    def run(self, scheme: str, w0: torch.Tensor, data: torch.Tensor,
-            eval_data: torch.Tensor, *, tau: int, eps0: float = 0.5,
-            decay: float = 1.0, generator: torch.Generator | None = None,
-            lengths: torch.Tensor | None = None) -> SchemeResult:
+    def _inputs(self, scheme: str, w0, data, eval_data, tau: int):
+        """Validate a run's inputs; returns them as f32 contiguous tensors
+        on the executor's device."""
         api.validate_scheme(scheme)
         if data.dim() != 3:
             raise ValueError(f"data must be (M, n, d), got {tuple(data.shape)}")
@@ -260,8 +267,7 @@ class MeshExecutor:
             raise ValueError(
                 f"w0 must be (kappa, d={data.shape[2]}), got {tuple(w0.shape)}")
         m, n, _ = data.shape
-        n_windows = n // tau
-        if n_windows == 0:
+        if n // tau == 0:
             raise ValueError(f"need at least one tau={tau} window, got n={n}")
         if self.topology is not None and m != self.topology.total_workers:
             raise ValueError(
@@ -270,19 +276,53 @@ class MeshExecutor:
                 f"{self.topology.total_workers} workers")
         if self.merge is not None and scheme != "delta":
             self._strategy(scheme)             # raises: delta only
-        w0, data, eval_data = (x.to(self.device, torch.float32).contiguous()
-                               for x in (w0, data, eval_data))
+        return tuple(x.to(self.device, torch.float32).contiguous()
+                     for x in (w0, data, eval_data))
+
+    def run(self, scheme: str, w0: torch.Tensor, data: torch.Tensor,
+            eval_data: torch.Tensor, *, tau: int, eps0: float = 0.5,
+            decay: float = 1.0, generator: torch.Generator | None = None,
+            lengths: torch.Tensor | None = None) -> SchemeResult:
+        w0, data, eval_data = self._inputs(scheme, w0, data, eval_data, tau)
+        if scheme != "async_delta":
+            return self._sync(scheme, w0, data, eval_data, tau=tau,
+                              eps0=eps0, decay=decay, t0=0)
+        m, n, _ = data.shape
+        lengths = api.async_lengths(self.network, m, n, tau,
+                                    generator=generator, lengths=lengths)
+        mark = self.transport.log.mark()
+        try:
+            res = self._run_async(w0, data, eval_data, tau=tau, eps0=eps0,
+                                  decay=decay, lengths=lengths)
+        finally:
+            self.last_comm = comm.CommLog.summarize(
+                self.transport.log.since(mark))
+        if self.on_window is not None:
+            self.on_window(n // tau, res.w_shared)
+        return res
+
+    def run_segment(self, scheme: str, w0: torch.Tensor, data: torch.Tensor,
+                    eval_data: torch.Tensor, *, tau: int, eps0: float = 0.5,
+                    decay: float = 1.0, t0: int = 0) -> SchemeResult:
+        """One elastic segment (``ElasticMeshExecutor``): ``run`` for the
+        sync schemes, the step schedule continuing from step ``t0``, so a
+        resized run keeps the eps_t sequence a fixed-M run sees, and the
+        quorum merge's late bits keyed by global window ``t0 // tau``.  The
+        merge state starts fresh, as the reference's does."""
         if scheme == "async_delta":
-            lengths = api.async_lengths(self.network, m, n, tau,
-                                        generator=generator, lengths=lengths)
-            mark = self.transport.log.mark()
-            try:
-                return self._run_async(w0, data, eval_data, tau=tau,
-                                       eps0=eps0, decay=decay,
-                                       lengths=lengths)
-            finally:
-                self.last_comm = comm.CommLog.summarize(
-                    self.transport.log.since(mark))
+            raise ValueError(
+                "elastic segments support the synchronous schemes "
+                "('average', 'delta'); async_delta has no window barrier "
+                "to resize at")
+        w0, data, eval_data = self._inputs(scheme, w0, data, eval_data, tau)
+        return self._sync(scheme, w0, data, eval_data, tau=tau, eps0=eps0,
+                          decay=decay, t0=t0)
+
+    def _sync(self, scheme: str, w0, data, eval_data, *, tau: int,
+              eps0: float, decay: float, t0: int) -> SchemeResult:
+        """A sync run from step ``t0``, chunked when a hook or the tier-1
+        controller needs the chunk barriers; sets ``last_comm``."""
+        m = data.shape[0]
         strategy = self._strategy(scheme)
         log = self.transport.log
         mark = log.mark()
@@ -291,14 +331,15 @@ class MeshExecutor:
         self.last_triggers = None
         self.last_late_worker_windows = 0
         try:
-            if self.tier1_controller is None:
+            if self.tier1_controller is None and self.on_window is None:
                 res, _ = self._run_sync(strategy, w0, data, eval_data,
                                         tau=tau, eps0=eps0, decay=decay,
-                                        t0=0, state=state)
+                                        t0=t0, state=state)
             else:
                 res = self._run_sync_published(strategy, w0, data, eval_data,
                                                tau=tau, eps0=eps0,
-                                               decay=decay, state=state)
+                                               decay=decay, t0=t0,
+                                               state=state)
         finally:
             self.last_comm = comm.CommLog.summarize(log.since(mark))
         return res
@@ -388,12 +429,14 @@ class MeshExecutor:
                             distortion=torch.stack(curve)), state
 
     def _run_sync_published(self, strategy, w0, data, eval_data, *,
-                            tau: int, eps0: float, decay: float, state
-                            ) -> SchemeResult:
+                            tau: int, eps0: float, decay: float, t0: int,
+                            state) -> SchemeResult:
         """``_run_sync`` in chunks of ``publish_every`` windows, the merge
-        state threaded across them (same numerics), with one
-        ``Tier1BudgetController`` step after each chunk: the sparse tier's
-        ``frac`` changes only between chunks."""
+        state threaded across them (same numerics).  After each chunk
+        ``on_window(windows done, w_shared)`` fires, then one
+        ``Tier1BudgetController`` step, so the sparse tier's ``frac``
+        changes only between chunks.  Nothing here waits for the card; a
+        hook that reads ``w_shared`` on the host syncs it once a chunk."""
         n_windows = data.shape[1] // tau
         w, done, wt = w0, 0, None
         curves, ticks = [], []
@@ -402,8 +445,8 @@ class MeshExecutor:
             seg = data[:, done * tau:(done + k) * tau]
             cmark = self.transport.log.mark()
             res, state = self._run_sync(strategy, w, seg, eval_data, tau=tau,
-                                        eps0=eps0, decay=decay, t0=done * tau,
-                                        state=state)
+                                        eps0=eps0, decay=decay,
+                                        t0=t0 + done * tau, state=state)
             if wt is None:
                 # the window's tick cost as the first chunk charged it
                 wt = int(res.wall_ticks[0])
@@ -411,11 +454,14 @@ class MeshExecutor:
             ticks.append(done * wt + res.wall_ticks)
             w = res.w_shared
             done += k
-            recs = self.transport.log.since(cmark)
-            wire1 = sum(r.wire_bytes * r.calls for r in recs
-                        if r.tag in ("merge", "probe") and r.tier == 1)
-            frac = self.tier1_controller.update(self.transport, wire1 / k)
-            if frac is not None:
-                self.last_tier1_fracs.append(frac)
+            if self.on_window is not None:
+                self.on_window(done, w)
+            if self.tier1_controller is not None:
+                recs = self.transport.log.since(cmark)
+                wire1 = sum(r.wire_bytes * r.calls for r in recs
+                            if r.tag in ("merge", "probe") and r.tier == 1)
+                frac = self.tier1_controller.update(self.transport, wire1 / k)
+                if frac is not None:
+                    self.last_tier1_fracs.append(frac)
         return SchemeResult(w_shared=w, wall_ticks=torch.cat(ticks),
                             distortion=torch.cat(curves))

@@ -36,6 +36,20 @@ who is late); ``--merge dynamic --divergence-thresh T --max-stale S``
 merges only when the workers' drift reaches T.  Both need ``--scheme
 delta``.
 
+``--resize WINDOW:M,...`` (mesh only) runs the ``ElasticMeshExecutor``:
+the worker count changes after those global windows, the departing
+workers' in-flight window merged late, with a checkpoint after each resize
+into ``--ckpt-dir``; ``--resume`` restores the latest one and runs the
+rest.  ``--chaos SEED:kill=K,slow=S,part=P`` draws that many faults from
+SEED over the run's windows (partition targets index ``--hosts``' groups,
+or two logical ones): slow workers and partitioned groups are late at the
+quorum merge (``--chaos`` implies it, hence ``--scheme delta``), and kills
+shrink the run by one worker each, elastically::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --mode vq \\
+        --executor mesh --workers 4 --points 300 --resize 10:2,20:4 \\
+        --ckpt-dir /tmp/ckpt --device cpu
+
 ``--autotune {off,cache,search}`` picks the kernels' tiles
 (``kernels.autotune``; tiles change no bit) and ``--autotune-cache
 TILES.json`` keeps the picks in a file.
@@ -50,9 +64,11 @@ import torch
 
 from repro_torch import comm
 from repro_torch import device as device_lib
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.comm.sweep import acceptance_sparse_frac
 from repro_torch.data import synthetic
-from repro_torch.engine import (Tier1BudgetController, Topology,
+from repro_torch.engine import (ChaosNetwork, ChaosSchedule,
+                                Tier1BudgetController, Topology,
                                 get_executor, get_network)
 from repro_torch.kernels import autotune
 
@@ -142,6 +158,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--autotune-cache", default="", metavar="TILES.json",
                     help="keep tuned tiles in this JSON file (read at "
                          "start; keyed by shape and device name)")
+    ap.add_argument("--resize", default="",
+                    help="elastic resize schedule 'WINDOW:M,...' (e.g. "
+                         "'20:4,40:8'): the worker count changes after "
+                         "those global windows (mesh executor)")
+    ap.add_argument("--chaos", default="", metavar="SEED:SCHEDULE",
+                    help="seeded fault injection, e.g. '7:kill=2,slow=1,"
+                         "part=1': that many worker deaths, stragglers and "
+                         "host-group partitions drawn from SEED; kills "
+                         "become unscheduled elastic resizes, slow and part "
+                         "ride the quorum merge's late matrix (mesh "
+                         "executor, --scheme delta)")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="elastic runs: checkpoint after every resize into "
+                         "this directory")
+    ap.add_argument("--resume", action="store_true",
+                    help="elastic runs: restore the latest checkpoint in "
+                         "--ckpt-dir and skip the consumed prefix")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return ap.parse_args(argv)
@@ -174,6 +207,7 @@ def build_executor(args, dev: torch.device):
                            if args.transport == "sparse" else {}))
     tier1_auto = args.tier1_frac == "auto"
     kw = {}
+    topology = None
     if args.hosts > 1:
         if args.tier1_frac is None or tier1_auto:
             tier1_frac = acceptance_sparse_frac(args.kappa, args.dim)
@@ -203,14 +237,37 @@ def build_executor(args, dev: torch.device):
                 "sparse)")
         kw["tier1_controller"] = Tier1BudgetController(
             network, budget_ticks=args.tier1_budget_ticks)
-    merge = "quorum" if args.quorum else args.merge
+    chaos = None
+    if args.chaos:
+        # the faults reach the executors through the network model; the
+        # partition targets index --hosts' groups, or 2 logical ones
+        chaos = ChaosSchedule.from_spec(
+            args.chaos, windows=args.points // args.tau, m=args.workers,
+            hosts=args.hosts if args.hosts > 1 else 2)
+        network = ChaosNetwork(network, chaos, topology=topology)
+        print(f"chaos: {chaos.describe()}")
+    merge = "quorum" if (args.quorum or args.chaos) else args.merge
     if merge == "quorum":
         kw.update(merge=merge, quorum_frac=args.quorum_frac)
     elif merge == "dynamic":
         kw.update(merge=merge, divergence_thresh=args.divergence_thresh,
                   max_stale=args.max_stale)
-    return get_executor("mesh", network=network, transport=transport,
-                        device=dev, **kw)
+    if not (args.resize or (chaos is not None and chaos.kill_events)):
+        return get_executor("mesh", network=network, transport=transport,
+                            device=dev, **kw)
+    # elastic: a schedule, or a chaos kill to shrink at
+    if args.resume and not args.ckpt_dir:
+        raise ValueError("--resume needs --ckpt-dir (the elastic resume "
+                         "restores the latest resize checkpoint)")
+    if args.wire_quant != "off":
+        raise ValueError("--wire-quant does not compose with elastic resizes "
+                         "(the error-feedback residual is per-worker state "
+                         "the resharder does not carry across a resize)")
+    return get_executor(
+        "elastic", schedule=args.resize or [], network=network,
+        transport=transport, resume=args.resume, chaos=chaos, device=dev,
+        checkpointer=Checkpointer(args.ckpt_dir) if args.ckpt_dir else None,
+        **kw)
 
 
 def run_vq(args):
@@ -229,7 +286,8 @@ def run_vq(args):
           f"d={args.dim} kappa={args.kappa} device={dev} "
           f"transport={transport.name if transport else 'none'}"
           + (f" topology={topology.describe()} tier1={args.tier1_transport}"
-             if topology is not None else ""))
+             if topology is not None else "")
+          + (f" resize={args.resize}" if args.resize else ""))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -242,6 +300,12 @@ def run_vq(args):
     n = len(curve)
     for i in sorted({int(j * (n - 1) / 9) for j in range(10)}):
         print(f"  ticks {float(ticks[i]):>8.1f}  C = {float(curve[i]):.5f}")
+    for ev in getattr(executor, "resize_events", []):
+        ck = (f" ckpt@{ev.checkpoint_step}"
+              if ev.checkpoint_step is not None else "")
+        print(f"  resize @window {ev.window}: M {ev.old_m} -> {ev.new_m} "
+              f"(late points merged: {ev.late_points}, "
+              f"{ev.wall_s * 1e3:.1f} ms{ck})")
     pts = args.workers * args.points
     print(f"done: C(final)={float(curve[-1]):.5f} in {wall:.2f}s wall "
           f"({wall / pts * 1e6:.2f} us/point over {pts} points)")
@@ -261,6 +325,9 @@ def run_vq(args):
         if probe:
             print(f"  probe: wire {probe['wire_bytes']:,} B over "
                   f"{probe['calls']} windows, merges {merge_b.get('calls', 0)}")
+    ckpt = getattr(executor, "checkpointer", None)
+    if ckpt is not None:
+        ckpt.wait()
     return res, executor, wall
 
 
@@ -284,11 +351,27 @@ def main(argv=None) -> int:
         print(f"error: --hosts {args.hosts} needs --executor mesh (the sim "
               f"backend issues no collectives)")
         return 2
+    if args.tier1_frac == "auto" and (args.resize or args.chaos):
+        print("error: --tier1-frac auto is a plain-mesh feature; it does not "
+              "compose with --resize/--chaos")
+        return 2
+    if args.chaos and args.executor != "mesh":
+        print(f"error: --chaos injects faults into the mesh executors; got "
+              f"--executor {args.executor}")
+        return 2
+    if args.resume and not args.resize:
+        # only the elastic path has VQ resume state: a plain run would
+        # restart from scratch, which is not a resume
+        print("error: --resume in VQ mode needs --resize (elastic runs "
+              "checkpoint at resize events; plain runs have no VQ "
+              "checkpoint to restore)")
+        return 2
     merge = args.merge
-    if args.quorum:
+    if args.quorum or args.chaos:
         if merge == "dynamic":
-            print("error: --merge dynamic conflicts with --quorum (the "
-                  "dynamic merge has no lateness channel)")
+            print("error: --merge dynamic conflicts with --chaos/--quorum "
+                  "(faults ride the quorum merge's late matrix; the dynamic "
+                  "merge has no lateness channel)")
             return 2
         merge = "quorum"
     if merge is not None and args.scheme != "delta":
@@ -298,6 +381,15 @@ def main(argv=None) -> int:
     if merge is not None and args.executor != "mesh":
         print(f"error: --merge {merge} runs in the mesh executor's merge; "
               f"got --executor {args.executor}")
+        return 2
+    if merge == "dynamic" and args.resize:
+        print("error: --merge dynamic does not compose with --resize (the "
+              "elastic path reshards quorum and plain merge state only)")
+        return 2
+    if args.resize and args.executor != "mesh":
+        print(f"error: --resize is a mesh-executor feature (elastic "
+              f"resharding of the stacked workers); got --executor "
+              f"{args.executor}")
         return 2
     if args.tier1_frac == "auto" and args.executor != "mesh":
         print(f"error: --tier1-frac auto adapts the mesh transport's sparse "

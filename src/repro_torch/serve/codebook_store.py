@@ -117,11 +117,22 @@ class CodebookStore:
                 self._cond.wait(left)
             return True
 
-    def publisher(self) -> Callable[[int, torch.Tensor], None]:
+    def publisher(self, *, skip_stale: bool = False
+                  ) -> Callable[[int, torch.Tensor], None]:
         """An ``on_window(window, w)`` callback that publishes into this
-        store."""
+        store (``MeshExecutor`` / ``ElasticMeshExecutor``'s ``on_window``).
+
+        ``skip_stale=True`` drops a publish whose window is at or before the
+        latest published step: a trainer resumed from a checkpoint replays
+        windows the store already served, and publishing them again would
+        move the served codebook backward."""
 
         def on_window(window: int, w: torch.Tensor) -> None:
+            if skip_stale:
+                with self._cond:
+                    latest = self._latest
+                if latest is not None and window <= latest.step:
+                    return
             self.publish(w, step=window)
 
         return on_window

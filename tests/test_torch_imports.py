@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch``, nor
-``chip_smoke.py`` or ``kernel_ab.py``, imports JAX or the ``repro``
-package."""
+``chip_smoke.py`` or ``kernel_ab.py``, imports JAX, the ``repro`` package
+or ``ml_dtypes`` (the card's machine has none; the checkpointer stores
+narrow floats through ``torch.Tensor.view``)."""
 
 import ast
 from pathlib import Path
@@ -24,7 +25,7 @@ def _imported_modules(path: Path) -> list[str]:
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -37,6 +38,7 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 def test_checker_catches_forbidden_imports(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import jax.numpy as jnp\nfrom repro.core import vq\n"
-                   "from repro_torch.core import vq as tvq\nimport torch\n")
+                   "from repro_torch.core import vq as tvq\nimport torch\n"
+                   "import ml_dtypes\n")
     assert [n for n in _imported_modules(src) if _forbidden(n)] == [
-        "jax.numpy", "repro.core"]
+        "jax.numpy", "repro.core", "ml_dtypes"]
