@@ -148,7 +148,10 @@ PyTorch built for CUDA:
   18. runs chaos, elastic resizes and checkpoints (``elastic_legs``), each
      leg with the launch counts set to 0 before it and read after: E1,
      ``--resize 4000:4,8000:8 --ckpt-dir`` at full depth through the
-     launcher (14,499 windows, 40 late points, 14,500 window launches: one
+     launcher, observed (``--metrics``: its ``resize_events``,
+     ``late_delta_points`` and ``resize`` spans == its ``ResizeStats``, a
+     divergence launch a window)
+     (14,499 windows, 40 late points, 14,500 window launches: one
      is the late delta's, over the departing workers' (4, tau, d) stack),
      its first 4,000 windows equal bit for bit to the fixed-M delta run,
      its final distortion within 1e-2 of it, one 2,097,152 B ``late_delta``
@@ -161,14 +164,55 @@ PyTorch built for CUDA:
      late delta charged 2,097,152 B on tier 1; E5, ``--chaos
      7:kill=2,slow=1,part=1`` at full depth, resizes with cause
      ``chaos_kill`` at the kill windows and the late worker-windows equal
-     to the segments' numpy late matrices; E6, eq. 9 over a
+     to the segments' numpy late matrices, observed too (``chaos_kills``
+     twice the kills, the reference's count; ``chaos_late_worker_windows``
+     == the late matrices); E6, eq. 9 over a
      ``ChaosNetwork`` (a slowdown, a kill) for 20,000 ticks (cut), one
      delta launch a tick, the dead worker's rounds never completing, its
      first 200 ticks held against ``scheme_async``;
-  19. times each kernel (the delta sweep also at each kchunk the tuner
+  19. runs the thread runtime, training while serving and the trace/metrics
+     layer (``threads_serving_obs_legs``), each leg with the launch counts
+     set to 0 before it and read after: T1, ``--executor thread --scheme
+     async_delta`` on 8 x 125,000 points for 5 s (one window launch at (1,
+     tau, d) a round: window launches == the workers' pushes, no other
+     launch; every worker pushes; the distortion falls; points/s, rounds/s,
+     the stale-read share, the inbox's peak depth and the window plan at
+     M = 1 printed; T1 again without the inbox's bound, a read-out; and
+     rounds/s at M = 1, 2, 4 for 1 s each, a read-out); T2, a 50x
+     straggler for 3 s (worker 0 takes fewer points than each other); T3,
+     ``--comm-delay-s 0.01`` for 3 s; T4, 8 threads x 200
+     ``BlobStore.apply(+1)`` on a (4096, 128) device tensor (version 1,600,
+     every entry 1600.0); S1, ``launch.serve --train-publish`` (an elastic
+     trainer at M = 8, 4, 8 on 8 x 20,000 points publishing every 10
+     windows, 10,000 geometric requests): no failure, monotonic versions,
+     more than one served, 1 + its ``on_window`` calls published, window
+     launches == windows + late deltas and assign launches == flushes +
+     warm-ups, 1,000 sampled answers == plain on their version's codebook,
+     the trace clean with flush, load and window spans, p50/p99 beside
+     phase 7's; O1, the divergence kernel (an observed window's
+     ``||w_local - w_shared||^2`` in one pass; no TPU kernel's counterpart)
+     against its plain version at (8, 4096, 128), a ragged and a
+     misaligned shape, one launch a call, and 1,000 calls back to back
+     with the same bits and the tickets left 0; then ``--scheme delta`` at
+     full depth, two pairs of bare and observed runs in turns (``--trace
+     --metrics``, the collector run before each): curve and codebook ==
+     the main path's bit for bit, 12,500 divergence launches an observed
+     run, ``windows_total`` 12,500, the ``comm_*`` counters ==
+     ``CommLog.summarize``, 3,670,016 B of merge a window, their wall
+     ratio a read-out; the divergence kernel's inputs captured on the
+     observed path for 20 windows, its outputs and the emitted
+     ``codebook_divergence`` series against plain; the gate: 16 pairs of
+     500-window blocks, bare and observed in turns in one process, the
+     reference's estimator (the smaller of the best-of-16 ratio and the
+     median pair ratio) <= 1.03; and eq. 9 for 20,000 ticks, two pairs of
+     bare and observed runs in turns, bit for bit, their ratios a
+     read-out;
+  20. times each kernel (the delta sweep also at each kchunk the tuner
      weighs; the assign kernel at the flush, the eval and (8, 1) x 4096 x
      3072; the blocked kernel at (8, 1) x 4096 x 3072 with and without the
-     epilogue and at (8, 1) x 4096 x 128), its plain version, its bound
+     epilogue and at (8, 1) x 4096 x 128; the window kernel also at M = 1,
+     the thread runtime's round; the divergence kernel), its plain version,
+     its bound
      and, for the top-k
      kernel, ``torch.topk`` (selection only, also on the d=3072 payload),
      for the ring kernel ``torch.sum(x, dim=0)`` (each in turns with its
@@ -177,12 +221,12 @@ PyTorch built for CUDA:
      device memory as the bound assumes), beside each kernel's CUDA-event time
      over back-to-back calls (L2 warm, the wrapper's host time included);
      and traces 200 windows of the
-     sync delta path, 1,000 ticks of the eq.-9 path, 200 windows of the
+     sync delta path (bare, then observed), 1,000 ticks of the eq.-9 path, 200 windows of the
      sparse eq.-8 path, 200 windows of the ring sync path and 200 ticks of
      the 3072-wide eq.-9 path with torch.profiler (device time by kernel, the
      device's idle share), after timing 200 dense and ring sync windows in
      turns on the host clock;
-  20. prints one ``{"kernels": [...]}`` line (window, delta, assign,
+  21. prints one ``{"kernels": [...]}`` line (window, delta, assign,
       top-k, blocked and ring), the card line again, and last
       ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -252,6 +296,28 @@ CKPT_EVERY = 750
 HIER_RESIZE = ((500, 4), (1000, 8))
 CHAOS_SPEC = "7:kill=2,slow=1,part=1"
 E6_FAULTS = ((5, "slow", 3, 10), (500, "kill", 6))
+# the thread runtime, training while serving and the trace/metrics layer
+# (queue 1, items 5b and 6a): T1's and T2/T3's wall seconds; S1's points a
+# worker (2,333 trainer windows at M = 8, 4, 8) and windows a publication;
+# the eq.-9 ticks of O1's read-out
+T1_SECONDS = 5.0
+T23_SECONDS = 3.0
+S1_POINTS = 20_000
+S1_PUBLISH = 10
+O1_TICKS = 20_000
+# O1's full-depth runs, two bare/observed pairs in turns: the bits, the
+# counters and the trace at full depth, their wall ratio a read-out.  The
+# gate's measurement is O1_BLOCK_PAIRS pairs of O1_BLOCK_WINDOWS-window
+# blocks in one process, each pair's order the reverse of the last's: a
+# one-card machine shares its CPU cores, a sync window's host work is not
+# far below its device time, and a stretch the host slows then spoils a
+# few pairs of a median instead of one of two full runs; a host busy all
+# through slows most pairs, and the best of N still finds quiet blocks
+O1_ORDER = (False, True, True, False)
+O1_BLOCK_WINDOWS = 500
+O1_BLOCK_PAIRS = 16
+# O1's capture of the divergence kernel's inputs on the observed path
+O1_CAPTURE_WINDOWS = 20
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
 # f32 FLOP/s outside the tensor cores (both kernels run on the f32 pipes)
@@ -278,6 +344,9 @@ ZSUM_RTOL, ZSUM_ATOL = 1e-5, 1e-5
 # A flip moves one row on one side only; the oracle's first windows agree to
 # CURVE_RTOL on the curve and in all but ROWS_FRAC of the codebook rows.
 CURVE_RTOL, ROW_ATOL, ROWS_FRAC = 1e-3, 1e-4, 0.01
+# the divergence kernel sums a worker's 524,288 squared differences in
+# another order than torch.sum: f32 relative rounding of a few 1e-7
+DIV_RTOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -849,7 +918,7 @@ def zero_counts() -> None:
     from repro_torch.comm import ring
     from repro_torch.kernels import vq_assign, vq_fused
     vq_fused.launches = vq_fused.launches_blocked = 0
-    vq_fused.launches_topk = 0
+    vq_fused.launches_topk = vq_fused.launches_divergence = 0
     vq_assign.launches = vq_assign.launches_assign = 0
     ring.launches_ring = 0
 
@@ -865,9 +934,12 @@ def launch_counts() -> dict:
 
 
 def expect_counts(label: str, **want) -> dict:
-    """Every kernel's launch count since ``zero_counts``: those named in
-    ``want`` must equal it, every other must be 0."""
-    counts = launch_counts()
+    """Every kernel's launch count since ``zero_counts``, the divergence
+    kernel's too (no TPU kernel's counterpart, so not in
+    ``launch_counts``): those named in ``want`` must equal it, every other
+    must be 0."""
+    from repro_torch.kernels import vq_fused
+    counts = {**launch_counts(), "divergence": vq_fused.launches_divergence}
     if counts != {k: want.get(k, 0) for k in counts}:
         fail(f"{label}: launches {counts}, expected {want} and no other")
     return counts
@@ -1367,7 +1439,11 @@ def elastic_legs(dev, w0, data, eval_data, runs) -> None:
     def elastic(label, args, windows, late_launches):
         zero_counts()
         res, ex, wall = train.run_vq(train.parse_args(args))
-        counts = expect_counts(label, window=windows + late_launches)
+        # an observed window also launches the divergence kernel
+        counts = expect_counts(label, window=windows + late_launches,
+                               divergence=windows if ex.metrics else 0)
+        if ex.metrics is not None:
+            check_resize_obs(label, ex)
         curve = res.distortion
         print(f"leg {label}: wall {wall:.2f} s, {windows:,} windows, "
               f"launches {counts}, C first {float(curve[0]):.6f} last "
@@ -1390,7 +1466,10 @@ def elastic_legs(dev, w0, data, eval_data, runs) -> None:
         e1_args = argv(N_PER, "--resize", spec(ELASTIC_RESIZE), "--ckpt-dir",
                        ck1)
         n1, late1 = pool_windows(M * N_PER, M, ELASTIC_RESIZE)
-        res1, ex1, _ = elastic("E1 --resize " + spec(ELASTIC_RESIZE), e1_args,
+        # observed (--metrics turns the tracer and the registry on)
+        res1, ex1, _ = elastic("E1 --resize " + spec(ELASTIC_RESIZE),
+                               e1_args + ["--metrics",
+                                          str(Path(tmp) / "e1.jsonl")],
                                n1, 1)
         w_first = ELASTIC_RESIZE[0][0]
         head_ok = same_bits(res1.distortion[:w_first],
@@ -1482,9 +1561,11 @@ def elastic_legs(dev, w0, data, eval_data, runs) -> None:
     kills = [e.window for e in sched.kill_events]
     bounds = [(w, M - 1 - i) for i, w in enumerate(kills)]
     n5, late5 = pool_windows(M * N_PER, M, bounds)
-    res5, ex5, _ = elastic(f"E5 --chaos {CHAOS_SPEC}",
-                           argv(N_PER, "--chaos", CHAOS_SPEC), n5,
-                           len(kills))
+    with tempfile.TemporaryDirectory(prefix="e5_obs_") as tmp5:
+        res5, ex5, _ = elastic(f"E5 --chaos {CHAOS_SPEC}",
+                               argv(N_PER, "--chaos", CHAOS_SPEC, "--metrics",
+                                    str(Path(tmp5) / "e5.jsonl")), n5,
+                               len(kills))
     net5 = ChaosNetwork(InstantNetwork(), sched)
     want_late, lo = 0, 0
     for (at, _), m in zip(bounds + [(n5, None)], [M] + [m for _, m in
@@ -1502,6 +1583,16 @@ def elastic_legs(dev, w0, data, eval_data, runs) -> None:
             or ex5.last_late_worker_windows != want_late
             or sum(e.late_points for e in ex5.resize_events) != late5):
         fail("E5: chaos kills or late worker-windows differ")
+    # the reference counts a kill twice in chaos_kills: at its resize, and
+    # as a scheduled event of the segment that starts at its window
+    mt5 = ex5.metrics
+    obs5 = (mt5.counter("chaos_kills").value,
+            mt5.counter("chaos_late_worker_windows").value)
+    print(f"check E5 metrics: chaos_kills {obs5[0]:.0f} (2 x {len(kills)} "
+          f"kills, the reference's count), chaos_late_worker_windows "
+          f"{obs5[1]:.0f} (numpy late matrices {want_late})")
+    if obs5 != (2 * len(kills), want_late):
+        fail("E5: chaos metrics differ from the kills and late matrices")
 
     # -- E6: eq. 9 over a ChaosNetwork (cut) ----------------------------------
     net6 = ChaosNetwork(GeometricDelayNetwork(P_DELAY),
@@ -1540,6 +1631,433 @@ def elastic_legs(dev, w0, data, eval_data, runs) -> None:
     if not (torch.equal(short.wall_ticks, oracle.wall_ticks)
             and same_bits(short.distortion, res6.distortion[: n_c // 10])):
         fail("E6: the first ticks' run differs from the main run's head")
+
+
+def check_resize_obs(label: str, ex) -> None:
+    """An observed elastic run's resize metrics and spans against its
+    ``ResizeStats``."""
+    mt, tr = ex.metrics, ex.tracer
+    stats = ex.resize_events
+    spans = [(s.attrs["window"], s.attrs["old_m"], s.attrs["new_m"],
+              s.attrs["cause"]) for s in tr.spans("resize")]
+    got = (mt.counter("resize_events").value,
+           mt.counter("late_delta_points").value,
+           mt.histogram("resize_wall_s").count)
+    want = (len(stats), sum(e.late_points for e in stats), len(stats))
+    print(f"check {label} obs: resize_events {got[0]:.0f}, "
+          f"late_delta_points {got[1]:.0f}, resize spans {spans} == "
+          f"ResizeStats {want}")
+    if got != want or spans != [(e.window, e.old_m, e.new_m, e.cause)
+                                for e in stats]:
+        fail(f"{label}: resize metrics or spans differ from ResizeStats")
+
+
+def segment_windows(total: int, m: int, boundaries) -> list[int]:
+    """The windows of each segment an elastic run takes from a pool of
+    ``total`` points (``pool_windows``' walk, segment by segment)."""
+    cursor = win = 0
+    out = []
+    for at, new_m in boundaries:
+        seg = min((total - cursor) // (m * TAU), at - win)
+        out.append(seg)
+        cursor += seg * m * TAU
+        win += seg
+        if win < at:
+            return out
+        need = (m - new_m) * TAU
+        if new_m < m and total - cursor >= need:
+            cursor += need
+        m = new_m
+    return out + [(total - cursor) // (m * TAU)]
+
+
+def threads_serving_obs_legs(dev, w0, data, eval_data, runs, geo_run,
+                             lengths) -> None:
+    """The thread runtime, training while serving, and the trace/metrics
+    layer at full width (the module docstring's item 19, legs T1-T4, S1
+    and O1)."""
+    import statistics
+    import threading
+
+    import torch
+
+    from repro_torch.core import async_runtime, vq
+    from repro_torch.engine import get_executor
+    from repro_torch.engine.mesh import MeshExecutor
+    from repro_torch.engine.network import (GeometricDelayNetwork,
+                                            InstantNetwork)
+    from repro_torch.kernels import _build, vq_assign, vq_fused
+    from repro_torch.launch import serve, train
+    from repro_torch.obs import MetricsRegistry, Tracer, check_trace, \
+        load_trace
+
+    thread_argv = ["--executor", "thread", "--scheme", "async_delta",
+                   "--workers", str(M), "--points", str(N_PER), "--dim",
+                   str(D), "--kappa", str(KAPPA), "--tau", str(TAU), "--seed",
+                   str(SEED), "--network", "instant"]
+
+    def thread_leg(label, run, duration_s):
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        res, ex = run()
+        stats = ex.last_stats
+        pushes = sum(s.pushes for s in stats)
+        points = sum(s.points for s in stats)
+        stale = sum(s.stale_reads for s in stats)
+        counts = expect_counts(label, window=pushes)
+        curve = res.distortion
+        print(f"leg {label}: {points / duration_s:,.0f} points/s, "
+              f"{pushes / duration_s:,.0f} rounds/s, stale-read share "
+              f"{stale / max(pushes, 1):.3f}, inbox peak "
+              f"{max(s.inbox_peak for s in stats)} deltas (bound "
+              f"{async_runtime.INBOX_PER_WORKER * len(stats) or 'none'}), "
+              f"launches {counts}, points by "
+              f"worker {[s.points for s in stats]}, C first "
+              f"{float(curve[0]):.6f} last {float(curve[-1]):.6f} over "
+              f"{len(curve)} samples to {float(res.wall_ticks[-1]):.2f} s, "
+              f"peak device memory above the leg's start "
+              f"{(torch.cuda.max_memory_allocated() - held) / 2**20:.0f} MiB")
+        if not (all(s.pushes > 0 for s in stats)
+                and bool(torch.isfinite(curve).all())
+                and float(curve[-1]) < float(curve[0])
+                and res.w_shared.shape == (KAPPA, D)):
+            fail(f"{label}: a worker never pushed, or the distortion did not "
+                 f"fall")
+        return stats
+
+    # -- T1: the thread runtime through the launcher --------------------------
+    plan1 = vq_fused._window_plan(1, KAPPA, D)
+    print(f"thread runtime's window launch at (1, {TAU}, {D}): resident "
+          f"{plan1.resident}, one cluster of {vq_fused.CLUSTER_BLOCKS} blocks "
+          f"of {plan1.threads} threads (on {vq_fused.CLUSTER_BLOCKS} of the "
+          f"card's {torch.cuda.get_device_properties(0).multi_processor_count}"
+          f" SMs)")
+
+    def t1():
+        res, ex, _ = train.run_vq(train.parse_args(
+            thread_argv + ["--duration-s", str(T1_SECONDS)]))
+        return res, ex
+
+    thread_leg(f"T1 --executor thread, {T1_SECONDS} s", t1, T1_SECONDS)
+    # a read-out: T1 with no bound on the inbox (the reference's queue), to
+    # show what the bound does to the backlog, the memory and the curve
+    bound = async_runtime.INBOX_PER_WORKER
+    async_runtime.INBOX_PER_WORKER = 0
+    try:
+        thread_leg(f"T1 without the inbox's bound (a read-out), "
+                   f"{T1_SECONDS} s", t1, T1_SECONDS)
+    finally:
+        async_runtime.INBOX_PER_WORKER = bound
+    # a read-out: rounds/s as the workers grow (the threads share the
+    # interpreter lock, and every PyTorch call hands it over)
+    scaling = {}
+    for m in (1, 2, 4):
+        zero_counts()
+        ex = get_executor("thread", duration_s=1.0, device=dev)
+        ex.run("async_delta", w0, data[:m], eval_data[:m], tau=TAU)
+        pushes = sum(s.pushes for s in ex.last_stats)
+        expect_counts(f"thread runtime at M = {m}", window=pushes)
+        scaling[m] = pushes
+    print(f"thread runtime, rounds/s over 1 s by M: {scaling} (a read-out)")
+
+    # -- T2: a 50x straggler; T3: 10 ms communication delays -----------------
+    def t2():
+        ex = get_executor("thread", duration_s=T23_SECONDS,
+                          straggler={0: 50.0}, device=dev)
+        return ex.run("async_delta", w0, data, eval_data, tau=TAU), ex
+
+    stats2 = thread_leg(f"T2 straggler {{0: 50}}, {T23_SECONDS} s", t2,
+                        T23_SECONDS)
+    if not all(stats2[0].points < s.points for s in stats2[1:]):
+        fail("T2: the straggler did not lag every other worker")
+
+    def t3():
+        res, ex, _ = train.run_vq(train.parse_args(
+            thread_argv + ["--duration-s", str(T23_SECONDS),
+                           "--comm-delay-s", "0.01"]))
+        return res, ex
+
+    thread_leg(f"T3 --comm-delay-s 0.01, {T23_SECONDS} s", t3, T23_SECONDS)
+
+    # -- T4: the store's atomic apply on a device tensor ----------------------
+    store = async_runtime.BlobStore(torch.zeros((KAPPA, D), device=dev))
+    writers, per_writer = 8, 200
+
+    def hammer():
+        for _ in range(per_writer):
+            store.apply(lambda w: w + 1.0)
+
+    threads = [threading.Thread(target=hammer) for _ in range(writers)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    version, value = store.get()
+    exact = (not any(th.is_alive() for th in threads)
+             and version == writers * per_writer
+             and torch.equal(value, torch.full_like(value,
+                                                    writers * per_writer)))
+    print(f"check T4: {writers} threads x {per_writer} BlobStore.apply(+1) "
+          f"on a ({KAPPA}, {D}) device tensor: version {version}, every "
+          f"entry {writers * per_writer}.0: {exact}")
+    if not exact:
+        fail("T4: the store lost an update")
+
+    # -- S1: training while serving -------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="s1_obs_") as tmp:
+        trace_path, metrics_path = Path(tmp) / "s1.json", Path(tmp) / "s1.jsonl"
+        zero_counts()
+        run = serve.run_vq(serve.parse_args(
+            ["--mode", "vq", "--train-publish", "--kappa", str(KAPPA),
+             "--dim", str(D), "--points", str(S1_POINTS), "--tau", str(TAU),
+             "--publish-every", str(S1_PUBLISH), "--requests",
+             str(SERVE_REQUESTS), "--network", "geometric", "--p-delay",
+             str(P_DELAY), "--seed", str(SEED), "--trace", str(trace_path),
+             "--metrics", str(metrics_path)]),
+            sample=SERVE_SAMPLE, keep=1_000_000)
+        if run.rc != 0 or run.report is None:
+            fail(f"S1: the serving launcher exited {run.rc}")
+        rep, st, trainer = run.report, run.stats, run.trainer
+        n_w = S1_POINTS // TAU
+        bounds = [(max(1, n_w // 3), M // 2), (max(2, 2 * n_w // 3), M)]
+        segs = segment_windows(M * S1_POINTS, M, bounds)
+        windows = sum(segs)
+        lates = sum(1 for e in trainer.resize_events if e.late_points)
+        publishes = sum(-(-w // S1_PUBLISH) for w in segs)
+        counts = expect_counts("S1", window=windows + lates,
+                               assign=st.flushes + st.warmups,
+                               divergence=windows)
+        events = load_trace(str(trace_path))
+        errs = check_trace(events, expect_spans=["flush", "load", "window"],
+                           expect_merge_tiers={"flat"})
+        geo = geo_run.report
+        print(f"leg S1 --train-publish: {rep.summary()}; trainer windows "
+              f"{windows:,} (segments {segs}), late deltas {lates}, "
+              f"published {run.store.version} (1 + {publishes} on_window "
+              f"calls), launches {counts}; p50 {rep.p50_ms:.3f} ms, p99 "
+              f"{rep.p99_ms:.3f} ms while training vs phase 7's geometric "
+              f"leg p50 {geo.p50_ms:.3f} ms, p99 {geo.p99_ms:.3f} ms; trace "
+              f"{sum(1 for e in events if e.get('ph') == 'X'):,} spans, "
+              f"check_trace {errs or 'clean'}")
+        if (rep.failed or not rep.versions_monotonic or rep.n_versions < 2
+                or run.store.version != 1 + publishes
+                or trainer.metrics.counter("windows_total",
+                                           scheme="delta").value != windows
+                or errs):
+            fail("S1: failed requests, versions, publications, windows or "
+                 "the trace are wrong")
+        check_served(run)
+
+    # -- O1: the instrumentation's cost and exactness at full depth ----------
+    # the divergence kernel against its plain version: a window's results
+    # and their merge, a ragged shape (4-byte loads) and a misaligned one
+    eps = vq.default_steps(torch.arange(1, TAU + 1, device=dev))
+    w_fin = vq_fused.vq_window(data[:, :TAU].contiguous(), w0, eps)
+    w_new = w0 - torch.sum(w0 - w_fin, dim=0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    ragged = torch.randn((3, 37, 5), generator=gen, device=dev)
+    shifted = torch.randn(3 * 4096 * 128 + 1, generator=gen,
+                          device=dev)[1:].view(3, 4096, 128)
+    div_err = 0.0
+    for a, b, label in ((w_fin, w_new, f"({M}, {KAPPA}, {D}) a window"),
+                        (ragged, ragged[0] * 0.5, "(3, 37, 5)"),
+                        (shifted, shifted[1] * 0.5,
+                         "(3, 4096, 128) misaligned")):
+        before = vq_fused.launches_divergence
+        got = vq_fused.vq_divergence(a, b)
+        want = vq_fused.vq_divergence_plain(a, b)
+        rel = float(((got - want).abs() / want.abs()).max())
+        div_err = max(div_err, float((got - want).abs().max()))
+        print(f"check divergence kernel vs plain {label}: max rel diff "
+              f"{rel:.3e}, one launch {vq_fused.launches_divergence - before}")
+        if rel > DIV_RTOL or vq_fused.launches_divergence - before != 1:
+            fail(f"divergence kernel {label}: {rel:.3e} from plain")
+    # its last block combines through a ticket: 1,000 calls back to back
+    # give the first call's bits, and leave the stream's tickets at 0
+    first = vq_fused.vq_divergence(w_fin, w_new)
+    again = [vq_fused.vq_divergence(w_fin, w_new) for _ in range(1000)]
+    tickets = vq_assign._sweep_scratch(
+        w_fin.device, _build.current_stream(w_fin.device), 1, 1)[0]
+    same = all(same_bits(first, x) for x in again)
+    print(f"check divergence kernel 1,000 calls back to back: bits equal "
+          f"{same}, tickets left {int(tickets.abs().sum())}")
+    if not same or bool(tickets.any()):
+        fail("divergence kernel: bits moved between calls, or a ticket "
+             "was left set")
+    fixed = runs["delta"][0]
+    full = ["--executor", "mesh", "--scheme", "delta", "--workers", str(M),
+            "--points", str(N_PER), "--dim", str(D), "--kappa", str(KAPPA),
+            "--tau", str(TAU), "--seed", str(SEED), "--network", "instant"]
+    walls = {False: [], True: []}
+    with tempfile.TemporaryDirectory(prefix="o1_obs_") as tmp:
+        for i, observed in enumerate(O1_ORDER):
+            argv = full + (["--trace", str(Path(tmp) / f"o1_{i}.json"),
+                            "--metrics", str(Path(tmp) / f"o1_{i}.jsonl")]
+                           if observed else [])
+            # no earlier run's objects for the collector to walk in this one
+            gc.collect()
+            zero_counts()
+            t_all = time.perf_counter()
+            res, ex, wall = train.run_vq(train.parse_args(argv))
+            t_all = time.perf_counter() - t_all
+            expect_counts(f"O1 {'observed' if observed else 'bare'}",
+                          window=N_PER // TAU,
+                          divergence=N_PER // TAU if observed else 0)
+            walls[observed].append(wall)
+            if not (same_bits(res.distortion, fixed.distortion)
+                    and same_bits(res.w_shared, fixed.w_shared)):
+                fail("O1: an observed or bare run differs from the main "
+                     "path's delta run")
+            if not observed:
+                del res, ex
+                continue
+            mt = ex.metrics
+            by_tag = ex.last_comm["by_tag"]
+            mirror = {tag: {f: int(mt.counter(
+                f"comm_{f}", tag=tag, tier="flat", transport="xla").value)
+                for f in ("calls", "logical_bytes", "wire_bytes")}
+                for tag in by_tag}
+            per_window = by_tag["merge"]["wire_bytes"] / (N_PER // TAU)
+            # the first observed run's trace is read back (each is ~50 MB)
+            checked = i == O1_ORDER.index(True)
+            errs = check_trace(
+                load_trace(str(Path(tmp) / f"o1_{i}.json")),
+                expect_merge_tiers={"flat"},
+                expect_counters=["distortion", "codebook_divergence"]
+            ) if checked else []
+            print(f"leg O1 observed run {i}: wall {wall:.2f} s (with the "
+                  f"trace export {t_all:.2f} s), windows_total "
+                  f"{mt.counter('windows_total', scheme='delta').value:.0f}, "
+                  f"comm_* {mirror} == CommLog.summarize "
+                  f"{ {t: {f: v[f] for f in mirror[t]} for t, v in by_tag.items()} }"
+                  f", merge {per_window:,.0f} B a window, "
+                  f"{len(ex.tracer.spans()):,} spans, check_trace "
+                  f"{(errs or 'clean') if checked else 'not read'}")
+            if (mt.counter("windows_total", scheme="delta").value
+                    != N_PER // TAU or per_window != 3_670_016 or errs
+                    or any(mirror[t] != {f: v[f] for f in mirror[t]}
+                           for t, v in by_tag.items())):
+                fail("O1: windows_total, the comm mirror, the merge bytes "
+                     "or the trace are wrong")
+            del res, ex, mt
+    ratios = [o / b for o, b in zip(walls[True], walls[False])]
+    print(f"O1 full depth (--scheme delta, in the order "
+          f"{['observed' if o else 'bare' for o in O1_ORDER]}): walls bare "
+          f"{[round(w, 3) for w in walls[False]]} s, "
+          f"observed {[round(w, 3) for w in walls[True]]} s, pair ratios "
+          f"{[round(r, 4) for r in ratios]} (a read-out)")
+
+    # the divergence kernel on the observed path: its inputs captured at
+    # each launch, its outputs against the plain version, and the emitted
+    # codebook_divergence series the mean of the plain values
+    from repro_torch.engine import mesh as mesh_mod
+    launched = []
+    kernel = mesh_mod.ops.vq_divergence
+
+    def capture(w_fin, w_srd):
+        out = kernel(w_fin, w_srd)
+        launched.append((w_fin.clone(), w_srd.clone(), out))
+        return out
+
+    ex_c = MeshExecutor(InstantNetwork(), tracer=Tracer(),
+                        metrics=MetricsRegistry(), device=dev)
+    mesh_mod.ops.vq_divergence = capture
+    try:
+        ex_c.run("delta", w0, data[:, : O1_CAPTURE_WINDOWS * TAU], eval_data,
+                 tau=TAU)
+    finally:
+        mesh_mod.ops.vq_divergence = kernel
+    plain = [vq_fused.vq_divergence_plain(a, b) for a, b, _ in launched]
+    cap_rel = max(float(((o - q).abs() / q.abs()).max())
+                  for (_, _, o), q in zip(launched, plain))
+    series = [c.value for c in ex_c.tracer.counters("codebook_divergence")]
+    want = [float(q.mean()) for q in plain]
+    series_rel = max((abs(g - w) / abs(w) for g, w in zip(series, want)),
+                     default=float("inf"))
+    print(f"check O1 divergence kernel on the observed path "
+          f"({len(launched)} windows captured): max rel diff from plain "
+          f"{cap_rel:.3e}, codebook_divergence series vs the plain mean "
+          f"{series_rel:.3e} (tolerance {DIV_RTOL:g})")
+    if (len(launched) != O1_CAPTURE_WINDOWS or len(series) != len(want)
+            or cap_rel > DIV_RTOL or series_rel > DIV_RTOL):
+        fail("O1: the observed path's divergence differs from plain")
+    del launched, plain, ex_c
+
+    # the gate: short blocks, bare and observed in turns, in one process
+    bdata = data[:, : O1_BLOCK_WINDOWS * TAU]
+    blocks = {False: [], True: []}
+
+    def block(observed):
+        kw = ({"tracer": Tracer(), "metrics": MetricsRegistry()}
+              if observed else {})
+        ex_b = MeshExecutor(InstantNetwork(), device=dev, **kw)
+        gc.collect()
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex_b.run("delta", w0, bdata, eval_data, tau=TAU).distortion.cpu()
+        blocks[observed].append(time.perf_counter() - t0)
+        expect_counts("O1 block", window=O1_BLOCK_WINDOWS,
+                      divergence=O1_BLOCK_WINDOWS if observed else 0)
+
+    for i in range(O1_BLOCK_PAIRS):
+        for observed in ((False, True) if i % 2 == 0 else (True, False)):
+            block(observed)
+    # the reference's estimator for its bar (benchmarks/run.py:619-629,
+    # 679): the smaller of the best-of-N ratio and the median pair ratio,
+    # since host noise only adds time and a real cost inflates both
+    bratios = [o / b for o, b in zip(blocks[True], blocks[False])]
+    median = statistics.median(bratios)
+    best = min(blocks[True]) / min(blocks[False])
+    ratio = min(best, median)
+    print(f"check O1 ({O1_BLOCK_PAIRS} pairs of {O1_BLOCK_WINDOWS}-window "
+          f"blocks of --scheme delta, in turns): walls bare "
+          f"{[round(w, 4) for w in blocks[False]]} s, observed "
+          f"{[round(w, 4) for w in blocks[True]]} s, pair ratios "
+          f"{[round(r, 4) for r in bratios]}; median pair {median:.4f}, "
+          f"best of {O1_BLOCK_PAIRS} {best:.4f}: overhead {ratio:.4f} (bar "
+          f"1.03, the reference's max_overhead and estimator)")
+    if ratio > 1.03:
+        fail(f"O1: instrumentation costs {ratio:.4f}x the bare run's wall")
+
+    # eq. 9, cut: bits and a read-out of the ratio (host-bound path), bare
+    # and observed in turns
+    n9 = O1_TICKS
+    l9 = lengths[:, : n9 // TAU + 2]
+    out9, walls9 = {}, {False: [], True: []}
+    for observed in O1_ORDER:
+        kw = ({"tracer": Tracer(), "metrics": MetricsRegistry()}
+              if observed else {})
+        ex9 = MeshExecutor(GeometricDelayNetwork(P_DELAY), device=dev, **kw)
+        gc.collect()
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res9 = ex9.run("async_delta", w0, data[:, :n9], eval_data, tau=TAU,
+                       lengths=l9)
+        res9.distortion.cpu()
+        walls9[observed].append(time.perf_counter() - t0)
+        out9[observed] = (res9, ex9)
+        expect_counts("O1 eq. 9", delta=n9)
+    (r_b, _), (r_o, ex_o) = out9[False], out9[True]
+    same9 = (same_bits(r_b.distortion, r_o.distortion)
+             and same_bits(r_b.w_shared, r_o.w_shared))
+    rounds = ex_o.metrics.counter("async_rounds_total",
+                                  scheme="async_delta").value
+    errs9 = check_trace(ex_o.tracer.chrome_events(),
+                        expect_merge_tiers={"flat"},
+                        expect_counters=["distortion"])
+    ratios9 = [o / b for o, b in zip(walls9[True], walls9[False])]
+    print(f"check O1 eq. 9 ({n9:,} ticks, bare and observed in turns): "
+          f"observed == bare bitwise {same9}; walls bare "
+          f"{[round(w, 2) for w in walls9[False]]} s, observed "
+          f"{[round(w, 2) for w in walls9[True]]} s, pair ratios "
+          f"{[round(r, 4) for r in ratios9]} (a read-out: host-bound); "
+          f"async_rounds_total {rounds:.0f}; check_trace {errs9 or 'clean'}")
+    if not same9 or errs9:
+        fail("O1 eq. 9: the observed run differs from the bare one, or its "
+             "trace is not clean")
 
 
 def main() -> None:
@@ -1827,8 +2345,8 @@ def main() -> None:
     # -- 7. serving the delta run's codebook ----------------------------------
     trained = runs["delta"][0].w_shared
     geometric = ["--network", "geometric", "--p-delay", str(P_DELAY)]
-    _, serve_launches = serve_leg(serve, trained, geometric,
-                                  "geometric arrivals")
+    geo_run, serve_launches = serve_leg(serve, trained, geometric,
+                                        "geometric arrivals")
     serve_leg(serve, trained, ["--network", "instant", "--tick-ms", "0"],
               "saturating")
     freeze_ab(serve, trained, geometric)
@@ -2375,8 +2893,9 @@ def main() -> None:
     comm_layer_legs(dev, w0, data, eval_data, runs, lengths, payload,
                     normal_payload)
     elastic_legs(dev, w0, data, eval_data, runs)
+    threads_serving_obs_legs(dev, w0, data, eval_data, runs, geo_run, lengths)
 
-    # -- 19. timing at the main path's shapes ---------------------------------
+    # -- 20. timing at the main path's shapes ---------------------------------
     # every kernel, plain and library time by kernel_ms (L2 cold, host time
     # hidden); "warm" is time_ms over back-to-back wrapper calls (L2 warm,
     # the wrapper's host time included), a read-out beside it
@@ -2409,6 +2928,28 @@ def main() -> None:
     print(f"timing window (M={M}, tau={TAU}, kappa={KAPPA}, d={D}): kernel "
           f"{win_ms:.4f} ms (warm {win_warm:.4f}), plain {win_plain:.4f} ms, "
           f"bound {win_bound[0]:.4f} ms ({win_bound[1]})")
+    # the thread runtime's round: one worker, one cluster of 8 blocks
+    zround = data[:1, :TAU].contiguous()
+    w1_ms = kernel_ms(lambda: vq_fused.vq_window(zround, w0, eps), 200)
+    w1_warm = time_ms(lambda: vq_fused.vq_window(zround, w0, eps), 200)
+    w1_plain = kernel_ms(lambda: vq_fused.vq_window_plain(zround, w0, eps),
+                         10)
+    w1_bound = bound(4 * (TAU * D + KAPPA * D + TAU + KAPPA * D),
+                     TAU * KAPPA * (2 * D + 3))
+    print(f"timing window (M=1, tau={TAU}, kappa={KAPPA}, d={D}, the thread "
+          f"runtime's round): kernel {w1_ms:.4f} ms (warm {w1_warm:.4f}), "
+          f"plain {w1_plain:.4f} ms, bound {w1_bound[0]:.4f} ms "
+          f"({w1_bound[1]})")
+    # the divergence kernel (no TPU kernel's counterpart: an observed
+    # window's codebook divergence) at the window's shape
+    wfin = vq_fused.vq_window(zwin, w0, eps)
+    dv_ms = kernel_ms(lambda: vq_fused.vq_divergence(wfin, w0), 200)
+    dv_warm = time_ms(lambda: vq_fused.vq_divergence(wfin, w0), 200)
+    dv_plain = kernel_ms(lambda: vq_fused.vq_divergence_plain(wfin, w0), 200)
+    dv_bound = bound(4 * (M + 1) * KAPPA * D, 3 * M * KAPPA * D)
+    print(f"timing divergence (M={M}, kappa={KAPPA}, d={D}): kernel "
+          f"{dv_ms:.4f} ms (warm {dv_warm:.4f}), plain {dv_plain:.4f} ms, "
+          f"bound {dv_bound[0]:.4f} ms ({dv_bound[1]})")
     print(f"timing delta batch 1: kernel {d1_ms:.4f} ms (warm "
           f"{d1_warm:.4f}), plain {d1_plain:.4f} ms, bound "
           f"{d1_bound[0]:.4f} ms ({d1_bound[1]}); the sweep by kchunk "
@@ -2543,6 +3084,13 @@ def main() -> None:
     profile("--scheme delta, fused",
             lambda: sync_ex.run("delta", w0, data[:, : PROFILE_WINDOWS * TAU],
                                 eval_data, tau=TAU),
+            PROFILE_WINDOWS, "window")
+    from repro_torch.obs import MetricsRegistry, Tracer
+    obs_ex = MeshExecutor(InstantNetwork(), tracer=Tracer(),
+                          metrics=MetricsRegistry(), device=dev)
+    profile("--scheme delta, fused, observed",
+            lambda: obs_ex.run("delta", w0, data[:, : PROFILE_WINDOWS * TAU],
+                               eval_data, tau=TAU),
             PROFILE_WINDOWS, "window")
     async_ex = MeshExecutor(GeometricDelayNetwork(P_DELAY), device=dev)
     profile("--scheme async_delta",

@@ -39,11 +39,20 @@ worker pays whether or not the window merges) and, through
 ``record_host_transfer``, an elastic resize's late deltas ("late_delta").
 ``tier`` is set on the records of a ``HierarchicalTransport``: 0 inside a
 host group, 1 across host groups, ``None`` for a flat collective.
+
+``CommLog.attach_metrics(registry)`` mirrors the log onto a
+``repro_torch.obs.MetricsRegistry`` as the reference's does: ``comm_*``
+counters of bytes x calls by tag, tier and transport.  The reference
+mirrors a record as it lands, once per compiled program; here a repeated
+collective folds into its first record, so the executors call
+``mirror_metrics()`` once at the end of a run, which adds the records since
+the previous mirror, and never a counter update a window.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -81,10 +90,11 @@ def tree_f32_bytes(tree, *, floating_only: bool = False) -> int:
 
 
 def worker_f32_bytes(x, *, floating_only: bool = False) -> int:
-    """``tree_f32_bytes`` of one worker's slice of a stacked payload."""
+    """``tree_f32_bytes`` of one worker's slice of a stacked payload, from
+    the shapes (no slice is taken: this runs on every collective)."""
     leaves, _ = as_leaves(x)
-    return tree_f32_bytes(tuple(leaf[0] for leaf in leaves),
-                          floating_only=floating_only)
+    return sum(4 * math.prod(leaf.shape[1:]) for leaf in leaves
+               if not floating_only or leaf.is_floating_point())
 
 
 def ring_wire_bytes(logical_bytes: int, m: int) -> int:
@@ -130,6 +140,42 @@ class CommLog:
         self._dropped = 0
         # record (with calls=0) -> absolute index, for records since the mark
         self._open: dict[CommRecord, int] = {}
+        self._metrics = None   # the registry mirror_metrics() adds to
+        self._mirrored = 0     # absolute index of the first record it has not
+
+    def attach_metrics(self, registry) -> None:
+        """Mirror the records appended from now on onto ``registry`` (a
+        ``repro_torch.obs.MetricsRegistry``) at each ``mirror_metrics()``:
+        ``comm_wire_bytes``, ``comm_logical_bytes`` and ``comm_calls``
+        counters labelled by tag, tier (``"flat"`` for None) and transport.
+
+        Attach only to the top-level transport's log: a
+        ``HierarchicalTransport`` copies its sub-transports' records into
+        its own log, so attaching to both levels would count them twice."""
+        if registry is not self._metrics:
+            self._metrics = registry
+            self._mirrored = self._dropped + len(self.records)
+
+    def _record_metrics(self, rec: CommRecord, sign: float = 1.0) -> None:
+        labels = {"tag": rec.tag,
+                  "tier": "flat" if rec.tier is None else rec.tier,
+                  "transport": rec.transport}
+        self._metrics.counter("comm_wire_bytes", **labels).inc(
+            sign * rec.wire_bytes * rec.calls)
+        self._metrics.counter("comm_logical_bytes", **labels).inc(
+            sign * rec.logical_bytes * rec.calls)
+        self._metrics.counter("comm_calls", **labels).inc(sign * rec.calls)
+
+    def mirror_metrics(self) -> None:
+        """Add the records appended since the previous mirror to the
+        attached registry, and close the folding window, so a mirrored
+        record's ``calls`` never grows.  A no-op with no registry."""
+        if self._metrics is None:
+            return
+        for rec in self.records[max(0, self._mirrored - self._dropped):]:
+            self._record_metrics(rec)
+        self._mirrored = self._dropped + len(self.records)
+        self._open.clear()
 
     def _trim(self) -> None:
         excess = len(self.records) - self.max_records
@@ -167,10 +213,26 @@ class CommLog:
         it).  A folded record's ``calls`` is what ``fn`` re-prices: the
         dynamic merge runs its merge collective every window and, once the
         trigger bits are read, re-prices it to the windows that merged.  A
-        rewrite closes the folding window, as ``mark`` does."""
+        rewrite closes the folding window, as ``mark`` does.  A record
+        already mirrored onto the registry is backed out of its counters
+        and its replacement added, as the reference does, so the counters
+        always equal the log."""
         start = max(0, mark - self._dropped)
-        kept = [fn(r) for r in self.records[start:]]
-        self.records[start:] = [r for r in kept if r is not None]
+        mirrored = self._mirrored - self._dropped   # index, may be < start
+        kept, n_mirrored = [], 0
+        for i, rec in enumerate(self.records[start:], start):
+            new = fn(rec)
+            if self._metrics is not None and i < mirrored:
+                if new is not rec:
+                    self._record_metrics(rec, sign=-1.0)
+                    if new is not None:
+                        self._record_metrics(new)
+                n_mirrored += new is not None
+            if new is not None:
+                kept.append(new)
+        if self._metrics is not None and mirrored > start:
+            self._mirrored = self._dropped + start + n_mirrored
+        self.records[start:] = kept
         self._open.clear()
 
     def logical_bytes_by_tag(self, records=None) -> dict[str, int]:

@@ -20,6 +20,12 @@ from repro_torch.comm.api import (WORKER_AXIS, CommRecord, Transport,
                                   worker_f32_bytes)
 
 
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """x in f32 (itself when it is: the cast's call costs host time on
+    every collective)."""
+    return x if x.dtype == torch.float32 else x.to(torch.float32)
+
+
 class XlaTransport(Transport):
     """Dense f32 reduction over the stacked worker dimension."""
 
@@ -30,11 +36,12 @@ class XlaTransport(Transport):
         """The f32 sum over workers of x (or of mask[i] * x[i])."""
         if mask is not None:
             x = mask.view(x.shape[0], *(1,) * (x.dim() - 1)) * x
-        return torch.sum(x.to(torch.float32), dim=0)
+        return torch.sum(_f32(x), dim=0)
 
     def _mean(self, x: torch.Tensor) -> torch.Tensor:
         """The f32 mean over workers, cast back to x's dtype."""
-        return torch.mean(x.to(torch.float32), dim=0).to(x.dtype)
+        out = torch.mean(_f32(x), dim=0)
+        return out if x.dtype == torch.float32 else out.to(x.dtype)
 
     def _record(self, op: str, m: int, logical: int, *, tag: str) -> None:
         self.log.append(CommRecord(

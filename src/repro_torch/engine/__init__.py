@@ -15,4 +15,5 @@ from repro_torch.engine.network import (FixedLatencyNetwork,  # noqa: F401
                                         GeometricDelayNetwork, InstantNetwork,
                                         NetworkModel, Tier1BudgetController,
                                         get_network)
+from repro_torch.engine.threads import ThreadExecutor  # noqa: F401
 from repro_torch.topology import Topology  # noqa: F401

@@ -1,14 +1,17 @@
 """The ``Executor`` protocol, counterpart of ``repro/engine/api.py``.
 
 An executor runs one of the paper's schemes over M worker streams and
-returns a ``SchemeResult``.  Three backends are ported:
+returns a ``SchemeResult``.  Four backends are ported:
 
   * ``SimExecutor``  (``engine.sim``): the plain PyTorch oracles of
     ``core.schemes``;
   * ``MeshExecutor`` (``engine.mesh``): the workers stacked on one card,
     inner loop on the port's kernels, merges through a ``Transport``;
   * ``ElasticMeshExecutor`` (``engine.elastic``): ``MeshExecutor`` with a
-    ``ResizeSchedule``, the worker count changing between windows.
+    ``ResizeSchedule``, the worker count changing between windows;
+  * ``ThreadExecutor`` (``engine.threads``): the real-thread runtime of
+    ``core.async_runtime`` (``async_delta`` only; its curve is indexed by
+    wall seconds).
 
 Scheme names are the reference's: ``average`` (eq. 3), ``delta`` (eq. 8)
 and ``async_delta`` (eq. 9).  ``run`` also takes the async scheme's round
@@ -57,15 +60,17 @@ class Executor(Protocol):
             decay: float = 1.0, generator: torch.Generator | None = None,
             lengths: torch.Tensor | None = None) -> SchemeResult:
         """data: (M, n, d) per-worker streams; eval_data: (M, n_eval, d).
-        Returns the curve indexed by wall tick.  ``generator`` and
+        Returns the curve indexed by wall tick (``ThreadExecutor`` indexes
+        it by wall seconds: real threads have no tick clock).  ``generator`` and
         ``lengths`` concern ``async_delta`` only."""
         ...
 
 
 def get_executor(name: str, **kwargs) -> Executor:
-    """Factory: 'sim' | 'mesh' | 'elastic' (+ backend kwargs; ``transport=``
-    a name or a ``comm.Transport`` reaches the mesh and elastic executors'
-    merges, the sim oracles have no collective to route).
+    """Factory: 'sim' | 'mesh' | 'thread' | 'elastic' (+ backend kwargs;
+    ``transport=`` a name or a ``comm.Transport`` reaches the mesh and
+    elastic executors' merges, the sim oracles and the threads have no
+    collective to route).
 
     'elastic' needs ``schedule=``: a ``ResizeSchedule``, a list of
     ``(window, new_m)`` pairs, or a ``"WINDOW:M,..."`` string."""
@@ -75,6 +80,9 @@ def get_executor(name: str, **kwargs) -> Executor:
     if name == "mesh":
         from repro_torch.engine.mesh import MeshExecutor
         return MeshExecutor(**kwargs)
+    if name == "thread":
+        from repro_torch.engine.threads import ThreadExecutor
+        return ThreadExecutor(**kwargs)
     if name == "elastic":
         from repro_torch.engine.elastic import (ElasticMeshExecutor,
                                                 ResizeSchedule)
@@ -87,4 +95,5 @@ def get_executor(name: str, **kwargs) -> Executor:
             schedule = ResizeSchedule.parse(schedule)
         return ElasticMeshExecutor(schedule, **kwargs)
     raise ValueError(
-        f"unknown executor {name!r}; choose from ('sim', 'mesh', 'elastic')")
+        f"unknown executor {name!r}; choose from "
+        f"('sim', 'mesh', 'thread', 'elastic')")

@@ -50,6 +50,17 @@ restores the latest and skips the consumed prefix.  ``ResizeStats.wall_s``
 is a resize's own time: the card is drained before it starts and synced at
 its end; ``checkpoint_s`` is the part the save took (it copies the
 codebook to the host).
+
+``tracer=`` / ``metrics=`` are shared by every per-M executor, so a run is
+one timeline (the reference's ``elastic.py`` hooks): wall spans ``run``,
+``resplit`` (a segment's streams cut from the pool), ``resize``,
+``late_delta``, ``remesh`` and ``checkpoint`` (after a resize, and
+``periodic=True`` from the hook), beside the segments' own; the counters
+``resize_events``, ``chaos_kills``, ``staleness_windows``,
+``late_delta_points``, ``late_delta_skipped`` and
+``periodic_checkpoints``, and the ``resize_wall_s`` and ``run_wall_s``
+histograms.  The registry is attached to the transport's log once: the
+per-M executors share that log.
 """
 
 from __future__ import annotations
@@ -70,6 +81,7 @@ from repro_torch.distributed import elastic as elastic_lib
 from repro_torch.engine import api
 from repro_torch.engine.mesh import MeshExecutor, _hier_of
 from repro_torch.engine.network import InstantNetwork, NetworkModel
+from repro_torch.obs import NULL_TRACER, MetricsRegistry, Tracer
 from repro_torch.topology import Topology
 
 ELASTIC_SCHEMES = ("average", "delta")
@@ -190,6 +202,7 @@ class ElasticMeshExecutor:
     checkpoint_every:  a periodic checkpoint every N global windows.
     merge:             None or 'quorum', for every segment.
     max_workers:       the largest worker count (None: any).
+    tracer, metrics:   ``repro_torch.obs`` sinks shared by every segment.
     use_kernels, fused, smem_budget_bytes, device: as ``MeshExecutor``.
     """
 
@@ -207,6 +220,8 @@ class ElasticMeshExecutor:
                  merge: str | None = None, quorum_frac: float = 0.6,
                  max_workers: int | None = None,
                  smem_budget_bytes: int | None = None,
+                 tracer: Tracer | None = None,
+                 metrics: MetricsRegistry | None = None,
                  device: str | torch.device | None = None):
         if not isinstance(schedule, ResizeSchedule):
             schedule = ResizeSchedule(schedule)
@@ -264,6 +279,10 @@ class ElasticMeshExecutor:
         self.merge = merge
         self.quorum_frac = quorum_frac
         self.max_workers = max_workers
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.metrics = metrics
+        if metrics is not None:
+            self.transport.log.attach_metrics(metrics)
         # one MeshExecutor a worker count
         self._mesh_ex: dict[int, MeshExecutor] = {}
         # of the last run
@@ -300,7 +319,7 @@ class ElasticMeshExecutor:
                 smem_budget_bytes=self.smem_budget_bytes, merge=self.merge,
                 quorum_frac=self.quorum_frac,
                 staleness_gamma=self.staleness_gamma, topology=topo,
-                device=self.device)
+                tracer=self.tracer, metrics=self.metrics, device=self.device)
         return self._mesh_ex[m]
 
     def _clamp_m(self, requested: int
@@ -361,10 +380,13 @@ class ElasticMeshExecutor:
                 self.on_window(gw, w)
             if (periodic and gw % self.checkpoint_every == 0
                     and gw > self._last_ckpt_window):
-                self.checkpointer.save(gw, self._state(
-                    w, t0 + wi * tau, cursor + wi * m * tau, gw, m,
-                    tick_offset + wi * wt))
+                with self.tracer.span("checkpoint", step=gw, periodic=True):
+                    self.checkpointer.save(gw, self._state(
+                        w, t0 + wi * tau, cursor + wi * m * tau, gw, m,
+                        tick_offset + wi * wt))
                 self._last_ckpt_window = gw
+                if self.metrics is not None:
+                    self.metrics.counter("periodic_checkpoints").inc()
 
         return hook
 
@@ -375,6 +397,20 @@ class ElasticMeshExecutor:
             decay: float = 1.0, generator: torch.Generator | None = None,
             lengths: torch.Tensor | None = None) -> SchemeResult:
         del generator, lengths  # the sync schemes draw nothing
+        t_wall = time.perf_counter()
+        with self.tracer.span("run", scheme=scheme, executor=self.name,
+                              m=data.shape[0] if data.dim() == 3 else None):
+            res = self._run(scheme, w0, data, eval_data, tau=tau, eps0=eps0,
+                            decay=decay)
+        if self.metrics is not None:
+            self.metrics.histogram("run_wall_s", executor=self.name,
+                                   scheme=scheme).observe(
+                time.perf_counter() - t_wall)
+        return res
+
+    def _run(self, scheme: str, w0: torch.Tensor, data: torch.Tensor,
+             eval_data: torch.Tensor, *, tau: int, eps0: float,
+             decay: float) -> SchemeResult:
         api.validate_scheme(scheme)
         if scheme not in ELASTIC_SCHEMES:
             raise ValueError(
@@ -442,8 +478,10 @@ class ElasticMeshExecutor:
             if seg_w > 0:
                 seg_pts = cur_m * seg_w * tau
                 # the pool's next seg_pts points as cur_m time-major streams
-                seg_data = pool[cursor: cursor + seg_pts].reshape(
-                    seg_w * tau, cur_m, d).transpose(0, 1).contiguous()
+                with self.tracer.span("resplit", m=cur_m, windows=seg_w,
+                                      points=seg_pts):
+                    seg_data = pool[cursor: cursor + seg_pts].reshape(
+                        seg_w * tau, cur_m, d).transpose(0, 1).contiguous()
                 mex = self._executor_for(cur_m)
                 # assigned every segment: the executors are cached, so a
                 # previous run's hook must not survive into this one
@@ -476,6 +514,7 @@ class ElasticMeshExecutor:
 
         self.last_comm = comm.CommLog.summarize(
             self.transport.log.since(comm_mark))
+        self.transport.log.mirror_metrics()
         if not curves:
             if resumed:
                 # the checkpoint holds a complete run: report its state
@@ -498,51 +537,70 @@ class ElasticMeshExecutor:
         self._sync_device()
         t_start = time.perf_counter()
         new_m, plan = self._clamp_m(ev.new_m)
+        tr, mt = self.tracer, self.metrics
+        if cause == "chaos_kill" and mt is not None:
+            mt.counter("chaos_kills").inc()
         late_pts, late_skipped = 0, False
-        if new_m < cur_m and self.late_policy == "merge":
-            # the departing workers were mid-window when the resize fired:
-            # their deltas, computed from the shared version, arrive one
-            # window late and are summed in by eq. 8, damped
-            n_dep = cur_m - new_m
-            need = n_dep * tau
-            if pool.shape[0] - cursor >= need:
-                late = pool[cursor: cursor + need].reshape(
-                    n_dep, tau, pool.shape[-1])
-                cursor += need
-                late_pts = need
-                eps = vq.default_steps(
-                    torch.arange(t0 + 1, t0 + tau + 1, device=self.device),
-                    eps0=eps0, decay=decay)
-                w_fin = self._executor_for(cur_m)._local_window(w_srd, late,
-                                                                eps)
-                w_srd = elastic_lib.merge_late_delta(
-                    w_srd, torch.sum(w_srd - w_fin, dim=0), delay_windows=1,
-                    gamma=self.staleness_gamma)
-                # each departing worker uploads one (kappa, d) f32 delta; on
-                # a hierarchical topology they were whole host groups, so
-                # the upload crossed tier 1
-                self.transport.record_host_transfer(
-                    logical_bytes=4 * w_srd.numel(),
-                    wire_bytes=4 * w_srd.numel(), participants=n_dep,
-                    axis=self._axis, tag="late_delta",
-                    tier=1 if self._hierarchical else None)
-            else:
-                late_skipped = True  # the pool is too dry; recorded
-        self._executor_for(new_m)
         ckpt_step, ckpt_s = None, 0.0
-        if self.checkpointer is not None:
-            # the post-event state: a resume from here continues bit for bit
-            t_ck = time.perf_counter()
-            self.checkpointer.save(window_idx, self._state(
-                w_srd, t0, cursor, window_idx, new_m,
-                tick_offset + self.resize_cost_ticks))
-            ckpt_s = time.perf_counter() - t_ck
-            ckpt_step = window_idx
-        self._sync_device()
+        with tr.span("resize", window=window_idx, old_m=cur_m, new_m=new_m,
+                     cause=cause):
+            if new_m < cur_m and self.late_policy == "merge":
+                # the departing workers were mid-window when the resize
+                # fired: their deltas, computed from the shared version,
+                # arrive one window late and are summed in by eq. 8, damped
+                n_dep = cur_m - new_m
+                need = n_dep * tau
+                if pool.shape[0] - cursor >= need:
+                    with tr.span("late_delta", n_dep=n_dep, points=need):
+                        late = pool[cursor: cursor + need].reshape(
+                            n_dep, tau, pool.shape[-1])
+                        cursor += need
+                        late_pts = need
+                        eps = vq.default_steps(
+                            torch.arange(t0 + 1, t0 + tau + 1,
+                                         device=self.device),
+                            eps0=eps0, decay=decay)
+                        w_fin = self._executor_for(cur_m)._local_window(
+                            w_srd, late, eps)
+                        w_srd = elastic_lib.merge_late_delta(
+                            w_srd, torch.sum(w_srd - w_fin, dim=0),
+                            delay_windows=1, gamma=self.staleness_gamma)
+                        # each departing worker uploads one (kappa, d) f32
+                        # delta; on a hierarchical topology they were whole
+                        # host groups, so the upload crossed tier 1
+                        self.transport.record_host_transfer(
+                            logical_bytes=4 * w_srd.numel(),
+                            wire_bytes=4 * w_srd.numel(), participants=n_dep,
+                            axis=self._axis, tag="late_delta",
+                            tier=1 if self._hierarchical else None)
+                    if mt is not None:
+                        # each departing delta lands one window stale
+                        mt.counter("staleness_windows").inc(n_dep)
+                        mt.counter("late_delta_points").inc(need)
+                else:
+                    late_skipped = True  # the pool is too dry; recorded
+                    if mt is not None:
+                        mt.counter("late_delta_skipped").inc()
+            with tr.span("remesh", m=new_m):
+                self._executor_for(new_m)
+            if self.checkpointer is not None:
+                # the post-event state: a resume from here continues bit
+                # for bit
+                with tr.span("checkpoint", step=window_idx):
+                    t_ck = time.perf_counter()
+                    self.checkpointer.save(window_idx, self._state(
+                        w_srd, t0, cursor, window_idx, new_m,
+                        tick_offset + self.resize_cost_ticks))
+                    ckpt_s = time.perf_counter() - t_ck
+                ckpt_step = window_idx
+            self._sync_device()
+        wall_s = time.perf_counter() - t_start
+        if mt is not None:
+            mt.counter("resize_events").inc()
+            mt.histogram("resize_wall_s").observe(wall_s)
         self.resize_events.append(ResizeStats(
             window=window_idx, old_m=cur_m, new_m=new_m,
             tp_preserved=plan.tp_preserved, late_points=late_pts,
-            checkpoint_step=ckpt_step,
-            wall_s=time.perf_counter() - t_start, late_skipped=late_skipped,
-            cause=cause, checkpoint_s=ckpt_s))
+            checkpoint_step=ckpt_step, wall_s=wall_s,
+            late_skipped=late_skipped, cause=cause, checkpoint_s=ckpt_s))
         return w_srd, new_m, cursor

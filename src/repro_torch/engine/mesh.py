@@ -71,11 +71,36 @@ schedule is one (n, M) mask made from the round lengths before the loop
 starts (``core.async_vq.done_mask``), so no tick waits on the host; the
 shared version is scored every ``eval_every`` ticks as the loop passes
 them.
+
+``tracer=`` / ``metrics=`` (``repro_torch.obs``) observe a run as the
+reference's executor does: wall spans ``run``, ``segment`` and, on the
+chunked path, ``chunk``; the modeled per-worker tick timeline (``window``,
+``compute`` and ``merge`` spans by tier for the sync schemes, ``round``,
+``compute`` and ``merge`` for eq. 9); the ``distortion``,
+``codebook_divergence``, ``divergence_trigger``, ``tier1_frac`` and
+``chaos_late_workers_per_window`` counter series and the ``chaos_*`` fault
+spans; and the metrics ``run_wall_s``, ``windows_total``,
+``async_rounds_total``, ``merge_wire_bytes``, ``divergence_trigger``,
+``merge_skipped_total``, ``chaos_*``, the ``distortion`` histogram, the
+``codebook_divergence`` and ``tier1_frac`` gauges, and the transport log's
+``comm_*`` counters.  An observed sync window also reduces each worker's
+divergence ``||w_local - w_shared||^2`` (one launch of the divergence
+kernel, ``ops.vq_divergence``) beside its distortion on the one "eval"
+collective (a tuple payload, so the distortion's reduction is the bare
+run's and the curve keeps its bits), in the bare run's loop order.
+Everything else is emitted after the run from the curve, the trigger bits, the late matrix and the
+tick arithmetic, which are read from the device once; the loops hold no
+device read and no counter update.  The tick timeline and the counter
+series are recorded with ``Tracer.add_spans`` / ``add_counters``, built
+when the trace is read, and the histograms and gauges take a run's values
+at once (``observe_many``, ``set_many``).  The reference's
+``compile`` span has no counterpart: eager PyTorch compiles no program.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -87,7 +112,9 @@ from repro_torch.core.schemes import SchemeResult
 from repro_torch.engine import api
 from repro_torch.engine import merge as merge_lib
 from repro_torch.engine.network import GeometricDelayNetwork, NetworkModel
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, vq_fused
+from repro_torch.obs import (NULL_TRACER, CounterEvent, MetricsRegistry,
+                             SpanEvent, Tracer)
 from repro_torch.topology import Topology
 
 
@@ -115,6 +142,8 @@ class MeshExecutor:
                  topology: Topology | None = None,
                  tier1_controller=None, publish_every: int = 1,
                  on_window=None,
+                 tracer: Tracer | None = None,
+                 metrics: MetricsRegistry | None = None,
                  device: str | torch.device | None = None):
         if merge not in (None, "quorum", "dynamic"):
             raise ValueError(
@@ -177,6 +206,19 @@ class MeshExecutor:
         self.device = device_lib.resolve(device)
         # comm summary of the most recent run() (CommLog.summarize dict)
         self.last_comm: dict | None = None
+        # observability (see the module docstring): the transport log's
+        # records are mirrored onto the registry at the end of each run
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.metrics = metrics
+        if metrics is not None:
+            self.transport.log.attach_metrics(metrics)
+        # a sync run's chunks as (emit function, its arguments), emitted
+        # once the run's loop is done
+        self._pending_obs: list = []
+
+    @property
+    def _observe(self) -> bool:
+        return self.tracer.enabled or self.metrics is not None
 
     def _local_window(self, w0: torch.Tensor, zwin: torch.Tensor,
                       eps: torch.Tensor) -> torch.Tensor:
@@ -216,6 +258,7 @@ class MeshExecutor:
         dones_f = dones.to(torch.float32)
         eps_all = vq.default_steps(torch.arange(1, n + 1, device=self.device),
                                    eps0=eps0, decay=decay)
+        mark = self.transport.log.mark()
         w = w0.expand(m, kappa, d).contiguous()
         w_srd, snap = w0, w.clone()
         dcur = torch.zeros_like(w)
@@ -242,16 +285,31 @@ class MeshExecutor:
             if (t + 1) % self.eval_every == 0:
                 curve.append(self._eval(eval_data, w_srd))
         ticks = async_vq.eval_ticks(n, self.eval_every) + 1
-        return SchemeResult(
+        res = SchemeResult(
             w_shared=w_srd, wall_ticks=ticks.to(torch.int32),
             distortion=torch.stack(curve) if curve else torch.zeros(0))
+        if self._observe:
+            self._emit_async_obs(m=m, n=n, tau=tau, lengths=lengths,
+                                 ticks=ticks, curve=res.distortion,
+                                 tier_wire=self._tier_wire(mark, ("merge",)))
+        return res
 
-    def _eval(self, eval_data: torch.Tensor, w_srd: torch.Tensor
-              ) -> torch.Tensor:
+    def _eval(self, eval_data: torch.Tensor, w_srd: torch.Tensor,
+              w_fin: torch.Tensor | None = None):
         """Eq. 2 of the shared codebook: the mean over workers, reduced
-        through the transport with tag "eval"."""
-        return self.transport.all_reduce(vq.distortion(eval_data, w_srd),
-                                         op="mean", tag="eval")[0]
+        through the transport with tag "eval".  Given the workers' window
+        results ``w_fin`` (M, kappa, d) (an observed sync run), also the
+        mean of their divergence ``||w_fin - w_srd||^2``, on the same
+        collective: returns ``(distortion, divergence)``."""
+        if w_fin is None:
+            return self.transport.all_reduce(vq.distortion(eval_data, w_srd),
+                                             op="mean", tag="eval")[0]
+        div = (ops.vq_divergence(w_fin, w_srd)
+               if self.use_kernels
+               else vq_fused.vq_divergence_plain(w_fin, w_srd))
+        dist = vq.distortion(eval_data, w_srd)
+        return self.transport.all_reduce((dist, div), op="mean",
+                                         tag="eval")[0]
 
     def _inputs(self, scheme: str, w0, data, eval_data, tau: int):
         """Validate a run's inputs; returns them as f32 contiguous tensors
@@ -284,21 +342,32 @@ class MeshExecutor:
             decay: float = 1.0, generator: torch.Generator | None = None,
             lengths: torch.Tensor | None = None) -> SchemeResult:
         w0, data, eval_data = self._inputs(scheme, w0, data, eval_data, tau)
-        if scheme != "async_delta":
-            return self._sync(scheme, w0, data, eval_data, tau=tau,
-                              eps0=eps0, decay=decay, t0=0)
+        t_wall = time.perf_counter()
         m, n, _ = data.shape
-        lengths = api.async_lengths(self.network, m, n, tau,
-                                    generator=generator, lengths=lengths)
-        mark = self.transport.log.mark()
-        try:
-            res = self._run_async(w0, data, eval_data, tau=tau, eps0=eps0,
-                                  decay=decay, lengths=lengths)
-        finally:
-            self.last_comm = comm.CommLog.summarize(
-                self.transport.log.since(mark))
-        if self.on_window is not None:
-            self.on_window(n // tau, res.w_shared)
+        with self.tracer.span("run", scheme=scheme, executor=self.name, m=m,
+                              transport=self.transport.name):
+            if scheme != "async_delta":
+                res = self._sync(scheme, w0, data, eval_data, tau=tau,
+                                 eps0=eps0, decay=decay, t0=0)
+            else:
+                lengths = api.async_lengths(self.network, m, n, tau,
+                                            generator=generator,
+                                            lengths=lengths)
+                mark = self.transport.log.mark()
+                try:
+                    res = self._run_async(w0, data, eval_data, tau=tau,
+                                          eps0=eps0, decay=decay,
+                                          lengths=lengths)
+                finally:
+                    self.last_comm = comm.CommLog.summarize(
+                        self.transport.log.since(mark))
+                    self.transport.log.mirror_metrics()
+                if self.on_window is not None:
+                    self.on_window(n // tau, res.w_shared)
+        if self.metrics is not None:
+            self.metrics.histogram("run_wall_s", executor=self.name,
+                                   scheme=scheme).observe(
+                time.perf_counter() - t_wall)
         return res
 
     def run_segment(self, scheme: str, w0: torch.Tensor, data: torch.Tensor,
@@ -315,13 +384,16 @@ class MeshExecutor:
                 "('average', 'delta'); async_delta has no window barrier "
                 "to resize at")
         w0, data, eval_data = self._inputs(scheme, w0, data, eval_data, tau)
-        return self._sync(scheme, w0, data, eval_data, tau=tau, eps0=eps0,
-                          decay=decay, t0=t0)
+        with self.tracer.span("segment", scheme=scheme, m=data.shape[0],
+                              t0=t0):
+            return self._sync(scheme, w0, data, eval_data, tau=tau,
+                              eps0=eps0, decay=decay, t0=t0)
 
     def _sync(self, scheme: str, w0, data, eval_data, *, tau: int,
               eps0: float, decay: float, t0: int) -> SchemeResult:
         """A sync run from step ``t0``, chunked when a hook or the tier-1
-        controller needs the chunk barriers; sets ``last_comm``."""
+        controller needs the chunk barriers; sets ``last_comm`` and, when
+        observed, emits the chunks' spans and metrics after the loop."""
         m = data.shape[0]
         strategy = self._strategy(scheme)
         log = self.transport.log
@@ -330,6 +402,7 @@ class MeshExecutor:
         self.last_tier1_fracs = []
         self.last_triggers = None
         self.last_late_worker_windows = 0
+        self._pending_obs = []
         try:
             if self.tier1_controller is None and self.on_window is None:
                 res, _ = self._run_sync(strategy, w0, data, eval_data,
@@ -342,6 +415,10 @@ class MeshExecutor:
                                                state=state)
         finally:
             self.last_comm = comm.CommLog.summarize(log.since(mark))
+            log.mirror_metrics()
+        for emit, kwargs in self._pending_obs:
+            emit(**kwargs)
+        self._pending_obs = []
         return res
 
     def _strategy(self, scheme: str) -> merge_lib.MergeStrategy:
@@ -367,6 +444,7 @@ class MeshExecutor:
         schedule continuing from step ``t0``; returns ``(result, the merge
         state after them)``."""
         m, n, _ = data.shape
+        observe = self._observe
         n_windows = n // tau
         quorum = isinstance(strategy, merge_lib.QuorumMerge)
         dynamic = isinstance(strategy, merge_lib.DynamicMerge)
@@ -374,7 +452,7 @@ class MeshExecutor:
         eps_all = vq.default_steps(
             torch.arange(t0 + 1, t0 + n_windows * tau + 1,
                          device=self.device), eps0=eps0, decay=decay)
-        late = None
+        late = late_np = None
         if quorum:
             # the (M, n_windows) lateness bits, keyed by global window, drawn
             # on the host once and moved to the device once
@@ -384,7 +462,7 @@ class MeshExecutor:
             late = torch.from_numpy(late_np).to(self.device)
         log = self.transport.log
         mark = log.mark()
-        w_srd, curve, trigs = w0, [], []
+        w_srd, curve, trigs, divs = w0, [], [], []
         for i in range(n_windows):
             span = slice(i * tau, (i + 1) * tau)
             w_fin = self._local_window(w_srd, data[:, span].contiguous(),
@@ -396,8 +474,14 @@ class MeshExecutor:
                 w_srd, state = strategy(w_srd, w_fin, state=state)
             if dynamic:
                 trigs.append(strategy.last_trigger)
-            curve.append(self._eval(eval_data, w_srd))
+            if observe:
+                c, dv = self._eval(eval_data, w_srd, w_fin)
+                divs.append(dv)
+            else:
+                c = self._eval(eval_data, w_srd)
+            curve.append(c)
         tags = ("merge",)
+        bits = None
         if dynamic:
             # the merge ran every window; re-price its records to the
             # windows whose probe triggered (the probe stays at every
@@ -416,17 +500,35 @@ class MeshExecutor:
 
             log.rewrite_since(mark, reprice)
         # each tier's bytes a window charged at its link class's bandwidth
-        tier_wire: dict = {}
-        for r in log.since(mark):
-            if r.tag in tags:
-                tier_wire[r.tier] = (tier_wire.get(r.tier, 0)
-                                     + r.wire_bytes * r.calls)
+        tier_wire = self._tier_wire(mark, tags)
         wt = self.network.window_ticks(tau)
         for tier, total in tier_wire.items():
             wt += self.network.transfer_ticks(total / n_windows, tier=tier)
         ticks = torch.arange(1, n_windows + 1, dtype=torch.int32) * wt
+        curve = torch.stack(curve)
+        if observe:
+            # every merge override rides the delta scheme
+            scheme = ("average" if isinstance(strategy, merge_lib.AverageMerge)
+                      else "delta")
+            self._pending_obs.append((self._emit_sync_obs, dict(
+                scheme=scheme, m=m, n_windows=n_windows, tau=tau, wt=wt,
+                tier_wire=tier_wire, w_start=t0 // tau, curve=curve,
+                divergence=torch.stack(divs), trig=bits)))
+            if quorum:
+                self._pending_obs.append((self._emit_chaos_obs, dict(
+                    w_start=t0 // tau, n_windows=n_windows, wt=wt,
+                    late_np=late_np)))
         return SchemeResult(w_shared=w_srd, wall_ticks=ticks,
-                            distortion=torch.stack(curve)), state
+                            distortion=curve), state
+
+    def _tier_wire(self, mark: int, tags: tuple[str, ...]) -> dict:
+        """Wire bytes (x calls) of the records since ``mark`` with one of
+        ``tags``, by tier (None for a flat collective)."""
+        out: dict = {}
+        for r in self.transport.log.since(mark):
+            if r.tag in tags:
+                out[r.tier] = out.get(r.tier, 0) + r.wire_bytes * r.calls
+        return out
 
     def _run_sync_published(self, strategy, w0, data, eval_data, *,
                             tau: int, eps0: float, decay: float, t0: int,
@@ -444,9 +546,10 @@ class MeshExecutor:
             k = min(self.publish_every, n_windows - done)
             seg = data[:, done * tau:(done + k) * tau]
             cmark = self.transport.log.mark()
-            res, state = self._run_sync(strategy, w, seg, eval_data, tau=tau,
-                                        eps0=eps0, decay=decay,
-                                        t0=t0 + done * tau, state=state)
+            with self.tracer.span("chunk", windows=k, t0=t0 + done * tau):
+                res, state = self._run_sync(strategy, w, seg, eval_data,
+                                            tau=tau, eps0=eps0, decay=decay,
+                                            t0=t0 + done * tau, state=state)
             if wt is None:
                 # the window's tick cost as the first chunk charged it
                 wt = int(res.wall_ticks[0])
@@ -463,5 +566,189 @@ class MeshExecutor:
                 frac = self.tier1_controller.update(self.transport, wire1 / k)
                 if frac is not None:
                     self.last_tier1_fracs.append(frac)
+                    if self.metrics is not None:
+                        self.metrics.gauge("tier1_frac").set(frac)
+                    self.tracer.counter("tier1_frac", float(frac),
+                                        ts_us=float(t0 + done * tau))
         return SchemeResult(w_shared=w, wall_ticks=torch.cat(ticks),
                             distortion=torch.cat(curves))
+
+    # -- observability: emitted after a run's loop ---------------------------
+
+    def _emit_sync_obs(self, *, scheme: str, m: int, n_windows: int,
+                       tau: int, wt: int, tier_wire: dict, w_start: int,
+                       curve: torch.Tensor, divergence: torch.Tensor,
+                       trig: torch.Tensor | None) -> None:
+        """One sync chunk on the tick timeline and the registry, as the
+        reference's ``_emit_sync_obs`` (``mesh.py:733-808``): each worker
+        computes for ``tau`` ticks, then the merge takes the rest of the
+        window, split across tiers by their wire bytes (1 tick = 1 us).
+        Distortion and divergence are the real per-window values."""
+        tr, mt = self.tracer, self.metrics
+        both = torch.stack([curve, divergence]).cpu().numpy()
+        curve_np, div_np = both[0], both[1]
+        trig_np = None if trig is None else trig.numpy()
+        n_trig = None if trig_np is None else int(trig_np.sum())
+        if mt is not None:
+            mt.counter("windows_total", scheme=scheme).inc(n_windows)
+            if n_trig is not None:
+                mt.counter("divergence_trigger", scheme=scheme).inc(n_trig)
+                mt.counter("merge_skipped_total",
+                           scheme=scheme).inc(n_windows - n_trig)
+            mt.histogram("distortion", scheme=scheme).observe_many(curve_np)
+            mt.gauge("codebook_divergence", scheme=scheme).set_many(div_np)
+            for tier, total in tier_wire.items():
+                mt.counter("merge_wire_bytes",
+                           tier="flat" if tier is None else tier,
+                           scheme=scheme).inc(total)
+        if not tr.enabled:
+            return
+        merge_total = max(wt - tau, 0)
+        wire_sum = sum(tier_wire.values()) or 1
+        tier_rows = []                   # (track, tier attr, wire, dur)
+        for tier, total in sorted(tier_wire.items(),
+                                  key=lambda kv: (kv[0] is None,
+                                                  kv[0] or 0)):
+            tier_rows.append((
+                "merge flat" if tier is None else f"merge tier {tier}",
+                "flat" if tier is None else tier,
+                int(round(total / max(n_windows, 1))),
+                merge_total * (total / wire_sum)))
+        process = tr.TICK_PROCESS
+        trig_bits = None if trig_np is None else [bool(b) for b in trig_np]
+
+        def build() -> list[SpanEvent]:
+            out = []
+            add = out.append
+            tracks = [f"worker {w}" for w in range(m)]
+            for wi in range(n_windows):
+                win = w_start + wi
+                t_start = float(win * wt)
+                for worker, track in enumerate(tracks):
+                    add(SpanEvent("window", t_start, float(wt), process,
+                                  track, {"window": win, "worker": worker,
+                                          "scheme": scheme}))
+                    add(SpanEvent("compute", t_start, float(tau), process,
+                                  track, {"window": win, "worker": worker}))
+                t_m = t_start + tau
+                tag = ({} if trig_bits is None
+                       else {"triggered": trig_bits[wi]})
+                for track, tier_attr, wire, dur in tier_rows:
+                    add(SpanEvent("merge", t_m, max(float(dur), 0.0),
+                                  process, track,
+                                  {"tier": tier_attr, "wire_bytes": wire,
+                                   "window": win, "scheme": scheme, **tag}))
+                    t_m += dur
+            return out
+
+        tr.add_spans(n_windows * (2 * m + len(tier_rows)), build)
+        series = [("distortion", curve_np), ("codebook_divergence", div_np)]
+        if trig_np is not None:
+            series.append(("divergence_trigger", trig_np))
+
+        def build_counters() -> list[CounterEvent]:
+            return [CounterEvent(name, float(values[wi]),
+                                 float((w_start + wi) * wt + wt), process)
+                    for wi in range(n_windows) for name, values in series]
+
+        tr.add_counters(n_windows * len(series), build_counters)
+
+    def _emit_chaos_obs(self, *, w_start: int, n_windows: int, wt: int,
+                        late_np: np.ndarray) -> None:
+        """Injected faults on the trace, as the reference's
+        ``_emit_chaos_obs`` (``mesh.py:701-731``): one ``chaos_*`` span per
+        scheduled event in this chunk's windows, each on its own track, the
+        late workers of each window as a counter series, and the late
+        worker-windows and per-kind event totals as metrics."""
+        tr, mt = self.tracer, self.metrics
+        n_late = int(late_np.sum())
+        if mt is not None and n_late:
+            mt.counter("chaos_late_worker_windows").inc(n_late)
+        per_window = late_np.sum(axis=0)
+        process = tr.TICK_PROCESS
+        tr.add_counters(n_windows + 1, lambda: [
+            CounterEvent("chaos_late_workers_per_window",
+                         0.0 if wi < 0 else float(per_window[wi]),
+                         float((w_start + wi + 1) * wt), process)
+            for wi in range(-1, n_windows)])
+        events_between = getattr(self.network, "events_between", None)
+        if events_between is None:
+            return
+        for ev in events_between(w_start, w_start + n_windows):
+            if mt is not None:
+                mt.counter(f"chaos_{ev.kind}s").inc()
+            dur = 1 if ev.kind == "kill" else ev.duration
+            tr.add_span(f"chaos_{ev.kind}", float(ev.window * wt),
+                        float(dur * wt),
+                        track=f"chaos {ev.kind} {ev.target}@{ev.window}",
+                        window=ev.window, target=ev.target, kind=ev.kind)
+
+    def _emit_async_obs(self, *, m: int, n: int, tau: int,
+                        lengths: torch.Tensor, ticks: torch.Tensor,
+                        curve: torch.Tensor, tier_wire: dict) -> None:
+        """The eq.-9 per-worker round timeline, as the reference's
+        ``_emit_async_obs`` (``mesh.py:917-970``): round r of a worker
+        computes for ``tau`` ticks and keeps computing while its upload is
+        in flight, landing at ``done_at[worker, r]`` (the cumulative round
+        lengths); the in-flight ``merge`` span beside the next worker's
+        ``compute`` shows the overlap.  Wire bytes are the per-tick masked
+        merge's charge attributed to the round."""
+        tr, mt = self.tracer, self.metrics
+        scheme = "async_delta"
+        done_np = np.cumsum(np.asarray(lengths, np.int64), axis=1)
+        curve_np = curve.cpu().numpy()
+        if mt is not None:
+            mt.histogram("distortion", scheme=scheme).observe_many(curve_np)
+            mt.counter("async_rounds_total", scheme=scheme).inc(
+                int((done_np <= n).sum()))
+            for tier, total in tier_wire.items():
+                mt.counter("merge_wire_bytes",
+                           tier="flat" if tier is None else tier,
+                           scheme=scheme).inc(total)
+        if not tr.enabled:
+            return
+        # rounds a worker starts before tick n: round r starts where r-1
+        # ended (ends clamp to n; lengths are positive, so ends increase)
+        ends = np.minimum(done_np, n)
+        starts = np.concatenate([np.zeros((m, 1), np.int64), ends[:, :-1]],
+                                axis=1)
+        n_rounds = int(((starts < n) & (ends > starts)).sum())
+        process = tr.TICK_PROCESS
+        tiers = list(tier_wire.items())
+
+        def build() -> list[SpanEvent]:
+            out = []
+            add = out.append
+            for worker in range(m):
+                track = f"worker {worker}"
+                prev = 0
+                for r in range(done_np.shape[1]):
+                    if prev >= n:
+                        break
+                    end = min(int(done_np[worker, r]), n)
+                    if end <= prev:
+                        continue
+                    add(SpanEvent("round", float(prev), float(end - prev),
+                                  process, track, {"worker": worker,
+                                                   "round": r,
+                                                   "scheme": scheme}))
+                    c_end = prev + min(tau, end - prev)
+                    add(SpanEvent("compute", float(prev),
+                                  float(c_end - prev), process, track,
+                                  {"worker": worker, "round": r}))
+                    for tier, total in tiers:
+                        add(SpanEvent(
+                            "merge", float(c_end), float(end - c_end),
+                            process, track,
+                            {"tier": "flat" if tier is None else tier,
+                             "wire_bytes": int(round(total / n
+                                                     * (end - prev))),
+                             "worker": worker, "round": r}))
+                    prev = end
+            return out
+
+        tr.add_spans(n_rounds * (2 + len(tiers)), build)
+        tick_list = ticks.tolist()
+        tr.add_counters(len(tick_list), lambda: [
+            CounterEvent("distortion", float(curve_np[k]), float(t), process)
+            for k, t in enumerate(tick_list)])

@@ -17,12 +17,12 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -63,6 +63,8 @@ SIGNATURES = {
                              _I, _I, _I, _I, _I, _P),
     # x, mask, out, M, N, stream (mask may be NULL)
     "vq_ring_f32": (_P, _P, _P, _I, _L, _P),
+    # a, b, partial, tickets, out, M, N, G (blocks a worker), stream
+    "vq_divergence_f32": (_P, _P, _P, _P, _P, _I, _L, _I, _P),
     # long long* out: CUDA kernels the argmin engine's entries (assign,
     # delta, blocked) have launched in this process
     "vq_argmin_launches": (_P,),
@@ -130,16 +132,25 @@ def build() -> Path:
     return lib
 
 
-@functools.cache
+_library: ctypes.CDLL | None = None
+_library_lock = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call), with argument types
-    declared for every entry point."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    declared for every entry point.  Threads that launch at once (the
+    thread runtime's workers) build and load it once."""
+    global _library
+    if _library is None:
+        with _library_lock:
+            if _library is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _library = lib
+    return _library
 
 
 def check(rc: int, name: str) -> None:

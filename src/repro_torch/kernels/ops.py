@@ -199,6 +199,13 @@ def vq_delta_topk(z: torch.Tensor, w: torch.Tensor, residual: torch.Tensor,
     return vals, idx, new_res.view(w.shape)
 
 
+def vq_divergence(w_local: torch.Tensor, w_shared: torch.Tensor
+                  ) -> torch.Tensor:
+    """Each worker's ``||w_local[m] - w_shared||^2``, (M,) f32, in one
+    pass: an observed sync window's codebook divergence."""
+    return vq_fused.vq_divergence(w_local, w_shared)
+
+
 def vq_window(zwin: torch.Tensor, w0: torch.Tensor, eps: torch.Tensor, *,
               budget_bytes: int | None = None) -> torch.Tensor:
     """One window for every worker in a single launch, its blocks held to

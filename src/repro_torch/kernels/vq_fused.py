@@ -15,11 +15,18 @@ window and top-k kernels' launch plans are the pure functions
 ``_window_plan`` and ``_topk_plan``.
 ``launches``, ``launches_blocked`` and ``launches_topk`` count the kernels'
 launches.
+
+``vq_divergence`` (``csrc/vq_divergence.cu``, plain ``vq_divergence_plain``,
+count ``launches_divergence``) is no TPU kernel's counterpart: it is an
+observed sync window's ``||w_local - w_shared||^2`` per worker, which the
+reference's compiled scan fuses into one pass (``repro/engine/mesh.py:590``)
+and eager PyTorch would spend three on.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -57,8 +64,15 @@ CHUNK = 256
 TOPK_THREADS, TOPK_CLUSTER = 1024, 8
 
 launches = 0
+# the thread runtime launches the window kernel from M threads at once
+_launches_lock = threading.Lock()
 launches_blocked = 0
 launches_topk = 0
+launches_divergence = 0
+
+#: Entries a block of the divergence kernel sums, at least: 8 float4 loads a
+#: thread, and at (8, 4096, 128) a grid of 512 blocks, all resident at once.
+DIVERGENCE_BLOCK_ENTRIES = 8192
 
 
 class WindowPlan(NamedTuple):
@@ -191,7 +205,8 @@ def vq_window(zwin: torch.Tensor, w0: torch.Tensor, eps: torch.Tensor,
             plan.smem_bytes - (RESIDENT_STATIC_SMEM if plan.resident
                                else STREAM_STATIC_SMEM), stream)
     _build.check(rc, "vq_window_f32")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return wout
 
 
@@ -386,3 +401,54 @@ def vq_topk(full: torch.Tensor, k: int
     _build.check(rc, "vq_topk_f32")
     launches_topk += 1
     return vals, idx, residual
+
+
+def vq_divergence_plain(w_local: torch.Tensor,
+                        w_shared: torch.Tensor) -> torch.Tensor:
+    """The divergence kernel's plain version: w_local (M, kappa, d), w_shared
+    (kappa, d) -> (M,), each worker's ``sum((w_local[m] - w_shared) ** 2)``
+    (the reference's ``mesh.py:590``)."""
+    return torch.sum((w_local - w_shared) ** 2,
+                     dim=tuple(range(1, w_local.dim())))
+
+
+def vq_divergence(w_local: torch.Tensor,
+                  w_shared: torch.Tensor) -> torch.Tensor:
+    """Each worker's squared distance to the shared codebook, (M,) f32, in
+    one pass over w_local (M, kappa, d) and w_shared (kappa, d), both f32
+    contiguous.  CPU tensors take ``vq_divergence_plain``; CUDA tensors
+    launch ``csrc/vq_divergence.cu`` on the current stream (its sums run in
+    another order than PyTorch's)."""
+    global launches_divergence
+    dev = w_local.device    # read once: each read builds a torch.device
+    if (w_local.dim() < 2 or w_local.shape[1:] != w_shared.shape
+            or w_local.dtype != torch.float32
+            or w_shared.dtype != torch.float32
+            or dev != w_shared.device):
+        raise ValueError(
+            f"vq_divergence takes w_local (M, ...) and w_shared (...) f32 on "
+            f"one device, got {tuple(w_local.shape)} {w_local.dtype} on "
+            f"{dev} and {tuple(w_shared.shape)} {w_shared.dtype} on "
+            f"{w_shared.device}")
+    if dev.type == "cpu":
+        return vq_divergence_plain(w_local, w_shared)
+    if dev.type != "cuda":
+        raise ValueError(f"vq_divergence runs on cuda or cpu, got {dev}")
+    if not (w_local.is_contiguous() and w_shared.is_contiguous()):
+        raise ValueError("w_local and w_shared must be contiguous")
+    m, n = w_local.shape[0], w_shared.numel()
+    g = min(1024, max(1, -(-n // DIVERGENCE_BLOCK_ENTRIES)))
+    out = torch.empty((m,), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with _build.on_device(dev):
+        stream = _build.current_stream(dev)
+        # the argmin engine's per-stream scratch: tickets left at 0 by
+        # every kernel that takes one, partials written before they are read
+        tickets, partial, _ = assign_kernels._sweep_scratch(dev, stream, m,
+                                                            m * g)
+        rc = lib.vq_divergence_f32(w_local.data_ptr(), w_shared.data_ptr(),
+                                   partial.data_ptr(), tickets.data_ptr(),
+                                   out.data_ptr(), m, n, g, stream)
+    _build.check(rc, "vq_divergence_f32")
+    launches_divergence += 1
+    return out

@@ -50,6 +50,18 @@ shrink the run by one worker each, elastically::
         --executor mesh --workers 4 --points 300 --resize 10:2,20:4 \\
         --ckpt-dir /tmp/ckpt --device cpu
 
+``--executor thread --scheme async_delta`` runs the real-thread runtime
+(``engine.threads``): M worker threads and a reducer for ``--duration-s``
+wall seconds, each round delayed ``--comm-delay-s``; its curve is printed
+against seconds.  It refuses a tick-based ``--network`` (other than
+``instant``), ``--transport`` and ``--hosts`` with exit code 2, as the
+reference does.
+
+``--trace OUT.json`` writes a Chrome trace-event file (Perfetto) and
+``--metrics OUT.jsonl`` appends the metrics registry as JSON lines; either
+turns the executor's tracer and registry on, prints the registry's table,
+and writes the files even when the run dies (``obs.ExitFlush``).
+
 ``--autotune {off,cache,search}`` picks the kernels' tiles
 (``kernels.autotune``; tiles change no bit) and ``--autotune-cache
 TILES.json`` keeps the picks in a file.
@@ -71,6 +83,7 @@ from repro_torch.engine import (ChaosNetwork, ChaosSchedule,
                                 Tier1BudgetController, Topology,
                                 get_executor, get_network)
 from repro_torch.kernels import autotune
+from repro_torch.obs import ExitFlush, MetricsRegistry, Tracer
 
 #: Eval points per worker (the reference's ``launch/train.py`` takes 1000).
 N_EVAL = 1000
@@ -82,7 +95,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         description="The paper's VQ schemes on the PyTorch port.")
     ap.add_argument("--mode", choices=("vq",), default="vq",
                     help="only the VQ schemes are ported")
-    ap.add_argument("--executor", choices=("sim", "mesh"), default="sim")
+    ap.add_argument("--executor", choices=("sim", "mesh", "thread"),
+                    default="sim")
     ap.add_argument("--scheme", choices=("average", "delta", "async_delta"),
                     default="delta")
     ap.add_argument("--workers", type=int, default=4)
@@ -175,6 +189,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--resume", action="store_true",
                     help="elastic runs: restore the latest checkpoint in "
                          "--ckpt-dir and skip the consumed prefix")
+    ap.add_argument("--duration-s", type=float, default=2.0,
+                    help="thread backend: wall seconds to run")
+    ap.add_argument("--comm-delay-s", type=float, default=0.0,
+                    help="thread backend: per-round comm latency (seconds)")
+    ap.add_argument("--trace", default="", metavar="OUT.json",
+                    help="write a Chrome trace-event file (Perfetto): wall "
+                         "spans, the modeled per-worker tick timeline, "
+                         "distortion and divergence counters")
+    ap.add_argument("--metrics", default="", metavar="OUT.jsonl",
+                    help="append the metrics registry (counters, gauges, "
+                         "histograms) as JSON lines")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return ap.parse_args(argv)
@@ -191,9 +216,15 @@ def make_inputs(args, dev: torch.device):
     return w0, data, eval_data
 
 
-def build_executor(args, dev: torch.device):
-    """The run's executor; raises ValueError on a configuration the
-    reference refuses (``main`` prints it and exits 2)."""
+def build_executor(args, dev: torch.device, *, tracer: Tracer | None = None,
+                   metrics: MetricsRegistry | None = None):
+    """The run's executor, observed by ``tracer`` / ``metrics``; raises
+    ValueError on a configuration the reference refuses (``main`` prints
+    it and exits 2)."""
+    obs = {"tracer": tracer, "metrics": metrics}
+    if args.executor == "thread":
+        return get_executor("thread", duration_s=args.duration_s,
+                            comm_delay_s=args.comm_delay_s, device=dev, **obs)
     net_kw = {}
     if args.network == "fixed":
         net_kw["latency_ticks"] = args.latency
@@ -201,7 +232,8 @@ def build_executor(args, dev: torch.device):
         net_kw["p_delay"] = args.p_delay
     network = get_network(args.network, **net_kw)
     if args.executor != "mesh":
-        return get_executor(args.executor, network=network, device=dev)
+        return get_executor(args.executor, network=network, device=dev,
+                            **obs)
     transport = comm.get_transport(
         args.transport, **({"frac": args.compress_frac}
                            if args.transport == "sparse" else {}))
@@ -254,7 +286,7 @@ def build_executor(args, dev: torch.device):
                   max_stale=args.max_stale)
     if not (args.resize or (chaos is not None and chaos.kill_events)):
         return get_executor("mesh", network=network, transport=transport,
-                            device=dev, **kw)
+                            device=dev, **obs, **kw)
     # elastic: a schedule, or a chaos kill to shrink at
     if args.resume and not args.ckpt_dir:
         raise ValueError("--resume needs --ckpt-dir (the elastic resume "
@@ -267,7 +299,7 @@ def build_executor(args, dev: torch.device):
         "elastic", schedule=args.resize or [], network=network,
         transport=transport, resume=args.resume, chaos=chaos, device=dev,
         checkpointer=Checkpointer(args.ckpt_dir) if args.ckpt_dir else None,
-        **kw)
+        **obs, **kw)
 
 
 def run_vq(args):
@@ -277,7 +309,21 @@ def run_vq(args):
     autotune.set_mode(args.autotune)
     if args.autotune_cache:
         autotune.set_cache_path(args.autotune_cache)
-    executor = build_executor(args, dev)
+    # either flag turns the executor's tracer and registry on
+    observe = bool(args.trace or args.metrics)
+    tracer = Tracer() if observe else None
+    metrics = MetricsRegistry() if observe else None
+    executor = build_executor(args, dev, tracer=tracer, metrics=metrics)
+    # armed before the run: a run that dies still leaves its files
+    flusher = None
+    if observe:
+        flusher = ExitFlush(
+            tracer=tracer if args.trace else None,
+            trace_path=args.trace or None,
+            metrics=metrics if args.metrics else None,
+            metrics_path=args.metrics or None,
+            run=f"train-vq-{args.scheme}-{executor.name}",
+            catch_sigterm=True)
     w0, data, eval_data = make_inputs(args, dev)
     transport = getattr(executor, "transport", None)
     topology = getattr(executor, "topology", None)
@@ -298,8 +344,9 @@ def run_vq(args):
     wall = time.perf_counter() - t0
     ticks = res.wall_ticks.cpu()
     n = len(curve)
+    unit = "s" if executor.name == "thread" else "ticks"
     for i in sorted({int(j * (n - 1) / 9) for j in range(10)}):
-        print(f"  ticks {float(ticks[i]):>8.1f}  C = {float(curve[i]):.5f}")
+        print(f"  {unit} {float(ticks[i]):>8.1f}  C = {float(curve[i]):.5f}")
     for ev in getattr(executor, "resize_events", []):
         ck = (f" ckpt@{ev.checkpoint_step}"
               if ev.checkpoint_step is not None else "")
@@ -325,6 +372,16 @@ def run_vq(args):
         if probe:
             print(f"  probe: wire {probe['wire_bytes']:,} B over "
                   f"{probe['calls']} windows, merges {merge_b.get('calls', 0)}")
+    if metrics is not None:
+        print("metrics:")
+        print(metrics.summary_table())
+    if flusher is not None:
+        flusher.flush()
+        if args.trace:
+            print(f"trace: {len(tracer.spans())} spans -> {args.trace} "
+                  f"(load at https://ui.perfetto.dev)")
+        if args.metrics:
+            print(f"metrics: appended -> {args.metrics}")
     ckpt = getattr(executor, "checkpointer", None)
     if ckpt is not None:
         ckpt.wait()
@@ -339,17 +396,24 @@ def main(argv=None) -> int:
               f"{args.tau} window")
         return 2
     if args.transport != "xla" and args.executor != "mesh":
-        # the sim oracles issue no collective for a transport to reroute
+        # the sim oracles and the threads issue no collective to reroute
         print(f"error: --transport {args.transport} needs --executor mesh "
-              f"(the sim backend issues no collectives)")
+              f"(the sim/thread backends issue no collectives)")
+        return 2
+    if args.executor == "thread" and args.network != "instant":
+        # real threads have no tick clock: a tick-based network would be
+        # dropped silently and mislabel the run
+        print(f"error: --network {args.network} is tick-based; the thread "
+              f"backend models communication in seconds — use "
+              f"--comm-delay-s instead")
         return 2
     if args.wire_quant != "off" and args.executor != "mesh":
         print(f"error: --wire-quant quantizes the mesh transport's "
               f"collectives; got --executor {args.executor}")
         return 2
     if args.hosts > 1 and args.executor != "mesh":
-        print(f"error: --hosts {args.hosts} needs --executor mesh (the sim "
-              f"backend issues no collectives)")
+        print(f"error: --hosts {args.hosts} needs --executor mesh (the "
+              f"sim/thread backends issue no collectives)")
         return 2
     if args.tier1_frac == "auto" and (args.resize or args.chaos):
         print("error: --tier1-frac auto is a plain-mesh feature; it does not "

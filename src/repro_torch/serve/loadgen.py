@@ -11,7 +11,11 @@ The generator is OPEN-LOOP: requests are submitted at their scheduled
 times whether or not earlier ones completed, and latency is measured from
 the *scheduled* arrival, so a backed-up service cannot hide its queueing
 delay by slowing the generator down.  Queries are N(0, 1), drawn with the
-arrival gaps from one explicit CPU ``torch.Generator``.
+arrival gaps from one explicit CPU ``torch.Generator``.  ``tracer=`` /
+``metrics=`` (``repro_torch.obs``) get the reference's ``load``,
+``submit`` and ``collect`` spans, the ``serve_latency_ms`` histogram, the
+``serve_requests`` and ``serve_load_failed`` counters and the
+``serve_staleness`` gauge.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 
 from repro_torch.core.async_vq import seeded
 from repro_torch.engine.network import InstantNetwork, NetworkModel
+from repro_torch.obs import NULL_TRACER, MetricsRegistry, Tracer
 from repro_torch.serve.codebook_store import CodebookStore
 from repro_torch.serve.service import QuantizeResponse, QuantizeService
 
@@ -72,7 +77,8 @@ def run_load(service: QuantizeService, *, n_requests: int, d: int,
              rows_per_request: int = 1, network: NetworkModel | None = None,
              tick_s: float = 0.0, generator: torch.Generator | None = None,
              store: CodebookStore | None = None, timeout_s: float = 120.0,
-             sample: int = 0) -> LoadReport:
+             sample: int = 0, tracer: Tracer | None = None,
+             metrics: MetricsRegistry | None = None) -> LoadReport:
     """Drive ``service`` with ``n_requests`` open-loop requests.
 
     ``tick_s=0`` (or ``InstantNetwork``) submits back-to-back: the
@@ -83,6 +89,7 @@ def run_load(service: QuantizeService, *, n_requests: int, d: int,
         raise ValueError(f"n_requests must be >= 1, got {n_requests}")
     network = network or InstantNetwork()
     store = store or service.store
+    tracer = tracer if tracer is not None else NULL_TRACER
     gen = seeded(generator)
     queries = torch.randn((n_requests, rows_per_request, d),
                           generator=gen).numpy()
@@ -100,25 +107,29 @@ def run_load(service: QuantizeService, *, n_requests: int, d: int,
         return cb
 
     t0 = time.monotonic()
-    next_t = t0
-    for i in range(n_requests):
-        next_t += gaps[i]
-        now = time.monotonic()
-        if next_t > now:
-            time.sleep(next_t - now)
-        scheduled.append(max(next_t, t0))
-        fut = service.submit(queries[i])
-        fut.add_done_callback(_mark(i))
-        futures.append(fut)
+    with tracer.span("load", requests=n_requests,
+                     rows_per_request=rows_per_request):
+        with tracer.span("submit"):
+            next_t = t0
+            for i in range(n_requests):
+                next_t += gaps[i]
+                now = time.monotonic()
+                if next_t > now:
+                    time.sleep(next_t - now)
+                scheduled.append(max(next_t, t0))
+                fut = service.submit(queries[i])
+                fut.add_done_callback(_mark(i))
+                futures.append(fut)
 
-    failed = 0
-    responses: list[QuantizeResponse | None] = []
-    for fut in futures:
-        try:
-            responses.append(fut.result(timeout=timeout_s))
-        except Exception:  # noqa: BLE001 - counted, not raised
-            responses.append(None)
-            failed += 1
+        failed = 0
+        responses: list[QuantizeResponse | None] = []
+        with tracer.span("collect"):
+            for fut in futures:
+                try:
+                    responses.append(fut.result(timeout=timeout_s))
+                except Exception:  # noqa: BLE001 - counted, not raised
+                    responses.append(None)
+                    failed += 1
     wall_s = time.monotonic() - t0
 
     lat_ms, versions, staleness = [], [], []
@@ -137,6 +148,16 @@ def run_load(service: QuantizeService, *, n_requests: int, d: int,
     lat = np.asarray(lat_ms) if ok else np.asarray([0.0])
     versions_arr = np.asarray(versions) if ok else np.asarray([0])
     stale = np.asarray(staleness) if ok else np.asarray([0])
+    if metrics is not None:
+        h = metrics.histogram("serve_latency_ms")
+        for v in lat_ms:
+            h.observe(v)
+        metrics.counter("serve_requests").inc(n_requests)
+        if failed:
+            metrics.counter("serve_load_failed").inc(failed)
+        g = metrics.gauge("serve_staleness")
+        for st in staleness:
+            g.set(st)
     return LoadReport(
         requests=n_requests,
         rows=n_requests * rows_per_request,

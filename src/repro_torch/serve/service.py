@@ -14,9 +14,12 @@ incoming requests into one lookup call, padded to a multiple of
 Every flush reads ONE immutable ``CodebookStore`` snapshot, so all rows of
 a batch are served by the same ``(version, w)`` pair.  The flush thread
 launches the assign kernel; a build or launch error reaches that flush's
-futures as their exception, and the thread lives on.  The reference's
-``tracer`` and ``metrics`` hooks come with the observability slice
-(ROADMAP.md queue 1, item 6).
+futures as their exception, and the thread lives on.  ``tracer=`` /
+``metrics=`` (``repro_torch.obs``) get the reference's ``flush`` span on
+the flush thread's track and, per flush, the ``serve_flush_wall_s`` and
+``serve_batch_fill`` histograms, the ``serve_queue_depth`` gauge and the
+``serve_flushes``, ``serve_rows`` and ``serve_padded_rows`` counters
+(``serve_failed`` for a failed flush).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from concurrent.futures import Future
 
 import numpy as np
 
+from repro_torch.obs import NULL_TRACER, MetricsRegistry, Tracer
 from repro_torch.serve.codebook_store import CodebookStore
 from repro_torch.serve.lookup import ShardedLookup
 
@@ -92,7 +96,9 @@ class QuantizeService:
     def __init__(self, store: CodebookStore,
                  lookup: ShardedLookup | None = None, *,
                  max_batch: int | None = None, max_delay_s: float = 2e-3,
-                 batch_align: int = 128, warmup: bool = True):
+                 batch_align: int = 128, warmup: bool = True,
+                 tracer: Tracer | None = None,
+                 metrics: MetricsRegistry | None = None):
         self.store = store
         self.lookup = lookup if lookup is not None else ShardedLookup()
         if batch_align < 1:
@@ -110,6 +116,8 @@ class QuantizeService:
             raise ValueError(f"max_delay_s must be >= 0, got {max_delay_s}")
         self.max_delay_s = max_delay_s
         self.warmup = warmup
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.metrics = metrics
         self.stats = ServiceStats()
         self._cond = threading.Condition()
         self._queue: list[QuantizeRequest] = []
@@ -209,10 +217,12 @@ class QuantizeService:
                     if left <= 0:
                         break
                     self._cond.wait(left)
+                depth = self._pending_rows      # queue depth at flush time
                 batch, full = self._take_batch_locked()
-            self._execute(batch, full)
+            self._execute(batch, full, depth)
 
-    def _execute(self, batch: list[QuantizeRequest], full: bool) -> None:
+    def _execute(self, batch: list[QuantizeRequest], full: bool,
+                 depth: int = 0) -> None:
         # claim every future first: a client may have cancel()ed while the
         # request was queued, and resolving a cancelled future would raise
         # InvalidStateError and kill the flush thread
@@ -220,22 +230,37 @@ class QuantizeService:
         if not batch:
             return
         rows = sum(r.rows for r in batch)
+        t_flush = time.perf_counter()
         try:
-            snap = self.store.latest()
-            z = (batch[0].z if len(batch) == 1
-                 else np.concatenate([r.z for r in batch]))
-            pad = (-z.shape[0]) % self.batch_align
-            if pad:
-                z = np.concatenate([z, np.zeros((pad, z.shape[1]),
-                                                np.float32)])
-            assign, mind = self.lookup.assign(z, snap.w_device)
-            assign = assign.cpu().numpy()
-            mind = mind.cpu().numpy()
+            with self.tracer.span("flush", rows=rows, requests=len(batch),
+                                  full=full, queue_depth=depth):
+                snap = self.store.latest()
+                z = (batch[0].z if len(batch) == 1
+                     else np.concatenate([r.z for r in batch]))
+                pad = (-z.shape[0]) % self.batch_align
+                if pad:
+                    z = np.concatenate([z, np.zeros((pad, z.shape[1]),
+                                                    np.float32)])
+                assign, mind = self.lookup.assign(z, snap.w_device)
+                assign = assign.cpu().numpy()
+                mind = mind.cpu().numpy()
         except Exception as e:  # noqa: BLE001 - the fault goes to the callers
             for r in batch:
                 r.future.set_exception(e)
             self.stats.failed += len(batch)
+            if self.metrics is not None:
+                self.metrics.counter("serve_failed").inc(len(batch))
             return
+        if self.metrics is not None:
+            mt = self.metrics
+            mt.histogram("serve_flush_wall_s").observe(
+                time.perf_counter() - t_flush)
+            mt.histogram("serve_batch_fill").observe(rows / self.max_batch)
+            mt.gauge("serve_queue_depth").set(depth)
+            mt.counter("serve_flushes",
+                       kind="full" if full else "deadline").inc()
+            mt.counter("serve_rows").inc(rows)
+            mt.counter("serve_padded_rows").inc(pad)
         now = time.monotonic()
         off = 0
         for r in batch:

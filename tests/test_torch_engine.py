@@ -290,7 +290,8 @@ def test_scheme_and_factory_validation():
     with pytest.raises(ValueError):
         validate_scheme("nope")
     with pytest.raises(ValueError):
-        get_executor("thread")
+        get_executor("pigeon")
+    assert get_executor("thread", device="cpu").name == "thread"
     with pytest.raises(ValueError):
         comm.get_transport("pigeon")
     with pytest.raises(ValueError):

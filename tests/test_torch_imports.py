@@ -1,9 +1,13 @@
 """The port stands alone: no file of ``src/repro_torch``, nor
 ``chip_smoke.py`` or ``kernel_ab.py``, imports JAX, the ``repro`` package
 or ``ml_dtypes`` (the card's machine has none; the checkpointer stores
-narrow floats through ``torch.Tensor.view``)."""
+narrow floats through ``torch.Tensor.view``).  The observability modules
+are the port's own copies, and the thread runtime's modules start no
+thread when imported."""
 
 import ast
+import importlib
+import threading
 from pathlib import Path
 
 import pytest
@@ -42,3 +46,16 @@ def test_checker_catches_forbidden_imports(tmp_path):
                    "import ml_dtypes\n")
     assert [n for n in _imported_modules(src) if _forbidden(n)] == [
         "jax.numpy", "repro.core", "ml_dtypes"]
+
+
+@pytest.mark.parametrize("name", [
+    "repro_torch.obs", "repro_torch.obs.trace", "repro_torch.obs.metrics",
+    "repro_torch.obs.check", "repro_torch.core.async_runtime",
+    "repro_torch.engine.threads"])
+def test_new_module_is_the_ports_own_and_starts_nothing(name):
+    before = threading.active_count()
+    mod = importlib.import_module(name)
+    assert threading.active_count() == before
+    path = Path(mod.__file__).resolve()
+    assert path.is_relative_to(REPO / "src" / "repro_torch")
+    assert path in PORT_FILES

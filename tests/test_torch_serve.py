@@ -317,9 +317,12 @@ def test_service_hot_swap_under_concurrent_load():
         def client(i):
             try:
                 j = 0
-                # keep asking until the publisher is done, so the load
-                # overlaps the swaps however the threads are scheduled
-                while j < n_reqs or not published.is_set():
+                # keep asking until a request submitted after the last
+                # publish has come back, so the load overlaps the swaps and
+                # meets the last version however the threads are scheduled
+                after_last = False
+                while j < n_reqs or not after_last:
+                    after_last = published.is_set()
                     z = _queries(3, seed=1000 + i * 10_000 + j)
                     results[i].append((z, svc.quantize(z)))
                     j += 1
@@ -392,8 +395,9 @@ def test_serve_cli_vq_on_cpu(capsys):
     assert "0 failed" in out and "plan=direct" in out
     assert "warmups=1" in out
     assert vq_assign.launches_assign == before   # CPU: the plain version
-    assert serve_cli.main(["--train-publish", "--device", "cpu"]) == 2
-    assert "error: --train-publish" in capsys.readouterr().out
+    assert serve_cli.main(["--train-publish", "--publish-every", "0",
+                           "--device", "cpu"]) == 2
+    assert "error: --publish-every" in capsys.readouterr().out
     assert serve_cli.main(["--kappa", "500", "--device", "cpu"]) == 2
     run = serve_cli.run_vq(serve_cli.parse_args(
         ["--requests", "20", "--tick-ms", "0", "--device", "cpu"]),
