@@ -207,7 +207,31 @@ PyTorch built for CUDA:
      median pair ratio) <= 1.03; and eq. 9 for 20,000 ticks, two pairs of
      bare and observed runs in turns, bit for bit, their ratios a
      read-out;
-  20. times each kernel (the delta sweep also at each kchunk the tuner
+  20. runs the roofline profiler, the report, the comm dry run and the
+     examples (queue 1, items 6b and 7), hung where it can be on runs the
+     script already makes: P1, O1's two observed full-depth sync delta runs
+     carry ``--profile``: each one attribution with consistency <= 0.15
+     (the reference's bar), its four terms summing to the attributed window,
+     ``collective_bytes_per_window`` x 12,500 == the run's ``CommLog``
+     logical bytes, loops (12,500 windows, 10 steps), the
+     ``roofline_efficiency`` gauges and ``attributed_*_ns`` counters in the
+     registry, each term printed in us a window with the card's name and
+     power limit (O1's bits and launch counts hold as before); P2, O1's
+     observed eq.-9 run (20,000 ticks) carries a ``Profiler``: 2,000
+     nominal windows, the same checks; P3, E1 carries ``--profile``: one
+     attribution over its 3 M-segments, the same checks; P5, the d=3072
+     sync run (2,000 points a worker) carries ``--profile``, its terms and
+     consistency a read-out (one divergence launch a window); then, all at
+     once as subprocesses: P4, ``python -m repro_torch.launch.train
+     --executor mesh --scheme average --profile`` on 8 x 20,000 points
+     (exit 0, its export's loops and consistency), ``--executor sim
+     --profile`` (exit 2), and the export rendered by ``python -m
+     repro_torch.obs.report --profile`` (the attribution section in the
+     HTML); P6, ``python -m repro_torch.launch.dryrun --comm`` (exit 0, its
+     bytes == ``BENCH_comm.json`` and ``BENCH_hier.json``, the adapt cells
+     held to ``BENCH_adapt.json``'s prices); P7, each
+     ``examples/*_torch.py`` (exit 0), with its wall seconds;
+  21. times each kernel (the delta sweep also at each kchunk the tuner
      weighs; the assign kernel at the flush, the eval and (8, 1) x 4096 x
      3072; the blocked kernel at (8, 1) x 4096 x 3072 with and without the
      epilogue and at (8, 1) x 4096 x 128; the window kernel also at M = 1,
@@ -226,7 +250,7 @@ PyTorch built for CUDA:
      the 3072-wide eq.-9 path with torch.profiler (device time by kernel, the
      device's idle share), after timing 200 dense and ring sync windows in
      turns on the host clock;
-  21. prints one ``{"kernels": [...]}`` line (window, delta, assign,
+  22. prints one ``{"kernels": [...]}`` line (window, delta, assign,
       top-k, blocked and ring), the card line again, and last
       ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -239,6 +263,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -319,10 +344,13 @@ O1_BLOCK_PAIRS = 16
 # O1's capture of the divergence kernel's inputs on the observed path
 O1_CAPTURE_WINDOWS = 20
 
-# H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
-# f32 FLOP/s outside the tensor cores (both kernels run on the f32 pipes)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
+# the roofline profiler, the report, the dry run and the examples (queue 1,
+# items 6b and 7): P4's launcher run, points a worker (cut); the examples
+# run as subprocesses, beside P4's and P6's, all at once
+P4_POINTS = 20_000
+EXAMPLES = ("quickstart", "mesh_vq", "elastic_vq", "serve_vq",
+            "cloud_async_vq")
+SUBPROCESS_TIMEOUT_S = 300
 # read before each call kernel_ms times: 20 times the H100's 50 MB L2, and
 # ~0.3 ms of device time in which the host enqueues the call
 L2_FLUSH_BYTES = 1 << 30
@@ -427,8 +455,12 @@ def r4(xs) -> list:
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    """The least time in ms: bytes over the H100's HBM rate or f32 FLOPs
+    over its peak outside the tensor cores (``distributed.roofline``; every
+    kernel runs on the f32 pipes), whichever is larger."""
+    from repro_torch.distributed.roofline import HBM_BW, PEAK_FLOPS
+    t_bytes = bytes_moved / HBM_BW * 1e3
+    t_ops = flops / PEAK_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1466,10 +1498,13 @@ def elastic_legs(dev, w0, data, eval_data, runs) -> None:
         e1_args = argv(N_PER, "--resize", spec(ELASTIC_RESIZE), "--ckpt-dir",
                        ck1)
         n1, late1 = pool_windows(M * N_PER, M, ELASTIC_RESIZE)
-        # observed (--metrics turns the tracer and the registry on)
+        # observed (--metrics turns the tracer and the registry on) and
+        # profiled (P3)
         res1, ex1, _ = elastic("E1 --resize " + spec(ELASTIC_RESIZE),
                                e1_args + ["--metrics",
-                                          str(Path(tmp) / "e1.jsonl")],
+                                          str(Path(tmp) / "e1.jsonl"),
+                                          "--profile",
+                                          str(Path(tmp) / "e1.prof.json")],
                                n1, 1)
         w_first = ELASTIC_RESIZE[0][0]
         head_ok = same_bits(res1.distortion[:w_first],
@@ -1493,6 +1528,11 @@ def elastic_legs(dev, w0, data, eval_data, runs) -> None:
             fail(f"E1: events {events(ex1)} (expected {want_ev}), the head, "
                  f"the final distortion, the late-delta record or the "
                  f"checkpoints are wrong")
+        # P3: one attribution over the three M-segments
+        check_attribution("P3 E1", ex1, segments=len(ELASTIC_RESIZE) + 1,
+                          loops=[[("window", w), ("step", TAU)]
+                                 for w in segment_windows(M * N_PER, M,
+                                                          ELASTIC_RESIZE)])
 
         # -- E2: resume from E1's last checkpoint -----------------------------
         n2 = n1 - ELASTIC_RESIZE[-1][0]
@@ -1671,6 +1711,190 @@ def segment_windows(total: int, m: int, boundaries) -> list[int]:
     return out + [(total - cursor) // (m * TAU)]
 
 
+def check_attribution(label: str, ex, *, loops, segments: int = 1) -> dict:
+    """A profiled run's one attribution (P1-P3): consistency within the
+    reference's bar (0.15), the four terms summing to the attributed window,
+    ``collective_bytes_per_window`` x windows equal to the run's ``CommLog``
+    logical bytes without its host records (exactly for one segment; for
+    several, to the rounding of the window weights), the programs' loops
+    (``loops``: one list a program), the gauges and counters in the registry
+    where one is attached; prints each term in us a window beside the card."""
+    from repro_torch.obs.profile import TERMS
+    prof = ex.profiler
+    if len(prof.attributions) != 1:
+        fail(f"{label}: {len(prof.attributions)} attributions, expected one")
+    a = prof.attributions[0]
+    terms = {k: a[f"t_{k}_s"] for k in TERMS}
+    logical = sum(r.logical_bytes * r.calls for r in ex.transport.log.records
+                  if r.op != "host")
+    coll = a["collective_bytes_per_window"] * a["n_windows"]
+    bytes_ok = (coll == logical if segments == 1
+                else abs(coll - logical) <= 1e-12 * logical)
+    sum_ok = (abs(sum(terms.values()) - a["attributed_window_s"])
+              <= 1e-12 * a["attributed_window_s"])
+    got_loops = sorted(p.loops for p in prof.programs.values())
+    metrics_ok = True
+    if ex.metrics is not None:
+        names = {(r["name"], r["labels"].get("term"))
+                 for r in ex.metrics.snapshot()}
+        labels = {"scheme": a["scheme"], "transport": a["transport"]}
+        for k in TERMS:
+            want_ns = terms[k] * a["n_windows"] * 1e9
+            got_ns = ex.metrics.counter(f"attributed_{k}_ns", **labels).value
+            metrics_ok &= (("roofline_efficiency", k) in names
+                           and (f"attributed_{k}_ns", None) in names
+                           and abs(got_ns - want_ns) <= 1e-9 * want_ns
+                           and ex.metrics.gauge("roofline_efficiency",
+                                                term=k, **labels).value
+                           == a["efficiency"][k])
+    print(f"profile {label} ({card_line()}): window wall "
+          f"{a['window_wall_s'] * 1e6:.1f} us = "
+          + " + ".join(f"{k} {v * 1e6:.1f}" for k, v in terms.items())
+          + f" us; consistency {a['consistency']:.4f}; "
+          f"{a['collective_bytes_per_window']:,.1f} B a window x "
+          f"{a['n_windows']:,} windows == CommLog {logical:,} B {bytes_ok}; "
+          f"segments {a['segments']}; loops {got_loops}; workers a device "
+          f"{a['workers_per_device']}; gauges and counters "
+          f"{'in the registry' if ex.metrics is not None else 'no registry'}"
+          f" {metrics_ok}")
+    if (a["consistency"] > 0.15 or not sum_ok or not bytes_ok
+            or got_loops != sorted(loops) or a["segments"] != segments
+            or not metrics_ok):
+        fail(f"{label}: the attribution is off (consistency, the terms' sum, "
+             f"the bytes, the loops, the segments or the registry)")
+    return a
+
+
+def subprocess_legs(tmp: Path) -> None:
+    """P4, P6 and P7 (the module docstring's item 20): the launcher's
+    ``--profile`` and its refusal off the mesh, the dry run, and the five
+    examples, each a subprocess, all started at once (the card runs them
+    side by side; their walls are read-outs); then the report render of
+    P4's export."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    py = sys.executable
+    prof_out = tmp / "p4.prof.json"
+    dry_out = tmp / "p6.dryrun.json"
+    cmds = {
+        "P4 train --profile": [
+            py, "-m", "repro_torch.launch.train", "--mode", "vq",
+            "--executor", "mesh", "--scheme", "average", "--workers", str(M),
+            "--points", str(P4_POINTS), "--dim", str(D), "--kappa",
+            str(KAPPA), "--tau", str(TAU), "--seed", str(SEED),
+            "--profile", str(prof_out)],
+        "P4 --executor sim --profile": [
+            py, "-m", "repro_torch.launch.train", "--executor", "sim",
+            "--profile", str(tmp / "sim.prof.json")],
+        "P6 dryrun --comm": [py, "-m", "repro_torch.launch.dryrun",
+                             "--comm", "--out", str(dry_out)],
+        **{f"P7 {stem}_torch.py": [py, str(ROOT / "examples"
+                                          / f"{stem}_torch.py")]
+           for stem in EXAMPLES},
+    }
+    want_rc = {name: 2 if "sim" in name else 0 for name in cmds}
+    logs = {name: tmp / f"leg{i}.log" for i, name in enumerate(cmds)}
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for name, cmd in cmds.items():
+            with open(logs[name], "w") as log:
+                procs[name] = subprocess.Popen(
+                    cmd, cwd=tmp, env=env, stdout=log,
+                    stderr=subprocess.STDOUT)
+        # each one's wall: from the common start to its exit
+        walls = {}
+        while len(walls) < len(procs):
+            if time.perf_counter() - t0 > SUBPROCESS_TIMEOUT_S:
+                fail(f"subprocess legs still running after "
+                     f"{SUBPROCESS_TIMEOUT_S} s: "
+                     f"{sorted(set(procs) - set(walls))}")
+            for name, proc in procs.items():
+                if name not in walls and proc.poll() is not None:
+                    walls[name] = time.perf_counter() - t0
+            time.sleep(0.05)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    outs = {name: path.read_text() for name, path in logs.items()}
+    for name, proc in procs.items():
+        lines = outs[name].strip().splitlines()
+        print(f"leg {name}: exit {proc.returncode} (expected "
+              f"{want_rc[name]}) after {walls[name]:.2f} s (side by side); "
+              f"last line: {lines[-1] if lines else ''}")
+        if proc.returncode != want_rc[name]:
+            print(outs[name])
+            fail(f"{name}: exit {proc.returncode}, expected {want_rc[name]}")
+    for line in outs["P4 train --profile"].splitlines():
+        if line.startswith(("profile", "scheme", "average", "done")):
+            print(f"  P4: {line}")
+    doc = json.loads(prof_out.read_text())
+    (a,) = doc["attributions"]
+    p4_loops = [[list(x) for x in p["loops"]] for p in doc["programs"].values()]
+    print(f"check P4 export: {len(doc['attributions'])} attribution, "
+          f"consistency {a['consistency']:.4f}, {a['n_windows']:,} windows, "
+          f"loops {p4_loops}")
+    if (a["consistency"] > 0.15 or a["n_windows"] != P4_POINTS // TAU
+            or p4_loops != [[["window", P4_POINTS // TAU], ["step", TAU]]]):
+        fail("P4: the launcher's profile export is off")
+    html = tmp / "perf_report.html"
+    rep = subprocess.run(
+        [py, "-m", "repro_torch.obs.report", "--dir", str(ROOT), "--out",
+         str(html), "--profile", str(prof_out)], cwd=tmp, env=env,
+        capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT_S)
+    text = html.read_text() if html.exists() else ""
+    print(f"check P4 report: exit {rep.returncode}, {len(text):,} B of HTML, "
+          f"attribution section {'Roofline attribution' in text}, the "
+          f"export named {prof_out.name in text}; {rep.stdout.strip()}")
+    if (rep.returncode != 0 or "Roofline attribution" not in text
+            or prof_out.name not in text):
+        fail(f"P4: the report did not render the export: {rep.stderr}")
+
+    # P6: the dry run's bytes against the committed baselines
+    recs = json.loads(dry_out.read_text())
+
+    def bench(name):
+        return [r for r in json.loads((ROOT / name).read_text())["results"]
+                if r.get("kind") == "cell"]
+
+    bad = []
+    for c in bench("BENCH_comm.json"):
+        got = next(r for r in recs if r["arch"] == "comm"
+                   and r["shape"] == c["scheme"]
+                   and r["transport"] == c["transport"])
+        bad += [("comm", c["scheme"], c["transport"], k) for k in (
+            "merge_wire_bytes", "merge_logical_bytes") if got[k] != c[k]]
+    for c in bench("BENCH_hier.json"):
+        if c["variant"] == "flat":
+            continue
+        got = next(r for r in recs if r["arch"] == "comm_hier"
+                   and r["shape"] == c["scheme"]
+                   and r["transport"] == c["variant"])
+        bad += [("hier", c["scheme"], c["variant"], k) for k in (
+            "merge_wire_bytes", "tier0_wire_bytes", "tier1_wire_bytes")
+            if got[k] != c[k]]
+    # BENCH_adapt.json's dynamic cell does not reproduce under the JAX the
+    # repo runs (ROADMAP, reference caveats): its per-merge prices hold
+    for c in bench("BENCH_adapt.json"):
+        got = next(r for r in recs if r["arch"] == "comm_adapt"
+                   and r["merge"] == c["merge"] and r["quant"] == c["quant"])
+        if c["merge"] == "fixed":
+            bad += [("adapt", "fixed", c["quant"], k) for k in (
+                "merge_wire_bytes", "probe_wire_bytes", "total_wire_bytes")
+                if got[k] != c[k]]
+        elif (got["merge_wire_bytes"] != got["n_triggered"]
+              * (c["merge_wire_bytes"] // c["n_triggered"])
+              or got["probe_wire_bytes"] != c["probe_wire_bytes"]
+              or not 0 < got["n_triggered"] < got["n_windows"]):
+            bad.append(("adapt", "dynamic", c["quant"], got["n_triggered"]))
+    print(f"check P6 dry run on the card: {len(recs)} records; bytes == "
+          f"BENCH_comm.json / BENCH_hier.json, adapt held to "
+          f"BENCH_adapt.json's prices: {bad or 'all'}")
+    if bad:
+        fail(f"P6: the dry run's bytes differ from the baselines: {bad}")
+
+
 def threads_serving_obs_legs(dev, w0, data, eval_data, runs, geo_run,
                              lengths) -> None:
     """The thread runtime, training while serving, and the trace/metrics
@@ -1688,8 +1912,8 @@ def threads_serving_obs_legs(dev, w0, data, eval_data, runs, geo_run,
                                             InstantNetwork)
     from repro_torch.kernels import _build, vq_assign, vq_fused
     from repro_torch.launch import serve, train
-    from repro_torch.obs import MetricsRegistry, Tracer, check_trace, \
-        load_trace
+    from repro_torch.obs import MetricsRegistry, Profiler, Tracer, \
+        check_trace, load_trace
 
     thread_argv = ["--executor", "thread", "--scheme", "async_delta",
                    "--workers", str(M), "--points", str(N_PER), "--dim",
@@ -1892,8 +2116,10 @@ def threads_serving_obs_legs(dev, w0, data, eval_data, runs, geo_run,
     walls = {False: [], True: []}
     with tempfile.TemporaryDirectory(prefix="o1_obs_") as tmp:
         for i, observed in enumerate(O1_ORDER):
+            # P1: the observed runs carry the profiler too
             argv = full + (["--trace", str(Path(tmp) / f"o1_{i}.json"),
-                            "--metrics", str(Path(tmp) / f"o1_{i}.jsonl")]
+                            "--metrics", str(Path(tmp) / f"o1_{i}.jsonl"),
+                            "--profile", str(Path(tmp) / f"o1_{i}.prof.json")]
                            if observed else [])
             # no earlier run's objects for the collector to walk in this one
             gc.collect()
@@ -1912,6 +2138,8 @@ def threads_serving_obs_legs(dev, w0, data, eval_data, runs, geo_run,
             if not observed:
                 del res, ex
                 continue
+            check_attribution(f"P1 O1 observed run {i}", ex,
+                              loops=[[("window", N_PER // TAU), ("step", TAU)]])
             mt = ex.metrics
             by_tag = ex.last_comm["by_tag"]
             mirror = {tag: {f: int(mt.counter(
@@ -2027,8 +2255,11 @@ def threads_serving_obs_legs(dev, w0, data, eval_data, runs, geo_run,
     l9 = lengths[:, : n9 // TAU + 2]
     out9, walls9 = {}, {False: [], True: []}
     for observed in O1_ORDER:
-        kw = ({"tracer": Tracer(), "metrics": MetricsRegistry()}
-              if observed else {})
+        kw = {}
+        if observed:
+            # P2: the observed run carries the profiler too
+            kw = {"tracer": Tracer(), "metrics": MetricsRegistry()}
+            kw["profiler"] = Profiler(metrics=kw["metrics"])
         ex9 = MeshExecutor(GeometricDelayNetwork(P_DELAY), device=dev, **kw)
         gc.collect()
         zero_counts()
@@ -2058,6 +2289,9 @@ def threads_serving_obs_legs(dev, w0, data, eval_data, runs, geo_run,
     if not same9 or errs9:
         fail("O1 eq. 9: the observed run differs from the bare one, or its "
              "trace is not clean")
+    a9 = check_attribution("P2 O1 eq. 9", ex_o, loops=[[("tick", n9)]])
+    if a9["n_windows"] != n9 // TAU:
+        fail(f"P2: {a9['n_windows']} nominal windows, expected {n9 // TAU}")
 
 
 def main() -> None:
@@ -2656,8 +2890,27 @@ def main() -> None:
     wide_sync = wide + ["--scheme", "delta", "--network", "instant"]
     n_wwin = WIDE_POINTS // TAU
     zero_counts()
-    res_ws, _, wall_ws = train.run_vq(train.parse_args(wide_sync))
+    # P5: profiled, a read-out (a profiler turns observation on: one
+    # divergence launch a window)
+    with tempfile.TemporaryDirectory(prefix="p5_") as tmp5:
+        res_ws, ex_ws, wall_ws = train.run_vq(train.parse_args(
+            wide_sync + ["--profile", str(Path(tmp5) / "p5.prof.json")]))
     counts_ws = launch_counts()
+    div_ws = vq_fused.launches_divergence
+    (a5,) = ex_ws.profiler.attributions
+    modeled5 = sum(a5[f"t_{k}_s"] for k in ("compute", "memory",
+                                             "collective"))
+    print(f"profile P5 --dim {WIDE_D}, {WIDE_POINTS} points a worker "
+          f"({card}): window wall {a5['window_wall_s'] * 1e6:.1f} us, "
+          f"compute {a5['t_compute_s'] * 1e6:.1f} + memory "
+          f"{a5['t_memory_s'] * 1e6:.1f} + collective "
+          f"{a5['t_collective_s'] * 1e6:.1f} = modeled {modeled5 * 1e6:.1f} "
+          f"us ({modeled5 / a5['window_wall_s']:.3f} of the wall), host "
+          f"{a5['t_host_s'] * 1e6:.1f} us, consistency "
+          f"{a5['consistency']:.4f} (a read-out: the hand count charges two "
+          f"codebook reads a step); divergence launches {div_ws}")
+    if div_ws != n_wwin:
+        fail(f"P5: {div_ws} divergence launches, expected {n_wwin}")
     zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2894,8 +3147,10 @@ def main() -> None:
                     normal_payload)
     elastic_legs(dev, w0, data, eval_data, runs)
     threads_serving_obs_legs(dev, w0, data, eval_data, runs, geo_run, lengths)
+    with tempfile.TemporaryDirectory(prefix="subprocess_legs_") as tmp:
+        subprocess_legs(Path(tmp))
 
-    # -- 20. timing at the main path's shapes ---------------------------------
+    # -- 21. timing at the main path's shapes ---------------------------------
     # every kernel, plain and library time by kernel_ms (L2 cold, host time
     # hidden); "warm" is time_ms over back-to-back wrapper calls (L2 warm,
     # the wrapper's host time included), a read-out beside it

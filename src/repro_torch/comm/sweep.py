@@ -12,7 +12,7 @@ timed run ends in a device sync.  Writing ``BENCH_*.json`` files and the
 regression gates over them are not ported.
 
   * ``run_comm_cells``: every scheme over the dense, ring and sparse
-    transports;
+    transports; ``sparse_reduction`` and ``ring_parity`` read its cells;
   * ``run_hier_cells``: every scheme through the flat executor and a
     hierarchical one with a dense and a sparse tier 1, per-tier bytes, and
     whether the dense-tier-1 run equals the flat one bit for bit;
@@ -25,8 +25,9 @@ from __future__ import annotations
 
 import time
 
-import numpy as np
 import torch
+
+from repro_torch.data import synthetic
 
 SCHEMES = ("average", "delta", "async_delta")
 TRANSPORTS = ("xla", "ring", "sparse")
@@ -48,16 +49,10 @@ def acceptance_sparse_frac(kappa: int, d: int) -> float:
 def make_inputs(m: int, n: int, d: int, kappa: int, seed: int = 0, *,
                 device="cpu"):
     """(w0 (kappa, d), data (M, n, d), eval_data (M, min(200, n), d)) f32,
-    made with numpy from ``seed``."""
-    rng = np.random.default_rng(seed)
-    centers = rng.random((10, d)).astype(np.float32)
-    data = (centers[rng.integers(0, 10, size=(m, n))]
-            + 0.05 * rng.standard_normal((m, n, d))).astype(np.float32)
-    w0 = data.reshape(-1, d)[rng.choice(m * n, kappa, replace=False)]
-    out = (torch.from_numpy(np.ascontiguousarray(w0)),
-           torch.from_numpy(data),
-           torch.from_numpy(np.ascontiguousarray(data[:, :min(N_EVAL, n)])))
-    return tuple(t.to(device) for t in out)
+    made with numpy from ``seed`` (``synthetic.numpy_mixture``)."""
+    w0, data = synthetic.numpy_mixture(seed, m, n, d, kappa)
+    eval_data = data[:, :min(N_EVAL, n)].contiguous()
+    return tuple(t.to(device) for t in (w0, data, eval_data))
 
 
 def _timed(ex, scheme, w0, data, eval_data, *, tau, repeats):
@@ -119,6 +114,23 @@ def run_comm_cells(*, m: int = 8, n: int = 240, d: int = 8, kappa: int = 16,
                 "final_C": float(res.distortion[-1]),
             })
     return cells
+
+
+def sparse_reduction(cells: list[dict]) -> float:
+    """Min over displacement schemes of dense (xla) wire over sparse wire
+    ('average' ships means, which ride dense on every transport)."""
+    wire = {(c["scheme"], c["transport"]): c["merge_wire_bytes"]
+            for c in cells}
+    return min(wire[(s, "xla")] / max(wire[(s, "sparse")], 1)
+               for s in SCHEMES if s != "average")
+
+
+def ring_parity(cells: list[dict]) -> dict[str, float]:
+    """Per-scheme ring/xla wall ratios (a gate takes the min over schemes:
+    noise hits single legs, a real ring slowdown hits all)."""
+    wall = {(c["scheme"], c["transport"]): c["wall_s"] for c in cells}
+    return {s: wall[(s, "ring")] / max(wall[(s, "xla")], 1e-12)
+            for s in SCHEMES}
 
 
 def run_hier_cells(*, m: int = 8, hosts: int = 2, n: int = 240, d: int = 8,

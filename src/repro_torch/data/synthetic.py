@@ -5,11 +5,14 @@ uniform random centers in ``[0, 1]^d``, the paper's experiments), drawn from
 an explicit ``torch.Generator`` on the generator's device, so a full-size
 stream is made where it is used.  The numbers differ from the reference's
 JAX draws for the same seed; tests that compare the two packages make their
-inputs with numpy instead.
+inputs with numpy instead.  ``numpy_mixture`` draws the same family with
+numpy from an integer seed, on the host: the comm sweeps, the dry run and the
+examples take their inputs from it.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -49,3 +52,16 @@ def kmeanspp_init(gen: torch.Generator, data: torch.Tensor,
         raise ValueError(f"kappa={kappa} > {data.shape[0]} points")
     idx = torch.randperm(data.shape[0], generator=gen, device=gen.device)
     return data[idx[:kappa].to(data.device)].clone()
+
+
+def numpy_mixture(seed: int, m: int, n: int, d: int, kappa: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(w0 (kappa, d), data (m, n, d))`` f32 CPU tensors drawn with numpy
+    from ``seed``: m streams of n points from a mixture of 10 uniform
+    centers with N(0, 0.05^2) noise, and w0 kappa distinct points of them."""
+    rng = np.random.default_rng(seed)
+    centers = rng.random((10, d)).astype(np.float32)
+    data = (centers[rng.integers(0, 10, size=(m, n))]
+            + 0.05 * rng.standard_normal((m, n, d))).astype(np.float32)
+    w0 = data.reshape(-1, d)[rng.choice(m * n, kappa, replace=False)]
+    return torch.from_numpy(np.ascontiguousarray(w0)), torch.from_numpy(data)

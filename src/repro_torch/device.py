@@ -3,7 +3,7 @@
 Entry points take ``device=None`` (meaning ``cuda``) or an explicit
 ``"cpu"``.  Asking for CUDA on a machine without a card raises; nothing
 quietly carries on on the CPU.  The launchers also pin f32 products to full
-f32 (``pin_full_f32``).
+f32 (``pin_full_f32``).  ``synchronize`` ends a timed region on the card.
 """
 
 from __future__ import annotations
@@ -31,3 +31,10 @@ def pin_full_f32() -> None:
     reference."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait until ``dev`` has run everything queued on it: a host clock read
+    after this call sees the device's work done.  A no-op on the CPU."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

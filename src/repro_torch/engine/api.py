@@ -70,7 +70,8 @@ def get_executor(name: str, **kwargs) -> Executor:
     """Factory: 'sim' | 'mesh' | 'thread' | 'elastic' (+ backend kwargs;
     ``transport=`` a name or a ``comm.Transport`` reaches the mesh and
     elastic executors' merges, the sim oracles and the threads have no
-    collective to route).
+    collective to route; ``profiler=`` an ``obs.Profiler`` reaches the mesh
+    and elastic executors only, as in the reference).
 
     'elastic' needs ``schedule=``: a ``ResizeSchedule``, a list of
     ``(window, new_m)`` pairs, or a ``"WINDOW:M,..."`` string."""

@@ -61,6 +61,12 @@ one timeline (the reference's ``elastic.py`` hooks): wall spans ``run``,
 ``periodic_checkpoints``, and the ``resize_wall_s`` and ``run_wall_s``
 histograms.  The registry is attached to the transport's log once: the
 per-M executors share that log.
+
+``profiler=`` (``obs.Profiler``) is shared by the per-M executors too: each
+segment notes its own shapes, and the run's wall, started and ended with
+the device drained, is attributed across them, so an elastic run gives one
+attribution whose ``segments`` counts its M-segments.  The late deltas are
+no program's collective and stay out of it.
 """
 
 from __future__ import annotations
@@ -203,6 +209,7 @@ class ElasticMeshExecutor:
     merge:             None or 'quorum', for every segment.
     max_workers:       the largest worker count (None: any).
     tracer, metrics:   ``repro_torch.obs`` sinks shared by every segment.
+    profiler:          an ``obs.Profiler`` shared by every segment.
     use_kernels, fused, smem_budget_bytes, device: as ``MeshExecutor``.
     """
 
@@ -222,6 +229,7 @@ class ElasticMeshExecutor:
                  smem_budget_bytes: int | None = None,
                  tracer: Tracer | None = None,
                  metrics: MetricsRegistry | None = None,
+                 profiler=None,
                  device: str | torch.device | None = None):
         if not isinstance(schedule, ResizeSchedule):
             schedule = ResizeSchedule(schedule)
@@ -283,6 +291,7 @@ class ElasticMeshExecutor:
         self.metrics = metrics
         if metrics is not None:
             self.transport.log.attach_metrics(metrics)
+        self.profiler = profiler
         # one MeshExecutor a worker count
         self._mesh_ex: dict[int, MeshExecutor] = {}
         # of the last run
@@ -319,7 +328,8 @@ class ElasticMeshExecutor:
                 smem_budget_bytes=self.smem_budget_bytes, merge=self.merge,
                 quorum_frac=self.quorum_frac,
                 staleness_gamma=self.staleness_gamma, topology=topo,
-                tracer=self.tracer, metrics=self.metrics, device=self.device)
+                tracer=self.tracer, metrics=self.metrics,
+                profiler=self.profiler, device=self.device)
         return self._mesh_ex[m]
 
     def _clamp_m(self, requested: int
@@ -360,10 +370,6 @@ class ElasticMeshExecutor:
                 "m": np.asarray(m, np.int64),
                 "tick_offset": np.asarray(tick_offset, np.int64)}
 
-    def _sync_device(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def _segment_hook(self, window_idx: int, t0: int, cursor: int, m: int,
                       tau: int, wt: int, tick_offset: int):
         """One segment's ``on_window``: forwards the caller's hook with the
@@ -397,15 +403,20 @@ class ElasticMeshExecutor:
             decay: float = 1.0, generator: torch.Generator | None = None,
             lengths: torch.Tensor | None = None) -> SchemeResult:
         del generator, lengths  # the sync schemes draw nothing
+        device_lib.synchronize(self.device)
         t_wall = time.perf_counter()
         with self.tracer.span("run", scheme=scheme, executor=self.name,
                               m=data.shape[0] if data.dim() == 3 else None):
             res = self._run(scheme, w0, data, eval_data, tau=tau, eps0=eps0,
                             decay=decay)
+        device_lib.synchronize(self.device)
+        wall_s = time.perf_counter() - t_wall
         if self.metrics is not None:
             self.metrics.histogram("run_wall_s", executor=self.name,
-                                   scheme=scheme).observe(
-                time.perf_counter() - t_wall)
+                                   scheme=scheme).observe(wall_s)
+        if self.profiler is not None:
+            # the segments were noted by the per-M executors
+            self.profiler.finish_run(wall_s)
         return res
 
     def _run(self, scheme: str, w0: torch.Tensor, data: torch.Tensor,
@@ -534,7 +545,7 @@ class ElasticMeshExecutor:
                    pool: torch.Tensor, cursor: int, t0: int, window_idx: int,
                    tick_offset: int, *, tau: int, eps0: float, decay: float,
                    cause: str):
-        self._sync_device()
+        device_lib.synchronize(self.device)
         t_start = time.perf_counter()
         new_m, plan = self._clamp_m(ev.new_m)
         tr, mt = self.tracer, self.metrics
@@ -593,7 +604,7 @@ class ElasticMeshExecutor:
                         tick_offset + self.resize_cost_ticks))
                     ckpt_s = time.perf_counter() - t_ck
                 ckpt_step = window_idx
-            self._sync_device()
+            device_lib.synchronize(self.device)
         wall_s = time.perf_counter() - t_start
         if mt is not None:
             mt.counter("resize_events").inc()

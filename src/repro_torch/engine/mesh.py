@@ -95,6 +95,19 @@ series are recorded with ``Tracer.add_spans`` / ``add_counters``, built
 when the trace is read, and the histograms and gauges take a run's values
 at once (``observe_many``, ``set_many``).  The reference's
 ``compile`` span has no counterpart: eager PyTorch compiles no program.
+
+``profiler=`` (``obs.Profiler``) attributes each run's wall to compute,
+memory, collective and host terms per window, as the reference's does.  A
+profiler turns observation on, as in the reference, whose profiled program
+is the observed one: a profiled sync window launches the divergence kernel
+too.  A program key (the scheme, the inner loop's route, the transport,
+the topology and the shapes) is recorded with its ``CommRecord``s and
+loops on the executor's first run of it; each ``_run_sync`` or eq.-9 run
+notes one segment, with the M stacked workers sharing the device; eq. 9 is
+attributed against the nominal ``n // tau`` windows, its eval folded in as
+an effective per-window ``n_eval``.  ``run``'s wall, which ``run_wall_s``
+and the profiler read, starts and ends with the device drained
+(``device.synchronize``).
 """
 
 from __future__ import annotations
@@ -144,6 +157,7 @@ class MeshExecutor:
                  on_window=None,
                  tracer: Tracer | None = None,
                  metrics: MetricsRegistry | None = None,
+                 profiler=None,
                  device: str | torch.device | None = None):
         if merge not in (None, "quorum", "dynamic"):
             raise ValueError(
@@ -215,10 +229,44 @@ class MeshExecutor:
         # a sync run's chunks as (emit function, its arguments), emitted
         # once the run's loop is done
         self._pending_obs: list = []
+        # roofline attribution (see the module docstring), and the program
+        # keys this executor has run, whose records the profiler holds
+        self.profiler = profiler
+        self._programs: set = set()
 
     @property
     def _observe(self) -> bool:
-        return self.tracer.enabled or self.metrics is not None
+        return (self.tracer.enabled or self.metrics is not None
+                or self.profiler is not None)
+
+    @property
+    def _topology_label(self) -> str:
+        """'flat', or the host groups' 'HxW'."""
+        return "flat" if self.topology is None else self.topology.describe()
+
+    def _route(self, kappa: int, d: int, *, window: bool) -> str:
+        """The inner loop's route, a program key's part: "plain" with the
+        kernels off, "window" where ``_local_window`` takes the window
+        kernel, else the per-step ``ops.delta_route``."""
+        if not self.use_kernels:
+            return "plain"
+        if window and self.fused and ops.window_fits(
+                kappa, d, budget_bytes=self.smem_budget_bytes):
+            return "window"
+        return ops.delta_route(d, budget_bytes=self.smem_budget_bytes,
+                               fused=self.fused)
+
+    def _profile(self, key: tuple, records, loops, **shapes) -> None:
+        """Record ``key``'s program on its first run here, and note the
+        segment (the M workers share the device)."""
+        fresh = key not in self._programs
+        if fresh:
+            self._programs.add(key)
+            self.profiler.record_program(key, records, loops)
+        self.profiler.note_segment(
+            program=key, transport=self.transport.name,
+            topology=self._topology_label, compiled=fresh,
+            workers_per_device=shapes["m"], **shapes)
 
     def _local_window(self, w0: torch.Tensor, zwin: torch.Tensor,
                       eps: torch.Tensor) -> torch.Tensor:
@@ -284,6 +332,19 @@ class MeshExecutor:
             dcur = dcur.masked_fill(mask, 0.0)
             if (t + 1) % self.eval_every == 0:
                 curve.append(self._eval(eval_data, w_srd))
+        if self.profiler is not None:
+            # no window barrier: the nominal n // tau windows, the eval
+            # folded in as an effective per-window n_eval
+            nominal = max(n // tau, 1)
+            self._profile(
+                ("async", self._route(kappa, d, window=False),
+                 self.transport.name, self._topology_label, tuple(w0.shape),
+                 tuple(data.shape), tuple(eval_data.shape), tau,
+                 self.eval_every),
+                self.transport.log.since(mark), [("tick", n)],
+                scheme="async_delta", m=m, n_windows=nominal, d=d,
+                kappa=kappa, tau=tau,
+                n_eval=int(eval_data.shape[1] * len(curve) / nominal))
         ticks = async_vq.eval_ticks(n, self.eval_every) + 1
         res = SchemeResult(
             w_shared=w_srd, wall_ticks=ticks.to(torch.int32),
@@ -342,8 +403,11 @@ class MeshExecutor:
             decay: float = 1.0, generator: torch.Generator | None = None,
             lengths: torch.Tensor | None = None) -> SchemeResult:
         w0, data, eval_data = self._inputs(scheme, w0, data, eval_data, tau)
-        t_wall = time.perf_counter()
         m, n, _ = data.shape
+        # the wall starts and ends with the device drained: on the card the
+        # host queues launches ahead of them
+        device_lib.synchronize(self.device)
+        t_wall = time.perf_counter()
         with self.tracer.span("run", scheme=scheme, executor=self.name, m=m,
                               transport=self.transport.name):
             if scheme != "async_delta":
@@ -364,10 +428,13 @@ class MeshExecutor:
                     self.transport.log.mirror_metrics()
                 if self.on_window is not None:
                     self.on_window(n // tau, res.w_shared)
+        device_lib.synchronize(self.device)
+        wall_s = time.perf_counter() - t_wall
         if self.metrics is not None:
             self.metrics.histogram("run_wall_s", executor=self.name,
-                                   scheme=scheme).observe(
-                time.perf_counter() - t_wall)
+                                   scheme=scheme).observe(wall_s)
+        if self.profiler is not None:
+            self.profiler.finish_run(wall_s)
         return res
 
     def run_segment(self, scheme: str, w0: torch.Tensor, data: torch.Tensor,
@@ -480,6 +547,22 @@ class MeshExecutor:
             else:
                 c = self._eval(eval_data, w_srd)
             curve.append(c)
+        # every merge override rides the delta scheme
+        scheme = ("average" if isinstance(strategy, merge_lib.AverageMerge)
+                  else "delta")
+        if self.profiler is not None:
+            # the records before the dynamic merge's re-pricing: its merge
+            # ran every window, as the reference's program's does
+            kappa, d = w0.shape
+            self._profile(
+                ("sync", scheme, self._route(kappa, d, window=True),
+                 self.transport.name, self._topology_label, tuple(w0.shape),
+                 tuple(data.shape), tuple(eval_data.shape), tau, self.merge,
+                 self.quorum_frac, self.divergence_thresh,
+                 self.staleness_gamma, self.max_stale),
+                log.since(mark), [("window", n_windows), ("step", tau)],
+                scheme=scheme, m=m, n_windows=n_windows, d=d, kappa=kappa,
+                tau=tau, n_eval=eval_data.shape[1])
         tags = ("merge",)
         bits = None
         if dynamic:
@@ -507,9 +590,6 @@ class MeshExecutor:
         ticks = torch.arange(1, n_windows + 1, dtype=torch.int32) * wt
         curve = torch.stack(curve)
         if observe:
-            # every merge override rides the delta scheme
-            scheme = ("average" if isinstance(strategy, merge_lib.AverageMerge)
-                      else "delta")
             self._pending_obs.append((self._emit_sync_obs, dict(
                 scheme=scheme, m=m, n_windows=n_windows, tau=tau, wt=wt,
                 tier_wire=tier_wire, w_start=t0 // tau, curve=curve,

@@ -1,0 +1,218 @@
+"""The comm dry run, counterpart of ``repro/launch/dryrun.py --comm``.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --comm \\
+        [--sparse-frac F] [--device cpu] [--out dryrun_comm.json]
+
+Runs the scheme x transport sweeps of ``comm.sweep`` once each
+(``repeats=0``) and reports the wire bytes the executor's ``CommRecord``
+stream measured (shape arithmetic, not a model) in three tables:
+
+  * COMM: every scheme over the dense, ring and sparse transports; the
+    sparse wire must be at least 4x under dense for the displacement
+    schemes;
+  * HIER: every scheme over two host groups of four workers, a dense and a
+    sparse tier 1; the sparse tier 1 must cut the inter-host wire at least
+    4x;
+  * ADPT: the fixed and the dynamic delta merge over the dense, bf16 and
+    int8 wires; the dynamic merge's total wire (merge + probe) must stay at
+    or under the fixed one's at every width.
+
+It exits 0 when all three bars hold, 1 otherwise.  The COMM and HIER cells
+run at n=200 points a worker, the cells ``BENCH_comm.json`` and
+``BENCH_hier.json`` hold (the reference's dry run takes the sweeps' default
+n=240), so their bytes equal those files'; the ADPT cells at n=240, as
+``BENCH_adapt.json``'s.  The records go to ``--out`` (default
+``dryrun_comm.json`` in the current directory), merged by key into what
+the file already holds.  Cells run on ``--device`` (the card by default).
+
+The reference's other modes lower and compile the LM and ``paper_vq``
+cells: ``--arch``, ``--shape``, ``--all``, ``--multi-pod`` and
+``--both-meshes`` exit 2 with the ROADMAP item that brings them (queue 1,
+item 8 for the LM cells, item 9b for ``paper_vq``'s ``vq_batch`` and
+``vq_stream`` through ``core/dvq.py``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+from repro_torch import device as device_lib
+from repro_torch.comm import sweep
+
+#: points a worker of the COMM and HIER cells: ``BENCH_comm.json``'s and
+#: ``BENCH_hier.json``'s
+N_COMM = 200
+
+
+def run_comm_suite(*, sparse_frac: float | None = None, device=None,
+                   verbose: bool = True) -> list[dict]:
+    """The COMM, HIER and ADPT records, as the reference's
+    ``run_comm_suite`` builds them."""
+    cells = sweep.run_comm_cells(n=N_COMM, sparse_frac=sparse_frac,
+                                 repeats=0, device=device)
+    dense_wire = {c["scheme"]: c["merge_wire_bytes"] for c in cells
+                  if c["transport"] == "xla"}
+    records: list[dict] = []
+    for c in cells:
+        rec = {"arch": "comm", "shape": c["scheme"],
+               "mesh": f"{c['m']}x1", "merge": c["scheme"],
+               "transport": c["transport"], "status": "ok", **{
+                   k: c[k] for k in (
+                       "m", "n", "d", "kappa", "tau", "compile_s",
+                       "merge_wire_bytes", "merge_logical_bytes",
+                       "collective_calls", "final_C")}}
+        if c["transport"] == "sparse":
+            rec["sparse_frac"] = c["sparse_frac"]
+            rec["wire_reduction_vs_dense"] = (
+                dense_wire.get(c["scheme"], 0) / c["merge_wire_bytes"]
+                if c["merge_wire_bytes"] else float("inf"))
+        records.append(rec)
+        if verbose:
+            extra = (f" reduction={rec['wire_reduction_vs_dense']:.2f}x"
+                     if c["transport"] == "sparse" else "")
+            print(f"COMM {c['scheme']:<12s} x {c['transport']:<6s} "
+                  f"wire={c['merge_wire_bytes']:>10,}B "
+                  f"logical={c['merge_logical_bytes']:>10,}B{extra}")
+
+    hier = sweep.run_hier_cells(n=N_COMM, tier1_frac=sparse_frac, repeats=0,
+                                device=device)
+    dense_inter = {c["scheme"]: c["tier1_wire_bytes"] for c in hier
+                   if c["variant"] == "hier_dense"}
+    for c in hier:
+        if c["variant"] == "flat":
+            continue
+        rec = {"arch": "comm_hier", "shape": c["scheme"],
+               "mesh": f"{c['hosts']}x{c['workers_per_host']}",
+               "merge": c["scheme"], "transport": c["variant"],
+               "status": "ok", **{k: c[k] for k in (
+                   "m", "n", "d", "kappa", "tau", "compile_s", "hosts",
+                   "workers_per_host", "merge_wire_bytes",
+                   "tier0_wire_bytes", "tier1_wire_bytes", "final_C",
+                   "bitmatch_flat")}}
+        if c["variant"] == "hier_sparse":
+            rec["tier1_frac"] = c["tier1_frac"]
+            rec["inter_reduction_vs_dense"] = (
+                dense_inter.get(c["scheme"], 0) / c["tier1_wire_bytes"]
+                if c["tier1_wire_bytes"] else float("inf"))
+        records.append(rec)
+        if verbose:
+            extra = (f" inter_reduction="
+                     f"{rec['inter_reduction_vs_dense']:.2f}x"
+                     if c["variant"] == "hier_sparse" else
+                     f" bitmatch_flat={c['bitmatch_flat']}")
+            print(f"HIER {c['scheme']:<12s} x {c['variant']:<12s} "
+                  f"[{rec['mesh']}] intra={c['tier0_wire_bytes']:>9,}B "
+                  f"inter={c['tier1_wire_bytes']:>9,}B{extra}")
+
+    # the dynamic merge must hold its total (merge + probe) wire at or under
+    # the fixed merge's at every quant level, or the probe does not pay
+    adapt = sweep.run_adapt_cells(repeats=0, device=device)
+    fixed_wire = {c["quant"]: c["total_wire_bytes"] for c in adapt
+                  if c["merge"] == "fixed"}
+    for c in adapt:
+        rec = {"arch": "comm_adapt", "shape": "delta",
+               "mesh": f"{c['m']}x1", "merge": c["merge"],
+               "transport": c["quant"], "status": "ok", **{
+                   k: c[k] for k in (
+                       "m", "n", "d", "kappa", "tau", "quant", "thresh",
+                       "compile_s", "merge_wire_bytes", "probe_wire_bytes",
+                       "total_wire_bytes", "n_windows", "n_triggered",
+                       "final_C")}}
+        if c["merge"] == "dynamic":
+            rec["wire_vs_fixed"] = (c["total_wire_bytes"]
+                                    / max(fixed_wire[c["quant"]], 1))
+        records.append(rec)
+        if verbose:
+            extra = (f" vs_fixed={rec['wire_vs_fixed']:.2f}x"
+                     if c["merge"] == "dynamic" else "")
+            print(f"ADPT {c['merge']:<8s} x {c['quant']:<6s} "
+                  f"wire={c['total_wire_bytes']:>8,}B "
+                  f"(merge {c['merge_wire_bytes']:,}B + probe "
+                  f"{c['probe_wire_bytes']:,}B) "
+                  f"trig={c['n_triggered']}/{c['n_windows']}{extra}")
+    return records
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.dryrun",
+        description="The comm dry run: measured wire bytes per scheme x "
+                    "transport on the PyTorch port.")
+    ap.add_argument("--arch", help="an LM or paper_vq cell (not ported)")
+    ap.add_argument("--shape", help="a shape cell (not ported)")
+    ap.add_argument("--all", action="store_true",
+                    help="the LM sweep (not ported)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the multi-pod mesh (not ported)")
+    ap.add_argument("--both-meshes", action="store_true",
+                    help="both meshes (not ported)")
+    ap.add_argument("--comm", action="store_true",
+                    help="the comm suite: measured wire bytes per scheme x "
+                         "transport (8 stacked workers)")
+    ap.add_argument("--sparse-frac", type=float, default=None,
+                    help="--comm: sparse transport keep-fraction "
+                         "(default: k/kappa = 0.25, the acceptance point)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--out", default="dryrun_comm.json")
+    args = ap.parse_args(argv)
+
+    if (args.arch == "paper_vq"
+            or args.shape in ("vq_batch", "vq_stream")):
+        print("error: the paper_vq cells (vq_batch, vq_stream) run "
+              "core/dvq.py's SPMD steps, which come with ROADMAP queue 1, "
+              "item 9b")
+        return 2
+    if args.arch or args.shape or args.all or args.multi_pod \
+            or args.both_meshes:
+        print("error: --arch/--shape/--all/--multi-pod/--both-meshes lower "
+              "the LM cells, which come with ROADMAP queue 1, item 8; this "
+              "dry run has --comm")
+        return 2
+    if not args.comm:
+        print("error: need --comm (the LM and paper_vq cells are not "
+              "ported)")
+        return 2
+
+    device_lib.pin_full_f32()
+    dev = device_lib.resolve(args.device)
+    results = run_comm_suite(sparse_frac=args.sparse_frac, device=dev)
+    existing = []
+    if os.path.exists(args.out):
+        with open(args.out) as f:
+            existing = json.load(f)
+
+    def keyf(r):
+        return (r["arch"], r["shape"], r["mesh"], r.get("merge", "none"),
+                r.get("quantized", False), r.get("transport", "none"))
+
+    merged = {keyf(r): r for r in existing}
+    for r in results:
+        merged[keyf(r)] = r
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(list(merged.values()), f, indent=1)
+    # compression applies to displacement merges; 'average' ships means,
+    # which ride dense on every transport
+    worst = min((r["wire_reduction_vs_dense"] for r in results
+                 if r.get("transport") == "sparse"
+                 and r["merge"] != "average"), default=0.0)
+    worst_inter = min((r["inter_reduction_vs_dense"] for r in results
+                       if r.get("transport") == "hier_sparse"
+                       and r["merge"] != "average"), default=0.0)
+    worst_adapt = max((r["wire_vs_fixed"] for r in results
+                       if r["arch"] == "comm_adapt"
+                       and r["merge"] == "dynamic"), default=0.0)
+    print(f"\n{len(results)} comm cells on {dev}; sparse-vs-dense merge-wire "
+          f"reduction (min over displacement schemes) = {worst:.2f}x, "
+          f"inter-host tier-1 reduction = {worst_inter:.2f}x "
+          f"(acceptance bars: both >= 4x at k/kappa <= 0.25); "
+          f"dynamic-vs-fixed wire (max over quant levels) = "
+          f"{worst_adapt:.2f}x (bar: <= 1.0); records -> {args.out}")
+    return 0 if (worst >= 4.0 and worst_inter >= 4.0
+                 and 0.0 < worst_adapt <= 1.0) else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -62,6 +62,13 @@ reference does.
 turns the executor's tracer and registry on, prints the registry's table,
 and writes the files even when the run dies (``obs.ExitFlush``).
 
+``--profile PROF.json`` (mesh executor, elastic runs included) attributes
+the run's wall to compute, memory, collective and host terms per window
+(``obs.Profiler``; on the card ``host`` is the residual the model does not
+explain), prints the attribution table, writes the export and prints the
+command that renders it (``python -m repro_torch.obs.report --profile
+PROF.json``); any other ``--executor`` exits 2.
+
 ``--autotune {off,cache,search}`` picks the kernels' tiles
 (``kernels.autotune``; tiles change no bit) and ``--autotune-cache
 TILES.json`` keeps the picks in a file.
@@ -83,7 +90,7 @@ from repro_torch.engine import (ChaosNetwork, ChaosSchedule,
                                 Tier1BudgetController, Topology,
                                 get_executor, get_network)
 from repro_torch.kernels import autotune
-from repro_torch.obs import ExitFlush, MetricsRegistry, Tracer
+from repro_torch.obs import ExitFlush, MetricsRegistry, Profiler, Tracer
 
 #: Eval points per worker (the reference's ``launch/train.py`` takes 1000).
 N_EVAL = 1000
@@ -200,6 +207,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--metrics", default="", metavar="OUT.jsonl",
                     help="append the metrics registry (counters, gauges, "
                          "histograms) as JSON lines")
+    ap.add_argument("--profile", default="", metavar="PROF.json",
+                    help="roofline-attribute the run (mesh executor only): "
+                         "decompose the measured per-window wall into "
+                         "hand-counted compute and HBM terms, the run's "
+                         "collective bytes from its CommRecords, and the "
+                         "host residual; prints the attribution table and "
+                         "writes the Profiler export (render with "
+                         "repro_torch.obs.report --profile)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return ap.parse_args(argv)
@@ -217,10 +232,11 @@ def make_inputs(args, dev: torch.device):
 
 
 def build_executor(args, dev: torch.device, *, tracer: Tracer | None = None,
-                   metrics: MetricsRegistry | None = None):
-    """The run's executor, observed by ``tracer`` / ``metrics``; raises
-    ValueError on a configuration the reference refuses (``main`` prints
-    it and exits 2)."""
+                   metrics: MetricsRegistry | None = None,
+                   profiler: Profiler | None = None):
+    """The run's executor, observed by ``tracer`` / ``metrics`` and, on the
+    mesh executors, ``profiler``; raises ValueError on a configuration the
+    reference refuses (``main`` prints it and exits 2)."""
     obs = {"tracer": tracer, "metrics": metrics}
     if args.executor == "thread":
         return get_executor("thread", duration_s=args.duration_s,
@@ -278,6 +294,8 @@ def build_executor(args, dev: torch.device, *, tracer: Tracer | None = None,
             hosts=args.hosts if args.hosts > 1 else 2)
         network = ChaosNetwork(network, chaos, topology=topology)
         print(f"chaos: {chaos.describe()}")
+    if profiler is not None:
+        kw["profiler"] = profiler
     merge = "quorum" if (args.quorum or args.chaos) else args.merge
     if merge == "quorum":
         kw.update(merge=merge, quorum_frac=args.quorum_frac)
@@ -313,7 +331,9 @@ def run_vq(args):
     observe = bool(args.trace or args.metrics)
     tracer = Tracer() if observe else None
     metrics = MetricsRegistry() if observe else None
-    executor = build_executor(args, dev, tracer=tracer, metrics=metrics)
+    profiler = Profiler(metrics=metrics) if args.profile else None
+    executor = build_executor(args, dev, tracer=tracer, metrics=metrics,
+                              profiler=profiler)
     # armed before the run: a run that dies still leaves its files
     flusher = None
     if observe:
@@ -372,6 +392,13 @@ def run_vq(args):
         if probe:
             print(f"  probe: wire {probe['wire_bytes']:,} B over "
                   f"{probe['calls']} windows, merges {merge_b.get('calls', 0)}")
+    if profiler is not None:
+        print("profile (roofline attribution):")
+        print(profiler.summary_table())
+        profiler.export_json(args.profile)
+        print(f"profile: {len(profiler.attributions)} run(s) -> "
+              f"{args.profile} (render: python -m repro_torch.obs.report "
+              f"--profile {args.profile})")
     if metrics is not None:
         print("metrics:")
         print(metrics.summary_table())
@@ -394,6 +421,12 @@ def main(argv=None) -> int:
     if args.points < args.tau:
         print(f"error: --points {args.points} is less than one tau="
               f"{args.tau} window")
+        return 2
+    if args.profile and args.executor != "mesh":
+        # attribution reads the mesh executors' segments; the sim oracles
+        # and the threads report none
+        print(f"error: --profile attributes the mesh executor's segments; "
+              f"got --executor {args.executor}")
         return 2
     if args.transport != "xla" and args.executor != "mesh":
         # the sim oracles and the threads issue no collective to reroute

@@ -1,5 +1,5 @@
 """The port stands alone: no file of ``src/repro_torch``, nor
-``chip_smoke.py`` or ``kernel_ab.py``, imports JAX, the ``repro`` package
+``chip_smoke.py``, ``kernel_ab.py`` or ``examples/*_torch.py``, imports JAX, the ``repro`` package
 or ``ml_dtypes`` (the card's machine has none; the checkpointer stores
 narrow floats through ``torch.Tensor.view``).  The observability modules
 are the port's own copies, and the thread runtime's modules start no
@@ -14,7 +14,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "kernel_ab.py"]
+    REPO / "chip_smoke.py", REPO / "kernel_ab.py"] + sorted(
+    (REPO / "examples").glob("*_torch.py"))
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -51,7 +52,9 @@ def test_checker_catches_forbidden_imports(tmp_path):
 @pytest.mark.parametrize("name", [
     "repro_torch.obs", "repro_torch.obs.trace", "repro_torch.obs.metrics",
     "repro_torch.obs.check", "repro_torch.core.async_runtime",
-    "repro_torch.engine.threads"])
+    "repro_torch.engine.threads", "repro_torch.obs.profile",
+    "repro_torch.obs.report", "repro_torch.distributed.roofline",
+    "repro_torch.distributed.comm_analysis", "repro_torch.launch.dryrun"])
 def test_new_module_is_the_ports_own_and_starts_nothing(name):
     before = threading.active_count()
     mod = importlib.import_module(name)
