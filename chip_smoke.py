@@ -231,7 +231,37 @@ PyTorch built for CUDA:
      bytes == ``BENCH_comm.json`` and ``BENCH_hier.json``, the adapt cells
      held to ``BENCH_adapt.json``'s prices); P7, each
      ``examples/*_torch.py`` (exit 0), with its wall seconds;
-  21. times each kernel (the delta sweep also at each kchunk the tuner
+  21. runs one worker a process on the one card (``process_group_legs``;
+     gloo over CUDA tensors, NCCL refusing two ranks on one device; the
+     kernels are built here before any rank starts): G1, the hop kernel
+     (``csrc/vq_ring_hop.cu``, the ring's hops over CUDA IPC) in worlds of
+     4 and 8 ranks at (M, 524,288) and (4, 1,000,003), every rank's result
+     == ``ring_all_reduce_plain`` of the stacked rows bit for bit, masked
+     and unmasked, with 2 (M - 1) hop launches a call, its ms a call beside
+     ``dist.all_reduce``'s on the same group (in turns), one hop's device
+     time and the one-card fold's; G2, ``torchrun --standalone
+     --nproc-per-node 8 -m repro_torch.launch.train --scheme delta
+     --transport ring`` at the slice's width cut to 500 windows, its
+     codebook == the stacked ring run's bit for bit (first checking that a
+     (1, tau, d) window launch and a (1, n, d) eval give row i of the
+     (8, ...) ones; where they do not, the legs are held at rtol=1e-4,
+     atol=1e-6), each rank's launches read from the launcher (500 window
+     and 14,000 hop launches a rank); then, through the executor in G1's
+     world of 8 (the launcher's inputs, no torchrun start of ~30 s each),
+     the dense gloo transport on 100 windows at rtol=1e-4 against the
+     stacked ring and ``average`` over the ring on 60 windows bit for bit;
+     each window's wall beside the stacked run's; G3,
+     eq. 9 in 4 processes for 1,200 ticks over the group ring on the
+     stacked run's round lengths, == the stacked masked ring bit for bit,
+     one delta launch a rank a tick; G4, ``shard_batch`` and
+     ``shard_kappa`` at kappa 4,096 and 4,099 (d 128, 128-row flushes) ==
+     direct bit for bit on every rank; G5, the dvq group window step ==
+     the stacked one, the minibatch step over 2 x 2 ranks == the unsharded
+     step (assignments, counts), and ``launch.dryrun --arch paper_vq``'s
+     two cells exit 0 with their terms; G6, NCCL at world size 1, its
+     dense group sum == the stacked one (the multi-GPU leg is unverified
+     on one card);
+  22. times each kernel (the delta sweep also at each kchunk the tuner
      weighs; the assign kernel at the flush, the eval and (8, 1) x 4096 x
      3072; the blocked kernel at (8, 1) x 4096 x 3072 with and without the
      epilogue and at (8, 1) x 4096 x 128; the window kernel also at M = 1,
@@ -250,8 +280,9 @@ PyTorch built for CUDA:
      the 3072-wide eq.-9 path with torch.profiler (device time by kernel, the
      device's idle share), after timing 200 dense and ring sync windows in
      turns on the host clock;
-  22. prints one ``{"kernels": [...]}`` line (window, delta, assign,
-      top-k, blocked and ring), the card line again, and last
+  23. prints one ``{"kernels": [...]}`` line (window, delta, assign,
+      top-k, blocked, ring and the ring's hop kernel), the card line
+      again, and last
       ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check exits non-zero before the result lines; an exception
@@ -351,6 +382,19 @@ P4_POINTS = 20_000
 EXAMPLES = ("quickstart", "mesh_vq", "elastic_vq", "serve_vq",
             "cloud_async_vq")
 SUBPROCESS_TIMEOUT_S = 300
+# item 21, one worker a process on the one card (gloo over CUDA tensors, the
+# ring's hops over CUDA IPC)
+PG_WORLDS = (4, 8)       # G1's worlds
+PG_N = KAPPA * D         # G1's payload: a window's displacement
+PG_RAGGED = 1_000_003    # G1's ragged payload, at 4 ranks
+PG_ITERS = 5             # G1's timed calls a reading
+G2_POINTS = 5_000        # 500 windows of the 8-process ring run, cut
+G2_XLA_POINTS = 1_000    # 100 windows of the 8-process gloo run, cut
+G2_AVG_POINTS = 600      # 60 windows of the 8-process average run, cut
+# (M * points >= KAPPA: w0 is KAPPA of the points)
+G3_M, G3_TICKS = 4, 1_200  # eq. 9 in 4 processes, cut
+G4_KAPPAS = (4096, 4099)   # the lookup plans' codebooks, one ragged
+G5_BATCH = 1024          # the 2 x 2 minibatch step's points
 # read before each call kernel_ms times: 20 times the H100's 50 MB L2, and
 # ~0.3 ms of device time in which the host enqueues the call
 L2_FLUSH_BYTES = 1 << 30
@@ -952,7 +996,7 @@ def zero_counts() -> None:
     vq_fused.launches = vq_fused.launches_blocked = 0
     vq_fused.launches_topk = vq_fused.launches_divergence = 0
     vq_assign.launches = vq_assign.launches_assign = 0
-    ring.launches_ring = 0
+    ring.launches_ring = ring.launches_ring_hop = 0
 
 
 def launch_counts() -> dict:
@@ -1893,6 +1937,469 @@ def subprocess_legs(tmp: Path) -> None:
           f"BENCH_adapt.json's prices: {bad or 'all'}")
     if bad:
         fail(f"P6: the dry run's bytes differ from the baselines: {bad}")
+
+
+# -- item 21: one worker a process --------------------------------------------
+
+def _pg_timed(fn, group, iters: int, dev) -> float:
+    """ms a call of fn on this rank, every rank calling it at once: the
+    host clock between a device sync and a group barrier at each end."""
+    import torch.distributed as dist
+
+    from repro_torch import device as device_lib
+    fn()
+    device_lib.synchronize(dev)
+    dist.barrier(group=group)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    device_lib.synchronize(dev)
+    dist.barrier(group=group)
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _g1_hops(rank: int, world, cfg: dict) -> dict:
+    """G1 on this rank: the group ring against ring_all_reduce_plain of the
+    stacked rows on the card, bit for bit, masked and unmasked, its hop
+    launches, and its time beside dist.all_reduce's on the same group."""
+    import torch
+
+    from repro_torch.comm import ring
+    from repro_torch.distributed import process_group
+    from repro_torch.kernels import _build
+    from repro_torch.topology import Topology
+    dev = world.device
+    w = world.world_size
+    g = Topology.flat(w).make_groups().groups[0]
+    out = {"checks": [], "times": {}}
+    for n in cfg["g1_sizes"][w]:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+        x = torch.randn((w, n), generator=gen, device=dev)
+        mask = (torch.arange(w, device=dev) % 3 != 1).to(torch.float32)
+        for masked in (False, True):
+            m = mask if masked else None
+            before = ring.launches_ring_hop
+            got = ring.ring_all_reduce_group(
+                x[rank], g, None if m is None else m[rank:rank + 1])
+            launched = ring.launches_ring_hop - before
+            want = ring.ring_all_reduce_plain(x, m)
+            out["checks"].append(((w, n, masked), same_bits(got, want),
+                                  launched))
+        if n != cfg["pg_n"]:
+            continue
+        y = x[rank].clone()
+        out["barrier_ms"] = _pg_timed(lambda: process_group.barrier(g), g,
+                                      cfg["iters"] * 5, dev)
+        legs = {"group ring": lambda: ring.ring_all_reduce_group(x[rank], g),
+                "dist.all_reduce": lambda: process_group.all_reduce(
+                    y, "sum", g)}
+        times = {k: [] for k in legs}
+        for k in ("group ring", "dist.all_reduce", "dist.all_reduce",
+                  "group ring"):
+            times[k].append(_pg_timed(legs[k], g, cfg["iters"], dev))
+        out["times"][n] = times
+        if rank == 0 and dev.type == "cuda":
+            # one reduce-scatter hop's device time: the kernel alone, rank 0
+            # launching while the others wait at the barrier below
+            st = ring._staging[(id(g), w * (-(-n // w)))]
+            lib = _build.library()
+            chunk = -(-n // w)
+            stream = _build.current_stream(dev)
+            ev = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)) for _ in range(21)]
+            for a, b in ev:
+                a.record()
+                _build.check(lib.vq_ring_hop_f32(st.left, st.mine, 0, chunk,
+                                                 1, stream), "hop")
+                b.record()
+            torch.cuda.synchronize()
+            out["hop_ms"] = sorted(a.elapsed_time(b) for a, b in ev)[10]
+        process_group.barrier(g)
+    return out
+
+
+def _pg_world4(rank: int, world, cfg: dict) -> dict:
+    """G1 at 4 ranks, then G3 (eq. 9), G4 (the lookup plans) and G5 (the
+    dvq steps) in the same world."""
+    import torch
+
+    from repro_torch.comm import ring
+    from repro_torch.core import dvq
+    from repro_torch.engine.mesh import MeshExecutor
+    from repro_torch.engine.network import GeometricDelayNetwork
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.serve.lookup import ShardedLookup
+    from repro_torch.topology import Topology
+    out = {"g1": _g1_hops(rank, world, cfg)}
+    dev = world.device
+    flat = Topology.flat(world.world_size).make_groups()
+    g = flat.groups[0]
+    # G3: eq. 9 over the group ring on the parent's round lengths
+    args = train.parse_args(cfg["g3_args"])
+    w0, data, eval_data = train.make_inputs(args, dev)
+    ex = MeshExecutor(GeometricDelayNetwork(P_DELAY), transport="ring",
+                      group=flat, device=dev)
+    zero_counts()
+    res = ex.run("async_delta", w0, data, eval_data, tau=TAU,
+                 lengths=torch.from_numpy(cfg["g3_lengths"]))
+    counts = {**launch_counts(), "ring_hop": ring.launches_ring_hop}
+    out["g3"] = (res.w_shared.cpu(), res.distortion.cpu(), counts,
+                 ex.last_comm)
+    # G4: both sharded plans against the direct plan, bit for bit
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    z = torch.randn((FLUSH_ROWS, D), generator=gen, device=dev)
+    out["g4"] = []
+    for kappa in cfg["g4_kappas"]:
+        w = torch.randn((kappa, D), generator=gen, device=dev)
+        a, m = ops.vq_assign(z, w)
+        for mode in ("shard_batch", "shard_kappa"):
+            ga, gm = ShardedLookup(mode=mode, group=g, device=dev).assign(z, w)
+            out["g4"].append((kappa, mode, same_bits(ga, a)
+                              and same_bits(gm, m)))
+    # G5: the group window step against the stacked one, and the minibatch
+    # step over (data 2, model 2) against the unsharded step
+    zwin = data[:, :TAU].contiguous()
+    step_g = dvq.make_window_vq_step(tau=TAU, group=g, transport="ring")
+    step_s = dvq.make_window_vq_step(tau=TAU, transport="ring")
+    wg, _ = step_g(w0, 0, zwin[rank:rank + 1])
+    ws, _ = step_s(w0, 0, zwin)
+    out["g5_window"] = (same_bits(wg, ws), float((wg - ws).abs().max()))
+    grid = Topology.flat(world.world_size).make_groups(model=2)
+    rows = cfg["g5_batch"] // 2
+    zb = data[0, :cfg["g5_batch"]].contiguous()
+    di, mi = grid.index("data"), grid.index("model")
+    k_local = w0.shape[0] // 2
+    step_m = dvq.make_minibatch_vq_step(data_group=grid.group("data"),
+                                        model_group=grid.group("model"))
+    c, _, a = step_m.stats(w0[mi * k_local:(mi + 1) * k_local].contiguous(),
+                           zb[di * rows:(di + 1) * rows].contiguous())
+    cf, _, af = dvq.make_minibatch_vq_step().stats(w0, zb)
+    out["g5_minibatch"] = (
+        bool(torch.equal(a, af[di * rows:(di + 1) * rows])),
+        bool(torch.equal(c, cf[mi * k_local:(mi + 1) * k_local])))
+    return out
+
+
+def _pg_world8(rank: int, world, cfg: dict) -> dict:
+    """G1 at 8 ranks, then G2's gloo and average legs through the executor
+    (the launcher's inputs and executor, without a torchrun start each)."""
+    from repro_torch.engine.mesh import MeshExecutor
+    from repro_torch.engine.network import InstantNetwork
+    from repro_torch.launch import train
+    from repro_torch.topology import Topology
+    out = {"g1": _g1_hops(rank, world, cfg), "g2": {}}
+    flat = Topology.flat(world.world_size).make_groups()
+    for name, argv in cfg["g2_legs"].items():
+        args = train.parse_args(argv)
+        w0, data, eval_data = train.make_inputs(args, world.device)
+        ex = MeshExecutor(InstantNetwork(), transport=args.transport,
+                          group=flat, device=world.device)
+        t0 = time.perf_counter()
+        res = ex.run(args.scheme, w0, data, eval_data, tau=TAU)
+        wall = time.perf_counter() - t0     # run() ends synced and barriered
+        out["g2"][name] = {"w_shared": res.w_shared.cpu(),
+                           "distortion": res.distortion.cpu(),
+                           "wall_s": wall}
+    return out
+
+
+def _check_g1(label: str, outs: list) -> dict:
+    """Every rank's G1 checks: bits and 2 (M - 1) hops a call."""
+    for r, o in enumerate(outs):
+        for (w, n, masked), ok, launched in o["g1"]["checks"]:
+            print(f"check G1 hop kernel ({w}, {n:,}){' masked' if masked else ''}"
+                  f" rank {r}: == plain bitwise {ok}, hop launches "
+                  f"{launched} (want {2 * (w - 1)})")
+            if not ok or launched != 2 * (w - 1):
+                fail(f"G1 {label}: the group ring on rank {r} differs from "
+                     f"the plain version or launched {launched} hops")
+    return outs[0]["g1"]
+
+
+def _torchrun(n: int, argv: list, tmp: Path, label: str, env: dict
+              ) -> tuple[str, float]:
+    """``torchrun --standalone --nproc-per-node n -m
+    repro_torch.launch.train argv``; returns (its output, its wall s)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n), "-m", "repro_torch.launch.train",
+           *argv]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
+                         text=True, timeout=SUBPROCESS_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stdout[-4000:])
+        print(res.stderr[-4000:])
+        fail(f"{label}: torchrun exited {res.returncode}")
+    return res.stdout, wall
+
+
+def _per_rank_launches(text: str) -> dict:
+    line = next(x for x in text.splitlines()
+                if x.startswith("launches per rank: "))
+    return json.loads(line[len("launches per rank: "):])
+
+
+def _process_curve_rule(label, got, want, window_eq: bool, eval_eq: bool
+                        ) -> None:
+    """A process run against the stacked run: codebook and curve bit for
+    bit where a (1, tau, d) window and a (1, n, d) eval give row i of the
+    (M, ...) ones; the curve at rtol=1e-6 where only the eval differs; both
+    at rtol=1e-4, atol=1e-6 where the window does."""
+    import torch
+    w_eq = same_bits(got["w_shared"], want["w_shared"])
+    c_eq = same_bits(got["distortion"], want["distortion"])
+    c_err = float(((got["distortion"] - want["distortion"]).abs()
+                   / want["distortion"].abs()).max())
+    w_err = float((got["w_shared"] - want["w_shared"]).abs().max())
+    print(f"check {label}: codebook bitwise {w_eq} (max |diff| {w_err:.3e}),"
+          f" curve bitwise {c_eq} (max rel {c_err:.3e}); per-window wall "
+          f"{got['wall_s'] / len(got['distortion']) * 1e3:.3f} ms (processes)"
+          f" vs {want['wall_s'] / len(want['distortion']) * 1e3:.3f} ms "
+          f"(stacked)")
+    if window_eq:
+        ok = w_eq and (c_eq if eval_eq else c_err <= 1e-6)
+    else:
+        ok = (torch.allclose(got["w_shared"], want["w_shared"], rtol=1e-4,
+                             atol=1e-6)
+              and torch.allclose(got["distortion"], want["distortion"],
+                                 rtol=1e-4, atol=1e-6))
+    if not ok:
+        fail(f"{label}: the process run and the stacked run disagree")
+
+
+def process_group_legs(dev, w0, data, eval_data) -> dict:
+    """Item 21 (G1-G6): one worker a process on the one card.  Returns the
+    hop kernel's numbers for the kernels line."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import comm
+    from repro_torch.comm import ring
+    from repro_torch.core import vq
+    from repro_torch.distributed import process_group
+    from repro_torch.engine.mesh import MeshExecutor
+    from repro_torch.engine.network import GeometricDelayNetwork
+    from repro_torch.kernels import vq_fused
+    from repro_torch.launch import dryrun, train
+    from repro_torch.topology import Topology
+    t_item = time.perf_counter()
+    # every leg's w0 is KAPPA of its M x points: cuts stop there
+    for label, m, pts in (("G2 ring", M, G2_POINTS),
+                          ("G2 gloo", M, G2_XLA_POINTS),
+                          ("G2 average", M, G2_AVG_POINTS),
+                          ("G3", G3_M, G3_TICKS)):
+        if m * pts < KAPPA:
+            fail(f"{label}: {m} x {pts} points cannot seed kappa={KAPPA}")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    cpu = ["--device", "cpu"] if dev.type == "cpu" else []
+
+    # the finding G2 rests on: a (1, tau, d) window launch (and a (1, n, d)
+    # eval) against row i of the (M, tau, d) one
+    zwin = data[:, :TAU].contiguous()
+    eps = vq.default_steps(torch.arange(1, TAU + 1, device=dev))
+    whole = vq_fused.vq_window(zwin, w0, eps)
+    window_eq = all(same_bits(vq_fused.vq_window(zwin[i:i + 1], w0, eps)[0],
+                              whole[i]) for i in range(M))
+    ev_whole = vq.distortion(eval_data, w0)
+    eval_eq = all(same_bits(vq.distortion(eval_data[i:i + 1], w0)[0],
+                            ev_whole[i]) for i in range(M))
+    print(f"check G2 premise: a (1, {TAU}, {D}) window launch == row i of "
+          f"the ({M}, {TAU}, {D}) launch bitwise: {window_eq}; a (1, "
+          f"{N_EVAL}, {D}) eval == row i of the ({M}, {N_EVAL}, {D}) eval "
+          f"bitwise: {eval_eq}")
+
+    # G1 + G3-G5 in a world of 4, then G1 and two G2 legs in a world of 8
+    full8 = ["--mode", "vq", "--executor", "mesh", "--workers", str(M),
+             "--dim", str(D), "--kappa", str(KAPPA), "--tau", str(TAU),
+             "--seed", str(SEED), "--network", "instant", *cpu]
+    legs = {"ring delta": ["--scheme", "delta", "--transport", "ring",
+                           "--points", str(G2_POINTS)],
+            "xla delta": ["--scheme", "delta", "--transport", "xla",
+                          "--points", str(G2_XLA_POINTS)],
+            "ring average": ["--scheme", "average", "--transport", "ring",
+                             "--points", str(G2_AVG_POINTS)]}
+    full4 = ["--executor", "mesh", "--workers", str(G3_M), "--points",
+             str(G3_TICKS), "--dim", str(D), "--kappa", str(KAPPA), "--tau",
+             str(TAU), "--seed", str(SEED), "--network", "geometric",
+             "--p-delay", str(P_DELAY), "--scheme", "async_delta", *cpu]
+    lengths = GeometricDelayNetwork(P_DELAY).round_lengths(
+        torch.Generator().manual_seed(SEED + 3), G3_M,
+        G3_TICKS // TAU + 2, TAU)
+    cfg = {"g1_sizes": {4: (PG_N, PG_RAGGED), 8: (PG_N,)}, "pg_n": PG_N,
+           "iters": PG_ITERS, "g3_args": full4,
+           "g3_lengths": np.asarray(lengths), "g4_kappas": G4_KAPPAS,
+           "g5_batch": G5_BATCH,
+           "g2_legs": {k: full8 + legs[k] for k in ("xla delta",
+                                                    "ring average")}}
+    t0 = time.perf_counter()
+    outs4 = process_group.spawn(_pg_world4, 4, cfg, device=dev)
+    print(f"world of 4 ranks (G1, G3-G5): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    outs8 = process_group.spawn(_pg_world8, 8, cfg, device=dev)
+    print(f"world of 8 ranks (G1, G2's gloo and average legs): "
+          f"{time.perf_counter() - t0:.1f} s")
+    g1 = {4: _check_g1("4 ranks", outs4), 8: _check_g1("8 ranks", outs8)}
+    hop = {}
+    for w in PG_WORLDS:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+        x = torch.randn((w, PG_N), generator=gen, device=dev)
+        fold = kernel_ms(lambda: ring.ring_all_reduce(x), 50)
+        plain = kernel_ms(lambda: ring.ring_all_reduce_plain(x), 5)
+        t = g1[w]["times"][PG_N]
+        # every rank reads its row and writes the sum: 8 M N bytes; the
+        # hops move M (M - 1) 20 chunk bytes (reduce-scatter 12, all-gather
+        # 8 a chunk), all through the one card's HBM
+        fb = bound(8 * w * PG_N, (w - 1) * PG_N)
+        chunk = -(-PG_N // w)
+        hb = bound(w * (w - 1) * 20 * chunk, 0)
+        hop[w] = {"ms": mean(t["group ring"]), "library_ms":
+                  mean(t["dist.all_reduce"]), "plain_ms": plain,
+                  "bound": fb, "fold_ms": fold}
+        print(f"timing G1 group ring ({w}, {PG_N:,}), {w} processes: "
+              f"{r4(t['group ring'])} ms a call, dist.all_reduce (gloo, "
+              f"CUDA tensors) {r4(t['dist.all_reduce'])} ms (in turns, host "
+              f"clock, every rank); a group barrier "
+              f"{g1[w]['barrier_ms']:.4f} ms; one hop's device time "
+              f"{g1[w].get('hop_ms', float('nan')):.4f} ms; the one-card "
+              f"fold on the stacked rows {fold:.4f} ms; plain "
+              f"{plain:.4f} ms; bound {fb[0]:.4f} ms ({fb[1]}; the hops' own "
+              f"bytes {hb[0]:.4f} ms)")
+
+    # G3: eq. 9 in 4 processes on the stacked run's round lengths
+    args4 = train.parse_args(full4)
+    w04, data4, eval4 = train.make_inputs(args4, dev)
+    st = MeshExecutor(GeometricDelayNetwork(P_DELAY), transport="ring",
+                      device=dev).run("async_delta", w04, data4, eval4,
+                                      tau=TAU, lengths=lengths)
+    w3, c3, counts3, last3 = outs4[0]["g3"]
+    eq_w, eq_c = same_bits(w3, st.w_shared.cpu()), same_bits(
+        c3, st.distortion.cpu())
+    c_err = float(((c3 - st.distortion.cpu()).abs()
+                   / st.distortion.cpu().abs()).max())
+    print(f"check G3 eq. 9 in {G3_M} processes ({G3_TICKS:,} ticks) vs the "
+          f"stacked masked ring: codebook bitwise {eq_w}, curve bitwise "
+          f"{eq_c} (max rel {c_err:.3e}); rank 0's launches {counts3}")
+    bad = [r for r, o in enumerate(outs4)
+           if o["g3"][2]["delta"] != G3_TICKS or o["g3"][2]["window"]]
+    if bad:
+        fail(f"G3: ranks {bad} did not launch one delta kernel a tick")
+    if window_eq and not (eq_w and (eq_c if eval_eq else c_err <= 1e-6)):
+        fail("G3: the process run differs from the stacked masked ring")
+    if not window_eq and c_err > 1e-4:
+        fail("G3: the process run's curve is off")
+
+    # G4, G5
+    for r, o in enumerate(outs4):
+        if not all(ok for _, _, ok in o["g4"]):
+            fail(f"G4: rank {r}: a sharded plan differs from direct: "
+                 f"{o['g4']}")
+        if not (o["g5_window"][0] or not window_eq):
+            fail(f"G5: rank {r}: the group window step differs from the "
+                 f"stacked one by {o['g5_window'][1]:.3e}")
+        if not all(o["g5_minibatch"]):
+            fail(f"G5: rank {r}: the 2 x 2 minibatch step's assignments or "
+                 f"counts differ from the unsharded step's")
+    print(f"check G4 lookup plans ({FLUSH_ROWS} x kappa {G4_KAPPAS} x {D}, "
+          f"4 processes): shard_batch and shard_kappa == direct bitwise on "
+          f"every rank")
+    print(f"check G5 dvq: group window step == stacked "
+          f"{[o['g5_window'][0] for o in outs4]}; 2 x 2 minibatch step == "
+          f"unsharded (assignments, counts) on every rank")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = dryrun.main(["--arch", "paper_vq", *cpu])
+    for line in buf.getvalue().splitlines():
+        print(f"  G5 dry run: {line}")
+    if rc != 0 or not all(f"OK   paper_vq x {s}" in buf.getvalue()
+                          for s in ("vq_stream", "vq_batch")):
+        fail(f"G5: the paper_vq dry run exited {rc}")
+
+    with tempfile.TemporaryDirectory(prefix="pg_legs_") as tmp_:
+        tmp = Path(tmp_)
+
+        # G2: the paper's sync scheme in 8 processes, through torchrun (the
+        # gloo and average legs ran in the world of 8 above)
+        got = dict(outs8[0]["g2"])
+        for name, res in got.items():
+            print(f"G2 {name} in {M} processes (executor, world of 8): "
+                  f"{res['wall_s']:.2f} s wall, C(final)="
+                  f"{float(res['distortion'][-1]):.5f}")
+        text = {}
+        for name in ("ring delta",):
+            out = tmp / f"{name.replace(' ', '_')}.pt"
+            text[name], wall = _torchrun(
+                M, full8 + legs[name] + ["--save-result", str(out)], tmp,
+                f"G2 {name}", env)
+            got[name] = torch.load(out)
+            print(f"G2 {name} in {M} processes: torchrun {wall:.1f} s; "
+                  + " | ".join(x for x in text[name].splitlines()
+                               if x.startswith(("process group", "done",
+                                                "comm["))))
+        want = {}
+        stacked = {**legs, "ring delta, xla's depth": [
+            "--scheme", "delta", "--transport", "ring", "--points",
+            str(G2_XLA_POINTS)]}
+        for name in ("ring delta", "ring average", "ring delta, xla's depth"):
+            out = tmp / f"stacked_{len(want)}.pt"
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = train.main(full8 + stacked[name]
+                                + ["--save-result", str(out)])
+            if rc != 0:
+                fail(f"G2 stacked {name}: exit {rc}")
+            want[name] = torch.load(out)
+            if name in got:
+                _process_curve_rule(f"G2 {name} ({M} processes vs stacked)",
+                                    got[name], want[name], window_eq,
+                                    eval_eq)
+        ref = want["ring delta, xla's depth"]
+        held_to("G2 xla delta (gloo) vs the stacked ring run",
+                got["xla delta"]["distortion"], ref["distortion"],
+                got["xla delta"]["w_shared"], ref["w_shared"])
+        c_err = float(((got["xla delta"]["distortion"] - ref["distortion"])
+                       .abs() / ref["distortion"].abs()).max())
+        if c_err > 1e-4:
+            fail(f"G2 xla delta: curve off by {c_err:.3e} (rtol 1e-4)")
+        counts2 = _per_rank_launches(text["ring delta"])
+        windows = G2_POINTS // TAU
+        want_hops = 2 * windows * 2 * (M - 1)     # merge + eval a window
+        print(f"check G2 ring delta launches per rank: {counts2} (want "
+              f"window {windows}, ring_hop {want_hops})")
+        if (counts2["window"] != [windows] * M
+                or counts2["ring_hop"] != [want_hops] * M
+                or any(any(counts2[k]) for k in counts2
+                       if k not in ("window", "ring_hop"))):
+            fail("G2 ring delta: the processes' launches are off")
+
+    # G6: NCCL at world size 1
+    if dev.type == "cuda":
+        with tempfile.TemporaryDirectory(prefix="nccl1_") as tmp_:
+            process_group.init("nccl", rank=0, world_size=1,
+                               store=dist.FileStore(f"{tmp_}/store", 1),
+                               device="cuda")
+            try:
+                g = Topology.flat(1).make_groups().groups[0]
+                x = data[:1, :1000].reshape(1, -1).contiguous()
+                got6 = comm.XlaTransport(group=g).all_reduce(x)[0]
+                want6 = comm.XlaTransport().all_reduce(x)[0]
+                ok6 = same_bits(got6, want6)
+            finally:
+                process_group.destroy()
+        print(f"check G6 NCCL at world size 1: dense group all-reduce == "
+              f"stacked xla sum (M = 1) bitwise {ok6}; the multi-GPU NCCL "
+              f"leg is unverified on this one-card machine")
+        if not ok6:
+            fail("G6: the NCCL all-reduce differs from the stacked sum")
+    print(f"item 21 (one worker a process): {time.perf_counter() - t_item:.1f}"
+          f" s")
+    return {"launches": sum(counts2["ring_hop"]), "hop": hop[8]}
 
 
 def threads_serving_obs_legs(dev, w0, data, eval_data, runs, geo_run,
@@ -3149,8 +3656,9 @@ def main() -> None:
     threads_serving_obs_legs(dev, w0, data, eval_data, runs, geo_run, lengths)
     with tempfile.TemporaryDirectory(prefix="subprocess_legs_") as tmp:
         subprocess_legs(Path(tmp))
+    pg = process_group_legs(dev, w0, data, eval_data)
 
-    # -- 21. timing at the main path's shapes ---------------------------------
+    # -- 22. timing at the main path's shapes ---------------------------------
     # every kernel, plain and library time by kernel_ms (L2 cold, host time
     # hidden); "warm" is time_ms over back-to-back wrapper calls (L2 warm,
     # the wrapper's host time included), a read-out beside it
@@ -3411,6 +3919,14 @@ def main() -> None:
          "bound_ms": ring_t[KAPPA * D][3][0],
          "bound_by": ring_t[KAPPA * D][3][1],
          "library_ms": ring_t[KAPPA * D][2]},
+        {"name": "vq_ring_hop", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/vq_ring_hop.cu",
+         "replaces": "src/repro/comm/ring.py:40",
+         "launches": pg["launches"], "max_abs_err": 0.0,
+         "ms": pg["hop"]["ms"], "plain_ms": pg["hop"]["plain_ms"],
+         "bound_ms": pg["hop"]["bound"][0],
+         "bound_by": pg["hop"]["bound"][1],
+         "library_ms": pg["hop"]["library_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

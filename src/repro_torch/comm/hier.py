@@ -47,6 +47,17 @@ The reference's three contracts:
     runs every call, even when no worker lands (the error feedback keeps a
     zero partial from consuming residual).
 
+One worker a process: when the tiers carry process groups
+(``XlaTransport(group=)`` / ``RingTransport(group=)`` over
+``Topology.make_groups``' worker and host groups), a payload is this rank's
+rows ``(1, ...)`` and the reduction is two-stage: tier 0 over my host's
+ranks, then tier 1 over my column's ranks across hosts (a masked call
+applies this rank's entry at tier 0; tier 1 sums the partials with the
+entry 1.0, so both records are the fused path's ``masked_sum``).  The
+records equal the stacked run's field for field; the sums are the fused
+run's to rounding (two reductions in place of one).  Only dense, stateless
+tiers run there; a sparse tier 1 over processes is ROADMAP item 9c.
+
 State is ``{"t0": tier 0's, "t1": tier 1's}`` (``None`` when both tiers are
 stateless).  Tier 0's is per worker, ``(M, ...)``.  In the reference every
 worker of a group holds the same tier-1 residual (the group partial is the
@@ -131,6 +142,18 @@ class HierarchicalTransport(Transport):
         self.topology = topology
         self.host_axis = topology.host_axis
         self.worker_axis = topology.worker_axis
+        grouped = [getattr(t, "group", None) is not None
+                   for t in (self.tier0, self.tier1)]
+        if any(grouped) and not (all(grouped) and self._dense_fusable()):
+            raise ValueError(
+                "over process groups both tiers must be dense transports "
+                "with a group each (xla or ring); a sparse or stateful tier "
+                "over processes is ROADMAP item 9c")
+
+    @property
+    def grouped(self) -> bool:
+        """The tiers reduce over process groups (one worker a process)."""
+        return getattr(self.tier0, "group", None) is not None
 
     @property
     def stateful(self) -> bool:  # type: ignore[override]
@@ -175,6 +198,8 @@ class HierarchicalTransport(Transport):
         return from_leaves([g[:, 0] for g in grouped], is_tuple)
 
     def init_state(self, x):
+        if self.grouped:
+            return None                  # dense, stateless tiers only
         s0 = self.tier0.init_state(x)
         s1 = self.tier1.init_state(self._host_rows(x))
         if s0 is None and s1 is None:
@@ -305,6 +330,28 @@ class HierarchicalTransport(Transport):
         return from_leaves([self.tier0._sum(leaf, mask) for leaf in leaves],
                            is_tuple)
 
+    # -- over process groups ------------------------------------------------
+
+    def _grouped(self, x, *, op: str, tag: str, mask=None):
+        """Tier 0 over my host's ranks, then tier 1 across hosts over my
+        column's; x is this rank's rows (1, ...)."""
+        mark = self.tier0.log.mark()
+        if mask is None:
+            part, _ = self.tier0.all_reduce(x, op=op, tag=tag)
+        else:
+            part, _ = self.tier0.masked_all_reduce(x, mask, tag=tag)
+        self._relog(self.tier0, mark, 0, 1)
+        part = (tuple(p[None] for p in part) if isinstance(part, tuple)
+                else part[None])
+        mark = self.tier1.log.mark()
+        if mask is None:
+            out, _ = self.tier1.all_reduce(part, op=op, tag=tag)
+        else:
+            out, _ = self.tier1.masked_all_reduce(part, torch.ones_like(mask),
+                                                  tag=tag)
+        self._relog(self.tier1, mark, 1, 1)
+        return out
+
     # -- Transport API ------------------------------------------------------
 
     def all_reduce(self, x, *, op: str = "sum", state=None,
@@ -314,6 +361,8 @@ class HierarchicalTransport(Transport):
                 f"unknown reduce op {op!r}; choose 'sum' or 'mean'")
         if self.topology.is_flat:
             return self._flat("all_reduce", x, op=op, state=state, tag=tag)
+        if self.grouped:
+            return self._grouped(x, op=op, tag=tag), state
         if self._dense_fusable():
             return self._fused(x, op=op, tag=tag), state
         s0, s1 = self._split_state(state)
@@ -323,12 +372,14 @@ class HierarchicalTransport(Transport):
 
     def masked_all_reduce(self, x, mask: torch.Tensor, *, state=None,
                           tag: str = "merge"):
-        m = self.topology.total_workers
+        m = 1 if self.grouped else self.topology.total_workers
         if mask.shape != (m,):
             raise ValueError(f"mask must be ({m},), got {tuple(mask.shape)}")
         if self.topology.is_flat:
             return self._flat("masked_all_reduce", x, mask, state=state,
                               tag=tag)
+        if self.grouped:
+            return self._grouped(x, op="sum", tag=tag, mask=mask), state
         if self._dense_fusable():
             return self._fused(x, op="sum", tag=tag, mask=mask), state
         s0, s1 = self._split_state(state)

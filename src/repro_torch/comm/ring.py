@@ -12,32 +12,44 @@ hops only copy completed chunks.  The fold order is the contract: it differs
 from ``torch.sum``'s, so the ring and the dense transport agree to rounding,
 not bit for bit.
 
-Here the M workers are the leading dimension of one tensor on one card.
-``ring_all_reduce`` computes the result of the hops in one launch of
+Stacked workers (the M workers the leading dimension of one tensor on one
+card): ``ring_all_reduce`` computes the result of the hops in one launch of
 ``kernels/csrc/vq_ring.cu`` without running them: offset p of chunk c only
 ever meets offset p of chunk c on the other workers, and every partial a hop
 would send already lies in the same memory, so each entry is folded in the
-ring's order straight from the M rows and stored once.  The hops come back
-as moves over peer memory only across cards (ROADMAP queue 1, item 9b).
+ring's order straight from the M rows and stored once.
 ``ring_all_reduce_plain`` runs the hops themselves in PyTorch; the two agree
 bit for bit.  The reference's two-slot buffer scheme is not carried over.
 
-``ring_all_reduce`` launches the kernel for a CUDA tensor and takes the
-plain version for a CPU tensor only; ``launches_ring`` counts the kernel's
-launches.  Wire and logical bytes are the dense convention's: a ring moves
-exactly the bytes ``CommRecord`` charges a dense all-reduce.
+One worker a process (``distributed.process_group``):
+``ring_all_reduce_group`` runs the 2 (M - 1) hops between the ranks of a
+process group, in the same chunking and fold order, so every rank gets the
+bits of ``ring_all_reduce_plain`` of the stacked rows.  On the CPU a hop is
+a gloo send/recv of one chunk and the add; on the card it is one launch of
+``kernels/csrc/vq_ring_hop.cu``, which reads the left neighbour's staging
+buffer through a CUDA IPC mapping, with a stream sync and a group barrier
+between hops.
+
+``ring_all_reduce`` and ``ring_all_reduce_group`` launch their kernels for
+CUDA tensors and take the plain versions for CPU tensors only;
+``launches_ring`` counts the fold kernel's launches, ``launches_ring_hop``
+the hop kernel's.  Wire and logical bytes are the dense convention's: a
+ring moves exactly the bytes ``CommRecord`` charges a dense all-reduce.
 """
 
 from __future__ import annotations
 
 import copy
+import ctypes
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.comm.xla import XlaTransport
 from repro_torch.kernels import _build
 
 launches_ring = 0
+launches_ring_hop = 0
 
 
 def _check(x: torch.Tensor, mask: torch.Tensor | None) -> None:
@@ -112,6 +124,149 @@ def ring_all_reduce(x: torch.Tensor,
     return out
 
 
+def _group_payload(x: torch.Tensor, mask: torch.Tensor | None, m: int
+                   ) -> tuple[torch.Tensor, int, int]:
+    """This rank's flat f32 row, N and the chunk ceil(N / M)."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"ring_all_reduce_group takes float32, got {x.dtype}")
+    if mask is not None and (mask.numel() != 1 or mask.dtype != torch.float32
+                             or mask.device != x.device):
+        raise ValueError(
+            f"mask must be this rank's float32 entry (1,) on {x.device}, got "
+            f"{mask.dtype} {tuple(mask.shape)} on {mask.device}")
+    flat = x.reshape(-1)
+    n = flat.numel()
+    return flat, n, -(-n // m)
+
+
+def _ring_group_cpu(flat, mask, group, m: int, r: int, n: int, chunk: int
+                    ) -> torch.Tensor:
+    """The hops as gloo send/recv of one chunk each, the add in the plain
+    version's operand order."""
+    if mask is not None:
+        flat = mask.reshape(()) * flat
+    o = flat.new_zeros((m, chunk))
+    o.view(-1)[:n] = flat
+    ranks = dist.get_process_group_ranks(group)
+    right, left = ranks[(r + 1) % m], ranks[(r - 1) % m]
+    buf = torch.empty(chunk, dtype=torch.float32)
+
+    def hop(send_c: int) -> None:
+        ops = [dist.P2POp(dist.isend, o[send_c].contiguous(), right, group),
+               dist.P2POp(dist.irecv, buf, left, group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+    for s in range(m - 1):            # reduce-scatter: fold into chunk c
+        c = (r - s - 1) % m
+        hop((r - s) % m)
+        o[c] = buf + o[c]
+    for s in range(m - 1):            # all-gather: copy the finished chunk
+        hop((r + 1 - s) % m)
+        o[(r - s) % m] = buf
+    return o.view(-1)[:n]
+
+
+class _Staging:
+    """This rank's staging buffer (cudaMalloc) and its left neighbour's,
+    mapped over CUDA IPC, for one group and size."""
+
+    def __init__(self, lib, group, dev: torch.device, floats: int, m: int,
+                 r: int):
+        self.lib = lib
+        self.group = group       # kept alive with the mapping
+        ptr = ctypes.c_void_p()
+        _build.check(lib.vq_ring_alloc(4 * floats, ctypes.byref(ptr)),
+                     "vq_ring_alloc")
+        self.mine = ptr.value
+        handle = ctypes.create_string_buffer(64)
+        _build.check(lib.vq_ring_export(self.mine, handle), "vq_ring_export")
+        handles = [None] * m
+        dist.all_gather_object(handles, handle.raw, group=group)
+        left = ctypes.c_void_p()
+        theirs = ctypes.create_string_buffer(handles[(r - 1) % m], 64)
+        _build.check(lib.vq_ring_open(theirs, ctypes.byref(left)),
+                     "vq_ring_open")
+        self.left = left.value
+
+    def release(self) -> None:
+        """Unmap the neighbour's buffer, wait for the group to do the same,
+        and free this one."""
+        _build.check(self.lib.vq_ring_close(self.left), "vq_ring_close")
+        dist.barrier(group=self.group)
+        _build.check(self.lib.vq_ring_free(self.mine), "vq_ring_free")
+
+
+# (id of the group, floats) -> _Staging, opened in the order the ranks
+# call, which is the same on every rank (the ring is a collective)
+_staging: dict[tuple[int, int], _Staging] = {}
+
+
+def release_group_buffers() -> None:
+    """Free every staging buffer and mapping (``process_group.destroy``)."""
+    while _staging:
+        _staging.pop(next(iter(_staging))).release()
+
+
+def _ring_group_cuda(flat, mask, group, m: int, r: int, n: int, chunk: int
+                     ) -> torch.Tensor:
+    """The hops as launches of the hop kernel over the IPC mapping."""
+    global launches_ring_hop
+    lib = _build.library()
+    dev = flat.device
+    key = (id(group), m * chunk)
+    with _build.on_device(dev):
+        st = _staging.get(key)
+        if st is None:
+            st = _staging[key] = _Staging(lib, group, dev, m * chunk, m, r)
+        stream = _build.current_stream(dev)
+        torch_stream = torch.cuda.current_stream(dev)
+        src = flat.contiguous()
+        _build.check(lib.vq_ring_stage_f32(
+            src.data_ptr(), None if mask is None else mask.data_ptr(),
+            st.mine, n, m * chunk, stream), "vq_ring_stage_f32")
+        torch_stream.synchronize()
+        dist.barrier(group=group)
+        for add, first in ((1, -1), (0, 0)):
+            for s in range(m - 1):
+                c = (r - s + first) % m
+                _build.check(lib.vq_ring_hop_f32(st.left, st.mine, c, chunk,
+                                                 add, stream),
+                             "vq_ring_hop_f32")
+                launches_ring_hop += 1
+                torch_stream.synchronize()
+                dist.barrier(group=group)
+        out = torch.empty(n, dtype=torch.float32, device=dev)
+        _build.check(lib.vq_ring_copy_f32(out.data_ptr(), st.mine, n, stream),
+                     "vq_ring_copy_f32")
+    return out
+
+
+def ring_all_reduce_group(x_local: torch.Tensor, group,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The ring sum over the ranks of ``group`` of their ``x_local`` (any
+    shape, f32; or of ``mask * x_local`` with ``mask`` this rank's (1,)
+    entry): every rank gets the same tensor, shaped like ``x_local``, bit
+    for bit ``ring_all_reduce_plain`` of the ranks' stacked rows.
+
+    CPU tensors hop over gloo send/recv; CUDA tensors launch the hop kernel
+    2 (M - 1) times over CUDA IPC.  A group of one returns the (masked)
+    input."""
+    m = dist.get_world_size(group)
+    r = dist.get_rank(group)
+    flat, n, chunk = _group_payload(x_local, mask, m)
+    if m == 1 or n == 0:
+        return x_local.clone() if mask is None else mask.reshape(()) * x_local
+    if flat.device.type == "cpu":
+        out = _ring_group_cpu(flat, mask, group, m, r, n, chunk)
+    elif flat.device.type == "cuda":
+        out = _ring_group_cuda(flat, mask, group, m, r, n, chunk)
+    else:
+        raise ValueError(f"ring_all_reduce_group runs on cuda or cpu, got "
+                         f"{flat.device}")
+    return out.reshape(x_local.shape)
+
+
 class RingTransport(XlaTransport):
     """Dense merges over the ring kernel; records under ``"ring"``.
 
@@ -122,24 +277,28 @@ class RingTransport(XlaTransport):
 
     name = "ring"
 
-    def __init__(self):
-        super().__init__()
+    def __init__(self, group=None):
+        super().__init__(group=group)
         self.reduce = ring_all_reduce
 
     def plain(self) -> RingTransport:
         out = copy.copy(self)    # shares the log
-        out.reduce = ring_all_reduce_plain
+        if self.group is None:
+            out.reduce = ring_all_reduce_plain
         return out
 
     def _sum(self, x, mask=None):
         x = x.to(torch.float32).contiguous()
-        return self.reduce(x, None if mask is None
-                           else mask.to(torch.float32).contiguous())
+        mask = None if mask is None else mask.to(torch.float32).contiguous()
+        if self.group is not None:
+            return ring_all_reduce_group(x[0], self.group, mask)
+        return self.reduce(x, mask)
 
     def _mean(self, x):
         # a tensor divisor on x's device: tensor / python scalar rounds as a
         # multiply by the reciprocal on the card, which is not exact at M = 3
         # or 6; torch.full fills it on the device (torch.tensor would copy
         # from the host and wait for the stream)
-        m = torch.full((), x.shape[0], dtype=torch.float32, device=x.device)
+        m = torch.full((), self._workers(x), dtype=torch.float32,
+                       device=x.device)
         return (self._sum(x) / m).to(x.dtype)

@@ -9,6 +9,13 @@ with the reference's one for one.  ``_sum`` and ``_mean`` are the hooks
 ``RingTransport`` overrides, as the reference's ``_sum_leaf`` and
 ``_mean_leaf`` are; a tuple payload reduces leaf by leaf under one record
 whose wire is the ring's on the leaves' summed bytes.
+
+With ``group=`` (one worker a process, ``distributed.process_group``) a
+payload is this rank's rows ``(1, ...)`` and the reduction is a
+``dist.all_reduce`` over the group, the masked form multiplying by this
+rank's (1,) mask entry first; means divide the group's sum by its size.
+Records keep the stacked run's fields: ``participants`` is the group's
+size, so the wire bytes equal the stacked run's exactly.
 """
 
 from __future__ import annotations
@@ -27,20 +34,44 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
 
 
 class XlaTransport(Transport):
-    """Dense f32 reduction over the stacked worker dimension."""
+    """Dense f32 reduction over the stacked worker dimension, or over a
+    process group's ranks (``group=``)."""
 
     name = "xla"
+
+    def __init__(self, group=None):
+        super().__init__()
+        self.group = group
+
+    def _workers(self, x: torch.Tensor) -> int:
+        """The reduction's participants: the stacked rows, or the group's
+        ranks (x holding this rank's one row)."""
+        if self.group is None:
+            return x.shape[0]
+        if x.shape[0] != 1:
+            raise ValueError(
+                f"over a process group a payload is this rank's rows (1, "
+                f"...), got {tuple(x.shape)}")
+        from repro_torch.distributed import process_group
+        return process_group.group_size(self.group)
 
     def _sum(self, x: torch.Tensor, mask: torch.Tensor | None = None
              ) -> torch.Tensor:
         """The f32 sum over workers of x (or of mask[i] * x[i])."""
         if mask is not None:
             x = mask.view(x.shape[0], *(1,) * (x.dim() - 1)) * x
+        if self.group is not None:
+            from repro_torch.distributed import process_group
+            return process_group.all_reduce(_f32(x[0]).clone(), "sum",
+                                            self.group)
         return torch.sum(_f32(x), dim=0)
 
     def _mean(self, x: torch.Tensor) -> torch.Tensor:
         """The f32 mean over workers, cast back to x's dtype."""
-        out = torch.mean(_f32(x), dim=0)
+        if self.group is not None:
+            out = self._sum(x) / self._workers(x)
+        else:
+            out = torch.mean(_f32(x), dim=0)
         return out if x.dtype == torch.float32 else out.to(x.dtype)
 
     def _record(self, op: str, m: int, logical: int, *, tag: str) -> None:
@@ -55,7 +86,7 @@ class XlaTransport(Transport):
         their mean cast back to x's dtype, per leaf; the state, passed
         through)."""
         leaves, is_tuple = as_leaves(x)
-        m = leaves[0].shape[0]
+        m = self._workers(leaves[0])
         if op == "sum":
             self._record("sum", m, worker_f32_bytes(x), tag=tag)
             return from_leaves([self._sum(leaf) for leaf in leaves],
@@ -76,9 +107,11 @@ class XlaTransport(Transport):
         """x (M, ...) or a tuple of them, mask (M,) -> (sum_i mask[i] * x[i]
         in f32 per leaf, the state, passed through)."""
         leaves, is_tuple = as_leaves(x)
-        m = leaves[0].shape[0]
-        if mask.shape != (m,):
-            raise ValueError(f"mask must be ({m},), got {tuple(mask.shape)}")
+        rows = leaves[0].shape[0]
+        m = self._workers(leaves[0])
+        if mask.shape != (rows,):
+            raise ValueError(f"mask must be ({rows},), got "
+                             f"{tuple(mask.shape)}")
         self._record("masked_sum", m, worker_f32_bytes(x), tag=tag)
         return from_leaves([self._sum(leaf, mask) for leaf in leaves],
                            is_tuple), state

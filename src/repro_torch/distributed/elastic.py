@@ -9,8 +9,9 @@
   * ``merge_late_delta``: the paper's rule for integrating a late worker's
     delta, eq. 8 applied to its stale window, scaled by staleness.
 
-``build_mesh`` builds a JAX device mesh; its process-group counterpart
-comes with ROADMAP queue 1, item 9b.
+  * ``build_groups``: the process groups of a plan's (data, model) grid
+    over the world's first ranks, the counterpart of ``build_mesh``.  The
+    elastic executor over processes is ROADMAP item 9c.
 """
 
 from __future__ import annotations
@@ -46,6 +47,16 @@ def plan_remesh(n_devices: int, *, prev_data: int, prev_model: int
     return RemeshPlan(data=data, model=model,
                       dropped_hosts=n_devices - data * model,
                       tp_preserved=False)
+
+
+def build_groups(plan: RemeshPlan):
+    """This rank's (data, model) groups of ``plan``'s grid over ranks 0 ..
+    data * model - 1 (``topology.Groups``); every rank of the world calls
+    it, and the ranks past the grid get none."""
+    from repro_torch.topology import Topology, grid_groups
+    grid, axes = Topology.flat(plan.data * plan.model).rank_grid(
+        model=plan.model)
+    return grid_groups(grid, axes)
 
 
 def staleness_scale(delay_windows: int, *, gamma: float = 0.5) -> float:

@@ -1,0 +1,264 @@
+"""One worker a process: the port's ``torch.distributed`` world.
+
+The reference has no counterpart: JAX is single-controller, and one program
+sees every device of its mesh.  Here each worker is a process of a
+``torch.distributed`` process group, holds its own rows on its own device,
+and reduces with collectives (``comm.XlaTransport(group=)``,
+``comm.RingTransport(group=)``).  ``Topology.make_groups`` cuts the world
+into a group for each tier, as the reference's ``make_mesh`` cuts a device
+grid into axes.
+
+The backend, chosen once by ``choose_backend``:
+
+  * ``"gloo"`` on the CPU;
+  * ``"nccl"`` on the card when every rank of a machine has a card of its
+    own (the local world is no larger than the card count);
+  * ``"gloo"`` over CUDA tensors when ranks share a card: NCCL refuses two
+    ranks on one device.  gloo reduces CUDA tensors itself for the ops in
+    ``GLOO_CUDA_OPS`` (through host memory, inside gloo); the collectives
+    here copy a CUDA tensor to the host and back around every other op,
+    because gloo's other ops do not take CUDA tensors (its send/recv aborts
+    the process on one, on an H100 with PyTorch 2.11).  The ring's hops
+    never go through gloo on the card: they run the hop kernel over CUDA
+    IPC (``comm.ring.ring_all_reduce_group``).
+
+Each rank's device is ``cuda:{LOCAL_RANK % device_count}``, or the CPU when
+the caller asks for it; asking for CUDA where there is none raises
+(``device.resolve``), and no rank carries on on the CPU.
+
+``init`` reads a torchrun world (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR``/``MASTER_PORT``) or takes ``rank``, ``world_size`` and a
+``dist.FileStore``; ``spawn`` runs a function in local processes on a
+``FileStore`` under a temporary directory, as the tests do.  ``current()``
+is this process's ``World``, whose ``topology`` every rank knows (flat unless
+the caller sets another with ``set_topology``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import pickle
+import tempfile
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import device as device_lib
+from repro_torch.topology import Topology
+
+#: Collectives gloo runs on CUDA tensors itself (their names in
+#: ``torch.distributed``); checked on an H100 with gloo from PyTorch 2.11.
+#: Any other op on a CUDA tensor under gloo is staged through the host
+#: here.
+GLOO_CUDA_OPS = frozenset({"all_reduce", "broadcast", "all_gather"})
+
+_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
+        "max": dist.ReduceOp.MAX}
+
+
+@dataclasses.dataclass
+class World:
+    """This process's place in the world."""
+
+    rank: int
+    world_size: int
+    local_rank: int
+    device: torch.device
+    backend: str
+    topology: Topology
+
+
+_world: World | None = None
+
+
+def choose_backend(device: torch.device, *, local_world_size: int,
+                   device_count: int) -> str:
+    """``"gloo"`` on the CPU; on the card ``"nccl"`` when every local rank
+    has a card of its own, else ``"gloo"`` (ranks share a card)."""
+    if device.type == "cpu":
+        return "gloo"
+    return "nccl" if local_world_size <= device_count else "gloo"
+
+
+def _env_int(name: str) -> int | None:
+    v = os.environ.get(name)
+    return None if v in (None, "") else int(v)
+
+
+def init(backend: str | None = None, *, rank: int | None = None,
+         world_size: int | None = None, store=None,
+         device: str | torch.device | None = None) -> World:
+    """Join the world and return it.  ``rank`` / ``world_size`` default to
+    torchrun's ``RANK`` / ``WORLD_SIZE``; without a ``store`` the group
+    meets at ``MASTER_ADDR:MASTER_PORT`` (``env://``).  ``backend=None``
+    takes ``choose_backend``'s, printed on rank 0."""
+    global _world
+    if _world is not None:
+        raise RuntimeError("process_group.init: this process is already in "
+                           "a world; call destroy() first")
+    rank = _env_int("RANK") if rank is None else rank
+    world_size = _env_int("WORLD_SIZE") if world_size is None else world_size
+    if rank is None or world_size is None:
+        raise ValueError("process_group.init needs rank and world_size, or "
+                         "torchrun's RANK and WORLD_SIZE")
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} outside 0..{world_size - 1}")
+    local_rank = _env_int("LOCAL_RANK")
+    local_rank = rank if local_rank is None else local_rank
+    local_world = _env_int("LOCAL_WORLD_SIZE") or world_size
+    dev = device_lib.resolve(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", local_rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    chosen = backend or choose_backend(dev, local_world_size=local_world,
+                                       device_count=n_cards)
+    kw = {"backend": chosen, "rank": rank, "world_size": world_size}
+    if store is not None:
+        kw["store"] = store
+    else:
+        kw["init_method"] = "env://"
+    if chosen == "nccl":
+        kw["device_id"] = dev
+    dist.init_process_group(**kw)
+    _world = World(rank=rank, world_size=world_size, local_rank=local_rank,
+                   device=dev, backend=chosen,
+                   topology=Topology.flat(world_size))
+    if rank == 0:
+        why = ("the CPU" if dev.type == "cpu" else
+               f"{local_world} local rank(s) on {n_cards} card(s)")
+        print(f"process group: backend {chosen} ({why}), world "
+              f"{world_size}, device {dev.type}", flush=True)
+    return _world
+
+
+def current() -> World:
+    """This process's world; raises outside one."""
+    if _world is None:
+        raise RuntimeError("not in a process-group world: call "
+                           "process_group.init (or run under spawn)")
+    return _world
+
+
+def in_world() -> bool:
+    return _world is not None
+
+
+def set_topology(topology: Topology) -> None:
+    """The topology every rank runs under (the launcher's ``--hosts``);
+    it must hold the world's ranks."""
+    w = current()
+    if topology.total_workers != w.world_size:
+        raise ValueError(
+            f"a {topology.describe()} topology holds "
+            f"{topology.total_workers} workers, the world has "
+            f"{w.world_size} ranks")
+    w.topology = topology
+
+
+def destroy() -> None:
+    """Release the ring's staging buffers and leave the world."""
+    global _world
+    if _world is None:
+        return
+    from repro_torch.comm import ring
+    ring.release_group_buffers()
+    dist.destroy_process_group()
+    _world = None
+
+
+# -- collectives on tensors of this rank's device ------------------------------
+
+def _staged(op: str, t: torch.Tensor) -> bool:
+    """Does op on t go through host memory (gloo, a CUDA tensor, an op gloo
+    does not run on CUDA tensors)?"""
+    return (t.device.type == "cuda" and current().backend == "gloo"
+            and op not in GLOO_CUDA_OPS)
+
+
+def group_size(group) -> int:
+    return dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    """This rank's index inside ``group``."""
+    return dist.get_rank(group)
+
+
+def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
+    """t reduced over the group (``"sum"``, ``"min"`` or ``"max"``), in
+    place; returns t."""
+    if _staged("all_reduce", t):
+        host = t.cpu()
+        dist.all_reduce(host, op=_OPS[op], group=group)
+        t.copy_(host)
+    else:
+        dist.all_reduce(t, op=_OPS[op], group=group)
+    return t
+
+
+def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's t stacked in the group's order: (group size, ...)."""
+    p = group_size(group)
+    src = t.contiguous()
+    if _staged("all_gather", src):
+        src = src.cpu()
+    out = [torch.empty_like(src) for _ in range(p)]
+    dist.all_gather(out, src, group=group)
+    return torch.stack(out).to(t.device)
+
+
+def all_gather_object(obj, group=None) -> list:
+    out = [None] * group_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
+def barrier(group=None) -> None:
+    dist.barrier(group=group)
+
+
+# -- local worlds ---------------------------------------------------------------
+
+def _child(rank: int, fn, nprocs: int, store_path: str, out_dir: str,
+           device, args) -> None:
+    torch.set_num_threads(1)
+    store = dist.FileStore(store_path, nprocs)
+    world = init(rank=rank, world_size=nprocs, store=store, device=device)
+    try:
+        result = fn(rank, world, *args)
+    finally:
+        destroy()
+    with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(result, f)
+
+
+def spawn(fn, nprocs: int, *args, device: str | torch.device | None = None
+          ) -> list:
+    """Run ``fn(rank, world, *args)`` in ``nprocs`` local processes, joined
+    on a ``FileStore`` under a temporary directory; returns each rank's
+    result (picklable), in rank order.  A rank's exception is raised here,
+    naming the rank."""
+    import torch.multiprocessing as mp
+    if nprocs < 1:
+        raise ValueError(f"nprocs must be >= 1, got {nprocs}")
+    dev = str(device_lib.resolve(device))
+    with tempfile.TemporaryDirectory(prefix="repro_torch_world_") as tmp:
+        try:
+            mp.start_processes(
+                _child, args=(fn, nprocs, os.path.join(tmp, "store"), tmp,
+                              dev, args),
+                nprocs=nprocs, start_method="spawn")
+        except mp.ProcessRaisedException as e:
+            raise RuntimeError(f"rank {e.error_index} of {nprocs} failed:\n"
+                               f"{e}") from None
+        except mp.ProcessExitedException as e:
+            raise RuntimeError(f"rank {e.error_index} of {nprocs} exited "
+                               f"with code {e.exit_code}") from None
+        results = []
+        for r in range(nprocs):
+            with open(Path(tmp) / f"rank{r}.pkl", "rb") as f:
+                results.append(pickle.load(f))
+    return results

@@ -17,10 +17,14 @@ at the 700 W power limit):
   * ``HBM_BW`` = 3.35e12 bytes/s.
   * ``COLLECTIVE_BW``: the rate a merge moves its bytes at.  With the
     workers stacked on one card a merge is a reduction in the card's own
-    memory, so it is ``HBM_BW``.  Across cards (the one-worker-per-process
-    backend of ROADMAP queue 1, item 9b) a ring would move its hops over
-    NVLink at 450e9 bytes/s a direction (NVLink 4, 18 links); no path uses
-    that yet.
+    memory, so it is ``HBM_BW``.  With one worker a process on one card
+    (``distributed.process_group``) the ring's hops read and write the same
+    HBM through CUDA IPC, so ``HBM_BW`` is still the rate the model would
+    use; the dense ``xla`` merge there is gloo staging CUDA tensors through
+    host memory, whose rate this model does not hold.  Across cards a hop
+    would move over NVLink at 450e9 bytes/s a direction (NVLink 4, 18
+    links).  The profiler stays off in process mode (ROADMAP item 9c), so
+    no path prices those rates yet.
 
 Every method of ``VqCell`` keeps the reference's hand count exactly: the
 terms are per worker.  ``obs.profile.Profiler`` scales them to the card.

@@ -96,6 +96,24 @@ when the trace is read, and the histograms and gauges take a run's values
 at once (``observe_many``, ``set_many``).  The reference's
 ``compile`` span has no counterpart: eager PyTorch compiles no program.
 
+One worker a process (``group=``): each rank of a process group runs one
+worker (``distributed.process_group``; gloo on the CPU, NCCL or gloo on the
+card).  Every rank gets the same global inputs and keeps only its own
+worker's rows, ``data[i]``, on its device; its window is the window kernel
+at ``(1, tau, d)`` (the thread runtime's launch), an eq.-9 tick one delta
+launch at ``(1, 1)`` and the masked reduce with its entry of the shared
+late matrix, and the merge and the eval reduce run over the group's
+transport (``XlaTransport(group=)``, ``RingTransport(group=)``, a
+``QuantizedTransport`` over either, or, over ``Topology.make_groups``'
+groups, tier 0 inside my host and tier 1 across hosts).  ``group`` is a
+flat ``ProcessGroup`` or a ``topology.Groups``; ``transport`` a name
+(``"xla"`` or ``"ring"``) or a transport built over those groups.  ``run``
+returns the same curve, ``w_shared`` and ``last_comm`` on every rank, its
+wall between a ``device.synchronize`` and a group barrier at each end.
+The sparse transport (flat or as tier 1), the quorum and dynamic merges,
+elastic and chaos runs, and ``tracer`` / ``metrics`` / ``profiler`` wait
+for ROADMAP item 9c and raise naming it.
+
 ``profiler=`` (``obs.Profiler``) attributes each run's wall to compute,
 memory, collective and host terms per window, as the reference's does.  A
 profiler turns observation on, as in the reference, whose profiled program
@@ -113,6 +131,7 @@ and the profiler read, starts and ends with the device drained
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 
 import numpy as np
@@ -129,6 +148,49 @@ from repro_torch.kernels import ops, vq_fused
 from repro_torch.obs import (NULL_TRACER, CounterEvent, MetricsRegistry,
                              SpanEvent, Tracer)
 from repro_torch.topology import Topology
+
+
+#: The message of every process-mode refusal.
+ITEM_9C = "one worker a process does not run {what} yet: ROADMAP item 9c"
+
+
+def _dense_over(name: str, group) -> comm.Transport:
+    if name not in ("xla", "ring"):
+        raise ValueError(ITEM_9C.format(
+            what=f"the {name} transport (dense xla or ring only)"))
+    cls = comm.RingTransport if name == "ring" else comm.XlaTransport
+    return cls(group=group)
+
+
+def process_transport(transport, groups, topology=None, *,
+                      tier1: str | None = None):
+    """The transport of a process-mode run: a name (``"xla"``, ``"ring"``)
+    built over the group(s), over ``Topology.make_groups``' two tiers for a
+    hierarchical topology (tier 1 over ``tier1``, by default the same
+    name), or a transport whose collectives already carry groups; raises on
+    what waits for item 9c."""
+    from repro_torch.topology import Groups
+    if isinstance(transport, str) or transport is None:
+        name = transport or "xla"
+        if isinstance(groups, Groups) and len(groups.axes) == 2:
+            return comm.HierarchicalTransport(
+                _dense_over(name, groups.group(topology.worker_axis)),
+                _dense_over(tier1 or name, groups.group(topology.host_axis)),
+                topology=topology)
+        group = (groups.group(groups.axes[0]) if isinstance(groups, Groups)
+                 else groups)
+        return _dense_over(name, group)
+    inner = getattr(transport, "inner", transport)
+    tiers = ((inner.tier0, inner.tier1)
+             if isinstance(inner, comm.HierarchicalTransport) else (inner,))
+    for t in tiers:
+        if isinstance(t, comm.SparseTransport):
+            raise ValueError(ITEM_9C.format(what="the sparse transport"))
+        if getattr(t, "group", None) is None:
+            raise ValueError(
+                "a process-mode transport reduces over process groups: "
+                "build it with group= (or pass 'xla' / 'ring')")
+    return transport
 
 
 def _hier_of(transport: comm.Transport):
@@ -158,6 +220,7 @@ class MeshExecutor:
                  tracer: Tracer | None = None,
                  metrics: MetricsRegistry | None = None,
                  profiler=None,
+                 group=None,
                  device: str | torch.device | None = None):
         if merge not in (None, "quorum", "dynamic"):
             raise ValueError(
@@ -175,6 +238,16 @@ class MeshExecutor:
             raise ValueError(f"publish_every must be >= 1, "
                              f"got {publish_every}")
         self.network = network or GeometricDelayNetwork()
+        # one worker a process: this rank's worker index among the group's
+        # M, and the group's topology (see the module docstring)
+        self.group = group
+        self.worker = None
+        if group is not None:
+            topology = self._process_mode(group, topology, merge=merge,
+                                          tracer=tracer, metrics=metrics,
+                                          profiler=profiler,
+                                          tier1_controller=tier1_controller)
+            transport = process_transport(transport, group, topology)
         # use_kernels=False is the reference's use_pallas=False: the plain
         # vq.H step, and the transport's plain selection.  fused=False keeps
         # the per-step loop (and past the delta kernel's budget the assign
@@ -234,6 +307,47 @@ class MeshExecutor:
         self.profiler = profiler
         self._programs: set = set()
 
+    def _process_mode(self, group, topology, *, merge, tracer, metrics,
+                      profiler, tier1_controller) -> Topology | None:
+        """Check a process-mode configuration, set ``self.worker``; returns
+        the run's topology (None when flat)."""
+        from repro_torch.distributed import process_group
+        from repro_torch.engine.chaos import ChaosNetwork
+        from repro_torch.topology import Groups
+        refused = [(merge is not None, f"merge={merge!r}"),
+                   (isinstance(self.network, ChaosNetwork), "chaos runs"),
+                   (tracer is not None or metrics is not None
+                    or profiler is not None,
+                    "tracer / metrics / profiler"),
+                   (tier1_controller is not None, "the tier-1 controller")]
+        for bad, what in refused:
+            if bad:
+                raise ValueError(ITEM_9C.format(what=what))
+        if isinstance(group, Groups):
+            if len(group.axes) == 1:
+                self.worker = group.coords[0]
+                topo = Topology.flat(group.shape[0],
+                                     worker_axis=group.axes[0])
+            elif len(group.axes) == 2:
+                hosts, wph = group.shape
+                topo = Topology.simulate(hosts, wph, host_axis=group.axes[0],
+                                         worker_axis=group.axes[1])
+                self.worker = group.coords[0] * wph + group.coords[1]
+            else:
+                raise ValueError(
+                    f"a worker grid is (workers,) or (hosts, workers), got "
+                    f"axes {group.axes}")
+            if topology is not None and topology != topo:
+                raise ValueError(
+                    f"topology {topology.describe()} differs from the "
+                    f"groups' {topo.describe()}")
+            return None if topo.is_flat else topo
+        if topology is not None and not topology.is_flat:
+            raise ValueError("a hierarchical process-mode run takes the "
+                             "groups of Topology.make_groups as group=")
+        self.worker = process_group.group_rank(group)
+        return None
+
     @property
     def _observe(self) -> bool:
         return (self.tracer.enabled or self.metrics is not None
@@ -272,14 +386,12 @@ class MeshExecutor:
                       eps: torch.Tensor) -> torch.Tensor:
         """tau sequential eq.-1 steps for every worker from the shared w0
         (kappa, d) over zwin (M, tau, d); returns (M, kappa, d)."""
+        if self.use_kernels:
+            return ops.window_routed(zwin, w0, eps,
+                                     budget_bytes=self.smem_budget_bytes,
+                                     fused=self.fused)
         m, tau, d = zwin.shape
-        kappa = w0.shape[0]
-        if (self.use_kernels and self.fused
-                and ops.window_fits(kappa, d,
-                                    budget_bytes=self.smem_budget_bytes)):
-            return ops.vq_window(zwin, w0, eps,
-                                 budget_bytes=self.smem_budget_bytes)
-        w = w0.expand(m, kappa, d).contiguous()
+        w = w0.expand(m, *w0.shape).contiguous()
         for s in range(tau):
             w = w - eps[s] * self._h(zwin[:, s], w)
         return w
@@ -302,7 +414,11 @@ class MeshExecutor:
         ``mesh.py:834-866`` line for line."""
         m, n, _ = data.shape
         kappa, d = w0.shape
-        dones = async_vq.done_mask(lengths, m, n, tau, self.device)
+        dones = async_vq.done_mask(lengths, lengths.shape[0], n, tau,
+                                   self.device)
+        if self.worker is not None:
+            # this rank's column of the shared completion schedule
+            dones = dones[:, self.worker:self.worker + 1].contiguous()
         dones_f = dones.to(torch.float32)
         eps_all = vq.default_steps(torch.arange(1, n + 1, device=self.device),
                                    eps0=eps0, decay=decay)
@@ -395,18 +511,49 @@ class MeshExecutor:
                 f"{self.topology.total_workers} workers")
         if self.merge is not None and scheme != "delta":
             self._strategy(scheme)             # raises: delta only
+        if self.worker is not None:
+            if m != self._process_workers():
+                raise ValueError(
+                    f"data has M={m} worker streams; the process group "
+                    f"runs {self._process_workers()} workers, one a rank")
+            # this rank's worker only: its rows go to its device
+            data = data[self.worker:self.worker + 1]
+            eval_data = eval_data[self.worker:self.worker + 1]
         return tuple(x.to(self.device, torch.float32).contiguous()
                      for x in (w0, data, eval_data))
+
+    def _process_workers(self) -> int:
+        """The process group's worker count M (one a rank)."""
+        from repro_torch.topology import Groups
+        if isinstance(self.group, Groups):
+            return math.prod(self.group.shape)
+        from repro_torch.distributed import process_group
+        return process_group.group_size(self.group)
+
+    def _drain(self) -> None:
+        """Wait for the device and, in process mode, for every rank."""
+        device_lib.synchronize(self.device)
+        if self.worker is not None:
+            from repro_torch.distributed import process_group
+            process_group.barrier(self._barrier_group())
+
+    def _barrier_group(self):
+        from repro_torch.topology import Groups
+        if not isinstance(self.group, Groups):
+            return self.group
+        return None if len(self.group.axes) == 2 else self.group.groups[0]
 
     def run(self, scheme: str, w0: torch.Tensor, data: torch.Tensor,
             eval_data: torch.Tensor, *, tau: int, eps0: float = 0.5,
             decay: float = 1.0, generator: torch.Generator | None = None,
             lengths: torch.Tensor | None = None) -> SchemeResult:
+        m_all = data.shape[0]
         w0, data, eval_data = self._inputs(scheme, w0, data, eval_data, tau)
         m, n, _ = data.shape
-        # the wall starts and ends with the device drained: on the card the
-        # host queues launches ahead of them
-        device_lib.synchronize(self.device)
+        # the wall starts and ends with the device drained (and, one worker
+        # a process, every rank there): on the card the host queues
+        # launches ahead of them
+        self._drain()
         t_wall = time.perf_counter()
         with self.tracer.span("run", scheme=scheme, executor=self.name, m=m,
                               transport=self.transport.name):
@@ -414,7 +561,7 @@ class MeshExecutor:
                 res = self._sync(scheme, w0, data, eval_data, tau=tau,
                                  eps0=eps0, decay=decay, t0=0)
             else:
-                lengths = api.async_lengths(self.network, m, n, tau,
+                lengths = api.async_lengths(self.network, m_all, n, tau,
                                             generator=generator,
                                             lengths=lengths)
                 mark = self.transport.log.mark()
@@ -428,7 +575,7 @@ class MeshExecutor:
                     self.transport.log.mirror_metrics()
                 if self.on_window is not None:
                     self.on_window(n // tau, res.w_shared)
-        device_lib.synchronize(self.device)
+        self._drain()
         wall_s = time.perf_counter() - t_wall
         if self.metrics is not None:
             self.metrics.histogram("run_wall_s", executor=self.name,
@@ -445,6 +592,8 @@ class MeshExecutor:
         resized run keeps the eps_t sequence a fixed-M run sees, and the
         quorum merge's late bits keyed by global window ``t0 // tau``.  The
         merge state starts fresh, as the reference's does."""
+        if self.worker is not None:
+            raise ValueError(ITEM_9C.format(what="elastic segments"))
         if scheme == "async_delta":
             raise ValueError(
                 "elastic segments support the synchronous schemes "

@@ -65,6 +65,19 @@ SIGNATURES = {
     "vq_ring_f32": (_P, _P, _P, _I, _L, _P),
     # a, b, partial, tickets, out, M, N, G (blocks a worker), stream
     "vq_divergence_f32": (_P, _P, _P, _P, _P, _I, _L, _I, _P),
+    # the ring between processes (vq_ring_hop.cu): a staging buffer's
+    # bytes and void** out; free; export (ptr, 64-byte handle out); open
+    # (handle, void** out); close; stage (x, mask or NULL, stage, N, padded
+    # length, stream); one hop (left, mine, chunk index, chunk length, add
+    # 0/1, stream); copy (dst, src, N, stream)
+    "vq_ring_alloc": (_L, _P),
+    "vq_ring_free": (_P,),
+    "vq_ring_export": (_P, _P),
+    "vq_ring_open": (_P, _P),
+    "vq_ring_close": (_P,),
+    "vq_ring_stage_f32": (_P, _P, _P, _L, _L, _P),
+    "vq_ring_hop_f32": (_P, _P, _I, _L, _I, _P),
+    "vq_ring_copy_f32": (_P, _P, _L, _P),
     # long long* out: CUDA kernels the argmin engine's entries (assign,
     # delta, blocked) have launched in this process
     "vq_argmin_launches": (_P,),

@@ -24,9 +24,9 @@
 // offset p of chunk c on the other workers, and here the M workers are the
 // rows of one tensor on one card: every partial a hop would send is already
 // in the same memory.  A hop is a move that the stacked layout does not
-// need, as the all-gather's copies were not.  Across cards (queue 1, item
-// 9b of ROADMAP.md) the hops move data over peer memory again, and a hop
-// kernel comes back there.
+// need, as the all-gather's copies were not.  With one worker a process
+// the hops move data between the processes' buffers again: that is
+// vq_ring_hop.cu, in the same chunking and fold order.
 //
 // What bounds it on an H100.  It reads x once and writes out once, 4 * (M +
 // 1) * N bytes (18.9 MB at M=8, N=524,288; 453 MB at N=12,582,912), and

@@ -62,6 +62,14 @@ def delta_smem_bytes(kappa: int, d: int, *, bk: int | None = None) -> int:
     return vq_fused.blocked_smem_bytes(kappa, d, bk)
 
 
+def codebook_fits_smem(kappa: int, d: int, *,
+                       budget_bytes: int | None = None) -> bool:
+    """Does a replicated (kappa, d) f32 codebook fit the shared-memory
+    budget?  The counterpart of the reference's ``codebook_fits_vmem``: the
+    lookup shards kappa over a process group when it does not."""
+    return 4 * kappa * d <= smem_budget_bytes(budget_bytes)
+
+
 def window_fits(kappa: int, d: int, *, budget_bytes: int | None = None
                 ) -> bool:
     """Can the window kernel run a (kappa, d) codebook within the budget,
@@ -211,3 +219,28 @@ def vq_window(zwin: torch.Tensor, w0: torch.Tensor, eps: torch.Tensor, *,
     """One window for every worker in a single launch, its blocks held to
     the budget; callers check ``window_fits`` at the same budget first."""
     return vq_fused.vq_window(zwin, w0, eps, smem_budget_bytes(budget_bytes))
+
+
+def window_routed(zwin: torch.Tensor, w0: torch.Tensor, eps: torch.Tensor,
+                  *, budget_bytes: int | None = None, fused: bool = True
+                  ) -> torch.Tensor:
+    """tau sequential eq.-1 steps for every worker from the shared w0
+    (kappa, d) over zwin (M, tau, d) -> (M, kappa, d): the window kernel
+    where ``fused`` and it fits the budget, else the per-step loop through
+    ``vq_delta_routed`` (the delta kernel, past its shared memory the
+    blocked kernel, with ``fused`` off there the assign kernel and an
+    ``index_add_``), the eq.-1 update in PyTorch.  Both give the same
+    codebooks bit for bit."""
+    m, tau, d = zwin.shape
+    kappa = w0.shape[0]
+    if fused and window_fits(kappa, d, budget_bytes=budget_bytes):
+        return vq_window(zwin, w0, eps, budget_bytes=budget_bytes)
+    w = w0.expand(m, kappa, d).contiguous()
+    for s in range(tau):
+        # a batch of one point per worker, so counts/zsum reduce exactly to
+        # H(z, w)
+        counts, zsum = vq_delta_routed(
+            zwin[:, s].unsqueeze(1).contiguous(), w,
+            budget_bytes=budget_bytes, fused=fused)
+        w = w - eps[s] * (counts.unsqueeze(-1) * w - zsum)
+    return w

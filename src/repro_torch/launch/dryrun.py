@@ -25,11 +25,21 @@ n=240), so their bytes equal those files'; the ADPT cells at n=240, as
 ``dryrun_comm.json`` in the current directory), merged by key into what
 the file already holds.  Cells run on ``--device`` (the card by default).
 
-The reference's other modes lower and compile the LM and ``paper_vq``
-cells: ``--arch``, ``--shape``, ``--all``, ``--multi-pod`` and
-``--both-meshes`` exit 2 with the ROADMAP item that brings them (queue 1,
-item 8 for the LM cells, item 9b for ``paper_vq``'s ``vq_batch`` and
-``vq_stream`` through ``core/dvq.py``).
+``--arch paper_vq --shape vq_stream|vq_batch`` runs one step of each
+``core/dvq.py`` step at the reference's cell shape (its ``dryrun.py:
+174-197``: kappa 16,384, d 512, tau 10; ``vq_batch`` at this world's share
+of 2^20 points, ``--model K`` splitting the codebook over K ranks) over the
+world it is started in: one process, or a torchrun world (one worker a
+process, ``distributed.process_group``).  Each rank runs its step once to
+warm up and once timed, between two ``device.synchronize`` calls, and rank
+0 prints the step's wall, the peak device memory
+(``torch.cuda.max_memory_allocated`` over what the process held before
+the cell: its inputs and the step; "not measured" on the CPU), the
+``CommRecord`` bytes and ``VqCell``'s compute, memory and collective terms
+for each rank.  The reference lowers and compiles these cells; eager
+PyTorch runs them.  Its other modes lower the LM cells: ``--arch`` (but
+``paper_vq``), ``--shape`` (but those two), ``--all``, ``--multi-pod`` and
+``--both-meshes`` exit 2 naming ROADMAP queue 1, item 8.
 """
 
 from __future__ import annotations
@@ -37,13 +47,130 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import time
 
+import torch
+
+from repro_torch import comm
 from repro_torch import device as device_lib
 from repro_torch.comm import sweep
 
 #: points a worker of the COMM and HIER cells: ``BENCH_comm.json``'s and
 #: ``BENCH_hier.json``'s
 N_COMM = 200
+#: The reference's ``paper_vq`` cell: codebook rows, width, window, and the
+#: ``vq_batch`` step's points over the whole world.
+VQ_KAPPA, VQ_D, VQ_TAU, VQ_BATCH = 16384, 512, 10, 1 << 20
+VQ_SHAPES = ("vq_stream", "vq_batch")
+
+
+def run_vq_cell(shape: str, *, dev: torch.device, groups=None,
+                seed: int = 0) -> dict:
+    """One ``core.dvq`` step of the ``paper_vq`` cell ``shape`` on this
+    rank (``groups``: ``Topology.make_groups`` of the world, or None for
+    one process); returns this rank's record."""
+    from repro_torch.core import dvq
+    from repro_torch.distributed import process_group
+    from repro_torch.distributed.roofline import (COLLECTIVE_BW, HBM_BW,
+                                                  PEAK_FLOPS, VqCell,
+                                                  vq_roofline_terms)
+    kappa, d, tau = VQ_KAPPA, VQ_D, VQ_TAU
+    # the cell's own memory: what the process held before it is left out
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn((kappa, d), generator=gen, device=dev)
+    world = 1 if groups is None else process_group.current().world_size
+    cell = VqCell(d=d, kappa=kappa, tau=tau)
+    if shape == "vq_stream":
+        step = dvq.make_window_vq_step(
+            tau=tau, group=None if groups is None else groups.groups[0])
+        z = torch.randn((1, tau, d), generator=gen, device=dev)
+        batch = tau
+        mesh = f"{world}"
+    else:
+        model = 1 if groups is None else groups.size("model")
+        data_group = None if groups is None else groups.group("data")
+        model_group = (groups.group("model")
+                       if groups is not None and model > 1 else None)
+        if kappa % model:
+            raise ValueError(f"--model {model} must divide kappa={kappa}")
+        if model_group is not None:
+            k_local = kappa // model
+            r = groups.index("model")
+            w = w[r * k_local:(r + 1) * k_local].contiguous()
+        step = dvq.make_minibatch_vq_step(data_group=data_group,
+                                          model_group=model_group)
+        batch = VQ_BATCH // (world // model)
+        z = torch.randn((batch, d), generator=gen, device=dev)
+        mesh = f"{world // model}x{model}"
+    step(w, 0, z)                                   # warm-up
+    mark = step.transport.log.mark()
+    device_lib.synchronize(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    step(w, 0, z)
+    device_lib.synchronize(dev)
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated(dev) - base
+            if dev.type == "cuda" else None)
+    summ = comm.CommLog.summarize(step.transport.log.since(mark))
+    if shape == "vq_stream":
+        terms = vq_roofline_terms(cell, summ["wire_bytes"])
+        terms = {k: terms[k] for k in ("t_compute", "t_memory",
+                                        "t_collective", "dominant")}
+    else:
+        terms = {"t_compute": cell.delta_flops(batch) / PEAK_FLOPS,
+                 "t_memory": cell.delta_hbm_bytes(batch) / HBM_BW,
+                 "t_collective": summ["wire_bytes"] / COLLECTIVE_BW}
+        terms["dominant"] = max(terms, key=terms.get)[2:]
+    return {"arch": "paper_vq", "shape": shape, "mesh": mesh,
+            "status": "ok", "kappa": kappa, "d": d, "tau": tau,
+            "points": batch, "wall_s": wall, "peak_bytes": peak,
+            "wire_bytes": summ["wire_bytes"],
+            "logical_bytes": summ["logical_bytes"],
+            "calls": summ["calls"], "terms": terms}
+
+
+def run_vq_cells(shape: str, *, device=None, model: int = 1) -> int:
+    """``run_vq_cell`` over the world this process was started in (one
+    process, or torchrun's); rank 0 prints every rank's record.  Returns
+    the exit code."""
+    from repro_torch.distributed import process_group
+    from repro_torch.launch.train import in_torchrun_world
+    from repro_torch.topology import Topology
+    shapes = VQ_SHAPES if shape is None else (shape,)
+    own = in_torchrun_world() and not process_group.in_world()
+    if own:
+        process_group.init(device=device)
+    try:
+        dev = (process_group.current().device if process_group.in_world()
+               else device_lib.resolve(device))
+        rank = process_group.current().rank if process_group.in_world() else 0
+        for sh in shapes:
+            groups = None
+            if process_group.in_world():
+                world = process_group.current().world_size
+                groups = Topology.flat(world).make_groups(
+                    model=model if sh == "vq_batch" else None)
+            rec = run_vq_cell(sh, dev=dev, groups=groups)
+            recs = (process_group.all_gather_object(rec)
+                    if groups is not None else [rec])
+            if rank == 0:
+                for r, x in enumerate(recs):
+                    peak = ("not measured" if x["peak_bytes"] is None
+                            else f"{x['peak_bytes']:,} B")
+                    print(f"OK   paper_vq x {sh} [{x['mesh']}] rank {r}: "
+                          f"step wall {x['wall_s'] * 1e3:.3f} ms, peak "
+                          f"device memory {peak}, comm wire "
+                          f"{x['wire_bytes']:,} B / logical "
+                          f"{x['logical_bytes']:,} B ({x['calls']} calls), "
+                          f"VqCell terms " + json.dumps(x["terms"]),
+                          flush=True)
+    finally:
+        if own:
+            process_group.destroy()
+    return 0
 
 
 def run_comm_suite(*, sparse_frac: float | None = None, device=None,
@@ -140,8 +267,9 @@ def main(argv=None) -> int:
         prog="python -m repro_torch.launch.dryrun",
         description="The comm dry run: measured wire bytes per scheme x "
                     "transport on the PyTorch port.")
-    ap.add_argument("--arch", help="an LM or paper_vq cell (not ported)")
-    ap.add_argument("--shape", help="a shape cell (not ported)")
+    ap.add_argument("--arch", help="paper_vq, or an LM cell (not ported)")
+    ap.add_argument("--shape", help="vq_stream or vq_batch with --arch "
+                                    "paper_vq, or an LM shape (not ported)")
     ap.add_argument("--all", action="store_true",
                     help="the LM sweep (not ported)")
     ap.add_argument("--multi-pod", action="store_true",
@@ -154,16 +282,26 @@ def main(argv=None) -> int:
     ap.add_argument("--sparse-frac", type=float, default=None,
                     help="--comm: sparse transport keep-fraction "
                          "(default: k/kappa = 0.25, the acceptance point)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="--shape vq_batch: ranks the codebook's rows are "
+                         "split over (a divisor of the world size)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--out", default="dryrun_comm.json")
     args = ap.parse_args(argv)
 
-    if (args.arch == "paper_vq"
-            or args.shape in ("vq_batch", "vq_stream")):
-        print("error: the paper_vq cells (vq_batch, vq_stream) run "
-              "core/dvq.py's SPMD steps, which come with ROADMAP queue 1, "
-              "item 9b")
-        return 2
+    if args.arch == "paper_vq" and not (args.all or args.multi_pod
+                                        or args.both_meshes):
+        if args.shape not in (None, *VQ_SHAPES):
+            print(f"error: the paper_vq cells are {VQ_SHAPES}, got "
+                  f"--shape {args.shape}")
+            return 2
+        device_lib.pin_full_f32()
+        try:
+            return run_vq_cells(args.shape, device=args.device,
+                                model=args.model)
+        except ValueError as e:
+            print(f"error: {e}")
+            return 2
     if args.arch or args.shape or args.all or args.multi_pod \
             or args.both_meshes:
         print("error: --arch/--shape/--all/--multi-pod/--both-meshes lower "

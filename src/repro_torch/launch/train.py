@@ -69,6 +69,21 @@ explain), prints the attribution table, writes the export and prints the
 command that renders it (``python -m repro_torch.obs.report --profile
 PROF.json``); any other ``--executor`` exits 2.
 
+Under a torchrun world (``torchrun --standalone --nproc-per-node N -m
+repro_torch.launch.train --mode vq --executor mesh ...``) the mesh
+executor runs one worker a process (``distributed.process_group``): gloo
+on the CPU, NCCL when every rank has a card of its own, gloo over CUDA
+tensors when ranks share one (the ring's hops then run the hop kernel over
+CUDA IPC).  ``--workers`` must equal the world size; ``--hosts H`` splits
+the ranks as ``Topology.simulate`` splits workers, tier 1 over a dense
+``--tier1-transport``.  Every rank draws the same global inputs and keeps
+its own rows; rank 0 prints the report and the kernels' launches on every
+rank, and every rank exits with the run's code.  The sparse transport
+(flat or as tier 1), ``--quorum``, ``--merge``, ``--chaos``, ``--resize``,
+``--tier1-frac auto``, ``--trace``, ``--metrics`` and ``--profile`` exit
+2 naming ROADMAP item 9c there.  ``--save-result OUT.pt`` writes the
+run's ``w_shared``, curve and ticks (rank 0 in a world).
+
 ``--autotune {off,cache,search}`` picks the kernels' tiles
 (``kernels.autotune``; tiles change no bit) and ``--autotune-cache
 TILES.json`` keeps the picks in a file.
@@ -77,6 +92,10 @@ TILES.json`` keeps the picks in a file.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import json
+import os
 import time
 
 import torch
@@ -215,9 +234,80 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "host residual; prints the attribution table and "
                          "writes the Profiler export (render with "
                          "repro_torch.obs.report --profile)")
+    ap.add_argument("--save-result", default="", metavar="OUT.pt",
+                    help="write the run's w_shared, distortion curve and "
+                         "wall ticks with torch.save (rank 0 in a world)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return ap.parse_args(argv)
+
+
+def in_torchrun_world() -> bool:
+    """Started by torchrun (its RANK, WORLD_SIZE and LOCAL_RANK are set)."""
+    return all(os.environ.get(k) for k in ("RANK", "WORLD_SIZE",
+                                           "LOCAL_RANK"))
+
+
+def process_refusal(args, world_size: int) -> str | None:
+    """Why this configuration cannot run one worker a process, or None."""
+    if args.executor != "mesh":
+        return (f"under a torchrun world the mesh executor runs one worker "
+                f"a process; --executor {args.executor} runs in one process")
+    if args.workers != world_size:
+        return (f"--workers {args.workers} must equal the world size "
+                f"{world_size} (one worker a rank)")
+    waits = [(args.transport == "sparse", "--transport sparse"),
+             (args.hosts > 1 and args.tier1_transport == "sparse",
+              "a sparse tier 1 (pass --tier1-transport xla or ring)"),
+             (args.quorum or args.merge, "--quorum / --merge"),
+             (bool(args.chaos), "--chaos"),
+             (bool(args.resize or args.resume), "--resize / --resume"),
+             (args.tier1_frac == "auto", "--tier1-frac auto"),
+             (bool(args.trace or args.metrics or args.profile),
+              "--trace / --metrics / --profile")]
+    for bad, what in waits:
+        if bad:
+            return (f"one worker a process does not run {what} yet: ROADMAP "
+                    f"item 9c")
+    return None
+
+
+def _launch_counts() -> dict:
+    """Every kernel wrapper's launch count in this process."""
+    from repro_torch.comm import ring
+    from repro_torch.kernels import vq_assign, vq_fused
+    return {"window": vq_fused.launches, "delta": vq_assign.launches,
+            "assign": vq_assign.launches_assign,
+            "blocked": vq_fused.launches_blocked,
+            "topk": vq_fused.launches_topk, "ring": ring.launches_ring,
+            "ring_hop": ring.launches_ring_hop}
+
+
+def run_process(args) -> int:
+    """The mesh executor with one worker a process of the torchrun world
+    (joined here, or the world this process is already in); returns the
+    run's exit code (every rank the same)."""
+    from repro_torch.distributed import process_group
+    own = not process_group.in_world()
+    world = (process_group.init(device=args.device) if own
+             else process_group.current())
+    try:
+        topology = Topology.from_spec(world.world_size, hosts=args.hosts)
+        process_group.set_topology(topology)
+        groups = topology.make_groups()
+        quiet = (contextlib.redirect_stdout(io.StringIO()) if world.rank
+                 else contextlib.nullcontext())
+        with quiet:
+            run_vq(args, groups=groups, dev=world.device)
+        counts = process_group.all_gather_object(_launch_counts())
+        if world.rank == 0:
+            print("launches per rank: " + json.dumps(
+                {k: [c[k] for c in counts] for k in counts[0]}), flush=True)
+        process_group.barrier()
+    finally:
+        if own:
+            process_group.destroy()
+    return 0
 
 
 def make_inputs(args, dev: torch.device):
@@ -233,10 +323,27 @@ def make_inputs(args, dev: torch.device):
 
 def build_executor(args, dev: torch.device, *, tracer: Tracer | None = None,
                    metrics: MetricsRegistry | None = None,
-                   profiler: Profiler | None = None):
+                   profiler: Profiler | None = None, groups=None):
     """The run's executor, observed by ``tracer`` / ``metrics`` and, on the
-    mesh executors, ``profiler``; raises ValueError on a configuration the
-    reference refuses (``main`` prints it and exits 2)."""
+    mesh executors, ``profiler``; with ``groups`` (``Topology.make_groups``
+    of a torchrun world) the mesh executor with one worker a process.
+    Raises ValueError on a configuration the reference refuses (``main``
+    prints it and exits 2)."""
+    if groups is not None:
+        from repro_torch.engine.mesh import process_transport
+        from repro_torch.distributed import process_group
+        topology = process_group.current().topology
+        transport = process_transport(args.transport, groups, topology,
+                                      tier1=args.tier1_transport)
+        if args.wire_quant != "off":
+            transport = comm.get_transport("quant", inner=transport,
+                                           mode=args.wire_quant)
+        net_kw = ({"latency_ticks": args.latency} if args.network == "fixed"
+                  else {"p_delay": args.p_delay}
+                  if args.network == "geometric" else {})
+        return get_executor("mesh", network=get_network(args.network,
+                                                        **net_kw),
+                            transport=transport, group=groups, device=dev)
     obs = {"tracer": tracer, "metrics": metrics}
     if args.executor == "thread":
         return get_executor("thread", duration_s=args.duration_s,
@@ -320,10 +427,11 @@ def build_executor(args, dev: torch.device, *, tracer: Tracer | None = None,
         **obs, **kw)
 
 
-def run_vq(args):
+def run_vq(args, *, groups=None, dev: torch.device | None = None):
     """Run the scheme and print the reference's report; returns
-    ``(result, executor, wall_s)``."""
-    dev = device_lib.resolve(args.device)
+    ``(result, executor, wall_s)``.  ``groups``: one worker a process of
+    the current world, on ``dev``."""
+    dev = device_lib.resolve(args.device) if dev is None else dev
     autotune.set_mode(args.autotune)
     if args.autotune_cache:
         autotune.set_cache_path(args.autotune_cache)
@@ -333,7 +441,7 @@ def run_vq(args):
     metrics = MetricsRegistry() if observe else None
     profiler = Profiler(metrics=metrics) if args.profile else None
     executor = build_executor(args, dev, tracer=tracer, metrics=metrics,
-                              profiler=profiler)
+                              profiler=profiler, groups=groups)
     # armed before the run: a run that dies still leaves its files
     flusher = None
     if observe:
@@ -353,7 +461,8 @@ def run_vq(args):
           f"transport={transport.name if transport else 'none'}"
           + (f" topology={topology.describe()} tier1={args.tier1_transport}"
              if topology is not None else "")
-          + (f" resize={args.resize}" if args.resize else ""))
+          + (f" resize={args.resize}" if args.resize else "")
+          + (" one worker a process" if groups is not None else ""))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -376,6 +485,10 @@ def run_vq(args):
     pts = args.workers * args.points
     print(f"done: C(final)={float(curve[-1]):.5f} in {wall:.2f}s wall "
           f"({wall / pts * 1e6:.2f} us/point over {pts} points)")
+    if args.save_result and (groups is None
+                             or executor.worker == 0):
+        torch.save({"w_shared": res.w_shared.cpu(), "distortion": curve,
+                    "wall_ticks": ticks, "wall_s": wall}, args.save_result)
     last_comm = getattr(executor, "last_comm", None)
     if last_comm:
         merge_b = last_comm["by_tag"].get(
@@ -492,7 +605,15 @@ def main(argv=None) -> int:
         print(f"error: --tier1-frac auto adapts the mesh transport's sparse "
               f"tier; got --executor {args.executor}")
         return 2
+    if in_torchrun_world():
+        why = process_refusal(args, int(os.environ["WORLD_SIZE"]))
+        if why is not None:
+            if os.environ["RANK"] == "0":
+                print(f"error: {why}")
+            return 2
     try:
+        if in_torchrun_world():
+            return run_process(args)
         run_vq(args)
     except ValueError as e:  # a configuration the executor refuses
         print(f"error: {e}")

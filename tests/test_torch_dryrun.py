@@ -118,8 +118,8 @@ def test_dryrun_records_name_their_cells(dry):
     (["--all"], "item 8"),
     (["--multi-pod", "--comm"], "item 8"),
     (["--both-meshes"], "item 8"),
-    (["--arch", "paper_vq", "--shape", "vq_batch"], "item 9b"),
-    (["--shape", "vq_stream"], "item 9b"),
+    (["--arch", "paper_vq", "--shape", "train_4k"], "vq_stream"),
+    (["--arch", "paper_vq", "--all"], "item 8"),
     ([], "--comm"),
 ])
 def test_dryrun_lm_and_paper_vq_flags_exit_2(argv, item, capsys):

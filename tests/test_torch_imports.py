@@ -54,7 +54,10 @@ def test_checker_catches_forbidden_imports(tmp_path):
     "repro_torch.obs.check", "repro_torch.core.async_runtime",
     "repro_torch.engine.threads", "repro_torch.obs.profile",
     "repro_torch.obs.report", "repro_torch.distributed.roofline",
-    "repro_torch.distributed.comm_analysis", "repro_torch.launch.dryrun"])
+    "repro_torch.distributed.comm_analysis", "repro_torch.launch.dryrun",
+    "repro_torch.distributed.process_group", "repro_torch.core.dvq",
+    "repro_torch.topology.topology", "repro_torch.serve.lookup",
+    "repro_torch.distributed.elastic"])
 def test_new_module_is_the_ports_own_and_starts_nothing(name):
     before = threading.active_count()
     mod = importlib.import_module(name)

@@ -228,7 +228,11 @@ def test_assign_wrapper_validates_and_never_counts_cpu():
                                       "vq_delta_f32", "vq_assign_f32",
                                       "vq_topk_f32", "vq_delta_blocked_f32",
                                       "vq_ring_f32", "vq_argmin_launches",
-                                      "vq_divergence_f32"}
+                                      "vq_divergence_f32", "vq_ring_alloc",
+                                      "vq_ring_free", "vq_ring_export",
+                                      "vq_ring_open", "vq_ring_close",
+                                      "vq_ring_stage_f32", "vq_ring_hop_f32",
+                                      "vq_ring_copy_f32"}
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
@@ -243,7 +247,8 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
                                                           "vq_topk.cu",
                                                           "vq_blocked.cu",
                                                           "vq_ring.cu",
-                                                          "vq_divergence.cu"}
+                                                          "vq_divergence.cu",
+                                                          "vq_ring_hop.cu"}
     assert os.path.basename(_build.BUILD_ROOT) == ".build"
 
 

@@ -166,12 +166,13 @@ def test_lookup_validation(monkeypatch):
         ShardedLookup(mode="shard_batch", device=CPU)
     with pytest.raises(ValueError, match="matching d"):
         _lookup().assign(_queries(8, d=4), _codebook())
-    # several devices: the sharded plans wait for torch.distributed
-    monkeypatch.setattr(lookup, "device_count", lambda device: 2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        ShardedLookup(device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        ShardedLookup(n_devices=2, mode="shard_kappa", device=CPU)
+    # over a process group of 2 ranks the sharded plans route as the
+    # reference's (tests/test_torch_lookup_sharded.py runs them)
+    monkeypatch.setattr(lookup, "group_size", lambda group: 2)
+    assert ShardedLookup(group=object(), device=CPU).plan(
+        KAPPA, D) == "shard_batch"
+    assert ShardedLookup(n_devices=2, mode="shard_kappa", group=object(),
+                         device=CPU).plan(KAPPA, D) == "shard_kappa"
     assert ShardedLookup(n_devices=1, device=CPU).plan(KAPPA, D) == "direct"
 
 
