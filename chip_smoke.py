@@ -261,7 +261,40 @@ PyTorch built for CUDA:
      two cells exit 0 with their terms; G6, NCCL at world size 1, its
      dense group sum == the stacked one (the multi-GPU leg is unverified
      on one card);
-  22. times each kernel (the delta sweep also at each kchunk the tuner
+  22. runs the LM serving path (``lm_serving_legs``, queue 1, item 8a): (a)
+     the main path, ``repro_torch.launch.serve --mode lm --arch granite_8b``
+     at the published config (36 layers, d_model 4,096, bf16, 8.25 B
+     params drawn from the seed on the card) with the launcher's defaults,
+     3 waves of 4 requests x 16 prompt tokens + 16 generated, no kernel
+     of the port's own launched (the reference runs this path on XLA):
+     init seconds, prefill ms and decode ms a token against the
+     weight-read bound, tok/s, the peak device memory, and one wave under
+     torch.profiler (busy share, device operations a step); (b) on the
+     same model: ``run_lm`` twice from the same seed draws the same
+     weights and serves the same greedy tokens, prefill's last logits == forward's, teacher-forced decode vs
+     ``forward`` within LM_DECODE_REL, and the int8 serve step
+     (``quantize_tree``, dequantized a layer at a time): logits'
+     correlation with bf16 > LM_CORR, its ms a step in turns with bf16's;
+     (e) the paper's algorithm on the model's (49,152 x 4,096) embedding
+     table (``examples/embedding_vq_torch.py``'s ``cluster``: eq. 9 on 8
+     workers, kappa 64): the distortion falls, 3 assign launches, the
+     assign kernel against its plain version in float64 (flips only at
+     near-ties, counts moved by the flips only, min distances under the
+     FLIP_REL rule, eq. 2 == the mean of those min distances within
+     DIV_RTOL), and its time; (c) the other nine configs at full width,
+     at full depth where their bf16 weights are under LM_FULL_DEPTH_GB
+     and at LM_CUT_LAYERS layers otherwise (the cut printed; MoE
+     dropless), one wave each whose prefill + decode logits match
+     ``forward``'s within LM_DECODE_REL, with the count of logits that
+     differ and layer 0's projections whose rows take other bits at the
+     decode step's M than at the forward's (the gap's source); the MoE
+     also served again (the same bits), its layer-0 MoE over the block
+     == one token at a time, and one wave at the published
+     capacity_factor served twice (finite, the same bits); hymba at its 32 layers with a 1,152-token prompt (past its 1,024
+     window) and 16 decode steps; (d) the ten smoke configs in f32 with
+     TF32 off, the card's forward and prefill + 4 decode steps == the
+     CPU's at rtol=1e-4, atol=1e-5;
+  23. times each kernel (the delta sweep also at each kchunk the tuner
      weighs; the assign kernel at the flush, the eval and (8, 1) x 4096 x
      3072; the blocked kernel at (8, 1) x 4096 x 3072 with and without the
      epilogue and at (8, 1) x 4096 x 128; the window kernel also at M = 1,
@@ -280,7 +313,7 @@ PyTorch built for CUDA:
      the 3072-wide eq.-9 path with torch.profiler (device time by kernel, the
      device's idle share), after timing 200 dense and ring sync windows in
      turns on the host clock;
-  23. prints one ``{"kernels": [...]}`` line (window, delta, assign,
+  24. prints one ``{"kernels": [...]}`` line (window, delta, assign,
       top-k, blocked, ring and the ring's hop kernel), the card line
       again, and last
       ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -395,6 +428,24 @@ G2_AVG_POINTS = 600      # 60 windows of the 8-process average run, cut
 G3_M, G3_TICKS = 4, 1_200  # eq. 9 in 4 processes, cut
 G4_KAPPAS = (4096, 4099)   # the lookup plans' codebooks, one ragged
 G5_BATCH = 1024          # the 2 x 2 minibatch step's points
+# item 22, the LM serving path: the launcher's default arch at its published
+# size (its defaults: 3 waves of 4 requests, 16-token prompts, 16 tokens
+# generated), then the other nine configs at full width, at full depth where
+# their bf16 weights are under LM_FULL_DEPTH_GB and at LM_CUT_LAYERS
+# otherwise; hymba at a prompt that is a multiple of the SSD chunk and past
+# its 1,024 window
+LM_ARCH = "granite_8b"
+LM_FULL_DEPTH_GB = 21.0   # starcoder2-7b's published dims: 10.1 B, 20.2 GB
+LM_CUT_LAYERS = 2
+LM_PROMPT, LM_GEN = 16, 8      # (c): a config's wave (hymba: below)
+HYMBA_PROMPT, HYMBA_GEN = 1152, 16
+LM_QUANT_STEPS = 10            # (b): timed decode steps a reading
+LM_CORR = 0.999                # (b): int8 logits' correlation with bf16
+# bf16 against bf16, as max |gap| over max |logits| (both sides round every
+# product to bf16, in orders that differ with the shapes)
+LM_PREFILL_REL = 0.0           # prefill's last logits vs forward's: one math
+LM_DECODE_REL = 0.05           # teacher-forced decode vs forward
+LM_BF16_PEAK = 989e12          # bf16 dense FLOP/s of an H100 SXM at 700 W
 # read before each call kernel_ms times: 20 times the H100's 50 MB L2, and
 # ~0.3 ms of device time in which the host enqueues the call
 L2_FLUSH_BYTES = 1 << 30
@@ -954,11 +1005,13 @@ def freeze_ab(serve, codebook, extra: list[str]) -> None:
           f"{p99[False]}, on {p99[True]}")
 
 
-def profile(label: str, run, units: int, unit: str) -> None:
+def profile(label: str, run, units: int, unit: str) -> dict | None:
     """Where the time goes: device time per kernel name from
     ``torch.profiler`` over one call of ``run`` (after one untraced
     warm-up call), per ``unit``, and the device's busy and idle share of the
-    profiled wall time."""
+    profiled wall time.  Returns the wall, the busy time (us) and the
+    device operations the trace holds, or None when it saw no device
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as trace
@@ -972,21 +1025,24 @@ def profile(label: str, run, units: int, unit: str) -> None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict[str, float] = {}
+    n_ops = 0
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
+            n_ops += 1
             by_name[ev.name] = (by_name.get(ev.name, 0.0)
                                 + ev.time_range.elapsed_us())
     busy = sum(by_name.values())
     if busy == 0.0:
         print(f"profile {label}: the profiler saw no device time (not "
               f"measured)")
-        return
+        return None
     per = 1.0 / units
     print(f"profile ({units} {unit}s of {label}): wall {wall_us * per:.1f} "
           f"us/{unit} with the profiler on, device busy {busy * per:.1f} "
           f"us/{unit}, idle share {1.0 - busy / wall_us:.3f}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {us * per:9.2f} us/{unit}  {name[:100]}")
+    return {"wall_us": wall_us, "busy_us": busy, "ops": n_ops}
 
 
 def zero_counts() -> None:
@@ -2402,6 +2458,497 @@ def process_group_legs(dev, w0, data, eval_data) -> dict:
     return {"launches": sum(counts2["ring_hop"]), "hop": hop[8]}
 
 
+# -- item 22: the LM serving path ---------------------------------------------
+
+def _nbytes(tree) -> int:
+    """Bytes of a tree's tensors (a quantized leaf's q and scale)."""
+    from repro_torch.models.quantization import _leaves
+    return sum(x.numel() * x.element_size()
+               for leaf in _leaves(tree)
+               for x in ((leaf,) if hasattr(leaf, "numel")
+                         else (leaf.q, leaf.scale)))
+
+
+def lm_bounds(cfg, params, b: int, t: int, max_len: int) -> dict:
+    """Least times (ms) of a decode step at batch b and of a prefill of
+    b x t tokens: the weights a step must read (every layer's, the head and
+    the final norm; b or b x t embedding rows) with the cache and the logits
+    over the HBM rate, or the matmuls' operations over the bf16 peak,
+    whichever is larger."""
+    from repro_torch.distributed.roofline import HBM_BW
+    from repro_torch.models.quantization import _leaves
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    w_bytes = (_nbytes(params["blocks"]) + _nbytes(head)
+               + _nbytes(params["final_norm"]))
+    per_tok = 2 * (sum(x.numel() for x in _leaves(params["blocks"])
+                       if x.dim() >= 3) + head.numel())
+    row = cfg.d_model * params["embed"].element_size()
+    cache = 2 * cfg.n_layers * b * max_len * cfg.n_kv_heads * cfg.head_dim \
+        * 2
+    logits = b * cfg.vocab * 2
+    attn = 4 * cfg.n_layers * cfg.n_heads * cfg.head_dim * b * t * t
+    out = {}
+    for name, n_tok, extra, flops in (
+            ("decode", b, cache + logits, per_tok * b),
+            ("prefill", b * t, cache + logits, per_tok * b * t + attn)):
+        t_bytes = (w_bytes + n_tok * row + extra) / HBM_BW * 1e3
+        t_ops = flops / LM_BF16_PEAK * 1e3
+        out[name] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                     else (t_ops, "operations"))
+    out["weight_bytes"] = w_bytes
+    return out
+
+
+def _rel_gap(got, want) -> float:
+    """max |got - want| over max |want|, in f32."""
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def _wave_logits(api, params, batch: dict, gen: int, max_len: int,
+                 teacher=None):
+    """Prefill, then ``gen`` decode steps (greedy, or fed ``teacher``'s
+    tokens): (the logits of each step, prefill's first, (B, gen + 1, V);
+    the tokens fed)."""
+    import torch
+    logits, cache = api.prefill(params, batch, max_len)
+    outs, fed = [logits], []
+    for s in range(gen):
+        tok = (teacher[:, s:s + 1] if teacher is not None
+               else torch.argmax(outs[-1], dim=-1)[:, None])
+        fed.append(tok)
+        logits, cache = api.decode_step(params, cache, tok)
+        outs.append(logits[:, 0])
+    return torch.stack(outs, dim=1), torch.cat(fed, dim=1)
+
+
+def check_lm_config(dev, arch: str, *, prompt: int, gen: int, batch: int,
+                    layers: int | None = None, seed: int = SEED) -> dict:
+    """One wave of a config at full width (``layers`` cuts its depth):
+    prefill + greedy decode, against ``forward`` over the prompt and the
+    tokens decoded (prefill-by-decode == forward, at LM_DECODE_REL).
+    Returns its readings."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.serve import lm_batch
+    from repro_torch.models.api import get_api
+    from repro_torch.models.common import layer_slice, rms_norm
+
+    cfg = registry.get_config(arch)
+    cut = ""
+    if layers is not None and layers < cfg.n_layers:
+        cut = f", cut from {cfg.n_layers} to {layers} layers"
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    published = cfg
+    if cfg.family == "moe":
+        # capacity E: cap = T * k, dropless at any T (a token's k units go
+        # to k experts); dropping is the one legitimate divergence of a
+        # T-token forward from one-token decode steps
+        cut += f", capacity_factor {cfg.n_experts} (dropless)"
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    api = get_api(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    b_in = lm_batch(cfg, batch, prompt,
+                    torch.Generator(device=dev).manual_seed(seed), dev)
+    toks = b_in["tokens"]
+    pre = cfg.img_tokens if cfg.family == "vlm" else 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, fed = _wave_logits(api, params, b_in, gen, pre + prompt + gen)
+    torch.cuda.synchronize()
+    wave_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(logits.float()).all()):
+        fail(f"LM {arch}: logits not finite")
+    # forward over what the cache saw.  whisper's prefill leaves its
+    # self-cache empty (the reference's quirk): its decode steps are
+    # positions 0.. of the tokens fed
+    if cfg.family == "encdec":
+        f_in = {**b_in, "tokens": fed}
+        want = api.forward(params, f_in)[:, :gen]
+        got = logits[:, 1:]
+    else:
+        seq = torch.cat([toks, fed], dim=1)
+        if cfg.family in ("ssm", "hybrid") and seq.shape[1] > 128:
+            # the SSD chunk: pad to a multiple of 128; causal, so the
+            # padding moves no earlier position
+            pad = -seq.shape[1] % 128
+            seq = torch.cat([seq, seq[:, :pad]], dim=1)
+        want = api.forward(params, {**b_in, "tokens": seq})[
+            :, pre + prompt - 1: pre + prompt + gen]
+        got = logits
+    gap = _rel_gap(got, want)
+    n_diff = int((got != want).sum())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"LM {arch} ({cfg.family}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_params():,} params{cut}): weights drawn in "
+          f"{init_s:.2f} s; a wave of {batch} x {prompt} + {gen} in "
+          f"{wave_s:.2f} s; prefill-by-decode vs forward max rel gap "
+          f"{gap:.3e} (bound {LM_DECODE_REL}), {n_diff} of {want.numel()} "
+          f"logits differ; peak {peak:.2f} GiB")
+    if gap > LM_DECODE_REL:
+        fail(f"LM {arch}: prefill + decode differ from forward by {gap:.3e}")
+    # where the gap comes from: a decode step multiplies `batch` rows, the
+    # forward all of them, and cuBLAS picks its kernel (its summation
+    # order) by the shape.  Layer 0's projections whose rows take other
+    # bits in the two calls; where none do and attention agrees, the gap
+    # reads 0
+    lp = layer_slice(params.get("blocks", params.get("dec_blocks")), 0)
+    n_rows = batch * (prompt + gen)
+    gen_r = torch.Generator(device=dev).manual_seed(seed)
+    mats = sorted(k for k, w in lp.items()
+                  if w.dim() == 2 and not k.startswith("conv"))
+    moved = []
+    for k in mats:
+        rows = torch.randn((n_rows, lp[k].shape[0]), generator=gen_r,
+                           device=dev).to(cfg.dtype)
+        if not torch.equal(rows @ lp[k], torch.cat(
+                [rows[i:i + batch] @ lp[k] for i in range(0, n_rows, batch)])):
+            moved.append(k)
+    print(f"LM {arch}: layer 0's projections whose rows take other bits "
+          f"at M = {batch} than at M = {n_rows}: {moved} of {mats}")
+    if cfg.family == "moe":
+        # a dropless MoE's expert matmuls are batched over experts: layer
+        # 0's MoE over the prompt block against one token at a time
+        from repro_torch.models import blocks
+        h = rms_norm(params["embed"][toks], lp["mlp_norm"], cfg.norm_eps)
+        m_blk = blocks.moe_apply(cfg, lp, h)
+        m_one = torch.cat([blocks.moe_apply(cfg, lp, h[:, j:j + 1])
+                           for j in range(prompt)], dim=1)
+        again, fed2 = _wave_logits(api, params, b_in, gen,
+                                   prompt + gen)
+        print(f"LM {arch} dropless: layer 0's MoE over the {prompt}-token "
+              f"block == one token at a time, bitwise "
+              f"{torch.equal(m_blk, m_one)} ({int((m_blk != m_one).sum())} "
+              f"of {m_one.numel()} differ); the wave served again: the same "
+              f"bits {torch.equal(again, logits) and torch.equal(fed2, fed)}")
+        if not (torch.equal(again, logits) and torch.equal(fed2, fed)):
+            fail(f"LM {arch}: the dropless wave served again differs")
+        # the published capacity_factor, which drops units: the same wave
+        # served twice, finite and the same bits both times
+        api_p = get_api(published)
+        w1, f1 = _wave_logits(api_p, params, b_in, gen, prompt + gen)
+        w2, f2 = _wave_logits(api_p, params, b_in, gen, prompt + gen)
+        finite = bool(torch.isfinite(w1.float()).all())
+        same = torch.equal(w1, w2) and torch.equal(f1, f2)
+        print(f"LM {arch} at its published capacity_factor "
+              f"{published.capacity_factor}: a wave's logits finite "
+              f"{finite}, the same bits served twice {same}; rel gap to the "
+              f"dropless wave's prefill logits "
+              f"{_rel_gap(w1[:, 0], logits[:, 0]):.3e}")
+        if not (finite and same):
+            fail(f"LM {arch}: the published capacity's wave is not finite "
+                 f"or not deterministic")
+    del params
+    return {"gap": gap, "wave_s": wave_s}
+
+
+def lm_serving_legs(dev) -> None:
+    """The LM serving path (the module docstring's item 22, (a)-(e))."""
+    import dataclasses
+    import importlib.util
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import vq_assign
+    from repro_torch.launch import serve
+    from repro_torch.models import quantization
+    from repro_torch.models.api import get_api
+    from repro_torch.training import steps
+
+    t_item = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (a) the main path: launch.serve --mode lm --arch granite_8b -------
+    zero_counts()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    args = serve.parse_args(["--mode", "lm", "--arch", LM_ARCH, "--seed",
+                             str(SEED)])
+    t0 = time.perf_counter()
+    run = serve.run_lm(args)
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    counts = expect_counts("LM serving (no kernel of the port's own: the "
+                           "reference runs this path on XLA)")
+    cfg, params = run.cfg, run.params
+    b, t, g = args.batch, args.prompt, args.gen
+    bounds = lm_bounds(cfg, params, b, t, t + g)
+    if run.rc != 0 or [tuple(x.shape) for x in run.tokens] != \
+            [(b, g)] * args.waves:
+        fail(f"LM serving: rc {run.rc}, tokens "
+             f"{[tuple(x.shape) for x in run.tokens]}")
+    if cfg.n_layers != 36 or cfg.d_model != 4096 or \
+            cfg.dtype != torch.bfloat16:
+        fail(f"LM serving ran {cfg}, not granite-8b's published config")
+    print(f"LM (a) {cfg.name}, {cfg.n_params():,} params "
+          f"({bounds['weight_bytes'] / 1e9:.2f} GB of layer, head and norm "
+          f"weights in {str(cfg.dtype).split('.')[-1]}): load + init + "
+          f"{args.waves} waves {wall:.2f} s, "
+          f"init {run.init_s:.2f} s; prefill ms "
+          f"{[round(x, 2) for x in run.prefill_ms]} (bound "
+          f"{bounds['prefill'][0]:.3f} ms, {bounds['prefill'][1]}); decode "
+          f"ms a token {[round(x, 3) for x in run.decode_ms]} (bound "
+          f"{bounds['decode'][0]:.3f} ms, {bounds['decode'][1]}); "
+          f"{run.tok_s:,.1f} tok/s; peak device memory {peak:.2f} GiB; "
+          f"launches {counts}; {card_line()}")
+
+    api = get_api(cfg)
+    prefill = steps.make_prefill_step(cfg, max_len=t + g)
+    serve_step = steps.make_serve_step(cfg)
+    gen_t = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompts = torch.randint(0, cfg.vocab, (b, t), generator=gen_t,
+                            device=dev)
+
+    def one_wave():
+        logits, cache = prefill(params, {"tokens": prompts})
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        for _ in range(g):
+            logits, cache = serve_step(params, cache, tok)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        return tok
+
+    prof = profile(f"{cfg.name} serving, one wave of {b} x {t} + {g}",
+                   one_wave, g, "token")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_wave()
+    torch.cuda.synchronize()
+    wave_us = (time.perf_counter() - t0) * 1e6
+    if prof is not None:
+        # the profiler slows the host that issues the launches: the busy
+        # share is also read against the same wave's wall without it
+        print(f"LM (a) one wave: wall {wave_us / 1e3:.2f} ms without the "
+              f"profiler, {prof['wall_us'] / 1e3:.2f} ms with it; device "
+              f"busy {prof['busy_us'] / 1e3:.2f} ms: busy share "
+              f"{prof['busy_us'] / wave_us:.3f} of the plain wall "
+              f"({prof['busy_us'] / prof['wall_us']:.3f} of the profiled "
+              f"one); {prof['ops'] / (g + 1):.0f} device operations a step "
+              f"(prefill + {g} decode steps)")
+
+    # -- (b) checks on the same model --------------------------------------
+    again = serve.run_lm(args)
+    same_w = all(torch.equal(x, y) for x, y in zip(
+        quantization._leaves(params), quantization._leaves(again.params)))
+    same = all(torch.equal(x, y) for x, y in zip(run.tokens, again.tokens))
+    del again
+    print(f"LM (b) the same seed, run twice through run_lm: the same "
+          f"weights {same_w}, the same greedy tokens {same}")
+    if not (same and same_w):
+        fail("LM serving: the same seed gave other weights or tokens")
+    logits_p, _ = prefill(params, {"tokens": prompts})
+    full = api.forward(params, {"tokens": prompts})
+    gap_p = _rel_gap(logits_p, full[:, -1])
+    dec, _ = _wave_logits(api, params, {"tokens": prompts[:, :1]},
+                          t - 1, t, teacher=prompts[:, 1:])
+    gap_d = _rel_gap(dec, full)
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    print(f"LM (b) prefill's last logits vs forward's: max rel gap "
+          f"{gap_p:.3e} (bound {LM_PREFILL_REL}); teacher-forced decode "
+          f"of {t} positions vs forward: max rel gap {gap_d:.3e} (bound "
+          f"{LM_DECODE_REL}), argmax agreement {agree:.4f}, max |logits| "
+          f"{float(full.float().abs().max()):.3f}")
+    if gap_p > LM_PREFILL_REL or gap_d > LM_DECODE_REL:
+        fail("LM serving: prefill or decode differ from forward")
+    t0 = time.perf_counter()
+    qp = quantization.quantize_tree(params)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    err = quantization.quantization_error(params, qp)
+    qstep = steps.make_serve_step(cfg, quantized=True)
+    max_len = t + 4 * (LM_QUANT_STEPS + 3)
+    _, c_full = api.prefill(params, {"tokens": prompts}, max_len)
+    _, c_q = api.prefill(params, {"tokens": prompts}, max_len)
+    tok = prompts[:, -1:]
+    lf, c_full = serve_step(params, c_full, tok)
+    lq, c_q = qstep(qp, c_q, tok)
+    corr = float(torch.corrcoef(torch.stack(
+        [lf.float().ravel(), lq.float().ravel()]))[0, 1])
+    state = {"full": c_full, "q": c_q}
+
+    def step_full():
+        state["full"] = serve_step(params, state["full"], tok)[1]
+
+    def step_q():
+        state["q"] = qstep(qp, state["q"], tok)[1]
+
+    ms = {"full": [], "q": []}
+    for name in ("full", "q", "q", "full"):
+        fn = step_full if name == "full" else step_q
+        ms[name].append(time_ms(fn, LM_QUANT_STEPS, warmup=1))
+    print(f"LM (b) int8 weight-only ({_nbytes(qp) / 1e9:.2f} GB with its "
+          f"scales, quantized in {quant_s:.2f} s, max relative error "
+          f"{err:.4f}): logits' correlation with bf16 {corr:.6f} (bound > "
+          f"{LM_CORR}); ms a decode step in turns (bf16, int8, int8, bf16): "
+          f"bf16 {r4(ms['full'])}, int8 {r4(ms['q'])}")
+    if not corr > LM_CORR:
+        fail(f"LM serving: int8 logits' correlation {corr}")
+    del qp, state, c_full, c_q
+
+    # -- (e) the paper's algorithm on granite-8b's embedding table ---------
+    spec = importlib.util.spec_from_file_location(
+        "embedding_vq_torch", ROOT / "examples" / "embedding_vq_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    table = params["embed"].float().contiguous()
+    del params, run, full, dec, logits_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = example.cluster(table, seed=SEED)
+    torch.cuda.synchronize()
+    vq_s = time.perf_counter() - t0
+    counts = expect_counts("embedding VQ", assign=3)
+    w = out["w"]
+    ap, mp = vq_assign.vq_assign_plain(table.double(), w.double())
+    ak = out["assign"]
+    flips = (ak != ap).nonzero().flatten().tolist()
+    # min distances off flipped rows within FLIP_REL of the cancelled
+    # magnitude; eq. 2 (ops.distortion, the mean of the same kernel's min
+    # distances) against the f64 mean of those min distances at DIV_RTOL
+    kept = ak == ap
+    scale = (table.double() ** 2).sum(-1) \
+        + (w.double() ** 2).sum(-1)[ak.long()]
+    m_err = (out["mind"].double() - mp).abs()
+    m_max = float(m_err[kept].max()) if bool(kept.any()) else 0.0
+    m_bad = int(((m_err > FLIP_REL * scale) & kept).sum())
+    d_want = float(out["mind"].double().mean())
+    d_gap = abs(out["after"] - d_want) / d_want
+    for r in flips:
+        ok, gap = flip_gap_ok(table[r], w, int(ak[r]), int(ap[r]))
+        if not ok:
+            fail(f"embedding VQ: row {r}: {int(ak[r])} vs plain "
+                 f"{int(ap[r])}, gap {gap:.3e}: not a near-tie")
+    kappa = w.shape[0]
+    ck = torch.bincount(ak.long(), minlength=kappa)
+    cp = torch.bincount(ap.long(), minlength=kappa)
+    moved = int((ck - cp).abs().sum())
+    print(f"LM (e) eq. 9 on the {tuple(table.shape)} embedding table, "
+          f"kappa {kappa}: distortion {out['before']:.5f} -> "
+          f"{out['after']:.5f} in {vq_s:.2f} s; the assign kernel vs plain "
+          f"in f64: {len(flips)} flips (near-ties) of {ak.numel()}, counts "
+          f"moved {moved} (2 x flips at most), max |mind diff| {m_max:.3e} "
+          f"({m_bad} rows past {FLIP_REL} x (|z|^2 + |w|^2)); eq. 2 vs the "
+          f"f64 mean of the min distances: rel gap {d_gap:.3e} (bound "
+          f"{DIV_RTOL}); launches {counts}")
+    if moved > 2 * len(flips) or not out["after"] < out["before"]:
+        fail("embedding VQ: counts differ beyond the flips, or the "
+             "distortion did not fall")
+    if m_bad or d_gap > DIV_RTOL:
+        fail("embedding VQ: the assign kernel's min distances or eq. 2 "
+             "differ from the plain version")
+    a_ms = kernel_ms(lambda: vq_assign.vq_assign(table, w), 20)
+    a_plain = kernel_ms(lambda: vq_assign.vq_assign_plain(table, w), 10)
+    v, d = table.shape
+    a_bound = bound(4 * (v * d + kappa * d + 2 * v),
+                    v * kappa * (2 * d + 3) + v * d)
+    print(f"timing assign ({v} x {kappa} x {d}, the embedding table): "
+          f"kernel {a_ms:.4f} ms, plain {a_plain:.4f} ms, bound "
+          f"{a_bound[0]:.4f} ms ({a_bound[1]})")
+    del table, out, w
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) the other nine configs at full width --------------------------
+    for arch in registry.ARCH_IDS:
+        if arch == LM_ARCH:
+            continue
+        full_cfg = registry.get_config(arch)
+        layers = None
+        if full_cfg.n_params() * 2 / 1e9 > LM_FULL_DEPTH_GB:
+            layers = LM_CUT_LAYERS
+        if full_cfg.family == "hybrid":
+            check_lm_config(dev, arch, prompt=HYMBA_PROMPT, gen=HYMBA_GEN,
+                            batch=1, layers=layers)
+        else:
+            check_lm_config(dev, arch, prompt=LM_PROMPT, gen=LM_GEN,
+                            batch=args.batch, layers=layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the main path as a user types it, and the two LM examples at the
+    # published width, as subprocesses beside (d)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    py = sys.executable
+    cmds = {
+        "launch.serve --mode lm --arch granite_8b": [
+            py, "-m", "repro_torch.launch.serve", "--mode", "lm", "--arch",
+            LM_ARCH],
+        "embedding_vq_torch.py --full": [
+            py, str(ROOT / "examples" / "embedding_vq_torch.py"), "--arch",
+            LM_ARCH, "--full"],
+        "serve_lm_torch.py": [
+            py, str(ROOT / "examples" / "serve_lm_torch.py")],
+    }
+    want_out = {
+        "launch.serve --mode lm --arch granite_8b": (
+            f"wave {args.waves - 1}: generated {g} tokens x {b} requests",
+            f"served {args.waves * b} requests, {args.waves * b * g} tokens"),
+        "embedding_vq_torch.py --full": ("of 49152 rows",),
+        "serve_lm_torch.py": ("decode throughput",),
+    }
+    t_sub = time.perf_counter()
+    procs = {name: subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT)
+             for name, cmd in cmds.items()}
+
+    # -- (d) the card against the CPU, f32 with TF32 pinned off ------------
+    worst = 0.0
+    for arch in registry.ARCH_IDS:
+        small = registry.get_smoke_config(arch)
+        api_s = get_api(small)
+        p_cpu = api_s.init(SEED, device="cpu")
+        p_dev = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                     if isinstance(v, dict) else v.to(dev))
+                 for k, v in p_cpu.items()}
+        b_cpu = serve.lm_batch(small, 2, 16,
+                               torch.Generator().manual_seed(SEED), "cpu")
+        b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
+        want = api_s.forward(p_cpu, b_cpu)
+        got = api_s.forward(p_dev, b_dev).cpu()
+        max_len = 24 + (small.img_tokens if small.family == "vlm" else 0)
+        want_w, fed = _wave_logits(api_s, p_cpu, b_cpu, 4, max_len)
+        got_w, _ = _wave_logits(api_s, p_dev, b_dev, 4, max_len,
+                                teacher=fed.to(dev))
+        for x, y, what in ((got, want, "forward"),
+                           (got_w.cpu(), want_w, "prefill + 4 decode")):
+            if not torch.allclose(x, y, rtol=1e-4, atol=1e-5):
+                fail(f"LM (d) {arch} {what}: the card differs from the CPU "
+                     f"by {float((x - y).abs().max()):.3e}")
+            worst = max(worst, float(((x - y).abs()
+                                      / (1e-5 + y.abs())).max()))
+    print(f"LM (d) the ten smoke configs in f32 (TF32 off), forward and "
+          f"prefill + 4 greedy decode steps: the card == the CPU at "
+          f"rtol=1e-4, atol=1e-5 (worst |gap| / (1e-5 + |cpu|) "
+          f"{worst:.3e})")
+    for name, proc in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=SUBPROCESS_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for other in procs.values():
+                other.kill()
+            fail(f"{name}: still running after {SUBPROCESS_TIMEOUT_S} s")
+        lines = out.strip().splitlines()
+        print(f"LM subprocess {name}: exit {proc.returncode} "
+              f"{time.perf_counter() - t_sub:.1f} s after the start; "
+              + "; ".join(lines[-3:]))
+        if proc.returncode != 0 or not all(w in out for w in want_out[name]):
+            print(out)
+            fail(f"{name}: exit {proc.returncode} or its lines missing")
+    print(f"item 22 (the LM serving path): {time.perf_counter() - t_item:.1f}"
+          f" s")
+
+
 def threads_serving_obs_legs(dev, w0, data, eval_data, runs, geo_run,
                              lengths) -> None:
     """The thread runtime, training while serving, and the trace/metrics
@@ -3657,8 +4204,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="subprocess_legs_") as tmp:
         subprocess_legs(Path(tmp))
     pg = process_group_legs(dev, w0, data, eval_data)
+    lm_serving_legs(dev)
 
-    # -- 22. timing at the main path's shapes ---------------------------------
+    # -- 23. timing at the main path's shapes ---------------------------------
     # every kernel, plain and library time by kernel_ms (L2 cold, host time
     # hidden); "warm" is time_ms over back-to-back wrapper calls (L2 warm,
     # the wrapper's host time included), a read-out beside it

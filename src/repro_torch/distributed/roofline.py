@@ -1,8 +1,8 @@
 """Three-term roofline of one VQ window, counterpart of the VQ half of
 ``repro/distributed/roofline.py`` (``VqCell``, ``vq_roofline_terms``; lines
 215-337 there).  The LM half (``MeshShape``, ``cell_flops``,
-``cell_bytes``, ``roofline_terms``) comes with the LM side (ROADMAP queue 1,
-item 8).
+``cell_bytes``, ``roofline_terms``) comes with the LM dry run's cells
+(ROADMAP queue 1, item 8b).
 
   compute term    = FLOPs / PEAK_FLOPS
   memory term     = HBM bytes / HBM_BW

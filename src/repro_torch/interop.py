@@ -9,9 +9,13 @@ async scheme's round lengths, which torch cannot redraw from a JAX key) and
 ``codebook_from_reference`` for a codebook to publish into a store, and
 ``merge_state_from_reference`` for a sync merge's state (the quorum carry,
 the dynamic merge's carry and staleness, a hierarchical transport's
-per-tier residuals).  ``to_numpy`` turns a port ``SchemeResult`` into numpy arrays.  The device
-is ``cuda`` unless the caller passes ``device="cpu"``.  Nothing here
-imports JAX.
+per-tier residuals).  ``to_numpy`` turns a port ``SchemeResult`` into
+numpy arrays.  For the LM side, ``params_from_reference`` turns the reference's params
+pytree into the port's nested dict (leaf names, stacked shapes and dtypes
+kept, bf16 bits moved through ``uint16``), ``cache_from_reference`` a
+decode cache and ``quantized_from_reference`` an int8 tree of
+``QuantizedLeaf``s.  The device is ``cuda`` unless the caller passes
+``device="cpu"``.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -127,6 +131,95 @@ def merge_state_from_reference(state, *, topology=None, device=None):
             device_lib.resolve(device))
 
     return convert(state, "state")
+
+
+# numpy dtype names -> torch dtypes of the LM trees' leaves
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "int32": torch.int32,
+           "int8": torch.int8}
+
+
+def _leaf(x, name: str, device: torch.device) -> torch.Tensor:
+    """One array leaf, dtype kept.  numpy has no bfloat16 of its own (the
+    reference's arrays carry ``ml_dtypes.bfloat16``, which
+    ``torch.from_numpy`` refuses), so bf16 bits move through ``uint16``."""
+    a = np.asarray(x)
+    if a.dtype.name not in _DTYPES:
+        raise TypeError(f"{name}: unsupported dtype {a.dtype}")
+    if a.dtype.name == "bfloat16":
+        bits = np.array(a.view(np.uint16), order="C").view(np.int16)
+        t = torch.from_numpy(bits).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, order="C", copy=True))
+    return t.to(device)
+
+
+def _tree(x, name: str, device: torch.device, leaf):
+    if isinstance(x, dict):
+        return {k: _tree(v, f"{name}/{k}", device, leaf)
+                for k, v in x.items()}
+    return leaf(x, name, device)
+
+
+def _signature(tree, name: str = "") -> dict:
+    """{path: (shape, dtype)} of a tree of tensors and QuantizedLeafs."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_signature(v, f"{name}/{k}"))
+        return out
+    if isinstance(tree, torch.Tensor):
+        return {name: (tuple(tree.shape), tree.dtype)}
+    return {name: (tuple(tree.q.shape), tree.dtype)}
+
+
+def _check_like(got, want, what: str) -> None:
+    g, w = _signature(got), _signature(want)
+    if g != w:
+        diff = sorted(str(x) for x in set(g.items()) ^ set(w.items()))
+        raise ValueError(f"{what} does not match the port's init: "
+                         f"{diff[:6]}")
+
+
+def params_from_reference(params, cfg, *, device=None) -> dict:
+    """The reference's params pytree (nested dicts of numpy or JAX arrays)
+    -> the port's nested dict on ``device``, with the same leaf names,
+    stacked shapes and dtypes; checked against the port's ``init`` for
+    ``cfg`` (on the ``meta`` device)."""
+    from repro_torch.models.api import get_api
+
+    out = _tree(params, "params", device_lib.resolve(device), _leaf)
+    _check_like(out, get_api(cfg).init(device="meta"), "params")
+    return out
+
+
+def cache_from_reference(cache, *, device=None) -> dict:
+    """A reference decode cache -> the port's: ``cur_len`` a host int, the
+    other leaves tensors on ``device`` with their shapes and dtypes."""
+    dev = device_lib.resolve(device)
+    return {k: (int(np.asarray(v)) if k == "cur_len"
+                else _leaf(v, f"cache/{k}", dev))
+            for k, v in cache.items()}
+
+
+def quantized_from_reference(qparams, cfg, *, device=None) -> dict:
+    """A reference int8 tree (``quantize_tree``'s, ``QuantizedLeaf``s
+    among plain leaves) -> the port's, ``q``, ``scale`` and the original
+    dtype kept; checked against the port's ``init`` for ``cfg``."""
+    from repro_torch.models.api import get_api
+    from repro_torch.models.quantization import QuantizedLeaf
+
+    def leaf(x, name, dev):
+        if hasattr(x, "q") and hasattr(x, "scale"):
+            dtype = _DTYPES[np.dtype(x.dtype).name]
+            return QuantizedLeaf(q=_leaf(x.q, f"{name}.q", dev),
+                                 scale=_leaf(x.scale, f"{name}.scale", dev),
+                                 dtype=dtype)
+        return _leaf(x, name, dev)
+
+    out = _tree(qparams, "qparams", device_lib.resolve(device), leaf)
+    _check_like(out, get_api(cfg).init(device="meta"), "qparams")
+    return out
 
 
 def to_numpy(result: SchemeResult) -> SchemeResult:

@@ -110,9 +110,9 @@ def vq_delta(z: torch.Tensor, w: torch.Tensor
 
 
 def distortion(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Mean min distance (paper eq. 2 per worker) through the delta
+    """Mean min distance (paper eq. 2 per worker) through the assign
     kernel: z (..., B, d), w (..., kappa, d) -> (...)."""
-    _, _, mind, _ = assign_kernels.vq_delta(z, w)
+    _, mind = assign_kernels.vq_assign(z, w)
     return torch.mean(mind, dim=-1)
 
 

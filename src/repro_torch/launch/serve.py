@@ -1,5 +1,25 @@
-"""The quantization service end to end, counterpart of
-``repro/launch/serve.py --mode vq``.
+"""Serving launchers, counterpart of ``repro/launch/serve.py``: the LM decode
+loop and the VQ quantization service.
+
+LM mode (the default): waves of requests, each prefilled once and decoded
+greedily to completion, then the throughput:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_8b \\
+        [--smoke] [--waves 3 --batch 4 --prompt 16 --gen 16] [--seed 0] \\
+        [--device cpu]
+
+The weights are random, drawn on the device from ``--seed`` (nothing is
+read from disk), in the config's dtype (bf16 at the published widths,
+f32 for ``--smoke``); the prompts come from a generator seeded by
+``--seed``.  It prints the reference's two lines, ``wave i: generated G
+tokens x B requests`` and ``served R requests, N tokens in S s (X tok/s)``,
+and a line of prefill ms and decode ms a token (the device synced around
+each).  A VLM request's cache also holds its patch positions
+(``img_tokens`` of them), so ``max_len`` counts them: the reference's
+``run_lm`` leaves them out and its decode writes past the cache, which
+JAX's ``dynamic_update_slice`` clamps to the last slot.
+
+VQ mode:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode vq \\
         --requests 10000 --kappa 4096 --dim 128 --points 4096 \\
@@ -45,12 +65,16 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.configs import registry
 from repro_torch.data import synthetic
 from repro_torch.engine import (ElasticMeshExecutor, InstantNetwork,
                                 ResizeSchedule, get_network)
+from repro_torch.models.api import get_api
+from repro_torch.models.common import ModelConfig
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.serve import (CodebookStore, LoadReport, QuantizeService,
                                ServiceStats, ShardedLookup, run_load)
+from repro_torch.training import steps as steps_lib
 
 #: Stacked workers of the --train-publish trainer (the reference's
 #: ``min(8, n_dev)`` on an 8-device mesh).
@@ -69,14 +93,32 @@ class ServeRun(NamedTuple):
     metrics: MetricsRegistry | None = None
 
 
+class LmRun(NamedTuple):
+    rc: int                 # the launcher's exit code
+    cfg: ModelConfig
+    params: dict            # the served weights
+    tokens: list            # per wave: (batch, gen) greedy tokens
+    init_s: float           # drawing the weights on the device
+    prefill_ms: list        # per wave
+    decode_ms: list         # per wave, ms a decode step (a token a request)
+    tok_s: float            # tokens generated over every wave's wall
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
-        description="The VQ quantization service on the PyTorch port.")
-    ap.add_argument("--mode", choices=("vq",), default="vq",
-                    help="only the VQ service is ported")
+        description="LM serving and the VQ quantization service on the "
+                    "PyTorch port.")
+    ap.add_argument("--mode", choices=("lm", "vq"), default="lm")
+    ap.add_argument("--arch", default="granite_8b", choices=registry.ARCH_IDS)
     ap.add_argument("--smoke", action="store_true",
-                    help="at most 100 requests and 200 points")
+                    help="lm: the arch's reduced smoke config; vq: at most "
+                         "100 requests and 200 points")
+    ap.add_argument("--waves", type=int, default=3)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=16)
+    # VQ-mode options (--mode vq): service + load + optional live trainer
     ap.add_argument("--requests", type=int, default=500)
     ap.add_argument("--rows", type=int, default=1,
                     help="query vectors per request")
@@ -261,9 +303,82 @@ def run_vq(args, *, codebook: torch.Tensor | None = None,
     return ServeRun(rc, report, st, store, trainer, tracer, metrics)
 
 
+def lm_batch(cfg: ModelConfig, batch: int, prompt: int,
+             gen: torch.Generator, dev: torch.device) -> dict:
+    """One wave's requests: ``batch`` random prompts of ``prompt`` tokens
+    and the stub frontends' inputs (whisper's frames, InternVL2's patch
+    embeddings), drawn from ``gen`` on ``dev``."""
+    out = {"tokens": torch.randint(0, cfg.vocab, (batch, prompt),
+                                   generator=gen, device=dev)}
+    if cfg.family == "encdec":
+        out["frames"] = torch.randn(
+            (batch, cfg.encoder_frames, cfg.d_model), generator=gen,
+            device=dev).to(cfg.dtype)
+    if cfg.family == "vlm":
+        out["patch_embeds"] = torch.randn(
+            (batch, cfg.img_tokens, cfg.d_model), generator=gen,
+            device=dev).to(cfg.dtype)
+    return out
+
+
+def run_lm(args) -> LmRun:
+    """Waves of prefill + greedy decode over weights drawn from
+    ``--seed``."""
+    cfg = (registry.get_smoke_config(args.arch) if args.smoke
+           else registry.get_config(args.arch))
+    dev = device_lib.resolve(args.device)
+    api = get_api(cfg)
+    t0 = time.perf_counter()
+    params = api.init(args.seed, device=dev)
+    device_lib.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    max_len = args.prompt + args.gen + (cfg.img_tokens
+                                        if cfg.family == "vlm" else 0)
+    prefill = steps_lib.make_prefill_step(cfg, max_len=max_len)
+    serve = steps_lib.make_serve_step(cfg)
+    print(f"serve lm: {cfg.name} ({cfg.family}, {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_params():,} params, "
+          f"{str(cfg.dtype).split('.')[-1]}) on {dev}; weights drawn in "
+          f"{init_s:.2f} s")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    tokens, prefill_ms, decode_ms = [], [], []
+    total_tok, t0 = 0, time.perf_counter()
+    for wave in range(args.waves):
+        batch = lm_batch(cfg, args.batch, args.prompt, gen, dev)
+        device_lib.synchronize(dev)
+        ta = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        tok = torch.argmax(logits.reshape(args.batch, -1), dim=-1)[:, None]
+        device_lib.synchronize(dev)
+        tb = time.perf_counter()
+        out = []
+        for _ in range(args.gen):
+            out.append(tok)
+            logits, cache = serve(params, cache, tok)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            total_tok += args.batch
+        device_lib.synchronize(dev)
+        tc = time.perf_counter()
+        prefill_ms.append((tb - ta) * 1e3)
+        decode_ms.append((tc - tb) * 1e3 / max(args.gen, 1))
+        tokens.append(torch.cat(out, dim=1) if out else tok[:, :0])
+        print(f"wave {wave}: generated {args.gen} tokens x "
+              f"{args.batch} requests")
+    dt = time.perf_counter() - t0
+    tok_s = total_tok / dt if dt > 0 else 0.0
+    print(f"served {args.waves * args.batch} requests, "
+          f"{total_tok} tokens in {dt:.1f}s ({tok_s:,.0f} tok/s)")
+    print(f"prefill ms per wave {[round(x, 2) for x in prefill_ms]}, "
+          f"decode ms a token {[round(x, 3) for x in decode_ms]}")
+    return LmRun(0, cfg, params, tokens, init_s, prefill_ms, decode_ms, tok_s)
+
+
 def main(argv=None) -> int:
     device_lib.pin_full_f32()
-    return run_vq(parse_args(argv)).rc
+    args = parse_args(argv)
+    if args.mode == "vq":
+        return run_vq(args).rc
+    return run_lm(args).rc
 
 
 if __name__ == "__main__":

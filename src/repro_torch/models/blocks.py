@@ -1,0 +1,422 @@
+"""Block-level forward functions, counterpart of ``repro/models/blocks.py``:
+GQA attention, SwiGLU / GELU MLPs, top-k MoE and the Mamba2 SSD mixer.
+
+All functions take ``(cfg, params_leafdict, x, ...)`` with one layer's
+leaves (no ``L`` axis); ``transformer.py`` / ``encdec.py`` loop them over
+the stacked layers.  Each is written in the reference's spelling with
+plain torch ops (einsum contractions, f32 scores and states, the casts back
+to the activations' dtype where the reference has them).  No Pallas kernel
+lies on this path in the reference: XLA compiles it.  The reference's
+``moe_apply_ep`` (``shard_map`` expert parallelism, opt-in and off by
+default) is ROADMAP queue 1, item 8b.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import common
+from repro_torch.models.common import ModelConfig, rope
+
+_NEG = -1e30  # the reference's mask fill
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, t, _ = x.shape
+    return x.reshape(b, t, n_heads, -1)
+
+
+def _pick_chunk(t: int, target: int = 512) -> int:
+    for c in (target, 256, 128, 64, 32, 16, 8, 4, 2, 1):
+        if c <= t and t % c == 0:
+            return c
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def sqrt_f32(dh: int) -> float:
+    """sqrt(dh) rounded to f32, as the reference computes it, held in a
+    Python float: a scalar tensor built on the card would be one more
+    host-to-device copy in every attention layer."""
+    return float(torch.sqrt(torch.tensor(float(dh), dtype=torch.float32)))
+
+
+@functools.lru_cache(maxsize=None)
+def inv_sqrt_f32(dh: int) -> float:
+    """1 / sqrt(dh) in f32 (the reference's attention scale)."""
+    return float(1.0 / torch.sqrt(torch.tensor(float(dh),
+                                               dtype=torch.float32)))
+
+
+def attention_train(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    *, causal: bool = True, window: int = 0,
+                    q_chunk: int = 512, return_kv: bool = False):
+    """Self-attention over a (B, T, D) block, chunked over query blocks.
+
+    Exact softmax per query chunk against the full K/V (the reference's
+    memory-efficient attention): the peak transient is (B, H, q_chunk, T)
+    f32 scores.  ``window`` > 0 masks to a sliding window.  The
+    probabilities are cast to the activations' dtype before the PV
+    product, as the reference casts them."""
+    b, t, _ = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pos = torch.arange(t, dtype=torch.int32, device=x.device)[None]
+    q = _split_heads(x @ p["wq"], hq)
+    k = _split_heads(x @ p["wk"], hkv)
+    v = _split_heads(x @ p["wv"], hkv)
+    if cfg.rope_theta > 0:
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+    g = hq // hkv
+    q = q.reshape(b, t, hkv, g, dh)
+
+    c = _pick_chunk(t, q_chunk)
+    scale = inv_sqrt_f32(dh)
+    kpos = torch.arange(t, dtype=torch.int32, device=x.device)
+    outs = []
+    for i in range(t // c):
+        qi = q[:, i * c:(i + 1) * c]
+        s = torch.einsum("bthgd,bshd->bhgts", qi, k).float() * scale
+        qpos = i * c + torch.arange(c, dtype=torch.int32, device=x.device)
+        mask = torch.ones((c, t), dtype=torch.bool, device=x.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window > 0:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        s = torch.where(mask[None, None, None], s, _NEG)
+        probs = torch.softmax(s, dim=-1).to(x.dtype)
+        outs.append(torch.einsum("bhgts,bshd->bthgd", probs, v))
+    out = torch.cat(outs, dim=1).reshape(b, t, hq * dh)
+    if return_kv:
+        return out @ p["wo"], k, v
+    return out @ p["wo"]
+
+
+def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     cur_len: int, *, window: int = 0) -> torch.Tensor:
+    """One-token decode.  x: (B, 1, D); caches: (B, S, Hkv, Dh).
+
+    Writes the new token's K/V at index ``cur_len`` of the caches IN PLACE
+    and attends to positions [0, cur_len]; returns the (B, 1, D) output.
+    """
+    b = x.shape[0]
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s = k_cache.shape[1]
+    pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=x.device)
+    q = _split_heads(x @ p["wq"], hq)
+    k = _split_heads(x @ p["wk"], hkv)
+    v = _split_heads(x @ p["wv"], hkv)
+    if cfg.rope_theta > 0:
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+    k_cache[:, cur_len] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, cur_len] = v[:, 0].to(v_cache.dtype)
+
+    g = hq // hkv
+    q = q.reshape(b, 1, hkv, g, dh)
+    scores = torch.einsum("bthgd,bshd->bhgts", q, k_cache).float()
+    scores = scores / sqrt_f32(dh)
+    kpos = torch.arange(s, device=x.device)
+    mask = kpos <= cur_len
+    if window > 0:
+        mask &= kpos > cur_len - window
+    scores = torch.where(mask, scores, _NEG)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bhgts,bshd->bthgd", probs, v_cache).reshape(
+        b, 1, hq * dh)
+    return out @ p["wo"]
+
+
+def init_attention(cfg: ModelConfig, gen, n_layers: int, *,
+                   device=None) -> dict:
+    hq, hkv, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    shp = lambda *s: (n_layers, *s)  # noqa: E731
+    init = lambda shape: common.init_dense(  # noqa: E731
+        gen, shape, cfg.dtype, device=device)
+    return {
+        "wq": init(shp(d, hq * dh)),
+        "wk": init(shp(d, hkv * dh)),
+        "wv": init(shp(d, hkv * dh)),
+        "wo": init(shp(hq * dh, d)),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
+
+
+def init_swiglu(cfg: ModelConfig, gen, n_layers: int, *,
+                device=None) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    init = lambda shape: common.init_dense(  # noqa: E731
+        gen, shape, cfg.dtype, device=device)
+    return {
+        "w_gate": init((n_layers, d, f)),
+        "w_up": init((n_layers, d, f)),
+        "w_down": init((n_layers, f, d)),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k routing, capacity-bounded, per-row dispatch)
+# ---------------------------------------------------------------------------
+
+def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k``: the k largest along the last axis, ties lowest
+    index first (a stable descending sort; ``torch.topk`` promises no tie
+    order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor):
+    """Shared routing: per-row ranks and capacity mask.
+
+    Returns (gates (B,T,k), unit_e (B,U), unit_pos (B,U), keep (B,U), cap);
+    units are in (T, k) order, so the per-row rank cumsum drops the same
+    units the reference drops, and a dropped unit's position is 0.
+    """
+    b, t, _ = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    u = t * k
+    logits = (x @ router).float()                               # (B, T, E)
+    gates, idx = _top_k(torch.softmax(logits, dim=-1), k)        # (B, T, k)
+    gates = gates / torch.sum(gates, dim=-1, keepdim=True)
+    cap = int(cfg.capacity_factor * t * k / e) or 1
+    unit_e = idx.reshape(b, u)
+    onehot = F.one_hot(unit_e, e).to(torch.int32)
+    pos = (torch.cumsum(onehot, dim=1) - 1) * onehot             # per-row rank
+    unit_pos = torch.sum(pos, dim=-1)
+    keep = unit_pos < cap
+    return gates, unit_e, torch.where(keep, unit_pos, 0), keep, cap
+
+
+def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Top-k MoE over a (B, T, D) block, per-row capacity
+    (capacity_factor * T * k / E a sequence).
+
+    The dispatch writes only the kept units into the (B, E, C, D) buffer
+    with a plain indexed store: kept units have distinct (expert, rank)
+    slots, so no two writes meet and the store needs no atomics.  Dropped
+    units go to a spare slot C that is cut off before the experts run
+    (the reference adds zeros at slot 0 instead: the same buffer)."""
+    b, t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    gates, unit_e, unit_pos, keep, cap = _moe_route(cfg, p["router"], x)
+    xu = torch.repeat_interleave(x, k, dim=1)                   # (B, U, D)
+    rows = torch.arange(b, device=x.device)[:, None]
+    buf = torch.zeros((b, e, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[rows, unit_e, torch.where(keep, unit_pos, cap)] = xu
+    buf = buf[:, :, :cap]                                       # (B,E,C,D)
+
+    h = F.silu(torch.einsum("becd,edf->becf", buf, p["w_gate"])) \
+        * torch.einsum("becd,edf->becf", buf, p["w_up"])
+    yb = torch.einsum("becf,efd->becd", h, p["w_down"])
+
+    yu = yb[rows, unit_e, unit_pos]                             # (B, U, D)
+    yu = yu * keep[..., None]
+    y = torch.sum(yu.reshape(b, t, k, d)
+                  * gates[..., None].to(yu.dtype), dim=2)
+    return y.to(x.dtype)
+
+
+def init_moe(cfg: ModelConfig, gen, n_layers: int, *, device=None) -> dict:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    init = lambda shape: common.init_dense(  # noqa: E731
+        gen, shape, cfg.dtype, device=device)
+    return {
+        "router": init((n_layers, d, e)),
+        "w_gate": init((n_layers, e, d, f)),
+        "w_up": init((n_layers, e, d, f)),
+        "w_down": init((n_layers, e, f, d)),
+    }
+
+
+def moe_aux_loss(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style) for one block."""
+    logits = (x.reshape(-1, cfg.d_model) @ p["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    top1 = torch.argmax(probs, dim=-1)
+    frac = torch.mean(F.one_hot(top1, cfg.n_experts).float(), dim=0)
+    imp = torch.mean(probs, dim=0)
+    return cfg.n_experts * torch.sum(frac * imp)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD: state space duality, chunked scan)
+# ---------------------------------------------------------------------------
+
+def _causal_conv(xbc: torch.Tensor, conv_w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv.  xbc: (B, T, C), conv_w: (W, C)."""
+    w = conv_w.shape[0]
+    pad = F.pad(xbc, (0, 0, w - 1, 0))
+    out = sum(pad[:, i:i + xbc.shape[1]] * conv_w[i] for i in range(w))
+    return F.silu(out)
+
+
+def _segsum(logd: torch.Tensor) -> torch.Tensor:
+    """(..., Q) -> (..., Q, Q) lower-triangular pairwise sums of log-decays:
+    out[i, j] = sum_{k=j+1..i} logd[k] for i >= j, -inf otherwise."""
+    q = logd.shape[-1]
+    cs = torch.cumsum(logd, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]  # sum_{k=j+1..i}
+    i = torch.arange(q, device=logd.device)
+    mask = i[:, None] >= i[None, :]
+    return torch.where(mask, diff, -torch.inf)
+
+
+def ssd_train(cfg: ModelConfig, xh: torch.Tensor, dt: torch.Tensor,
+              A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, *,
+              chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD forward (Mamba2 alg. 1, G=1 group).
+
+    xh: (b, T, H, P) head-split inputs; dt: (b, T, H) positive step sizes;
+    A: (H,) negative decay rates; B, C: (b, T, N).
+    Returns (y: (b, T, H, P), final_state: (b, H, P, N) f32).  T must be a
+    multiple of min(chunk, T), the reference's assertion.
+    """
+    b, t, h, pdim = xh.shape
+    q = min(chunk, t)
+    if t % q != 0:
+        raise ValueError(f"seq_len {t} must divide the SSD chunk: a prompt "
+                         f"longer than {chunk} is a multiple of {chunk}")
+    nc = t // q
+    xc = xh.reshape(b, nc, q, h, pdim)
+    dtc = dt.reshape(b, nc, q, h)
+    Bc = B.reshape(b, nc, q, -1)
+    Cc = C.reshape(b, nc, q, -1)
+    logd = dtc * A  # (b, nc, q, h) log-decay per step (A < 0)
+
+    # ---- intra-chunk (quadratic attention-like) term ----
+    L = _segsum(logd.movedim(-1, -2))                    # (b, nc, h, q, q)
+    G = torch.einsum("bcin,bcjn->bcij", Cc, Bc)          # (b, nc, q, q)
+    M = G[:, :, None] * torch.exp(L)                     # (b, nc, h, q, q)
+    M = M * dtc.movedim(-1, -2)[..., None, :]            # weight by dt_j
+    y_intra = torch.einsum("bchij,bcjhp->bcihp", M.to(xh.dtype), xc)
+
+    # ---- chunk-final states and inter-chunk recurrence ----
+    cum = torch.cumsum(logd, dim=2)                      # (b, nc, q, h)
+    total = cum[:, :, -1]                                # (b, nc, h)
+    decay_to_end = torch.exp(total[:, :, None] - cum)    # (b, nc, q, h)
+    Sc = torch.einsum("bcjh,bcjn,bcjhp->bchpn",
+                      (decay_to_end * dtc).float(), Bc.float(), xc.float())
+
+    s = torch.zeros((b, h, pdim, Sc.shape[-1]), dtype=torch.float32,
+                    device=xh.device)
+    s_prevs = []
+    for c in range(nc):
+        s_prevs.append(s)
+        s = torch.exp(total[:, c])[..., None, None] * s + Sc[:, c]
+    s_prevs = torch.stack(s_prevs, dim=1)                # (b, nc, h, p, n)
+
+    decay_from_start = torch.exp(cum)                    # (b, nc, q, h)
+    y_inter = torch.einsum("bcin,bchpn,bcih->bcihp",
+                           Cc.float(), s_prevs, decay_from_start)
+    y = y_intra + y_inter.to(xh.dtype)
+    return y.reshape(b, t, h, pdim), s
+
+
+def mamba_train(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                *, return_state: bool = False):
+    """Full Mamba2 mixer over (B, T, D), with the reference's separate
+    projections (in_z / in_x / in_bc / in_dt).  With ``return_state`` also
+    returns (conv_x_tail, conv_bc_tail, ssm_state) to seed decode after a
+    prefill."""
+    b, t, _ = x.shape
+    di, h, pdim = cfg.d_inner, cfg.ssm_heads, cfg.ssm_headdim
+    n = cfg.ssm_state
+    z = x @ p["in_z"]                       # (B, T, di)
+    xs_raw = x @ p["in_x"]                  # (B, T, di) pre-conv
+    bc_raw = x @ p["in_bc"]                 # (B, T, 2n)
+    xin = _causal_conv(xs_raw, p["conv_x"])             # (B, T, di)
+    bc = _causal_conv(bc_raw, p["conv_bc"])             # (B, T, 2n)
+    B, C = bc[..., :n], bc[..., n:]
+    dt = F.softplus((x @ p["in_dt"]).float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())
+    xh = xin.reshape(b, t, h, pdim)
+    y, s_final = ssd_train(cfg, xh, dt, A, B, C)
+    y = y + p["D"].to(xh.dtype)[None, None, :, None] * xh
+    y = y.reshape(b, t, di) * F.silu(z)
+    out = y @ p["out_proj"]
+    if return_state:
+        w = cfg.ssm_conv
+        pad_x = F.pad(xs_raw, (0, 0, w - 1, 0))
+        pad_bc = F.pad(bc_raw, (0, 0, w - 1, 0))
+        return out, pad_x[:, t:t + w - 1], pad_bc[:, t:t + w - 1], s_final
+    return out
+
+
+def mamba_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                 conv_x_st: torch.Tensor, conv_bc_st: torch.Tensor,
+                 ssm_state: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """One-token Mamba2 step.  x: (B, 1, D); conv_x_st: (B, W-1, di);
+    conv_bc_st: (B, W-1, 2n); ssm_state: (B, H, P, N).  Returns (out,
+    conv_x_st, conv_bc_st, ssm_state), the states new tensors."""
+    b = x.shape[0]
+    di, n, h, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_headdim
+    z = (x @ p["in_z"])[:, 0]                              # (B, di)
+    xs = x @ p["in_x"]                                     # (B, 1, di)
+    bcs = x @ p["in_bc"]                                   # (B, 1, 2n)
+    hist_x = torch.cat([conv_x_st, xs], dim=1)             # (B, W, di)
+    hist_bc = torch.cat([conv_bc_st, bcs], dim=1)
+    xin = F.silu(torch.sum(hist_x * p["conv_x"][None], dim=1))    # (B, di)
+    bc = F.silu(torch.sum(hist_bc * p["conv_bc"][None], dim=1))   # (B, 2n)
+    B, C = bc[..., :n], bc[..., n:]
+    dt1 = F.softplus((x @ p["in_dt"])[:, 0].float() + p["dt_bias"])  # (B, H)
+    A = -torch.exp(p["A_log"].float())
+    dA = torch.exp(dt1 * A)                                # (B, H)
+    xh = xin.reshape(b, h, pdim)
+    ssm_state = (dA[..., None, None] * ssm_state
+                 + torch.einsum("bh,bn,bhp->bhpn",
+                                dt1, B.float(), xh.float()))
+    y = torch.einsum("bhpn,bn->bhp", ssm_state, C.float())
+    y = y.to(x.dtype) + p["D"].to(x.dtype)[None, :, None] * xh
+    y = (y.reshape(b, di) * F.silu(z))[:, None, :]
+    return y @ p["out_proj"], hist_x[:, 1:], hist_bc[:, 1:], ssm_state
+
+
+def init_mamba(cfg: ModelConfig, gen, n_layers: int, *, device=None) -> dict:
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    shp = lambda *s: (n_layers, *s)  # noqa: E731
+    dev = gen.device if gen is not None else device
+
+    def init(shape, scale=None):
+        return common.init_dense(gen, shape, cfg.dtype, scale=scale,
+                                 device=device)
+
+    def full(value):
+        return torch.full((n_layers, h), value, dtype=torch.float32,
+                          device=dev)
+
+    return {
+        "in_z": init(shp(d, di)),
+        "in_x": init(shp(d, di)),
+        "in_bc": init(shp(d, 2 * n)),
+        "in_dt": init(shp(d, h)),
+        "conv_x": init(shp(cfg.ssm_conv, di), 0.5),
+        "conv_bc": init(shp(cfg.ssm_conv, 2 * n), 0.5),
+        "out_proj": init(shp(di, d)),
+        "A_log": full(0.0),
+        "D": full(1.0),
+        "dt_bias": full(-1.0),
+    }

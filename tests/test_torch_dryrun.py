@@ -114,12 +114,12 @@ def test_dryrun_records_name_their_cells(dry):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "olmoe_1b_7b", "--shape", "train_4k"], "item 8"),
-    (["--all"], "item 8"),
-    (["--multi-pod", "--comm"], "item 8"),
-    (["--both-meshes"], "item 8"),
+    (["--arch", "olmoe_1b_7b", "--shape", "train_4k"], "item 8b"),
+    (["--all"], "item 8b"),
+    (["--multi-pod", "--comm"], "item 8b"),
+    (["--both-meshes"], "item 8b"),
     (["--arch", "paper_vq", "--shape", "train_4k"], "vq_stream"),
-    (["--arch", "paper_vq", "--all"], "item 8"),
+    (["--arch", "paper_vq", "--all"], "item 8b"),
     ([], "--comm"),
 ])
 def test_dryrun_lm_and_paper_vq_flags_exit_2(argv, item, capsys):

@@ -229,8 +229,9 @@ def test_launchers_pin_tf32_off():
     try:
         for main, argv in (
                 (train.main, ["--workers", "2", "--points", "20"]),
-                (serve.main, ["--smoke", "--requests", "4", "--dim", "8",
-                              "--kappa", "8", "--tick-ms", "0"])):
+                (serve.main, ["--mode", "vq", "--smoke", "--requests", "4",
+                              "--dim", "8", "--kappa", "8", "--tick-ms",
+                              "0"])):
             torch.set_float32_matmul_precision("high")
             torch.backends.cudnn.allow_tf32 = True
             assert torch.backends.cuda.matmul.allow_tf32

@@ -3,7 +3,8 @@
 or ``ml_dtypes`` (the card's machine has none; the checkpointer stores
 narrow floats through ``torch.Tensor.view``).  The observability modules
 are the port's own copies, and the thread runtime's modules start no
-thread when imported."""
+thread when imported; so are the LM side's models, configs and serving
+steps."""
 
 import ast
 import importlib
@@ -57,7 +58,15 @@ def test_checker_catches_forbidden_imports(tmp_path):
     "repro_torch.distributed.comm_analysis", "repro_torch.launch.dryrun",
     "repro_torch.distributed.process_group", "repro_torch.core.dvq",
     "repro_torch.topology.topology", "repro_torch.serve.lookup",
-    "repro_torch.distributed.elastic"])
+    "repro_torch.distributed.elastic", "repro_torch.models.common",
+    "repro_torch.models.blocks", "repro_torch.models.transformer",
+    "repro_torch.models.encdec", "repro_torch.models.api",
+    "repro_torch.models.quantization", "repro_torch.configs.registry",
+    "repro_torch.training.steps", "repro_torch.launch.serve",
+    *(f"repro_torch.configs.{arch}" for arch in (
+        "granite_34b", "granite_8b", "starcoder2_7b", "command_r_35b",
+        "whisper_tiny", "moonshot_v1_16b_a3b", "olmoe_1b_7b",
+        "mamba2_2p7b", "internvl2_76b", "hymba_1p5b"))])
 def test_new_module_is_the_ports_own_and_starts_nothing(name):
     before = threading.active_count()
     mod = importlib.import_module(name)

@@ -82,6 +82,19 @@ def test_delta_plain_matches_reference_kernel_and_ref(batch, kappa, d):
         float(jops.distortion(jnp.asarray(z), jnp.asarray(w))), rtol=RTOL)
 
 
+@pytest.mark.parametrize("d", [1808, 4096])
+def test_distortion_past_delta_width_matches_reference(d):
+    """Eq. 2 at widths past the delta kernel's shared memory (d > 1,807):
+    4,096 is granite-8b's embedding width, which the embedding example
+    scores on the card."""
+    rng = np.random.default_rng(d)
+    z = rng.standard_normal((40, d)).astype(np.float32)
+    w = rng.standard_normal((16, d)).astype(np.float32)
+    np.testing.assert_allclose(
+        float(ops.distortion(torch.from_numpy(z), torch.from_numpy(w))),
+        float(jops.distortion(jnp.asarray(z), jnp.asarray(w))), rtol=RTOL)
+
+
 @pytest.mark.parametrize("batch,kappa,d", [(1, 130, 8), (37, 200, 16),
                                            (129, 300, 16)])
 def test_assign_plain_matches_reference_kernel_and_ref(batch, kappa, d):

@@ -396,12 +396,14 @@ def test_serve_cli_vq_on_cpu(capsys):
     assert "0 failed" in out and "plan=direct" in out
     assert "warmups=1" in out
     assert vq_assign.launches_assign == before   # CPU: the plain version
-    assert serve_cli.main(["--train-publish", "--publish-every", "0",
-                           "--device", "cpu"]) == 2
+    assert serve_cli.main(["--mode", "vq", "--train-publish",
+                           "--publish-every", "0", "--device", "cpu"]) == 2
     assert "error: --publish-every" in capsys.readouterr().out
-    assert serve_cli.main(["--kappa", "500", "--device", "cpu"]) == 2
+    assert serve_cli.main(["--mode", "vq", "--kappa", "500", "--device",
+                           "cpu"]) == 2
     run = serve_cli.run_vq(serve_cli.parse_args(
-        ["--requests", "20", "--tick-ms", "0", "--device", "cpu"]),
+        ["--mode", "vq", "--requests", "20", "--tick-ms", "0", "--device",
+         "cpu"]),
         codebook=torch.from_numpy(_codebook(kappa=8, d=32)), sample=5)
     assert run.rc == 0 and run.stats.requests == 20
     assert run.store.latest().w.shape == (8, 32)
@@ -425,4 +427,4 @@ def test_serve_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ShardedLookup()
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        serve_cli.main(["--smoke"])
+        serve_cli.main(["--mode", "vq", "--smoke"])
