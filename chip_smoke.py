@@ -223,14 +223,16 @@ PyTorch built for CUDA:
      sync run (2,000 points a worker) carries ``--profile``, its terms and
      consistency a read-out (one divergence launch a window); then, all at
      once as subprocesses: P4, ``python -m repro_torch.launch.train
-     --executor mesh --scheme average --profile`` on 8 x 20,000 points
+     --mode vq --executor mesh --scheme average --profile`` on 8 x 20,000 points
      (exit 0, its export's loops and consistency), ``--executor sim
      --profile`` (exit 2), and the export rendered by ``python -m
      repro_torch.obs.report --profile`` (the attribution section in the
      HTML); P6, ``python -m repro_torch.launch.dryrun --comm`` (exit 0, its
      bytes == ``BENCH_comm.json`` and ``BENCH_hier.json``, the adapt cells
-     held to ``BENCH_adapt.json``'s prices); P7, each
-     ``examples/*_torch.py`` (exit 0), with its wall seconds;
+     held to ``BENCH_adapt.json``'s prices); P7, the five VQ
+     ``examples/*_torch.py`` and ``train_lm_torch.py`` (its 80.75 M-parameter
+     model, 300 steps, a simulated failure and restart) (exit 0), with
+     their wall seconds;
   21. runs one worker a process on the one card (``process_group_legs``;
      gloo over CUDA tensors, NCCL refusing two ranks on one device; the
      kernels are built here before any rank starts): G1, the hop kernel
@@ -241,12 +243,12 @@ PyTorch built for CUDA:
      ``dist.all_reduce``'s on the same group (in turns), one hop's device
      time and the one-card fold's; G2, ``torchrun --standalone
      --nproc-per-node 8 -m repro_torch.launch.train --scheme delta
-     --transport ring`` at the slice's width cut to 500 windows, its
+     --transport ring`` at the slice's width cut to 200 windows, its
      codebook == the stacked ring run's bit for bit (first checking that a
      (1, tau, d) window launch and a (1, n, d) eval give row i of the
      (8, ...) ones; where they do not, the legs are held at rtol=1e-4,
-     atol=1e-6), each rank's launches read from the launcher (500 window
-     and 14,000 hop launches a rank); then, through the executor in G1's
+     atol=1e-6), each rank's launches read from the launcher (200 window
+     and 5,600 hop launches a rank); then, through the executor in G1's
      world of 8 (the launcher's inputs, no torchrun start of ~30 s each),
      the dense gloo transport on 100 windows at rtol=1e-4 against the
      stacked ring and ``average`` over the ring on 60 windows bit for bit;
@@ -294,7 +296,38 @@ PyTorch built for CUDA:
      window) and 16 decode steps; (d) the ten smoke configs in f32 with
      TF32 off, the card's forward and prefill + 4 decode steps == the
      CPU's at rtol=1e-4, atol=1e-5;
-  23. times each kernel (the delta sweep also at each kchunk the tuner
+  23. runs LM training on one card (``lm_training_legs``, queue 1, item
+     8b-1), with no kernel of the port's own in the train step (the
+     reference runs it on XLA): (a) the main path, ``repro_torch.launch.train
+     --mode lm --arch granite_8b`` through ``run_lm`` at the published width
+     (d_model 4,096, GQA 32/8, d_ff 14,336, vocab 49,152, bf16) with the
+     depth cut to 8 of 36 layers (2.148 B params; AdamW's 12 B a parameter
+     is 99 GB at 36) and the launcher's defaults (8 x 64 tokens, lr 1e-3,
+     AdamW, the state donated), 60 steps: every loss and grad norm finite,
+     the last 10 steps' mean loss below the first 10's, the peak memory;
+     then 5 steps timed and traced (ms a step, tok/s, busy share, the
+     largest kernels) beside the bound (6 N T FLOPs at the bf16 peak plus
+     AdamW's 22 B a parameter at the HBM rate); hymba-1.5b, mamba2-2.7b
+     and whisper-tiny at full depth and olmoe and internvl2 at 2 layers,
+     full width, 10 steps each (finite, the params moved); (b) granite-8b
+     at 2 layers (838.9 M params, an 8.4 GB checkpoint; the free disk
+     printed): two straight 20-step runs bit for bit, and 20 steps with
+     ``--ckpt-every 10``, the step-20 checkpoint removed, ``--resume`` from
+     step 10 == the straight run bit for bit; (c) the ten smoke configs in
+     f32 with TF32 off, one step's loss and grads and the params after 3
+     SGD steps, the card == the CPU at rtol=1e-4, atol=1e-5 x max|x|; (d)
+     the window step, granite-8b at 2 layers with M = 2 replicas (every
+     replica keeps its AdamW state: M = 4 does not fit) and whisper-tiny
+     with M = 8, tau = 2, each merge for 2 windows (AdamW; DELTA and
+     DELTA_SPARSE also under SGD at frac 0.01 and 1.0): loss finite, step
+     == 2 tau, params moved, the merged params one tensor the replicas
+     share under ALLREDUCE, AVERAGE and DELTA, a residual at frac 0.01,
+     DELTA_SPARSE at frac 1.0 == DELTA bit for bit under SGD, one top-k
+     launch a float leaf a sparse merge; the top-k kernel on the captured
+     merge payloads of the embedding ((2, 201,326,592), k = 2,013,265) and
+     the final norm ((2, 4,096), k = 40) against its plain version, bit
+     for bit, and timed at (4, 201,326,592) in turns with ``torch.topk``;
+  24. times each kernel (the delta sweep also at each kchunk the tuner
      weighs; the assign kernel at the flush, the eval and (8, 1) x 4096 x
      3072; the blocked kernel at (8, 1) x 4096 x 3072 with and without the
      epilogue and at (8, 1) x 4096 x 128; the window kernel also at M = 1,
@@ -313,7 +346,7 @@ PyTorch built for CUDA:
      the 3072-wide eq.-9 path with torch.profiler (device time by kernel, the
      device's idle share), after timing 200 dense and ring sync windows in
      turns on the host clock;
-  24. prints one ``{"kernels": [...]}`` line (window, delta, assign,
+  25. prints one ``{"kernels": [...]}`` line (window, delta, assign,
       top-k, blocked, ring and the ring's hop kernel), the card line
       again, and last
       ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -413,7 +446,7 @@ O1_CAPTURE_WINDOWS = 20
 # run as subprocesses, beside P4's and P6's, all at once
 P4_POINTS = 20_000
 EXAMPLES = ("quickstart", "mesh_vq", "elastic_vq", "serve_vq",
-            "cloud_async_vq")
+            "cloud_async_vq", "train_lm")
 SUBPROCESS_TIMEOUT_S = 300
 # item 21, one worker a process on the one card (gloo over CUDA tensors, the
 # ring's hops over CUDA IPC)
@@ -421,7 +454,7 @@ PG_WORLDS = (4, 8)       # G1's worlds
 PG_N = KAPPA * D         # G1's payload: a window's displacement
 PG_RAGGED = 1_000_003    # G1's ragged payload, at 4 ranks
 PG_ITERS = 5             # G1's timed calls a reading
-G2_POINTS = 5_000        # 500 windows of the 8-process ring run, cut
+G2_POINTS = 2_000        # 200 windows of the 8-process ring run, cut
 G2_XLA_POINTS = 1_000    # 100 windows of the 8-process gloo run, cut
 G2_AVG_POINTS = 600      # 60 windows of the 8-process average run, cut
 # (M * points >= KAPPA: w0 is KAPPA of the points)
@@ -446,6 +479,26 @@ LM_CORR = 0.999                # (b): int8 logits' correlation with bf16
 LM_PREFILL_REL = 0.0           # prefill's last logits vs forward's: one math
 LM_DECODE_REL = 0.05           # teacher-forced decode vs forward
 LM_BF16_PEAK = 989e12          # bf16 dense FLOP/s of an H100 SXM at 700 W
+# item 23, LM training on one card: the launcher's default arch at its
+# published width with its depth cut to fit AdamW's 12 B a parameter (36
+# layers: 99 GB), the launcher's defaults (64 x 8 tokens a step, lr 1e-3);
+# the other families at full depth where their state fits, else 2 layers;
+# the determinism, resume and window legs at 2 layers; the window step's
+# replicas (granite: M = 2, every replica's AdamW state is kept; whisper:
+# the paper's 8)
+LMT_LAYERS = 8                 # granite-8b: 2.148 B params, 25.8 GB state
+LMT_STEPS = 60
+LMT_TIMED = 5                  # steps timed and traced after the run
+LMT_OTHERS = (("hymba_1p5b", None), ("mamba2_2p7b", None),
+              ("whisper_tiny", None), ("olmoe_1b_7b", 2),
+              ("internvl2_76b", 2))
+LMT_OTHER_STEPS = 10
+LMT_CUT = 2                    # (b) and (d): 838.9 M params
+LMT_DET_STEPS = 20             # (b): --ckpt-every 10, then --resume
+LMT_WINDOWS = 2                # (d): windows a merge
+LMT_TAU = 2
+LMT_WINDOW_M = (("granite_8b", 2), ("whisper_tiny", 8))
+LMT_TOPK_M = 4                 # (e): the top-k kernel's timed payload rows
 # read before each call kernel_ms times: 20 times the H100's 50 MB L2, and
 # ~0.3 ms of device time in which the host enqueues the call
 L2_FLUSH_BYTES = 1 << 30
@@ -1867,8 +1920,8 @@ def check_attribution(label: str, ex, *, loops, segments: int = 1) -> dict:
 
 def subprocess_legs(tmp: Path) -> None:
     """P4, P6 and P7 (the module docstring's item 20): the launcher's
-    ``--profile`` and its refusal off the mesh, the dry run, and the five
-    examples, each a subprocess, all started at once (the card runs them
+    ``--profile`` and its refusal off the mesh, the dry run, and the VQ
+    examples with ``train_lm_torch.py``, each a subprocess, all started at once (the card runs them
     side by side; their walls are read-outs); then the report render of
     P4's export."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -1883,7 +1936,8 @@ def subprocess_legs(tmp: Path) -> None:
             str(KAPPA), "--tau", str(TAU), "--seed", str(SEED),
             "--profile", str(prof_out)],
         "P4 --executor sim --profile": [
-            py, "-m", "repro_torch.launch.train", "--executor", "sim",
+            py, "-m", "repro_torch.launch.train", "--mode", "vq",
+            "--executor", "sim",
             "--profile", str(tmp / "sim.prof.json")],
         "P6 dryrun --comm": [py, "-m", "repro_torch.launch.dryrun",
                              "--comm", "--out", str(dry_out)],
@@ -2281,9 +2335,10 @@ def process_group_legs(dev, w0, data, eval_data) -> dict:
                           "--points", str(G2_XLA_POINTS)],
             "ring average": ["--scheme", "average", "--transport", "ring",
                              "--points", str(G2_AVG_POINTS)]}
-    full4 = ["--executor", "mesh", "--workers", str(G3_M), "--points",
-             str(G3_TICKS), "--dim", str(D), "--kappa", str(KAPPA), "--tau",
-             str(TAU), "--seed", str(SEED), "--network", "geometric",
+    full4 = ["--mode", "vq", "--executor", "mesh", "--workers", str(G3_M),
+             "--points", str(G3_TICKS), "--dim", str(D), "--kappa",
+             str(KAPPA), "--tau", str(TAU), "--seed", str(SEED), "--network",
+             "geometric",
              "--p-delay", str(P_DELAY), "--scheme", "async_delta", *cpu]
     lengths = GeometricDelayNetwork(P_DELAY).round_lengths(
         torch.Generator().manual_seed(SEED + 3), G3_M,
@@ -2947,6 +3002,400 @@ def lm_serving_legs(dev) -> None:
             fail(f"{name}: exit {proc.returncode} or its lines missing")
     print(f"item 22 (the LM serving path): {time.perf_counter() - t_item:.1f}"
           f" s")
+
+
+# -- item 23: LM training on one card ---------------------------------------
+
+def _lm_train_batch(cfg, step: int, dev, *, rows: int = 8, seq: int = 64,
+                    lead: tuple = ()) -> dict:
+    """The launcher's step-indexed batch (``data.pipeline.lm_batch``) and,
+    for the stub frontends, frames or patch embeddings from the same
+    step's seed; ``lead`` stacks that many steps on a leading dim (a
+    window's (tau, B, ...))."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    if lead:
+        parts = [_lm_train_batch(cfg, step * lead[0] + s, dev, rows=rows,
+                                 seq=seq) for s in range(lead[0])]
+        return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+    batch = lm_batch(DataConfig(cfg.vocab, seq, rows, SEED), step,
+                     device=dev)
+    gen = torch.Generator().manual_seed(SEED * 1000 + step)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            (rows, cfg.encoder_frames, cfg.d_model), generator=gen).to(
+                dev, cfg.dtype)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(
+            (rows, cfg.img_tokens, cfg.d_model), generator=gen).to(
+                dev, cfg.dtype)
+    return batch
+
+
+def _leaves_equal(a, b) -> bool:
+    import torch
+
+    from repro_torch.optim.optimizers import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def _moved(before, after) -> float:
+    from repro_torch.optim.optimizers import tree_leaves
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(tree_leaves(before), tree_leaves(after)))
+
+
+def lm_training_legs(dev) -> None:
+    """LM training on one card (the module docstring's item 23, (a)-(e))."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+
+    import torch
+
+    from repro_torch import comm
+    from repro_torch.configs import registry
+    from repro_torch.distributed.roofline import HBM_BW
+    from repro_torch.kernels import vq_fused
+    from repro_torch.launch import train
+    from repro_torch.models.api import get_api
+    from repro_torch.optim import optimizers
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    from repro_torch.training import steps
+
+    t_item = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_line()
+
+    # -- (a) the main path: launch.train --mode lm --arch granite_8b -------
+    full = registry.get_config("granite_8b")
+    cfg = dataclasses.replace(full, n_layers=LMT_LAYERS)
+    print(f"LM train (a) granite-8b at its published width (d_model "
+          f"{cfg.d_model}, GQA {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {str(cfg.dtype).split('.')[-1]}),"
+          f" depth cut: n_layers "
+          f"{full.n_layers} -> {cfg.n_layers} (AdamW's 12 B a parameter: "
+          f"{12 * full.n_params() / 1e9:.1f} GB at 36 layers, "
+          f"{12 * cfg.n_params() / 1e9:.1f} GB at {cfg.n_layers})")
+    args = train.parse_args(["--mode", "lm", "--arch", "granite_8b",
+                             "--steps", str(LMT_STEPS), "--seed", str(SEED)])
+    zero_counts()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run = train.run_lm(args, cfg=cfg)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    counts = expect_counts("LM training (no kernel of the port's own: the "
+                           "reference runs this path on XLA)")
+    losses, gnorms = run.losses.float(), run.grad_norms.float()
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    print(f"LM train (a) {LMT_STEPS} steps of {args.batch} x "
+          f"{args.seq_len} tokens: loss {float(losses[0]):.4f} -> "
+          f"{float(losses[-1]):.4f} (mean of the first 10 {first:.4f}, "
+          f"of the last 10 {last:.4f}); grad norm {float(gnorms[0]):.3f} "
+          f"-> {float(gnorms[-1]):.3f}; wall {run.wall_s:.2f} s "
+          f"({run.wall_s / LMT_STEPS * 1e3:.1f} ms a step with the "
+          f"launcher's log reads); peak device memory {peak:.2f} GiB; "
+          f"launches {counts}; {card}")
+    if not (torch.isfinite(losses).all() and torch.isfinite(gnorms).all()):
+        fail("LM train (a): a loss or grad norm is not finite")
+    if not last < first:
+        fail(f"LM train (a): the loss did not fall ({first} -> {last})")
+
+    # -- (e) read-outs on the same state: step time, trace, the bound ------
+    opt = optimizers.adamw(optimizers.cosine_schedule(
+        args.lr, warmup=20, total=args.steps))
+    step_fn = steps.make_train_step(cfg, opt, donate=True)
+    state = run.state
+    del run
+    batches = [_lm_train_batch(cfg, LMT_STEPS + i, dev)
+               for i in range(LMT_TIMED)]
+
+    def timed_steps():
+        nonlocal state
+        for b in batches:
+            state, _ = step_fn(state, b)
+
+    timed_steps()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed_steps()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / LMT_TIMED * 1e3
+    prof = profile(f"granite-8b training at {LMT_LAYERS} layers",
+                   timed_steps, LMT_TIMED, "step")
+    n = sum(x.numel() for x in tree_leaves(state["params"]))
+    tokens = args.batch * args.seq_len
+    t_ops = 6 * n * tokens / LM_BF16_PEAK * 1e3
+    t_opt = 22 * n / HBM_BW * 1e3
+    print(f"LM train (e) granite-8b at {LMT_LAYERS} layers, {n:,} params: "
+          f"{step_ms:.2f} ms a step, {tokens / step_ms * 1e3:,.0f} tok/s "
+          f"(host clock, {LMT_TIMED} steps between device syncs); busy "
+          f"share {prof['busy_us'] / prof['wall_us']:.3f} of the profiled "
+          f"wall, {prof['busy_us'] / LMT_TIMED / 1e3:.2f} ms busy a step"
+          if prof else "LM train (e) no device time seen (not measured)")
+    print(f"LM train (e) bound: 6 x {n:,} x {tokens} tokens = "
+          f"{6 * n * tokens / 1e12:.2f} TFLOP, {t_ops:.2f} ms at "
+          f"{LM_BF16_PEAK / 1e12:.0f} TFLOP/s; AdamW's 22 B a parameter "
+          f"(read p, g, mu, nu; write p, mu, nu), {22 * n / 1e9:.1f} GB, "
+          f"{t_opt:.2f} ms at {HBM_BW / 1e12:.2f} TB/s; {t_ops + t_opt:.2f} "
+          f"ms in all; peak {peak:.2f} GiB; {card}")
+    del state, batches, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (a) the other families: full depth where the state fits -----------
+    for arch, layers in LMT_OTHERS:
+        other = registry.get_config(arch)
+        if layers is not None:
+            other = dataclasses.replace(other, n_layers=layers)
+        opt_o = optimizers.adamw(1e-3)
+        step_o = steps.make_train_step(other, opt_o, donate=True)
+        torch.cuda.reset_peak_memory_stats()
+        st = steps.init_train_state(other, opt_o, SEED, device=dev)
+        before = tree_map(lambda x: x.clone(), st["params"])
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(LMT_OTHER_STEPS):
+            st, met = step_o(st, _lm_train_batch(other, i, dev))
+            out.append(torch.stack([met["loss"], met["grad_norm"]]))
+        out = torch.stack(out).float().cpu()
+        wall = time.perf_counter() - t0
+        moved = _moved(before, st["params"])
+        depth = registry.get_config(arch).n_layers
+        print(f"LM train (a) {other.name} ({other.family}, "
+              f"{other.n_layers} of {depth} layers, full width, "
+              f"{other.n_params():,} params): "
+              f"{LMT_OTHER_STEPS} steps in {wall:.2f} s, loss "
+              f"{float(out[0, 0]):.4f} -> {float(out[-1, 0]):.4f}, grad norm "
+              f"{float(out[0, 1]):.3f} -> {float(out[-1, 1]):.3f}, params "
+              f"moved {moved:.3e}, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not torch.isfinite(out).all() or not moved > 0:
+            fail(f"LM train (a) {arch}: not finite, or the params did not "
+                 f"move")
+        del st, before
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- (b) determinism and --resume, 2 layers at full width --------------
+    cut = dataclasses.replace(full, n_layers=LMT_CUT)
+    base = ["--mode", "lm", "--arch", "granite_8b", "--steps",
+            str(LMT_DET_STEPS), "--seed", str(SEED), "--log-every", "10"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        one = train.run_lm(train.parse_args(base), cfg=cut)
+        two = train.run_lm(train.parse_args(base), cfg=cut)
+    same = _leaves_equal(one.state, two.state)
+    del two
+    with tempfile.TemporaryDirectory(prefix="lm_ckpt_") as tmp:
+        free = shutil.disk_usage(tmp).free / 1e9
+        print(f"LM train (b) {cut.n_params():,} params, a checkpoint of "
+              f"{10 * cut.n_params() / 1e9:.1f} GB (bf16 params, f32 mu "
+              f"and nu); {free:.1f} GB free where it is written")
+        ck = base + ["--ckpt-every", "10", "--ckpt-dir", tmp]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            train.run_lm(train.parse_args(ck), cfg=cut)
+        saved = time.perf_counter() - t0
+        shutil.rmtree(os.path.join(tmp, f"step_{LMT_DET_STEPS:09d}"))
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            resumed = train.run_lm(train.parse_args(ck + ["--resume"]),
+                                   cfg=cut)
+        resume_s = time.perf_counter() - t0
+    resumed_ok = (_leaves_equal(one.state, resumed.state)
+                  and resumed.start == 10
+                  and torch.equal(one.losses[10:], resumed.losses))
+    print(f"LM train (b) two straight {LMT_DET_STEPS}-step runs: params "
+          f"and moments equal bit for bit: {same}; {LMT_DET_STEPS} steps "
+          f"checkpointing every 10 ({saved:.1f} s), the step-20 checkpoint "
+          f"removed, --resume from step {resumed.start} ({resume_s:.1f} s): "
+          f"== the straight run bit for bit: {resumed_ok}; "
+          + "; ".join(x for x in log.getvalue().splitlines()
+                      if x.startswith("resumed")))
+    if not (same and resumed_ok):
+        fail("LM train (b): a straight run or --resume is not bit for bit")
+    del one, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) the card against the CPU, f32 with TF32 pinned off ------------
+    worst = 0.0
+    for arch in registry.ARCH_IDS:
+        small = registry.get_smoke_config(arch)
+        api_s = get_api(small)
+        p_cpu = api_s.init(SEED, device="cpu")
+        p_dev = tree_map(lambda x: x.to(dev), p_cpu)
+        b_cpu = _lm_train_batch(small, 3, "cpu", rows=2, seq=16)
+        b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
+        l_cpu, g_cpu = steps.loss_and_grads(api_s.loss_fn, p_cpu, b_cpu)
+        l_dev, g_dev = steps.loss_and_grads(api_s.loss_fn, p_dev, b_dev)
+        sgd = optimizers.sgd(0.1)
+        st_c = {"params": p_cpu, "opt_state": sgd.init(p_cpu),
+                "step": torch.zeros((), dtype=torch.int32)}
+        st_d = tree_map(lambda x: x, {"params": p_dev,
+                                      "opt_state": sgd.init(p_dev),
+                                      "step": st_c["step"].to(dev)})
+        sgd_step = steps.make_train_step(small, sgd)
+        for i in range(3):
+            bc = _lm_train_batch(small, 10 + i, "cpu", rows=2, seq=16)
+            st_c, _ = sgd_step(st_c, bc)
+            st_d, _ = sgd_step(st_d, {k: v.to(dev) for k, v in bc.items()})
+        pairs = [("loss", l_dev.cpu()[None], l_cpu[None])]
+        pairs += [(f"grad {i}", a.cpu(), b) for i, (a, b) in enumerate(zip(
+            tree_leaves(g_dev), tree_leaves(g_cpu)))]
+        pairs += [(f"param {i} after 3 SGD steps", a.cpu(), b)
+                  for i, (a, b) in enumerate(zip(
+                      tree_leaves(st_d["params"]),
+                      tree_leaves(st_c["params"])))]
+        for what, x, y in pairs:
+            atol = 1e-5 * max(float(y.abs().max()), 1e-30)
+            if not torch.allclose(x, y, rtol=1e-4, atol=atol):
+                fail(f"LM train (c) {arch} {what}: the card differs from "
+                     f"the CPU by {float((x - y).abs().max()):.3e}")
+            worst = max(worst, float(((x - y).abs() / (atol + y.abs()))
+                                     .max()))
+    print(f"LM train (c) the ten smoke configs in f32 (TF32 off): one "
+          f"step's loss and every grad leaf, and the params after 3 SGD "
+          f"steps: the card == the CPU at rtol=1e-4, atol=1e-5 x max|x| "
+          f"(worst |gap| / (atol + |cpu|) {worst:.3e})")
+
+    # -- (d) the window step: the paper's merges over an LM -----------------
+    captured = {}
+    topk_counts = {}
+    for arch, m in LMT_WINDOW_M:
+        wcfg = (cut if arch == "granite_8b" else registry.get_config(arch))
+        n_float = len(tree_leaves(get_api(wcfg).init(device="meta")))
+        rows = max(8, m)
+        windows = [_lm_train_batch(wcfg, w, dev, rows=rows,
+                                   lead=(LMT_TAU,))
+                   for w in range(LMT_WINDOWS)]
+        finals = {}
+        for merge in steps.Merge:
+            for opt_name in (("adamw", "sgd") if merge in (
+                    steps.Merge.DELTA, steps.Merge.DELTA_SPARSE)
+                    else ("adamw",)):
+                fracs = ((0.01, 1.0) if merge is steps.Merge.DELTA_SPARSE
+                         and opt_name == "sgd" else (0.01,))
+                for frac in fracs:
+                    opt_w = (optimizers.adamw(1e-3) if opt_name == "adamw"
+                             else optimizers.sgd(0.05))
+                    tsp = (comm.get_transport("sparse", frac=frac)
+                           if merge is steps.Merge.DELTA_SPARSE else None)
+                    if (tsp is not None and arch == "granite_8b"
+                            and opt_name == "adamw"):
+                        orig = tsp.select
+
+                        def select(full_, k, orig=orig):
+                            size = full_.shape[1]
+                            if size in (cut.vocab * cut.d_model,
+                                        cut.d_model) and (
+                                    size not in captured):
+                                captured[size] = (full_.clone(), k)
+                            return orig(full_, k)
+                        tsp.select = select
+                    torch.cuda.reset_peak_memory_stats()
+                    st = steps.init_window_state(wcfg, opt_w, SEED, merge,
+                                                 tsp, workers=m, device=dev)
+                    w_start = steps.replica(st["params"], 0)
+                    step_w = steps.make_window_step(
+                        wcfg, opt_w, workers=m, tau=LMT_TAU, merge=merge,
+                        transport=tsp)
+                    zero_counts()
+                    losses = []
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for b in windows:
+                        st, met = step_w(st, b)
+                        losses.append(met["loss"])
+                    losses = torch.stack(losses).float().cpu()
+                    wall = time.perf_counter() - t0
+                    want = ({"topk": n_float * LMT_WINDOWS}
+                            if tsp is not None else {})
+                    got = expect_counts(
+                        f"LM window {arch} {merge.value}", **want)
+                    if tsp is not None:
+                        topk_counts[f"{arch} {opt_name} frac {frac}"] = \
+                            got["topk"]
+                    shared = all(x.stride(0) == 0
+                                 for x in tree_leaves(st["params"]))
+                    steps_ok = bool(torch.all(st["step"]
+                                              == LMT_TAU * LMT_WINDOWS))
+                    moved = _moved(w_start, steps.replica(st["params"], 0))
+                    resid = (max(float(r.abs().max())
+                                 for r in tree_leaves(st["residual"]))
+                             if "residual" in st else None)
+                    print(f"LM window {arch} M={m} tau={LMT_TAU} "
+                          f"{merge.value} ({opt_name}"
+                          f"{f', frac {frac}' if tsp is not None else ''}): "
+                          f"{LMT_WINDOWS} windows in {wall:.2f} s, loss "
+                          f"{[round(float(x), 4) for x in losses]}, step "
+                          f"{int(st['step'][0])}, params moved {moved:.3e}, "
+                          f"replicas share the merged params: {shared}"
+                          + (f", largest |residual| {resid:.3e}"
+                             if resid is not None else "")
+                          + f"; peak "
+                          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                          f"GiB")
+                    if not (torch.isfinite(losses).all() and steps_ok
+                            and moved > 0):
+                        fail(f"LM window {arch} {merge.value}: loss not "
+                             f"finite, step not {LMT_TAU * LMT_WINDOWS}, "
+                             f"or the params did not move")
+                    if merge in (steps.Merge.ALLREDUCE, steps.Merge.AVERAGE,
+                                 steps.Merge.DELTA) and not shared:
+                        fail(f"LM window {arch} {merge.value}: the replicas' "
+                             f"merged params are not one")
+                    if (merge is steps.Merge.DELTA_SPARSE and frac == 0.01
+                            and not resid > 0):
+                        fail(f"LM window {arch}: frac 0.01 left no residual")
+                    if opt_name == "sgd":
+                        finals[merge.value, frac] = steps.replica(
+                            st["params"], 0)
+                    del st, w_start
+                    gc.collect()
+                    torch.cuda.empty_cache()
+        lossless = _leaves_equal(finals["delta", 0.01],
+                                 finals["delta_sparse", 1.0])
+        print(f"LM window {arch} (SGD): delta_sparse at frac 1.0 == delta "
+              f"over {LMT_WINDOWS} windows bit for bit: {lossless}")
+        if not lossless:
+            fail(f"LM window {arch}: lossless sparse differs from delta")
+        del finals, windows
+    print(f"LM window top-k launches (one a float leaf a sparse merge): "
+          f"{topk_counts}")
+
+    # the top-k kernel on the LM's payloads, against its plain version
+    for size, (full_, k) in sorted(captured.items()):
+        topk_equal(full_, k, f"LM payload {tuple(full_.shape)}")
+        print(f"check top-k on the LM's captured merge payload "
+              f"{tuple(full_.shape)}, k={k:,}: == plain bit for bit; "
+              + topk_plan_line(full_))
+    emb, k_emb = captured[cut.vocab * cut.d_model]
+    big = torch.cat([emb] * (LMT_TOPK_M // emb.shape[0]))
+    del captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    tk, tl = in_turns(lambda: vq_fused.vq_topk(big, k_emb),
+                      lambda: torch.topk(big.abs(), k_emb, dim=1), 3)
+    n_big = big.shape[1]
+    tb = bound(4 * 2 * LMT_TOPK_M * n_big + 8 * LMT_TOPK_M * k_emb,
+               LMT_TOPK_M * n_big)
+    print(f"timing top-k {tuple(big.shape)}, k={k_emb:,} (granite-8b's "
+          f"embedding delta, captured from the sparse merge and stacked "
+          f"to {LMT_TOPK_M} rows): kernel {r4(tk)} ms, torch.topk(|x|) "
+          f"{r4(tl)} ms (in turns; selection only), bound {tb[0]:.4f} ms "
+          f"({tb[1]}); {topk_plan_line(big)}; {card}")
+    del big, emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"item 23 (LM training): {time.perf_counter() - t_item:.1f} s")
 
 
 def threads_serving_obs_legs(dev, w0, data, eval_data, runs, geo_run,
@@ -4205,8 +4654,9 @@ def main() -> None:
         subprocess_legs(Path(tmp))
     pg = process_group_legs(dev, w0, data, eval_data)
     lm_serving_legs(dev)
+    lm_training_legs(dev)
 
-    # -- 23. timing at the main path's shapes ---------------------------------
+    # -- 24. timing at the main path's shapes ---------------------------------
     # every kernel, plain and library time by kernel_ms (L2 cold, host time
     # hidden); "warm" is time_ms over back-to-back wrapper calls (L2 warm,
     # the wrapper's host time included), a read-out beside it

@@ -8,10 +8,11 @@ package restores in the other:
         manifest.json      # step, n_leaves, names, shapes, dtypes, treedef
         leaf_00000.npy ... # one .npy per leaf (the whole array, on the host)
 
-  * a tree is dicts, lists and tuples of tensors, numpy arrays or Python
-    scalars (``None`` holds no leaf); its leaves are numbered in the
-    reference's flatten order (dict keys sorted), each named by its key
-    path joined with ``/``;
+  * a tree is dicts, lists, tuples and named tuples (``AdamState``) of
+    tensors, numpy arrays or Python scalars (``None`` holds no leaf); its
+    leaves are numbered in the reference's flatten order (dict keys
+    sorted), each named by its key path joined with ``/`` (a named tuple's
+    field as ``.name``, as the reference's JAX paths print it);
   * every leaf is written into ``step_N.tmp/``, the manifest last, and the
     directory is then renamed into place: a step without its manifest is
     never listed, so a crash mid-save cannot corrupt the latest good step;
@@ -65,14 +66,18 @@ def _flatten(tree, path=()) -> tuple[list, list[str], str]:
             parts.append(f"{k!r}: {sub_def}")
         return leaves, names, "{" + ", ".join(parts) + "}"
     if isinstance(tree, (list, tuple)):
+        fields = getattr(tree, "_fields", None)
         leaves, names, parts = [], [], []
         for i, item in enumerate(tree):
-            sub, sub_names, sub_def = _flatten(item, path + (str(i),))
+            key = f".{fields[i]}" if fields else str(i)
+            sub, sub_names, sub_def = _flatten(item, path + (key,))
             leaves += sub
             names += sub_names
             parts.append(sub_def)
         if isinstance(tree, list):
             return leaves, names, "[" + ", ".join(parts) + "]"
+        if fields:
+            return leaves, names, f"{type(tree).__name__}({', '.join(parts)})"
         inner = ", ".join(parts) + ("," if len(parts) == 1 else "")
         return leaves, names, "(" + inner + ")"
     return [tree], ["/".join(path)], "*"
@@ -86,7 +91,10 @@ def _unflatten(tree, leaves):
     if isinstance(tree, dict):
         return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_unflatten(item, leaves) for item in tree)
+        items = [_unflatten(item, leaves) for item in tree]
+        # a named tuple takes its fields as arguments, not one iterable
+        return (type(tree)(*items) if hasattr(tree, "_fields")
+                else type(tree)(items))
     return next(leaves)
 
 
@@ -140,10 +148,13 @@ class Checkpointer:
     def save(self, step: int, tree: Any, *, blocking: bool = True) -> None:
         """Write ``tree`` as step ``step``.  Every leaf is copied to the host
         first, here in the caller's thread (a device leaf syncs the card);
-        with ``blocking=False`` the write itself is queued."""
+        with ``blocking=False`` the write itself is queued.  A blocking
+        save writes after the queued ones, so two writes of one step never
+        race."""
         leaves, names, treedef = _flatten(tree)
         host = [_to_host(leaf) for leaf in leaves]
         if blocking:
+            self._queue.join()
             self._write(step, host, names, treedef)
         else:
             self._queue.put((step, host, names, treedef))

@@ -28,7 +28,9 @@ the sum of the leaves' f32 bytes; a dense transport charges the ring on
 that sum, the sparse one its top-k per leaf.  The quorum merge ships its
 displacement and a one-entry arrival count this way.
 
-Each call logs one ``CommRecord`` with ``calls=1``; the log folds a repeat
+Each call logs one ``CommRecord`` with ``calls=1`` (or the reference's
+``calls=`` keyword: one call standing for that many, its static trip
+count); the log folds a repeat
 of a collective since its latest mark into the first record's ``calls``, so
 a run keeps one record per distinct collective, as the reference's does
 (it traces a collective once and puts the window count in ``calls``), and
@@ -287,19 +289,31 @@ class Transport:
         through it).  A transport that launches no kernel returns itself."""
         return self
 
-    def all_reduce(self, x, *, op: str = "sum", state=None,
+    def all_reduce(self, x, *, op: str = "sum", state=None, calls: int = 1,
                    tag: str = "merge"):
         """x (M, ...), or a tuple of them -> ``(the reduction over workers,
-        a tuple for a tuple, new state)``."""
+        a tuple for a tuple, new state)``; its records charged ``calls``
+        calls."""
         raise NotImplementedError
 
     def masked_all_reduce(self, x, mask: torch.Tensor, *, state=None,
-                          tag: str = "merge"):
+                          calls: int = 1, tag: str = "merge"):
         """The eq.-9 reducer: ``(the f32 sum over workers of mask[i] * x[i],
         new state)`` (mask (M,), 1.0 for the workers whose round lands this
         tick; x a tensor or a tuple of them).  Every participant joins the
         collective whatever its bit, so it is charged as a full call."""
         raise NotImplementedError
+
+    def _charged(self, calls: int, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)`` with the records it appends charged
+        ``calls`` calls each (a composite transport's ``calls=``)."""
+        if calls == 1:
+            return fn(*args, **kwargs)
+        mark = self.log.mark()
+        out = fn(*args, **kwargs)
+        self.log.rewrite_since(mark, lambda r: dataclasses.replace(
+            r, calls=r.calls * calls))
+        return out
 
     def record_host_transfer(self, *, logical_bytes: int, wire_bytes: int,
                              participants: int, axis: str = WORKER_AXIS,

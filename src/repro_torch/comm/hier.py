@@ -354,8 +354,11 @@ class HierarchicalTransport(Transport):
 
     # -- Transport API ------------------------------------------------------
 
-    def all_reduce(self, x, *, op: str = "sum", state=None,
+    def all_reduce(self, x, *, op: str = "sum", state=None, calls: int = 1,
                    tag: str = "merge"):
+        if calls != 1:
+            return self._charged(calls, self.all_reduce, x, op=op,
+                                 state=state, tag=tag)
         if op not in ("sum", "mean"):
             raise ValueError(
                 f"unknown reduce op {op!r}; choose 'sum' or 'mean'")
@@ -371,7 +374,10 @@ class HierarchicalTransport(Transport):
         return total, self._join_state(state, s0, s1)
 
     def masked_all_reduce(self, x, mask: torch.Tensor, *, state=None,
-                          tag: str = "merge"):
+                          calls: int = 1, tag: str = "merge"):
+        if calls != 1:
+            return self._charged(calls, self.masked_all_reduce, x, mask,
+                                 state=state, tag=tag)
         m = 1 if self.grouped else self.topology.total_workers
         if mask.shape != (m,):
             raise ValueError(f"mask must be ({m},), got {tuple(mask.shape)}")

@@ -216,8 +216,11 @@ class QuantizedTransport(Transport):
 
     # -- Transport API ------------------------------------------------------
 
-    def all_reduce(self, x, *, op: str = "sum", state=None,
+    def all_reduce(self, x, *, op: str = "sum", state=None, calls: int = 1,
                    tag: str = "merge"):
+        if calls != 1:
+            return self._charged(calls, self.all_reduce, x, op=op,
+                                 state=state, tag=tag)
         if op == "mean":
             mark = self.inner.log.mark()
             out, _ = self.inner.all_reduce(x, op="mean", tag=tag)
@@ -229,7 +232,10 @@ class QuantizedTransport(Transport):
         return self._quant_reduce(x, mask=None, state=state, tag=tag)
 
     def masked_all_reduce(self, x, mask: torch.Tensor, *, state=None,
-                          tag: str = "merge"):
+                          calls: int = 1, tag: str = "merge"):
+        if calls != 1:
+            return self._charged(calls, self.masked_all_reduce, x, mask,
+                                 state=state, tag=tag)
         m = as_leaves(x)[0][0].shape[0]
         if mask.shape != (m,):
             raise ValueError(f"mask must be ({m},), got {tuple(mask.shape)}")

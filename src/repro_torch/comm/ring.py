@@ -295,6 +295,8 @@ class RingTransport(XlaTransport):
         return self.reduce(x, mask)
 
     def _mean(self, x):
+        if not x.is_floating_point():
+            return x[0]        # passes through, as in XlaTransport
         # a tensor divisor on x's device: tensor / python scalar rounds as a
         # multiply by the reciprocal on the card, which is not exact at M = 3
         # or 6; torch.full fills it on the device (torch.tensor would copy

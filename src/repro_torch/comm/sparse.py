@@ -51,6 +51,17 @@ def topk_count(size: int, frac: float) -> int:
     return max(1, int(frac * size))
 
 
+def topk_threshold_mask(x: torch.Tensor, frac: float) -> torch.Tensor:
+    """Dense 0/1 mask, x's shape and dtype, keeping the ``frac``
+    largest-|x| entries: every entry at or above the k-th largest
+    magnitude, so ties widen the mask.  The reference selects with stock
+    ``lax.top_k`` here, not its Pallas kernel, so ``torch.topk`` serves;
+    ``optim.compression.topk_compress`` uses it."""
+    flat = torch.abs(x.reshape(-1))
+    thresh = torch.topk(flat, topk_count(flat.numel(), frac)).values[-1]
+    return (torch.abs(x) >= thresh).to(x.dtype)
+
+
 def sparse_allsum(x: torch.Tensor, residual: torch.Tensor, frac: float,
                   mask: torch.Tensor | None = None, *, select=ops.vq_topk
                   ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -100,14 +111,16 @@ class SparseTransport(Transport):
         out.select = vq_fused.vq_topk_plain
         return out
 
-    def _sparse_sum(self, x, mask, *, op: str, state, tag: str):
+    def _sparse_sum(self, x, mask, *, op: str, state, calls: int,
+                    tag: str):
         leaves, is_tuple = as_leaves(x)
         m = leaves[0].shape[0]
         wire = sum((m - 1) * topk_count(leaf[0].numel(), self.frac) * 8
                    for leaf in leaves) if m > 1 else 0
         self.log.append(CommRecord(
             op=op, transport=self.name, axis=WORKER_AXIS, participants=m,
-            logical_bytes=worker_f32_bytes(x), wire_bytes=wire, tag=tag))
+            logical_bytes=worker_f32_bytes(x), wire_bytes=wire, calls=calls,
+            tag=tag))
         residuals, _ = as_leaves(self.init_state(x) if state is None
                                  else state)
         outs = [sparse_allsum(leaf, res, self.frac, mask, select=self.select)
@@ -116,20 +129,22 @@ class SparseTransport(Transport):
         return (from_leaves([o[0] for o in outs], is_tuple),
                 None if state is None else new_state)
 
-    def all_reduce(self, x, *, op: str = "sum", state=None,
+    def all_reduce(self, x, *, op: str = "sum", state=None, calls: int = 1,
                    tag: str = "merge"):
         if op == "mean":
-            out, _ = self._dense.all_reduce(x, op="mean", tag=tag)
+            out, _ = self._dense.all_reduce(x, op="mean", calls=calls,
+                                            tag=tag)
             return out, state
         if op != "sum":
             raise ValueError(
                 f"unknown reduce op {op!r}; choose 'sum' or 'mean'")
-        return self._sparse_sum(x, None, op="sum", state=state, tag=tag)
+        return self._sparse_sum(x, None, op="sum", state=state, calls=calls,
+                                tag=tag)
 
     def masked_all_reduce(self, x, mask: torch.Tensor, *, state=None,
-                          tag: str = "merge"):
+                          calls: int = 1, tag: str = "merge"):
         m = as_leaves(x)[0][0].shape[0]
         if mask.shape != (m,):
             raise ValueError(f"mask must be ({m},), got {tuple(mask.shape)}")
         return self._sparse_sum(x, mask, op="masked_sum", state=state,
-                                tag=tag)
+                                calls=calls, tag=tag)

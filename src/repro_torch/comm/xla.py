@@ -67,43 +67,45 @@ class XlaTransport(Transport):
         return torch.sum(_f32(x), dim=0)
 
     def _mean(self, x: torch.Tensor) -> torch.Tensor:
-        """The f32 mean over workers, cast back to x's dtype."""
+        """The f32 mean over workers, cast back to x's dtype.  A
+        non-floating leaf passes through, as in the reference: every worker
+        keeps its own, and the result holds worker 0's (this rank's over a
+        group)."""
+        if not x.is_floating_point():
+            return x[0]
         if self.group is not None:
             out = self._sum(x) / self._workers(x)
         else:
             out = torch.mean(_f32(x), dim=0)
         return out if x.dtype == torch.float32 else out.to(x.dtype)
 
-    def _record(self, op: str, m: int, logical: int, *, tag: str) -> None:
+    def _record(self, op: str, m: int, logical: int, *, calls: int,
+                tag: str) -> None:
         self.log.append(CommRecord(
             op=op, transport=self.name, axis=WORKER_AXIS, participants=m,
             logical_bytes=logical, wire_bytes=ring_wire_bytes(logical, m),
-            tag=tag))
+            calls=calls, tag=tag))
 
-    def all_reduce(self, x, *, op: str = "sum", state=None,
+    def all_reduce(self, x, *, op: str = "sum", state=None, calls: int = 1,
                    tag: str = "merge"):
         """x (M, ...) or a tuple of them -> (the f32 sum over workers, or
-        their mean cast back to x's dtype, per leaf; the state, passed
-        through)."""
+        their mean cast back to x's dtype, per leaf, non-floating leaves
+        passing through; the state, passed through)."""
         leaves, is_tuple = as_leaves(x)
         m = self._workers(leaves[0])
         if op == "sum":
-            self._record("sum", m, worker_f32_bytes(x), tag=tag)
+            self._record("sum", m, worker_f32_bytes(x), calls=calls, tag=tag)
             return from_leaves([self._sum(leaf) for leaf in leaves],
                                is_tuple), state
         if op == "mean":
-            if not all(leaf.is_floating_point() for leaf in leaves):
-                raise ValueError(
-                    f"a mean reduces floats, got "
-                    f"{[leaf.dtype for leaf in leaves]}")
             self._record("mean", m, worker_f32_bytes(x, floating_only=True),
-                         tag=tag)
+                         calls=calls, tag=tag)
             return from_leaves([self._mean(leaf) for leaf in leaves],
                                is_tuple), state
         raise ValueError(f"unknown reduce op {op!r}; choose 'sum' or 'mean'")
 
     def masked_all_reduce(self, x, mask: torch.Tensor, *, state=None,
-                          tag: str = "merge"):
+                          calls: int = 1, tag: str = "merge"):
         """x (M, ...) or a tuple of them, mask (M,) -> (sum_i mask[i] * x[i]
         in f32 per leaf, the state, passed through)."""
         leaves, is_tuple = as_leaves(x)
@@ -112,6 +114,7 @@ class XlaTransport(Transport):
         if mask.shape != (rows,):
             raise ValueError(f"mask must be ({rows},), got "
                              f"{tuple(mask.shape)}")
-        self._record("masked_sum", m, worker_f32_bytes(x), tag=tag)
+        self._record("masked_sum", m, worker_f32_bytes(x), calls=calls,
+                     tag=tag)
         return from_leaves([self._sum(leaf, mask) for leaf in leaves],
                            is_tuple), state

@@ -2,7 +2,7 @@
 ``repro/distributed/roofline.py`` (``VqCell``, ``vq_roofline_terms``; lines
 215-337 there).  The LM half (``MeshShape``, ``cell_flops``,
 ``cell_bytes``, ``roofline_terms``) comes with the LM dry run's cells
-(ROADMAP queue 1, item 8b).
+(ROADMAP queue 1, item 8b-2).
 
   compute term    = FLOPs / PEAK_FLOPS
   memory term     = HBM bytes / HBM_BW

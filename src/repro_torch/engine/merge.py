@@ -5,7 +5,12 @@ dynamic merge.
 
 A strategy is ``(merged, state) = strategy(w0, w_local, state=None)``:
 ``w0`` is the window's shared starting codebook (kappa, d), ``w_local`` the
-workers' codebooks after tau local steps, stacked (M, kappa, d).  The
+workers' codebooks after tau local steps, stacked (M, kappa, d).  The LM
+window step (``training.steps.make_window_step``) calls the same
+strategies on tuples: ``w0`` a tuple of the parameter leaves (one copy
+the replicas share, or stacked (M, ...) where they start apart),
+``w_local`` the same leaves stacked (M, ...), one collective over all of
+them, as the reference reduces a pytree.  The
 strategy decides what to reduce; its ``Transport`` reduces over the worker
 dimension and accounts the bytes.  ``state`` threads the strategy's own
 state (the quorum and dynamic merges' per-worker carry) and the transport's
@@ -24,14 +29,31 @@ from repro_torch import comm
 from repro_torch.distributed.elastic import staleness_scale
 
 
-def tree_sub_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a - b`` in f32 (the displacement Delta of paper eq. 7)."""
-    return a.to(torch.float32) - b.to(torch.float32)
+def _leafwise(fn, a, b):
+    """``fn`` on two tensors, or leaf by leaf on two tuples of them."""
+    if isinstance(a, tuple):
+        return tuple(fn(x, y) for x, y in zip(a, b, strict=True))
+    return fn(a, b)
 
 
-def tree_apply_delta(base: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
-    """``base - delta`` with the subtraction in f32, result in base dtype."""
-    return (base.to(torch.float32) - delta).to(base.dtype)
+def tree_sub_f32(a, b):
+    """``a - b`` in f32 (the displacement Delta of paper eq. 7), leaf by
+    leaf for tuples."""
+    return _leafwise(
+        lambda x, y: x.to(torch.float32) - y.to(torch.float32), a, b)
+
+
+def tree_apply_delta(base, delta):
+    """``base - delta`` with the subtraction in f32, result in base dtype,
+    leaf by leaf for tuples."""
+    return _leafwise(
+        lambda p, d: (p.to(torch.float32) - d).to(p.dtype), base, delta)
+
+
+def _zeros_f32(x):
+    """f32 zeros shaped like x (a tensor or a tuple of them)."""
+    return _leafwise(lambda t, _: torch.zeros(t.shape, dtype=torch.float32,
+                                              device=t.device), x, x)
 
 
 def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
@@ -139,6 +161,34 @@ class SparseDeltaMerge(DeltaMerge):
                 f"frac={frac} conflicts with the supplied transport's "
                 f"frac={transport.frac}; configure one place only")
         super().__init__(transport)
+
+
+class AsyncDeltaMerge(MergeStrategy):
+    """Paper eq. (9) in pipelined-collective form: the reduction of window
+    k-1's deltas is applied at the end of window k, so the collective has
+    no data dependency on window k's compute (a one-window-stale merge).
+
+    Own state: last window's per-worker delta, f32 shaped like
+    ``w_local`` (zeros at first); the merge sums it over the workers and
+    applies the sum to each worker's ``w_local``, so the merged result
+    keeps the worker dimension.  Outside ``get_merge``'s table its caller
+    is the LM window step."""
+
+    name = "async_delta"
+    own_state = True
+
+    def _init_own_state(self, w_local):
+        return _zeros_f32(w_local)
+
+    def __call__(self, w0, w_local, state=None):
+        delta_prev, tsp = self._split_state(state)
+        if delta_prev is None:
+            raise ValueError("AsyncDeltaMerge needs its delta_prev state; "
+                             "seed it with init_state(w_local)")
+        stale, tsp = self.transport.all_reduce(delta_prev, op="sum",
+                                               state=tsp)
+        merged = tree_apply_delta(w_local, stale)
+        return merged, self._join_state(tree_sub_f32(w0, w_local), tsp)
 
 
 class QuorumMerge(MergeStrategy):
@@ -268,14 +318,15 @@ class DynamicMerge(MergeStrategy):
 
 
 _STRATEGIES = {"average": AverageMerge, "delta": DeltaMerge,
-               "delta_sparse": SparseDeltaMerge, "quorum": QuorumMerge,
+               "delta_sparse": SparseDeltaMerge,
+               "async_delta": AsyncDeltaMerge, "quorum": QuorumMerge,
                "dynamic": DynamicMerge}
 
 
 def get_merge(name: str, transport: comm.Transport | None = None, **kwargs
               ) -> MergeStrategy:
-    """Factory: 'average' | 'delta' | 'delta_sparse' (``frac=``) | 'quorum'
-    (``quorum_frac=``, ``gamma=``) | 'dynamic' (``thresh=``, ``gamma=``,
+    """Factory: 'average' | 'delta' | 'delta_sparse' (``frac=``) |
+    'async_delta' | 'quorum' (``quorum_frac=``, ``gamma=``) | 'dynamic' (``thresh=``, ``gamma=``,
     ``max_stale=``)."""
     if name not in _STRATEGIES:
         raise ValueError(

@@ -39,9 +39,9 @@ the cell: its inputs and the step; "not measured" on the CPU), the
 for each rank.  The reference lowers and compiles these cells; eager
 PyTorch runs them.  Its other modes lower the LM cells: ``--arch`` (but
 ``paper_vq``), ``--shape`` (but those two), ``--all``, ``--multi-pod`` and
-``--both-meshes`` exit 2 naming ROADMAP queue 1, item 8b: the models and
+``--both-meshes`` exit 2 naming ROADMAP queue 1, item 8b-2: the models and
 configs are ported (item 8a), but the LM cells need the roofline's LM half
-and the sharding (``distributed/sharding.py``) that item 8b brings.
+and the sharding (``distributed/sharding.py``) that item 8b-2 brings.
 """
 
 from __future__ import annotations
@@ -308,7 +308,7 @@ def main(argv=None) -> int:
             or args.both_meshes:
         print("error: --arch/--shape/--all/--multi-pod/--both-meshes lower "
               "the LM cells, which need the roofline's LM half and the "
-              "sharding of ROADMAP queue 1, item 8b; this dry run has "
+              "sharding of ROADMAP queue 1, item 8b-2; this dry run has "
               "--comm and --arch paper_vq")
         return 2
     if not args.comm:

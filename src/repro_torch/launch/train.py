@@ -1,5 +1,23 @@
-"""Training launcher for the paper's VQ schemes, counterpart of
-``repro/launch/train.py --mode vq``.
+"""Training launcher, counterpart of ``repro/launch/train.py``: LM
+training (the default mode) and the paper's VQ schemes.
+
+LM mode trains one of the registry's architectures on the step-indexed
+synthetic pipeline (``data.pipeline.lm_batch``) with AdamW under a cosine
+schedule (20 warm-up steps), checkpointing asynchronously every
+``--ckpt-every`` steps into ``--ckpt-dir``; ``--resume`` continues from the
+latest checkpoint there, bit for bit, since batch i is a function of
+(seed, i)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite_8b \\
+        --smoke --steps 200 --ckpt-dir /tmp/ckpt [--resume] --device cpu
+
+It prints ``arch=... device=...``, then ``step N  loss ...  gnorm ...
+tok/s ...`` every ``--log-every`` steps (the only place the host waits
+for the card) and ``done: ...``.  ``--data-axis`` takes 1 only: placement
+over a device mesh is ROADMAP item 8b-2.  An encoder-decoder arch
+(whisper-tiny) exits 2: the pipeline draws no encoder frames.
+
+VQ mode::
 
     PYTHONPATH=src python -m repro_torch.launch.train --mode vq \\
         --executor mesh --scheme delta --workers 8 --points 125000 \\
@@ -97,6 +115,7 @@ import io
 import json
 import os
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -104,12 +123,16 @@ from repro_torch import comm
 from repro_torch import device as device_lib
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.comm.sweep import acceptance_sparse_frac
+from repro_torch.configs import registry
 from repro_torch.data import synthetic
+from repro_torch.data.pipeline import DataConfig, lm_batch
 from repro_torch.engine import (ChaosNetwork, ChaosSchedule,
                                 Tier1BudgetController, Topology,
                                 get_executor, get_network)
 from repro_torch.kernels import autotune
 from repro_torch.obs import ExitFlush, MetricsRegistry, Profiler, Tracer
+from repro_torch.optim import optimizers
+from repro_torch.training import steps as steps_lib
 
 #: Eval points per worker (the reference's ``launch/train.py`` takes 1000).
 N_EVAL = 1000
@@ -118,9 +141,22 @@ N_EVAL = 1000
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.train",
-        description="The paper's VQ schemes on the PyTorch port.")
-    ap.add_argument("--mode", choices=("vq",), default="vq",
-                    help="only the VQ schemes are ported")
+        description="LM training and the paper's VQ schemes on the "
+                    "PyTorch port.")
+    ap.add_argument("--mode", choices=("lm", "vq"), default="lm")
+    # LM-mode options (--mode lm)
+    ap.add_argument("--arch", default="granite_8b", choices=registry.ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-sized)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--data-axis", type=int, default=1,
+                    help="data-parallel mesh axis; 1 only (one card)")
+    ap.add_argument("--log-every", type=int, default=10)
+    # VQ-mode options (--mode vq): engine backend + paper hyperparameters
     ap.add_argument("--executor", choices=("sim", "mesh", "thread"),
                     default="sim")
     ap.add_argument("--scheme", choices=("average", "delta", "async_delta"),
@@ -210,11 +246,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "ride the quorum merge's late matrix (mesh "
                          "executor, --scheme delta)")
     ap.add_argument("--ckpt-dir", default="",
-                    help="elastic runs: checkpoint after every resize into "
-                         "this directory")
+                    help="LM mode: checkpoint every --ckpt-every steps "
+                         "into this directory; elastic VQ runs: after "
+                         "every resize")
     ap.add_argument("--resume", action="store_true",
-                    help="elastic runs: restore the latest checkpoint in "
-                         "--ckpt-dir and skip the consumed prefix")
+                    help="restore the latest checkpoint in --ckpt-dir and "
+                         "skip the consumed prefix (LM mode, elastic VQ "
+                         "runs)")
     ap.add_argument("--duration-s", type=float, default=2.0,
                     help="thread backend: wall seconds to run")
     ap.add_argument("--comm-delay-s", type=float, default=0.0,
@@ -528,9 +566,101 @@ def run_vq(args, *, groups=None, dev: torch.device | None = None):
     return res, executor, wall
 
 
+class LmRun(NamedTuple):
+    """What ``run_lm`` leaves: the final train state, the loss and grad
+    norm of each step it ran (host tensors), its first step and its wall
+    seconds (from a device sync to a device sync)."""
+    state: dict
+    losses: torch.Tensor
+    grad_norms: torch.Tensor
+    start: int
+    wall_s: float
+
+
+def run_lm(args, cfg=None) -> LmRun:
+    """LM training, the reference's ``--mode lm`` block: ``cfg`` (default:
+    the registry's ``--arch``, reduced with ``--smoke``) trained for
+    ``--steps`` steps on ``--device``, with its checkpoints and resume."""
+    dev = device_lib.resolve(args.device)
+    if cfg is None:
+        cfg = (registry.get_smoke_config(args.arch) if args.smoke
+               else registry.get_config(args.arch))
+    where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+             else "cpu")
+    print(f"arch={cfg.name} device={where} params={cfg.n_params():,}")
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
+                      global_batch=args.batch, seed=args.seed)
+    opt = optimizers.adamw(optimizers.cosine_schedule(
+        args.lr, warmup=20, total=args.steps))
+    # the state is donated to the step, as the reference's launcher donates
+    # it to its jitted step
+    step_fn = steps_lib.make_train_step(cfg, opt, donate=True)
+    state = steps_lib.init_train_state(cfg, opt, args.seed, device=dev)
+    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
+    start = 0
+    if ckpt and args.resume:
+        latest = ckpt.latest_step()
+        if latest is not None:
+            state = ckpt.restore(latest, state, device=dev)
+            start = latest
+            print(f"resumed from step {start}")
+    losses, gnorms = [], []
+    device_lib.synchronize(dev)
+    t0 = time.perf_counter()
+    for i in range(start, args.steps):
+        batch = lm_batch(dcfg, i, device=dev)  # step-indexed: restartable
+        state, metrics = step_fn(state, batch)
+        losses.append(metrics["loss"])
+        gnorms.append(metrics["grad_norm"])
+        if (i + 1) % args.log_every == 0:
+            loss = float(metrics["loss"])
+            tps = ((i + 1 - start) * args.batch * args.seq_len
+                   / (time.perf_counter() - t0))
+            print(f"step {i + 1:5d}  loss {loss:.4f}  "
+                  f"gnorm {float(metrics['grad_norm']):.2f}  "
+                  f"tok/s {tps:,.0f}")
+        if ckpt and (i + 1) % args.ckpt_every == 0:
+            ckpt.save_async(i + 1, state)
+    if ckpt:
+        ckpt.wait()
+    device_lib.synchronize(dev)
+    wall = time.perf_counter() - t0
+    print(f"done: {args.steps - start} steps in {wall:.1f}s")
+
+    def host(xs):
+        return torch.stack(xs).cpu() if xs else torch.zeros(0)
+
+    return LmRun(state, host(losses), host(gnorms), start, wall)
+
+
+def lm_refusal(args) -> str | None:
+    """Why LM mode cannot run these arguments, or None."""
+    if args.data_axis != 1:
+        return (f"--data-axis {args.data_axis}: placement over a device "
+                f"mesh is ROADMAP item 8b-2; one card takes --data-axis 1")
+    if in_torchrun_world():
+        return ("LM mode runs in one process on one card; placement over "
+                "processes is ROADMAP item 8b-2")
+    if registry.get_smoke_config(args.arch).family == "encdec":
+        return (f"--arch {args.arch} is an encoder-decoder: the synthetic "
+                f"LM pipeline draws tokens, not the encoder's frames")
+    if min(args.steps, args.batch, args.seq_len, args.log_every,
+           args.ckpt_every) < 1:
+        return ("--steps, --batch, --seq-len, --log-every and --ckpt-every "
+                "must be >= 1")
+    return None
+
+
 def main(argv=None) -> int:
     device_lib.pin_full_f32()
     args = parse_args(argv)
+    if args.mode == "lm":
+        why = lm_refusal(args)
+        if why is not None:
+            print(f"error: {why}")
+            return 2
+        run_lm(args)
+        return 0
     if args.points < args.tau:
         print(f"error: --points {args.points} is less than one tau="
               f"{args.tau} window")

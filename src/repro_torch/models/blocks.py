@@ -8,7 +8,7 @@ plain torch ops (einsum contractions, f32 scores and states, the casts back
 to the activations' dtype where the reference has them).  No Pallas kernel
 lies on this path in the reference: XLA compiles it.  The reference's
 ``moe_apply_ep`` (``shard_map`` expert parallelism, opt-in and off by
-default) is ROADMAP queue 1, item 8b.
+default) is ROADMAP queue 1, item 8b-2.
 """
 
 from __future__ import annotations
@@ -33,13 +33,6 @@ def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     return x.reshape(b, t, n_heads, -1)
 
 
-def _pick_chunk(t: int, target: int = 512) -> int:
-    for c in (target, 256, 128, 64, 32, 16, 8, 4, 2, 1):
-        if c <= t and t % c == 0:
-            return c
-    return 1
-
-
 @functools.lru_cache(maxsize=None)
 def sqrt_f32(dh: int) -> float:
     """sqrt(dh) rounded to f32, as the reference computes it, held in a
@@ -62,7 +55,11 @@ def attention_train(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
     Exact softmax per query chunk against the full K/V (the reference's
     memory-efficient attention): the peak transient is (B, H, q_chunk, T)
-    f32 scores.  ``window`` > 0 masks to a sliding window.  The
+    f32 scores.  The chunks are ``q_chunk`` queries, the last one ragged;
+    the reference takes the largest of 512, 256, ..., 1 that divides T,
+    which is 4 for whisper's 1,500 frames: a scan step in XLA, but 375
+    rounds of eager launches here.  Each query's row is the same softmax
+    either way.  ``window`` > 0 masks to a sliding window.  The
     probabilities are cast to the activations' dtype before the PV
     product, as the reference casts them."""
     b, t, _ = x.shape
@@ -77,14 +74,14 @@ def attention_train(cfg: ModelConfig, p: dict, x: torch.Tensor,
     g = hq // hkv
     q = q.reshape(b, t, hkv, g, dh)
 
-    c = _pick_chunk(t, q_chunk)
     scale = inv_sqrt_f32(dh)
     kpos = torch.arange(t, dtype=torch.int32, device=x.device)
     outs = []
-    for i in range(t // c):
-        qi = q[:, i * c:(i + 1) * c]
+    for i in range(0, t, q_chunk):
+        qi = q[:, i:i + q_chunk]
+        c = qi.shape[1]
         s = torch.einsum("bthgd,bshd->bhgts", qi, k).float() * scale
-        qpos = i * c + torch.arange(c, dtype=torch.int32, device=x.device)
+        qpos = i + torch.arange(c, dtype=torch.int32, device=x.device)
         mask = torch.ones((c, t), dtype=torch.bool, device=x.device)
         if causal:
             mask &= kpos[None, :] <= qpos[:, None]
@@ -220,7 +217,10 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     gates, unit_e, unit_pos, keep, cap = _moe_route(cfg, p["router"], x)
-    xu = torch.repeat_interleave(x, k, dim=1)                   # (B, U, D)
+    # each token k times, (B, U, D): an expand, whose backward sums the k
+    # copies in a fixed order (repeat_interleave's adds with atomics on
+    # the card)
+    xu = x[:, :, None].expand(b, t, k, d).reshape(b, t * k, d)
     rows = torch.arange(b, device=x.device)[:, None]
     buf = torch.zeros((b, e, cap + 1, d), dtype=x.dtype, device=x.device)
     buf[rows, unit_e, torch.where(keep, unit_pos, cap)] = xu

@@ -8,7 +8,7 @@ one to one onto the reference's pytree; the port loops over ``L`` in Python
 where the reference scans.  The reference's GSPMD placement
 (``shard_heads``, ``shard_seq``, ``ShardingRules``, ``make_rules``,
 ``axis_ok``) is a no-op on one card with no mesh and is left out (ROADMAP
-queue 1, item 8b).
+queue 1, item 8b-2).
 """
 
 from __future__ import annotations
@@ -195,6 +195,18 @@ def init_dense(gen: torch.Generator | None, shape, dtype, *,
         torch.nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=gen)
         dst.copy_((draw * std).to(dtype))
     return out
+
+
+def layers(blk: dict, n: int):
+    """Layers 0..n-1's leaves in turn, as ``layer_slice`` gives them.  A
+    stacked tensor is unbound once, so autograd's backward of its layer
+    views is one ``stack``, where n separate selects would each scatter
+    into a zero gradient the size of the whole stack."""
+    views = {k: (v.unbind(0) if isinstance(v, torch.Tensor) else v)
+             for k, v in blk.items()}
+    for i in range(n):
+        yield {k: (v[i] if isinstance(v, tuple) else v.layer(i))
+               for k, v in views.items()}
 
 
 def layer_slice(blk: dict, i: int) -> dict:

@@ -11,6 +11,7 @@ the reference.  Whisper ties its embeddings.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import blocks, common
 from repro_torch.models.common import ModelConfig, rms_norm
@@ -92,8 +93,7 @@ def _cross_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor
 def encode(cfg: ModelConfig, params: dict,
            frames: torch.Tensor) -> torch.Tensor:
     x = frames.to(cfg.dtype)
-    for i in range(cfg.encoder_layers):
-        p = common.layer_slice(params["enc_blocks"], i)
+    for p in common.layers(params["enc_blocks"], cfg.encoder_layers):
         x = x + blocks.attention_train(
             cfg, p, rms_norm(x, p["attn_norm"], cfg.norm_eps), causal=False)
         x = x + blocks.gelu_mlp(p, rms_norm(x, p["mlp_norm"], cfg.norm_eps))
@@ -102,9 +102,8 @@ def encode(cfg: ModelConfig, params: dict,
 
 def forward(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     enc_out = encode(cfg, params, batch["frames"])
-    x = params["embed"][batch["tokens"]]
-    for i in range(cfg.n_layers):
-        p = common.layer_slice(params["dec_blocks"], i)
+    x = F.embedding(batch["tokens"], params["embed"])  # a fixed-order backward
+    for p in common.layers(params["dec_blocks"], cfg.n_layers):
         x = x + blocks.attention_train(
             cfg, p, rms_norm(x, p["attn_norm"], cfg.norm_eps))
         ck, cv = _cross_kv(cfg, p, enc_out)

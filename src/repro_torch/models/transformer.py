@@ -20,6 +20,7 @@ decode step returns a new dict over the same, updated tensors.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import blocks, common
 from repro_torch.models.common import ModelConfig, rms_norm
@@ -134,7 +135,10 @@ def _embed_inputs(cfg: ModelConfig, params: dict,
                   batch: dict) -> torch.Tensor:
     """Token embeddings; VLM prepends stub patch embeddings (precomputed by
     the frontend stub, see ``configs.registry.input_specs``)."""
-    emb = params["embed"][batch["tokens"]]
+    # F.embedding's backward sums a repeated token's rows in a fixed order
+    # on the card; params["embed"][tokens] backs through an atomic
+    # accumulate
+    emb = F.embedding(batch["tokens"], params["embed"])
     if cfg.family == "vlm" and "patch_embeds" in batch:
         emb = torch.cat([batch["patch_embeds"].to(emb.dtype), emb], dim=1)
     return emb
@@ -146,8 +150,8 @@ def _head(cfg: ModelConfig, params: dict) -> torch.Tensor:
 
 def forward(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     x = _embed_inputs(cfg, params, batch)
-    for i, w in enumerate(_layer_windows(cfg)):
-        p = common.layer_slice(params["blocks"], i)
+    for w, p in zip(_layer_windows(cfg),
+                    common.layers(params["blocks"], cfg.n_layers)):
         x, _ = _mixer(cfg, p, x, w, state=False)
         x = _mlp(cfg, p, x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -338,7 +338,8 @@ def test_launch_train_sparse_on_cpu():
     assert "comm[sparse]: merge wire 35,840 B / logical 10,240 B" in text
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = train.main(["--executor", "sim", "--transport", "sparse",
+        rc = train.main(["--mode", "vq", "--executor", "sim",
+                         "--transport", "sparse",
                          "--device", "cpu"])
     assert rc == 2
     assert out.getvalue().startswith("error: --transport sparse")

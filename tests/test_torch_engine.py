@@ -217,7 +217,8 @@ def test_launch_train_cli_on_cpu():
     assert "done: C(final)=" in text and "us/point" in text
     assert "merge wire 17,920 B / logical 10,240 B" in text
     with contextlib.redirect_stdout(io.StringIO()):
-        assert train.main(["--points", "5", "--device", "cpu"]) == 2
+        assert train.main(["--mode", "vq", "--points", "5", "--device",
+                           "cpu"]) == 2
 
 
 def test_launchers_pin_tf32_off():
@@ -228,7 +229,8 @@ def test_launchers_pin_tf32_off():
              torch.backends.cudnn.allow_tf32)
     try:
         for main, argv in (
-                (train.main, ["--workers", "2", "--points", "20"]),
+                (train.main, ["--mode", "vq", "--workers", "2", "--points",
+                              "20"]),
                 (serve.main, ["--mode", "vq", "--smoke", "--requests", "4",
                               "--dim", "8", "--kappa", "8", "--tick-ms",
                               "0"])):
@@ -279,7 +281,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError):
         interop.from_reference(*_setup(1))
     with pytest.raises(RuntimeError):
-        train.main(["--executor", "mesh", "--points", "20"])
+        train.main(["--mode", "vq", "--executor", "mesh", "--points", "20"])
     assert device.resolve("cpu").type == "cpu"
     with pytest.raises(ValueError):
         device.resolve("meta")

@@ -3,8 +3,8 @@
 or ``ml_dtypes`` (the card's machine has none; the checkpointer stores
 narrow floats through ``torch.Tensor.view``).  The observability modules
 are the port's own copies, and the thread runtime's modules start no
-thread when imported; so are the LM side's models, configs and serving
-steps."""
+thread when imported; so are the LM side's models, configs, serving and
+training steps, optimizers and data pipeline."""
 
 import ast
 import importlib
@@ -63,6 +63,9 @@ def test_checker_catches_forbidden_imports(tmp_path):
     "repro_torch.models.encdec", "repro_torch.models.api",
     "repro_torch.models.quantization", "repro_torch.configs.registry",
     "repro_torch.training.steps", "repro_torch.launch.serve",
+    "repro_torch.optim.optimizers", "repro_torch.optim.compression",
+    "repro_torch.data.pipeline", "repro_torch.launch.train",
+    "repro_torch.engine.merge",
     *(f"repro_torch.configs.{arch}" for arch in (
         "granite_34b", "granite_8b", "starcoder2_7b", "command_r_35b",
         "whisper_tiny", "moonshot_v1_16b_a3b", "olmoe_1b_7b",

@@ -305,7 +305,8 @@ def test_launch_train_wire_quant_on_cpu():
     assert "comm[quant[int8:ring]]: merge wire 5,472 B" in text
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = train.main(["--executor", "sim", "--wire-quant", "int8",
+        rc = train.main(["--mode", "vq", "--executor", "sim",
+                         "--wire-quant", "int8",
                          "--device", "cpu"])
     assert rc == 2
     assert out.getvalue().startswith(

@@ -208,8 +208,11 @@ def test_ring_transport_records_mean_plain_and_one_worker():
         t.masked_all_reduce(x, torch.ones(5))
     with pytest.raises(ValueError, match="unknown reduce op"):
         t.all_reduce(x, op="max")
-    with pytest.raises(ValueError, match="floats"):
-        t.all_reduce(torch.ones((6, 2), dtype=torch.int32), op="mean")
+    # a non-floating leaf passes a mean through, as in the reference (an
+    # optimizer's step count): worker 0's, charged no bytes
+    ints = torch.arange(12, dtype=torch.int32).reshape(6, 2)
+    kept, _ = t.all_reduce(ints, op="mean")
+    assert torch.equal(kept, ints[0])
     logical = 4 * 30
     assert [(r.op, r.transport, r.tag, r.logical_bytes, r.wire_bytes)
             for r in t.log.records] == [
@@ -217,7 +220,8 @@ def test_ring_transport_records_mean_plain_and_one_worker():
         ("mean", "ring", "eval", logical, comm.ring_wire_bytes(logical, 6)),
         ("mean", "ring", "merge", logical, comm.ring_wire_bytes(logical, 6)),
         ("masked_sum", "ring", "merge", logical,
-         comm.ring_wire_bytes(logical, 6))]
+         comm.ring_wire_bytes(logical, 6)),
+        ("mean", "ring", "merge", 0, 0)]
     # plain(): the plain ring, the same log
     p = t.plain()
     assert p.reduce is ring.ring_all_reduce_plain and p.log is t.log
@@ -339,7 +343,8 @@ def test_launch_train_ring_on_cpu():
         assert f"comm[ring]: merge wire {wire} B" in text
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = train.main(["--executor", "sim", "--transport", "ring",
+        rc = train.main(["--mode", "vq", "--executor", "sim",
+                         "--transport", "ring",
                          "--device", "cpu"])
     assert rc == 2
     assert out.getvalue().startswith("error: --transport ring needs "
