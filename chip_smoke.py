@@ -327,7 +327,35 @@ PyTorch built for CUDA:
      merge payloads of the embedding ((2, 201,326,592), k = 2,013,265) and
      the final norm ((2, 4,096), k = 40) against its plain version, bit
      for bit, and timed at (4, 201,326,592) in turns with ``torch.topk``;
-  24. times each kernel (the delta sweep also at each kchunk the tuner
+  24. runs the paper's cloud merges with one worker a process
+     (``cloud_process_legs``, queue 1, item 9c-1), after item 21, in a
+     spawned world of 8 ranks on the card (G7's eq. 9 in 4), every leg
+     built as the launcher builds it over the world's groups, held
+     against the stacked run of the same configuration, with every rank's
+     launches counted: G7, ``--transport sparse --compress-frac 0.01``,
+     200 windows (cut), codebook and curve == the stacked sparse run bit
+     for bit, 293,552 B of merge wire a merge, a top-k launch a merge, and
+     eq. 9 over sparse in 4 processes for 1,200 ticks (cut) == the stacked
+     run; G8, ``--hosts 2 --transport ring`` with the default sparse tier 1
+     (k = 1,024), 200 windows, == the stacked run bit for bit (the ring
+     tier 0 keeps the stacked fold), 3,145,728 / 8,192 B a window; G9,
+     ``--quorum --network geometric --p-delay 0.2``, 200 windows, late
+     worker-windows == the stacked run's and the numpy late matrix's; G10,
+     ``--merge dynamic`` over the ring, 100 windows each (cut): at
+     threshold 0 == ``--scheme delta`` over the ring bit for bit, at item
+     17's T every rank's trigger bits == the stacked run's; G11, the
+     tier-1 controller from frac 0.5 in chunks of 100 windows, every
+     rank's frac sequence == the stacked run's; G12, ``--chaos
+     7:kill=0,slow=1,part=1 --hosts 2``, late worker-windows == the
+     stacked run's and the schedule's matrix; G13, G7's width over the
+     ring through ``launch.train.run_vq`` with ``--trace --metrics
+     --profile`` (rank 0 writes the files): ``check_trace`` clean, the
+     ``comm_*`` mirror == the ``CommLog``, the profiler's non-host terms
+     == the stacked run's, a divergence launch a window on every rank;
+     each leg's wall a window beside the stacked run's; the top-k kernel
+     at a rank's (1, 524,288) payload against plain and timed beside
+     ``torch.topk``;
+  25. times each kernel (the delta sweep also at each kchunk the tuner
      weighs; the assign kernel at the flush, the eval and (8, 1) x 4096 x
      3072; the blocked kernel at (8, 1) x 4096 x 3072 with and without the
      epilogue and at (8, 1) x 4096 x 128; the window kernel also at M = 1,
@@ -346,7 +374,7 @@ PyTorch built for CUDA:
      the 3072-wide eq.-9 path with torch.profiler (device time by kernel, the
      device's idle share), after timing 200 dense and ring sync windows in
      turns on the host clock;
-  25. prints one ``{"kernels": [...]}`` line (window, delta, assign,
+  26. prints one ``{"kernels": [...]}`` line (window, delta, assign,
       top-k, blocked, ring and the ring's hop kernel), the card line
       again, and last
       ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -461,6 +489,11 @@ G2_AVG_POINTS = 600      # 60 windows of the 8-process average run, cut
 G3_M, G3_TICKS = 4, 1_200  # eq. 9 in 4 processes, cut
 G4_KAPPAS = (4096, 4099)   # the lookup plans' codebooks, one ragged
 G5_BATCH = 1024          # the 2 x 2 minibatch step's points
+# item 24, the paper's cloud merges over processes (8 ranks, G7's eq. 9 in
+# G3_M ranks for G3_TICKS ticks): windows cut for the gloo handshakes
+CLOUD_POINTS = 2_000     # 200 windows a leg (G7-G9, G11-G13), cut
+G10_POINTS = 600         # 60 windows a G10 leg (3 group rings a window), cut
+G12_CHAOS = "7:kill=0,slow=1,part=1"   # no kill: kills are elastic (9c-2)
 # item 22, the LM serving path: the launcher's default arch at its published
 # size (its defaults: 3 waves of 4 requests, 16-token prompts, 16 tokens
 # generated), then the other nine configs at full width, at full depth where
@@ -2511,6 +2544,440 @@ def process_group_legs(dev, w0, data, eval_data) -> dict:
     print(f"item 21 (one worker a process): {time.perf_counter() - t_item:.1f}"
           f" s")
     return {"launches": sum(counts2["ring_hop"]), "hop": hop[8]}
+
+
+# -- item 24: the paper's cloud merges over processes ---------------------------
+
+def _cloud_counts() -> dict:
+    """Every wrapper's launch count in this process, the divergence and
+    hop kernels' too."""
+    from repro_torch.comm import ring
+    from repro_torch.kernels import vq_fused
+    return {**launch_counts(), "divergence": vq_fused.launches_divergence,
+            "ring_hop": ring.launches_ring_hop}
+
+
+def _cloud_world(rank: int, world, cfg: dict) -> dict:
+    """Item 24's legs on this rank: each built as the launcher builds it
+    (``train.build_executor`` over the world's groups) or, G11, as item
+    17's controller leg is; G13 through ``train.run_vq`` with rank 0
+    writing the files.  Returns each leg's result, launches and wall."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.distributed import process_group
+    from repro_torch.engine import Tier1BudgetController
+    from repro_torch.engine.mesh import MeshExecutor, process_transport
+    from repro_torch.engine.network import FixedLatencyNetwork
+    from repro_torch.launch import train
+    from repro_torch.topology import Topology
+    dev = world.device
+    train.N_EVAL = cfg["n_eval"]
+    groups = {}
+    out = {}
+
+    def grid(hosts: int):
+        topo = Topology.from_spec(world.world_size, hosts=hosts)
+        process_group.set_topology(topo)
+        if hosts not in groups:
+            groups[hosts] = topo.make_groups()
+        return topo, groups[hosts]
+
+    for name, argv in cfg["legs"].items():
+        if name not in cfg["here"][world.world_size]:
+            continue
+        args = train.parse_args(argv)
+        topo, g = grid(args.hosts)
+        # the launcher's report and prints stay out of the script's output
+        quiet = contextlib.redirect_stdout(io.StringIO())
+        if name == "G13":
+            zero_counts()
+            t0 = time.perf_counter()
+            with quiet:
+                res, ex, _ = train.run_vq(args, groups=g, dev=dev)
+        else:
+            w0, data, eval_data = train.make_inputs(args, dev)
+            if name == "G11":
+                net = FixedLatencyNetwork(latency_ticks=1,
+                                          dcn_bytes_per_tick=CTL_DCN)
+                ex = MeshExecutor(net, transport=process_transport(
+                    "xla", g, topo, tier1="sparse", tier1_frac=CTL_FRAC0),
+                    tier1_controller=Tier1BudgetController(net),
+                    publish_every=CTL_PUBLISH, group=g, device=dev)
+            else:
+                with quiet:
+                    ex = train.build_executor(args, dev, groups=g)
+            zero_counts()
+            t0 = time.perf_counter()
+            # eq. 9's round lengths as the launcher draws them
+            res = ex.run(args.scheme, w0, data, eval_data, tau=TAU,
+                         eps0=args.eps0,
+                         generator=torch.Generator().manual_seed(args.seed))
+        wall = time.perf_counter() - t0      # run() ends synced, barriered
+        out[name] = {"w_shared": res.w_shared.cpu(),
+                     "distortion": res.distortion.cpu(), "wall_s": wall,
+                     "comm": ex.last_comm, "counts": _cloud_counts(),
+                     "late": ex.last_late_worker_windows,
+                     "fracs": list(ex.last_tier1_fracs),
+                     "triggers": (None if ex.last_triggers is None
+                                  else ex.last_triggers.cpu())}
+    return out
+
+
+def _median_probe(dev, points: int) -> float:
+    """Item 17's dynamic threshold rule at ``points`` a worker: the median
+    over its windows of the threshold-0 leg's probe, sum_i ||Delta_i||^2,
+    from the plain delta loop written out."""
+    import torch
+
+    from repro_torch.core import vq
+    from repro_torch.engine import merge as merge_lib
+    from repro_torch.kernels import vq_fused
+    from repro_torch.launch import train
+    w_srd, data_c, _ = train.make_inputs(train.parse_args(
+        ["--mode", "vq", "--workers", str(M), "--points", str(points),
+         "--dim", str(D), "--kappa", str(KAPPA), "--seed", str(SEED),
+         "--device", dev.type]), dev)
+    n = points // TAU
+    eps = vq.default_steps(torch.arange(1, n * TAU + 1, device=dev))
+    drifts = []
+    for i in range(n):
+        span = slice(i * TAU, (i + 1) * TAU)
+        delta = merge_lib.tree_sub_f32(w_srd, vq_fused.vq_window(
+            data_c[:, span].contiguous(), w_srd, eps[span]))
+        drifts.append((delta * delta).sum(dim=(1, 2)).sum())
+        w_srd = merge_lib.tree_apply_delta(w_srd, torch.sum(delta, dim=0))
+    return float(torch.stack(drifts).cpu().median())
+
+
+def cloud_process_legs(dev, w0, data, eval_data) -> None:
+    """Item 24 (G7-G13): the paper's cloud merges with one worker a process
+    on the one card, each leg against the stacked run of the same
+    configuration."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from repro_torch import comm
+    from repro_torch import device as device_lib
+    from repro_torch.core import vq
+    from repro_torch.distributed import process_group
+    from repro_torch.engine import Tier1BudgetController, Topology
+    from repro_torch.engine.mesh import MeshExecutor
+    from repro_torch.engine.network import (FixedLatencyNetwork,
+                                            GeometricDelayNetwork)
+    from repro_torch.kernels import vq_fused
+    from repro_torch.launch import train
+    from repro_torch.obs import check as obs_check
+    t_item = time.perf_counter()
+    for label, m, pts in (("G7-G9, G11-G13", M, CLOUD_POINTS),
+                          ("G10", M, G10_POINTS),
+                          ("G7 eq. 9", G3_M, G3_TICKS)):
+        if m * pts < KAPPA:
+            fail(f"{label}: {m} x {pts} points cannot seed kappa={KAPPA}")
+    cpu = ["--device", "cpu"] if dev.type == "cpu" else []
+
+    def base(m, pts, *extra):
+        return ["--mode", "vq", "--executor", "mesh", "--workers", str(m),
+                "--points", str(pts), "--dim", str(D), "--kappa", str(KAPPA),
+                "--tau", str(TAU), "--seed", str(SEED), "--network",
+                "instant", *cpu, *extra]
+
+    dyn = ["--scheme", "delta", "--transport", "ring", "--merge", "dynamic"]
+    # item 17's rule over G10's own windows: its T (the median of 2,000
+    # windows) is below every drift of the first few hundred, which would
+    # all trigger
+    thresh = _median_probe(dev, G10_POINTS)
+    legs = {
+        "G7": base(M, CLOUD_POINTS, "--scheme", "delta", "--transport",
+                   "sparse", "--compress-frac", str(SPARSE_FRAC)),
+        "G7 eq. 9": base(G3_M, G3_TICKS, "--scheme", "async_delta",
+                         "--transport", "sparse", "--compress-frac",
+                         str(SPARSE_FRAC), "--network", "geometric",
+                         "--p-delay", str(P_DELAY)),
+        "G8": base(M, CLOUD_POINTS, "--scheme", "delta", "--transport",
+                   "ring", "--hosts", str(HOSTS)),
+        "G9": base(M, CLOUD_POINTS, "--scheme", "delta", "--quorum",
+                   "--network", "geometric", "--p-delay",
+                   str(QUORUM_P_DELAY)),
+        "G10 at 0": base(M, G10_POINTS, *dyn),
+        "G10 at T": base(M, G10_POINTS, *dyn, "--divergence-thresh",
+                         repr(thresh)),
+        "G11": base(M, CLOUD_POINTS, "--scheme", "delta", "--hosts",
+                    str(HOSTS)),
+        "G12": base(M, CLOUD_POINTS, "--scheme", "delta", "--hosts",
+                    str(HOSTS), "--chaos", G12_CHAOS),
+    }
+    # (a leg's own --network comes after base's: argparse keeps the last)
+    tmp = Path(tempfile.mkdtemp(prefix="cloud_legs_"))
+    files = {k: str(tmp / f) for k, f in (("trace", "g13.trace.json"),
+                                           ("metrics", "g13.metrics.jsonl"),
+                                           ("profile", "g13.prof.json"))}
+    legs["G13"] = base(M, CLOUD_POINTS, "--scheme", "delta", "--transport",
+                       "ring", "--trace", files["trace"], "--metrics",
+                       files["metrics"], "--profile", files["profile"])
+    cfg = {"legs": legs, "n_eval": N_EVAL,
+           "here": {8: [k for k in legs if k != "G7 eq. 9"],
+                    G3_M: ["G7 eq. 9"]}}
+
+    # the premise of the bit-for-bit legs, as in item 21
+    zwin = data[:, :TAU].contiguous()
+    eps = vq.default_steps(torch.arange(1, TAU + 1, device=dev))
+    whole = vq_fused.vq_window(zwin, w0, eps)
+    window_eq = all(same_bits(vq_fused.vq_window(zwin[i:i + 1], w0, eps)[0],
+                              whole[i]) for i in range(M))
+    ev_whole = vq.distortion(eval_data, w0)
+    eval_eq = all(same_bits(vq.distortion(eval_data[i:i + 1], w0)[0],
+                            ev_whole[i]) for i in range(M))
+    print(f"check G7-G13 premise: (1, {TAU}, {D}) window == row i "
+          f"{window_eq}, (1, {N_EVAL}, {D}) eval == row i {eval_eq}")
+
+    t0 = time.perf_counter()
+    outs = process_group.spawn(_cloud_world, M, cfg, device=dev)
+    print(f"world of {M} ranks (G7-G13): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    outs4 = process_group.spawn(_cloud_world, G3_M, cfg, device=dev)
+    print(f"world of {G3_M} ranks (G7's eq. 9): "
+          f"{time.perf_counter() - t0:.1f} s")
+    got = {**outs[0], **outs4[0]}
+    ranks = {k: [o[k] for o in (outs4 if k == "G7 eq. 9" else outs)]
+             for k in legs}
+
+    def stacked(argv):
+        """The stacked run of a leg's configuration, through the
+        launcher."""
+        with contextlib.redirect_stdout(io.StringIO()):
+            res, ex, wall = train.run_vq(train.parse_args(argv), dev=dev)
+        return ({"w_shared": res.w_shared.cpu(),
+                 "distortion": res.distortion.cpu(), "wall_s": wall}, ex)
+
+    def every_rank_same(name):
+        rs = ranks[name]
+        for r, o in enumerate(rs[1:], 1):
+            if not (same_bits(o["w_shared"], rs[0]["w_shared"])
+                    and same_bits(o["distortion"], rs[0]["distortion"])
+                    and o["comm"] == rs[0]["comm"]
+                    and o["late"] == rs[0]["late"]
+                    and o["fracs"] == rs[0]["fracs"]):
+                fail(f"{name}: rank {r} read another run than rank 0")
+
+    def launches(name, **want):
+        for r, o in enumerate(ranks[name]):
+            c = o["counts"]
+            if c != {k: want.get(k, 0) for k in c}:
+                fail(f"{name}: rank {r} launched {c}, expected {want} and "
+                     f"no other")
+        print(f"check {name} launches per rank: {ranks[name][0]['counts']} "
+              f"on each of {len(ranks[name])} ranks")
+
+    def wall_line(name, n, want, unit="window"):
+        g = got[name]
+        print(f"wall {name}: {g['wall_s'] / n * 1e3:.3f} ms a {unit} in "
+              f"processes vs {want['wall_s'] / n * 1e3:.3f} ms stacked "
+              f"({n} {unit}s)")
+
+    def gloo_rule(name, want):
+        """A leg whose tier-0 or flat sums are gloo's (another order than
+        the stacked sum): its curve at rtol 1e-4, its codebook under
+        ``held_to``'s rule, as item 21's G2 gloo leg."""
+        g = got[name]
+        held_to(f"{name}, {M} processes (gloo sums) vs stacked",
+                g["distortion"], want["distortion"], g["w_shared"],
+                want["w_shared"])
+        c_err = float(((g["distortion"] - want["distortion"]).abs()
+                       / want["distortion"].abs()).max())
+        print(f"check {name}: curve max rel {c_err:.3e} (rtol 1e-4), "
+              f"codebook bitwise {same_bits(g['w_shared'], want['w_shared'])}")
+        if c_err > 1e-4:
+            fail(f"{name}: curve off by {c_err:.3e}")
+
+    n_win = CLOUD_POINTS // TAU
+    n_flat = KAPPA * D
+    k7 = comm.topk_count(n_flat, SPARSE_FRAC)
+
+    # G7: the sparse transport over the group
+    for name in legs:
+        every_rank_same(name)
+    want7, ex7 = stacked(legs["G7"])
+    _process_curve_rule("G7 sparse, 8 processes vs stacked", got["G7"],
+                        want7, window_eq, eval_eq)
+    wire7 = got["G7"]["comm"]["by_tag"]["merge"]["wire_bytes"] // n_win
+    print(f"check G7 merge wire {wire7:,} B a merge (want {7 * k7 * 8:,}); "
+          f"== stacked CommLog {got['G7']['comm'] == ex7.last_comm}")
+    if (wire7 != (M - 1) * k7 * 8 or wire7 != 293_552
+            or got["G7"]["comm"] != ex7.last_comm):
+        fail("G7: merge wire or the CommLog differ from the stacked run")
+    launches("G7", window=n_win, topk=n_win)
+    wall_line("G7", n_win, want7)
+    want7a, ex7a = stacked(legs["G7 eq. 9"])
+    eq_w = same_bits(got["G7 eq. 9"]["w_shared"], want7a["w_shared"])
+    eq_c = same_bits(got["G7 eq. 9"]["distortion"], want7a["distortion"])
+    print(f"check G7 eq. 9 over sparse in {G3_M} processes ({G3_TICKS:,} "
+          f"ticks) vs stacked: codebook bitwise {eq_w}, curve bitwise "
+          f"{eq_c}; CommLog equal {got['G7 eq. 9']['comm'] == ex7a.last_comm}")
+    if window_eq and not (eq_w and (eq_c or not eval_eq)):
+        fail("G7 eq. 9: the process run differs from the stacked run")
+    if got["G7 eq. 9"]["comm"] != ex7a.last_comm:
+        fail("G7 eq. 9: the CommLog differs from the stacked run's")
+    launches("G7 eq. 9", delta=G3_TICKS, topk=G3_TICKS)
+    wall_line("G7 eq. 9", G3_TICKS, want7a, "tick")
+
+    # G8: --hosts 2, the ring tier 0 and a sparse tier 1
+    want8, ex8 = stacked(legs["G8"])
+    _process_curve_rule("G8 --hosts 2 ring tier 0 + sparse tier 1, 8 "
+                        "processes vs stacked", got["G8"], want8, window_eq,
+                        eval_eq)
+    by8 = got["G8"]["comm"]["by_tag"]["merge"]["by_tier"]
+    t0b, t1b = by8[0]["wire_bytes"] // n_win, by8[1]["wire_bytes"] // n_win
+    print(f"check G8 per-tier wire {t0b:,} / {t1b:,} B a window (want "
+          f"3,145,728 / 8,192); == stacked CommLog "
+          f"{got['G8']['comm'] == ex8.last_comm}")
+    if (t0b, t1b) != (3_145_728, 8_192) or got["G8"]["comm"] != ex8.last_comm:
+        fail("G8: per-tier bytes or the CommLog differ")
+    hops8 = n_win * 2 * 2 * (M // HOSTS - 1)      # merge + eval, 4-rank ring
+    launches("G8", window=n_win, topk=n_win, ring_hop=hops8)
+    wall_line("G8", n_win, want8)
+
+    # G9: the quorum merge under geometric stragglers
+    want9, ex9 = stacked(legs["G9"])
+    late = GeometricDelayNetwork(QUORUM_P_DELAY).late_matrix(M, n_win, TAU)
+    print(f"check G9 quorum late worker-windows {got['G9']['late']} "
+          f"(stacked {ex9.last_late_worker_windows}, numpy "
+          f"{int(late.sum())})")
+    if not (got["G9"]["late"] == ex9.last_late_worker_windows
+            == int(late.sum()) > 0) or got["G9"]["comm"] != ex9.last_comm:
+        fail("G9: late worker-windows or the CommLog differ")
+    gloo_rule("G9", want9)
+    launches("G9", window=n_win)
+    wall_line("G9", n_win, want9)
+
+    # G10: the dynamic merge over the ring
+    n10 = G10_POINTS // TAU
+    delta10, _ = stacked(base(M, G10_POINTS, "--scheme", "delta",
+                              "--transport", "ring"))
+    eq0 = (same_bits(got["G10 at 0"]["w_shared"], delta10["w_shared"])
+           and same_bits(got["G10 at 0"]["distortion"],
+                         delta10["distortion"]))
+    print(f"check G10 dynamic at 0 in processes == stacked ring delta, "
+          f"bitwise: {eq0}")
+    if not eq0 and window_eq and eval_eq:
+        fail("G10: dynamic at threshold 0 differs from delta over the ring")
+    want10, ex10 = stacked(legs["G10 at T"])
+    bits = got["G10 at T"]["triggers"]
+    print(f"check G10 dynamic at T = {thresh:.6e}: triggers "
+          f"{int(bits.sum())} of {n10}, == stacked bits "
+          f"{torch.equal(bits, ex10.last_triggers)} (every rank the same)")
+    for r, o in enumerate(ranks["G10 at T"]):
+        if not torch.equal(o["triggers"], ex10.last_triggers):
+            fail(f"G10: rank {r}'s trigger bits differ from the stacked run")
+    # the probe, the masked merge (every window: the trigger is its mask)
+    # and the eval each take a ring reduce
+    for name in ("G10 at 0", "G10 at T"):
+        launches(name, window=n10, ring_hop=n10 * 3 * 2 * (M - 1))
+    merges = int(bits.sum())
+    if not 0 < merges < n10:
+        fail(f"G10: {merges} of {n10} windows merged at T: no test of the "
+             f"trigger")
+    wall_line("G10 at 0", n10, delta10)
+    wall_line("G10 at T", n10, want10)
+
+    # G11: the tier-1 controller
+    net = FixedLatencyNetwork(latency_ticks=1, dcn_bytes_per_tick=CTL_DCN)
+    topo = Topology.from_spec(M, hosts=HOSTS)
+    ex11 = MeshExecutor(net, transport=comm.HierarchicalTransport(
+        "xla", comm.get_transport("sparse", frac=CTL_FRAC0), topology=topo),
+        tier1_controller=Tier1BudgetController(net),
+        publish_every=CTL_PUBLISH, device=dev)
+    a11 = train.parse_args(legs["G11"])
+    w011, data11, eval11 = train.make_inputs(a11, dev)
+    device_lib.synchronize(dev)
+    t0 = time.perf_counter()
+    r11 = ex11.run("delta", w011, data11, eval11, tau=TAU)
+    r11.distortion.cpu()
+    want11 = {"w_shared": r11.w_shared.cpu(),
+              "distortion": r11.distortion.cpu(),
+              "wall_s": time.perf_counter() - t0}
+    print(f"check G11 controller fracs on every rank "
+          f"{[o['fracs'] for o in ranks['G11']][:1]} x {M}, stacked "
+          f"{ex11.last_tier1_fracs}")
+    if any(o["fracs"] != ex11.last_tier1_fracs for o in ranks["G11"]):
+        fail("G11: a rank's frac sequence differs from the stacked run's")
+    if got["G11"]["comm"] != ex11.last_comm:
+        fail("G11: the CommLog differs from the stacked run's")
+    gloo_rule("G11", want11)
+    launches("G11", window=n_win, topk=n_win)
+    wall_line("G11", n_win, want11)
+
+    # G12: chaos without kills over --hosts 2
+    want12, ex12 = stacked(legs["G12"])
+    late12 = ex12.network.late_matrix(M, n_win, TAU)
+    print(f"check G12 chaos {G12_CHAOS}: late worker-windows "
+          f"{got['G12']['late']} (stacked {ex12.last_late_worker_windows}, "
+          f"the schedule's matrix {int(late12.sum())})")
+    if not (got["G12"]["late"] == ex12.last_late_worker_windows
+            == int(late12.sum()) > 0) or got["G12"]["comm"] != ex12.last_comm:
+        fail("G12: the late matrix or the CommLog differ")
+    gloo_rule("G12", want12)
+    # the (delta, count) payload's two leaves each take a top-k on tier 1
+    launches("G12", window=n_win, topk=2 * n_win)
+    wall_line("G12", n_win, want12)
+
+    # G13: G7's width over the ring, observed and profiled; rank 0's files
+    sfiles = {k: str(tmp / f"stacked.{k}") for k in files}
+    argv13 = [x for x in legs["G13"]]
+    for k in files:
+        argv13[argv13.index(files[k])] = sfiles[k]
+    want13, ex13 = stacked(argv13)
+    _process_curve_rule("G13 observed ring, 8 processes vs stacked",
+                        got["G13"], want13, window_eq, eval_eq)
+    with open(files["trace"]) as f:
+        events = json.load(f)
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    problems = obs_check.check_trace(events, expect_spans=["merge", "window"])
+    from repro_torch.obs.metrics import load_jsonl
+    mirror = {}
+    for rec in load_jsonl(files["metrics"]):
+        if rec["name"] == "comm_wire_bytes":
+            tag = rec["labels"]["tag"]
+            mirror[tag] = mirror.get(tag, 0) + rec["value"]
+    want_mirror = {t: v["wire_bytes"]
+                   for t, v in got["G13"]["comm"]["by_tag"].items()}
+    with open(files["profile"]) as f:
+        prof = json.load(f)["attributions"][0]
+    sprof = ex13.profiler.attributions[0]
+    keys = ("t_compute_s", "t_memory_s", "t_collective_s", "window_flops",
+            "window_hbm_bytes", "collective_bytes_per_window", "m",
+            "workers_per_device")
+    same_terms = all(prof[k] == sprof[k] for k in keys)
+    print(f"check G13 check_trace: {problems or 'clean'}; comm_* mirror "
+          f"{mirror} == CommLog {mirror == want_mirror}; profiler non-host "
+          f"terms == stacked {same_terms} ({', '.join(f'{k} {prof[k]}' for k in keys)}); "
+          f"host {prof['t_host_s'] * 1e6:.1f} us a window in processes vs "
+          f"{sprof['t_host_s'] * 1e6:.1f} stacked")
+    if problems or mirror != want_mirror or not same_terms:
+        fail("G13: the trace, the comm_* mirror or the profiler's terms")
+    launches("G13", window=n_win, divergence=n_win,
+             ring_hop=n_win * 3 * 2 * (M - 1))
+    wall_line("G13", n_win, want13)
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    # the top-k kernel at the rank's (1, N) payload
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    x1 = torch.randn((1, n_flat), generator=gen, device=dev)
+    topk_equal(x1, k7, f"(1, {n_flat}) a rank's payload")
+    tk, tl = in_turns(lambda: vq_fused.vq_topk(x1, k7),
+                      lambda: torch.topk(x1.abs(), k7, dim=1), 50)
+    tp = kernel_ms(lambda: vq_fused.vq_topk_plain(x1, k7), 5)
+    tb = bound(4 * 2 * n_flat + 8 * k7, n_flat)
+    print(f"timing top-k (1, {n_flat:,}), k={k7:,}, one rank's payload: "
+          f"kernel {r4(tk)} ms, torch.topk(|x|) {r4(tl)} ms (in turns), plain "
+          f"{tp:.4f} ms, bound {tb[0]:.4f} ms ({tb[1]})")
+    print(f"item 24 (the cloud merges over processes): "
+          f"{time.perf_counter() - t_item:.1f} s")
 
 
 # -- item 22: the LM serving path ---------------------------------------------
@@ -4653,10 +5120,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="subprocess_legs_") as tmp:
         subprocess_legs(Path(tmp))
     pg = process_group_legs(dev, w0, data, eval_data)
+    cloud_process_legs(dev, w0, data, eval_data)
     lm_serving_legs(dev)
     lm_training_legs(dev)
 
-    # -- 24. timing at the main path's shapes ---------------------------------
+    # -- 25. timing at the main path's shapes ---------------------------------
     # every kernel, plain and library time by kernel_ms (L2 cold, host time
     # hidden); "warm" is time_ms over back-to-back wrapper calls (L2 warm,
     # the wrapper's host time included), a read-out beside it

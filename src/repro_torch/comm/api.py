@@ -283,6 +283,13 @@ class Transport:
         ``None`` for a stateless one."""
         return None
 
+    def workers(self, x) -> int:
+        """The reduction's participants for payload x (a stacked tensor or a
+        tuple of them): its leading dimension.  A transport over process
+        groups returns the ranks it reduces over, x holding this rank's
+        rows; the quorum merge counts its quorum on this."""
+        return as_leaves(x)[0][0].shape[0]
+
     def plain(self) -> "Transport":
         """This transport with its kernels' plain PyTorch versions in their
         place, sharing its log (``MeshExecutor(use_kernels=False)`` merges

@@ -48,20 +48,26 @@ The reference's three contracts:
     zero partial from consuming residual).
 
 One worker a process: when the tiers carry process groups
-(``XlaTransport(group=)`` / ``RingTransport(group=)`` over
-``Topology.make_groups``' worker and host groups), a payload is this rank's
-rows ``(1, ...)`` and the reduction is two-stage: tier 0 over my host's
-ranks, then tier 1 over my column's ranks across hosts (a masked call
-applies this rank's entry at tier 0; tier 1 sums the partials with the
-entry 1.0, so both records are the fused path's ``masked_sum``).  The
-records equal the stacked run's field for field; the sums are the fused
-run's to rounding (two reductions in place of one).  Only dense, stateless
-tiers run there; a sparse tier 1 over processes is ROADMAP item 9c.
+(``XlaTransport(group=)``, ``RingTransport(group=)`` or
+``SparseTransport(group=)`` over ``Topology.make_groups``' worker and host
+groups), a payload is this rank's rows ``(1, ...)`` and the reduction is
+two-stage: tier 0 over my host's ranks, then tier 1 over
+``Groups.group(host_axis)``, the ranks with my worker coordinate on the
+other hosts.  A masked call applies this rank's entry at tier 0.  With two
+dense tiers, tier 1 sums the partials under the entry 1.0, so both
+records are the fused path's ``masked_sum``, and the sums are the fused
+run's to rounding (two reductions in place of one).  Otherwise the records
+are the stacked two-stage path's (tier 1 an unmasked sum), and over a
+group ring tier 0 the stacked run's bits: a sparse tier 1 gathers the same
+top-k pairs and sums them in the same order.  The records equal the
+stacked run's field for field.
 
 State is ``{"t0": tier 0's, "t1": tier 1's}`` (``None`` when both tiers are
 stateless).  Tier 0's is per worker, ``(M, ...)``.  In the reference every
 worker of a group holds the same tier-1 residual (the group partial is the
-same on each); the port keeps one per host, ``(hosts, ...)``.
+same on each); the port keeps one per host, ``(hosts, ...)``, and over
+processes each rank keeps its own copy of its host's, ``(1, ...)``: the
+ranks of a host feed tier 1 the same partial, so their copies stay equal.
 """
 
 from __future__ import annotations
@@ -144,11 +150,10 @@ class HierarchicalTransport(Transport):
         self.worker_axis = topology.worker_axis
         grouped = [getattr(t, "group", None) is not None
                    for t in (self.tier0, self.tier1)]
-        if any(grouped) and not (all(grouped) and self._dense_fusable()):
+        if any(grouped) and not all(grouped):
             raise ValueError(
-                "over process groups both tiers must be dense transports "
-                "with a group each (xla or ring); a sparse or stateful tier "
-                "over processes is ROADMAP item 9c")
+                "over process groups both tiers must carry a group (the "
+                "worker and host groups of Topology.make_groups)")
 
     @property
     def grouped(self) -> bool:
@@ -162,6 +167,10 @@ class HierarchicalTransport(Transport):
     @property
     def tier1_frac(self) -> float | None:
         return getattr(self.tier1, "frac", None)
+
+    def workers(self, x) -> int:
+        return (self.topology.total_workers if self.grouped
+                else super().workers(x))
 
     def plain(self) -> HierarchicalTransport:
         out = copy.copy(self)    # shares the log
@@ -198,10 +207,9 @@ class HierarchicalTransport(Transport):
         return from_leaves([g[:, 0] for g in grouped], is_tuple)
 
     def init_state(self, x):
-        if self.grouped:
-            return None                  # dense, stateless tiers only
         s0 = self.tier0.init_state(x)
-        s1 = self.tier1.init_state(self._host_rows(x))
+        # over processes tier 1's payload is this rank's (1, ...) partial
+        s1 = self.tier1.init_state(x if self.grouped else self._host_rows(x))
         if s0 is None and s1 is None:
             return None
         return {"t0": s0, "t1": s1}
@@ -332,25 +340,30 @@ class HierarchicalTransport(Transport):
 
     # -- over process groups ------------------------------------------------
 
-    def _grouped(self, x, *, op: str, tag: str, mask=None):
+    def _grouped(self, x, *, op: str, tag: str, state, mask=None):
         """Tier 0 over my host's ranks, then tier 1 across hosts over my
-        column's; x is this rank's rows (1, ...)."""
+        column's; x is this rank's rows (1, ...).  Returns (the sum or
+        mean, the new state)."""
+        s0, s1 = self._split_state(state)
         mark = self.tier0.log.mark()
         if mask is None:
-            part, _ = self.tier0.all_reduce(x, op=op, tag=tag)
+            part, s0 = self.tier0.all_reduce(x, op=op, state=s0, tag=tag)
         else:
-            part, _ = self.tier0.masked_all_reduce(x, mask, tag=tag)
+            part, s0 = self.tier0.masked_all_reduce(x, mask, state=s0,
+                                                    tag=tag)
         self._relog(self.tier0, mark, 0, 1)
         part = (tuple(p[None] for p in part) if isinstance(part, tuple)
                 else part[None])
         mark = self.tier1.log.mark()
-        if mask is None:
-            out, _ = self.tier1.all_reduce(part, op=op, tag=tag)
+        if mask is None or not self._dense_fusable():
+            # the stacked two-stage path's tier 1: the partials always sum
+            out, s1 = self.tier1.all_reduce(part, op=op, state=s1, tag=tag)
         else:
-            out, _ = self.tier1.masked_all_reduce(part, torch.ones_like(mask),
-                                                  tag=tag)
+            # the fused path's records: a masked_sum on both tiers
+            out, s1 = self.tier1.masked_all_reduce(
+                part, torch.ones_like(mask), state=s1, tag=tag)
         self._relog(self.tier1, mark, 1, 1)
-        return out
+        return out, self._join_state(state, s0, s1)
 
     # -- Transport API ------------------------------------------------------
 
@@ -365,7 +378,7 @@ class HierarchicalTransport(Transport):
         if self.topology.is_flat:
             return self._flat("all_reduce", x, op=op, state=state, tag=tag)
         if self.grouped:
-            return self._grouped(x, op=op, tag=tag), state
+            return self._grouped(x, op=op, tag=tag, state=state)
         if self._dense_fusable():
             return self._fused(x, op=op, tag=tag), state
         s0, s1 = self._split_state(state)
@@ -385,7 +398,8 @@ class HierarchicalTransport(Transport):
             return self._flat("masked_all_reduce", x, mask, state=state,
                               tag=tag)
         if self.grouped:
-            return self._grouped(x, op="sum", tag=tag, mask=mask), state
+            return self._grouped(x, op="sum", tag=tag, mask=mask,
+                                 state=state)
         if self._dense_fusable():
             return self._fused(x, op="sum", tag=tag, mask=mask), state
         s0, s1 = self._split_state(state)

@@ -104,6 +104,9 @@ class QuantizedTransport(Transport):
     def stateful(self) -> bool:  # type: ignore[override]
         return self.error_feedback or self.inner.stateful
 
+    def workers(self, x) -> int:
+        return self.inner.workers(x)
+
     def plain(self) -> QuantizedTransport:
         out = copy.copy(self)    # shares the log
         out.inner = self.inner.plain()

@@ -31,6 +31,17 @@ Float atomics (``index_add_``, ``scatter_add_`` across workers) would make
 the order of additions differ from run to run, so none is used.  The
 selection is ``ops.vq_topk`` (the top-k kernel on the card), and ``k``
 comes from shapes, so a call never waits on the device.
+
+With ``group=`` (one worker a process, ``distributed.process_group``) a
+payload is this rank's rows ``(1, ...)``, and so is the residual: the rank
+selects its top k at ``(1, N)``, the (value, index) pairs of every leaf go
+out in one ``all_gather`` of int32 words over the group (the values as
+their bits), and each rank scatters the gathered (M, k) pairs into a zeroed (M,
+N) tensor in rank order and sums it over dimension 0 in f32, the stacked
+run's own op.  So a group run equals the stacked run bit for bit, and the
+records' ``participants`` is the group's size, so the wire bytes are the
+stacked run's too.  A masked call applies this rank's (1,) entry; means
+ride ``XlaTransport(group=)``.
 """
 
 from __future__ import annotations
@@ -83,22 +94,61 @@ def sparse_allsum(x: torch.Tensor, residual: torch.Tensor, frac: float,
     return summed, new_res.view(x.shape)
 
 
+def sparse_allsum_group(leaves, residuals, frac: float, group,
+                        mask: torch.Tensor | None = None, *,
+                        select=ops.vq_topk) -> tuple[list, list]:
+    """``sparse_allsum`` over the ranks of ``group``, each leaf this rank's
+    rows (1, ...): one ``all_gather`` carries every leaf's (value, index)
+    pairs.  Returns ``(the sums, f32 shaped like a leaf's row, the new
+    residuals, shaped like the leaves)``."""
+    from repro_torch.distributed import process_group
+    fulls, sent, new_res = [], [], []
+    for leaf, residual in zip(leaves, residuals, strict=True):
+        full = (leaf.to(torch.float32) + residual).reshape(1, -1)
+        vals, idx, res = select(full, topk_count(full.shape[1], frac))
+        if mask is not None:
+            keep = mask.to(torch.float32)[:, None]
+            vals = vals * keep
+            res = torch.where(keep != 0, res, residual.reshape(1, -1))
+        fulls.append(full)
+        sent += [vals[0].contiguous().view(torch.int32),
+                 idx[0].to(torch.int32)]
+        new_res.append(res.view(leaf.shape))
+    gathered = process_group.all_gather(torch.cat(sent), group)
+    sums, at = [], 0
+    for leaf, full in zip(leaves, fulls):
+        k = topk_count(full.shape[1], frac)
+        vals = gathered[:, at:at + k].contiguous().view(torch.float32)
+        idx = gathered[:, at + k:at + 2 * k]
+        at += 2 * k
+        scattered = torch.zeros((gathered.shape[0], full.shape[1]),
+                                dtype=torch.float32, device=full.device)
+        scattered.scatter_(1, idx.long(), vals)
+        sums.append(torch.sum(
+            scattered.view(gathered.shape[0], *leaf.shape[1:]), dim=0))
+    return sums, new_res
+
+
 class SparseTransport(Transport):
     """Top-k/error-feedback sums; dense ``XlaTransport`` for means."""
 
     name = "sparse"
     stateful = True
 
-    def __init__(self, frac: float = 0.01):
+    def __init__(self, frac: float = 0.01, group=None):
         super().__init__()
         if not 0.0 < frac <= 1.0:
             raise ValueError(f"compression frac must be in (0, 1], got {frac}")
         self.frac = frac
+        self.group = group
         self.select = ops.vq_topk
         # the dense sidecar shares this log, so its records land in the
         # same stream under their own transport name
-        self._dense = XlaTransport()
+        self._dense = XlaTransport(group=group)
         self._dense.log = self.log
+
+    def workers(self, x) -> int:
+        return self._dense.workers(x)
 
     def init_state(self, x):
         leaves, is_tuple = as_leaves(x)
@@ -114,7 +164,7 @@ class SparseTransport(Transport):
     def _sparse_sum(self, x, mask, *, op: str, state, calls: int,
                     tag: str):
         leaves, is_tuple = as_leaves(x)
-        m = leaves[0].shape[0]
+        m = self.workers(x)
         wire = sum((m - 1) * topk_count(leaf[0].numel(), self.frac) * 8
                    for leaf in leaves) if m > 1 else 0
         self.log.append(CommRecord(
@@ -123,11 +173,17 @@ class SparseTransport(Transport):
             tag=tag))
         residuals, _ = as_leaves(self.init_state(x) if state is None
                                  else state)
-        outs = [sparse_allsum(leaf, res, self.frac, mask, select=self.select)
-                for leaf, res in zip(leaves, residuals, strict=True)]
-        new_state = from_leaves([o[1] for o in outs], is_tuple)
-        return (from_leaves([o[0] for o in outs], is_tuple),
-                None if state is None else new_state)
+        if self.group is not None:
+            sums, res = sparse_allsum_group(leaves, residuals, self.frac,
+                                            self.group, mask,
+                                            select=self.select)
+        else:
+            outs = [sparse_allsum(leaf, r, self.frac, mask,
+                                  select=self.select)
+                    for leaf, r in zip(leaves, residuals, strict=True)]
+            sums, res = [o[0] for o in outs], [o[1] for o in outs]
+        return (from_leaves(sums, is_tuple),
+                None if state is None else from_leaves(res, is_tuple))
 
     def all_reduce(self, x, *, op: str = "sum", state=None, calls: int = 1,
                    tag: str = "merge"):
@@ -143,7 +199,7 @@ class SparseTransport(Transport):
 
     def masked_all_reduce(self, x, mask: torch.Tensor, *, state=None,
                           calls: int = 1, tag: str = "merge"):
-        m = as_leaves(x)[0][0].shape[0]
+        m = as_leaves(x)[0][0].shape[0]       # this rank's one over a group
         if mask.shape != (m,):
             raise ValueError(f"mask must be ({m},), got {tuple(mask.shape)}")
         return self._sparse_sum(x, mask, op="masked_sum", state=state,

@@ -11,11 +11,13 @@ with the reference's one for one.  ``_sum`` and ``_mean`` are the hooks
 whose wire is the ring's on the leaves' summed bytes.
 
 With ``group=`` (one worker a process, ``distributed.process_group``) a
-payload is this rank's rows ``(1, ...)`` and the reduction is a
-``dist.all_reduce`` over the group, the masked form multiplying by this
-rank's (1,) mask entry first; means divide the group's sum by its size.
-Records keep the stacked run's fields: ``participants`` is the group's
-size, so the wire bytes equal the stacked run's exactly.
+payload is this rank's rows ``(1, ...)`` and a sum is a ``dist.all_reduce``
+over the group, the masked form multiplying by this rank's (1,) mask entry
+first.  A mean gathers the group's rows in rank order and takes the stacked
+mean over them, so it is the stacked run's bits (the eval's scalars, the
+dense sidecar of the sparse transport, a host group's partials).  Records
+keep the stacked run's fields: ``participants`` is the group's size, so
+the wire bytes equal the stacked run's exactly.
 """
 
 from __future__ import annotations
@@ -55,6 +57,9 @@ class XlaTransport(Transport):
         from repro_torch.distributed import process_group
         return process_group.group_size(self.group)
 
+    def workers(self, x) -> int:
+        return self._workers(as_leaves(x)[0][0])
+
     def _sum(self, x: torch.Tensor, mask: torch.Tensor | None = None
              ) -> torch.Tensor:
         """The f32 sum over workers of x (or of mask[i] * x[i])."""
@@ -74,9 +79,10 @@ class XlaTransport(Transport):
         if not x.is_floating_point():
             return x[0]
         if self.group is not None:
-            out = self._sum(x) / self._workers(x)
-        else:
-            out = torch.mean(_f32(x), dim=0)
+            from repro_torch.distributed import process_group
+            self._workers(x)                         # checks x is one row
+            x = process_group.all_gather(x[0], self.group)
+        out = torch.mean(_f32(x), dim=0)
         return out if x.dtype == torch.float32 else out.to(x.dtype)
 
     def _record(self, op: str, m: int, logical: int, *, calls: int,

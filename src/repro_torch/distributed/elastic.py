@@ -11,7 +11,8 @@
 
   * ``build_groups``: the process groups of a plan's (data, model) grid
     over the world's first ranks, the counterpart of ``build_mesh``.  The
-    elastic executor over processes is ROADMAP item 9c.
+    elastic executor over processes (a rank leaving the world, ``--resize``
+    / ``--resume`` and chaos kills under torchrun) is ROADMAP item 9c-2.
 """
 
 from __future__ import annotations

@@ -68,6 +68,8 @@ class World:
     device: torch.device
     backend: str
     topology: Topology
+    #: the ranks on this machine (torchrun's LOCAL_WORLD_SIZE)
+    local_world_size: int = 1
 
 
 _world: World | None = None
@@ -125,7 +127,8 @@ def init(backend: str | None = None, *, rank: int | None = None,
     dist.init_process_group(**kw)
     _world = World(rank=rank, world_size=world_size, local_rank=local_rank,
                    device=dev, backend=chosen,
-                   topology=Topology.flat(world_size))
+                   topology=Topology.flat(world_size),
+                   local_world_size=local_world)
     if rank == 0:
         why = ("the CPU" if dev.type == "cpu" else
                f"{local_world} local rank(s) on {n_cards} card(s)")
@@ -144,6 +147,18 @@ def current() -> World:
 
 def in_world() -> bool:
     return _world is not None
+
+
+def ranks_per_device() -> int:
+    """How many ranks of this machine share this rank's device: the local
+    world on the CPU, and on the card the local ranks whose card is this
+    rank's (``LOCAL_RANK % device_count``)."""
+    w = current()
+    if w.device.type != "cuda":
+        return w.local_world_size
+    n = torch.cuda.device_count()
+    return sum(1 for r in range(w.local_world_size)
+               if r % n == w.local_rank % n)
 
 
 def set_topology(topology: Topology) -> None:

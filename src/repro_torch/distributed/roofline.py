@@ -18,13 +18,15 @@ at the 700 W power limit):
   * ``COLLECTIVE_BW``: the rate a merge moves its bytes at.  With the
     workers stacked on one card a merge is a reduction in the card's own
     memory, so it is ``HBM_BW``.  With one worker a process on one card
-    (``distributed.process_group``) the ring's hops read and write the same
-    HBM through CUDA IPC, so ``HBM_BW`` is still the rate the model would
-    use; the dense ``xla`` merge there is gloo staging CUDA tensors through
-    host memory, whose rate this model does not hold.  Across cards a hop
-    would move over NVLink at 450e9 bytes/s a direction (NVLink 4, 18
-    links).  The profiler stays off in process mode (ROADMAP item 9c), so
-    no path prices those rates yet.
+    (``distributed.process_group``) both collectives are priced at
+    ``HBM_BW`` too: the ring's hops read and write the same HBM through
+    CUDA IPC, and gloo's reduce (and the sparse transport's gather) stages
+    CUDA tensors through host memory, whose copies and handshakes the model
+    does not count, so they land in the ``host`` residual.  The terms are
+    then those of the stacked run of the same configuration, the ranks
+    sharing the card counted as its workers.  Across cards a hop would
+    move over NVLink at 450e9 bytes/s a direction (NVLink 4, 18 links); no
+    path prices that rate yet (one card).
 
 Every method of ``VqCell`` keeps the reference's hand count exactly: the
 terms are per worker.  ``obs.profile.Profiler`` scales them to the card.

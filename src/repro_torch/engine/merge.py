@@ -206,7 +206,10 @@ class QuorumMerge(MergeStrategy):
     is the plain ``DeltaMerge``, bit for bit.
 
     Own state: the per-worker carry, f32 (M, kappa, d).  A stateful
-    transport's state is made for the (delta, count) payload."""
+    transport's state is made for the (delta, count) payload.  Over a
+    process group ``w_local`` is this rank's row (1, kappa, d) and ``late``
+    its (1,) entry; the quorum counts the group's workers
+    (``Transport.workers``)."""
 
     name = "quorum"
     own_state = True
@@ -219,6 +222,11 @@ class QuorumMerge(MergeStrategy):
         super().__init__(transport)
         self.quorum_frac = quorum_frac
         self.gamma = gamma
+
+    def quorum(self, m: int) -> int:
+        """Arrivals a window needs among ``m`` workers:
+        ``ceil(quorum_frac * m)``, at least 1."""
+        return max(1, int(math.ceil(self.quorum_frac * m - 1e-9)))
 
     def _init_own_state(self, w_local):
         return torch.zeros(w_local.shape, dtype=torch.float32,
@@ -233,12 +241,14 @@ class QuorumMerge(MergeStrategy):
         if carry is None:
             raise ValueError("QuorumMerge needs its pending-delta state; "
                              "seed it with init_state(w_local)")
-        m = w_local.shape[0]
-        k_quorum = max(1, int(math.ceil(self.quorum_frac * m - 1e-9)))
+        # the quorum counts every worker of the reduction: over a process
+        # group w_local is this rank's one row of the group's M
+        k_quorum = self.quorum(self.transport.workers(w_local))
         s = _scalar(staleness_scale(1, gamma=self.gamma), w_local)
         # this window's displacement plus the backlog, one window staler
         ship = tree_sub_f32(w0, w_local) + s * carry
-        ones = torch.ones(m, dtype=torch.float32, device=w_local.device)
+        ones = torch.ones(w_local.shape[0], dtype=torch.float32,
+                          device=w_local.device)
         arrive = ones if late is None else 1.0 - late.to(torch.float32)
         (landed, n), tsp = self.transport.masked_all_reduce(
             (ship, ones), arrive, state=tsp)
@@ -271,7 +281,10 @@ class DynamicMerge(MergeStrategy):
     ``DeltaMerge``, bit for bit.
 
     Own state: ``{"carry": f32 (M, kappa, d), "stale": windows since the
-    last merge, an f32 scalar}``."""
+    last merge, an f32 scalar}``.  Over a process group the probe is this
+    rank's (1,) entry reduced over the group: every rank reads the sum the
+    collective returns, the same bits on each, so the ranks agree on every
+    trigger and merge the same codebook."""
 
     name = "dynamic"
     own_state = True

@@ -103,16 +103,29 @@ worker's rows, ``data[i]``, on its device; its window is the window kernel
 at ``(1, tau, d)`` (the thread runtime's launch), an eq.-9 tick one delta
 launch at ``(1, 1)`` and the masked reduce with its entry of the shared
 late matrix, and the merge and the eval reduce run over the group's
-transport (``XlaTransport(group=)``, ``RingTransport(group=)``, a
-``QuantizedTransport`` over either, or, over ``Topology.make_groups``'
-groups, tier 0 inside my host and tier 1 across hosts).  ``group`` is a
-flat ``ProcessGroup`` or a ``topology.Groups``; ``transport`` a name
-(``"xla"`` or ``"ring"``) or a transport built over those groups.  ``run``
-returns the same curve, ``w_shared`` and ``last_comm`` on every rank, its
-wall between a ``device.synchronize`` and a group barrier at each end.
-The sparse transport (flat or as tier 1), the quorum and dynamic merges,
-elastic and chaos runs, and ``tracer`` / ``metrics`` / ``profiler`` wait
-for ROADMAP item 9c and raise naming it.
+transport (``XlaTransport(group=)``, ``RingTransport(group=)``,
+``SparseTransport(group=)``, a ``QuantizedTransport`` over any of them, or,
+over ``Topology.make_groups``' groups, tier 0 inside my host and tier 1,
+dense or sparse, across hosts).  ``group`` is a flat ``ProcessGroup`` or a
+``topology.Groups``; ``transport`` a name (``"xla"``, ``"ring"`` or
+``"sparse"``) or a transport built over those groups.  ``run`` returns the
+same curve, ``w_shared`` and ``last_comm`` on every rank, its wall between
+a ``device.synchronize`` and a group barrier at each end.  Everything the
+stacked run takes runs here too, but elastic segments: the quorum merge
+(this rank's row of the shared late matrix, the quorum counted on the
+group's size), the dynamic merge (the probe a (1,) payload reduced over
+the group, so every rank reads the same trigger bits), the tier-1
+controller (it prices the chunk's ``CommLog`` bytes, shape arithmetic equal
+on every rank, so every rank sets the same ``frac``), ``ChaosNetwork``
+(kills as a worker late for ever, as on stacked workers) and ``tracer`` /
+``metrics`` / ``profiler``: every rank observes its run, whose modeled
+timeline, counters and metrics are the stacked run's (the M workers'
+tracks, from the shared late matrix and round lengths), and an observed
+window launches the divergence kernel at (1, kappa, d) and reduces
+(distortion, divergence) on the one "eval" record.  The profiler's terms
+are per card: ``workers_per_device`` is the number of ranks sharing this
+rank's device (``process_group.ranks_per_device``).  Elastic segments
+(``run_segment``) raise naming ROADMAP item 9c-2.
 
 ``profiler=`` (``obs.Profiler``) attributes each run's wall to compute,
 memory, collective and host terms per window, as the reference's does.  A
@@ -151,41 +164,46 @@ from repro_torch.topology import Topology
 
 
 #: The message of every process-mode refusal.
-ITEM_9C = "one worker a process does not run {what} yet: ROADMAP item 9c"
+ITEM_9C = "one worker a process does not run {what} yet: ROADMAP item 9c-2"
 
 
-def _dense_over(name: str, group) -> comm.Transport:
+def _over(name: str, group, frac: float) -> comm.Transport:
+    """Transport ``name`` over ``group``: ``"xla"``, ``"ring"`` or
+    ``"sparse"`` (at ``frac``)."""
+    if name == "sparse":
+        return comm.SparseTransport(frac, group=group)
     if name not in ("xla", "ring"):
-        raise ValueError(ITEM_9C.format(
-            what=f"the {name} transport (dense xla or ring only)"))
+        raise ValueError(f"unknown transport {name!r}; over a process "
+                         f"group choose 'xla', 'ring' or 'sparse'")
     cls = comm.RingTransport if name == "ring" else comm.XlaTransport
     return cls(group=group)
 
 
 def process_transport(transport, groups, topology=None, *,
-                      tier1: str | None = None):
-    """The transport of a process-mode run: a name (``"xla"``, ``"ring"``)
-    built over the group(s), over ``Topology.make_groups``' two tiers for a
-    hierarchical topology (tier 1 over ``tier1``, by default the same
-    name), or a transport whose collectives already carry groups; raises on
-    what waits for item 9c."""
+                      tier1: str | None = None, frac: float = 0.01,
+                      tier1_frac: float = 0.01):
+    """The transport of a process-mode run: a name (``"xla"``, ``"ring"``,
+    ``"sparse"`` at ``frac``) built over the group(s), over
+    ``Topology.make_groups``' two tiers for a hierarchical topology (tier 1
+    over ``tier1``, by default the same name, a sparse one at
+    ``tier1_frac``), or a transport whose collectives already carry
+    groups."""
     from repro_torch.topology import Groups
     if isinstance(transport, str) or transport is None:
         name = transport or "xla"
         if isinstance(groups, Groups) and len(groups.axes) == 2:
             return comm.HierarchicalTransport(
-                _dense_over(name, groups.group(topology.worker_axis)),
-                _dense_over(tier1 or name, groups.group(topology.host_axis)),
+                _over(name, groups.group(topology.worker_axis), frac),
+                _over(tier1 or name, groups.group(topology.host_axis),
+                      tier1_frac),
                 topology=topology)
         group = (groups.group(groups.axes[0]) if isinstance(groups, Groups)
                  else groups)
-        return _dense_over(name, group)
+        return _over(name, group, frac)
     inner = getattr(transport, "inner", transport)
     tiers = ((inner.tier0, inner.tier1)
              if isinstance(inner, comm.HierarchicalTransport) else (inner,))
     for t in tiers:
-        if isinstance(t, comm.SparseTransport):
-            raise ValueError(ITEM_9C.format(what="the sparse transport"))
         if getattr(t, "group", None) is None:
             raise ValueError(
                 "a process-mode transport reduces over process groups: "
@@ -243,10 +261,7 @@ class MeshExecutor:
         self.group = group
         self.worker = None
         if group is not None:
-            topology = self._process_mode(group, topology, merge=merge,
-                                          tracer=tracer, metrics=metrics,
-                                          profiler=profiler,
-                                          tier1_controller=tier1_controller)
+            topology = self._process_mode(group, topology)
             transport = process_transport(transport, group, topology)
         # use_kernels=False is the reference's use_pallas=False: the plain
         # vq.H step, and the transport's plain selection.  fused=False keeps
@@ -307,22 +322,11 @@ class MeshExecutor:
         self.profiler = profiler
         self._programs: set = set()
 
-    def _process_mode(self, group, topology, *, merge, tracer, metrics,
-                      profiler, tier1_controller) -> Topology | None:
-        """Check a process-mode configuration, set ``self.worker``; returns
-        the run's topology (None when flat)."""
+    def _process_mode(self, group, topology) -> Topology | None:
+        """Check a process-mode grid, set ``self.worker``; returns the run's
+        topology (None when flat)."""
         from repro_torch.distributed import process_group
-        from repro_torch.engine.chaos import ChaosNetwork
         from repro_torch.topology import Groups
-        refused = [(merge is not None, f"merge={merge!r}"),
-                   (isinstance(self.network, ChaosNetwork), "chaos runs"),
-                   (tracer is not None or metrics is not None
-                    or profiler is not None,
-                    "tracer / metrics / profiler"),
-                   (tier1_controller is not None, "the tier-1 controller")]
-        for bad, what in refused:
-            if bad:
-                raise ValueError(ITEM_9C.format(what=what))
         if isinstance(group, Groups):
             if len(group.axes) == 1:
                 self.worker = group.coords[0]
@@ -372,15 +376,27 @@ class MeshExecutor:
 
     def _profile(self, key: tuple, records, loops, **shapes) -> None:
         """Record ``key``'s program on its first run here, and note the
-        segment (the M workers share the device)."""
+        segment: the M stacked workers share the device, or, one worker a
+        process, the ranks on this rank's device."""
         fresh = key not in self._programs
         if fresh:
             self._programs.add(key)
             self.profiler.record_program(key, records, loops)
+        if self.worker is None:
+            per_device = shapes["m"]
+        else:
+            from repro_torch.distributed import process_group
+            per_device = process_group.ranks_per_device()
+            shapes = {**shapes, "m": self._process_workers()}
         self.profiler.note_segment(
             program=key, transport=self.transport.name,
             topology=self._topology_label, compiled=fresh,
-            workers_per_device=shapes["m"], **shapes)
+            workers_per_device=per_device, **shapes)
+
+    def _workers_of(self, m: int) -> int:
+        """The run's worker count: ``m`` stacked rows, or the process
+        group's workers (one a rank, this rank's one row)."""
+        return m if self.worker is None else self._process_workers()
 
     def _local_window(self, w0: torch.Tensor, zwin: torch.Tensor,
                       eps: torch.Tensor) -> torch.Tensor:
@@ -466,9 +482,11 @@ class MeshExecutor:
             w_shared=w_srd, wall_ticks=ticks.to(torch.int32),
             distortion=torch.stack(curve) if curve else torch.zeros(0))
         if self._observe:
-            self._emit_async_obs(m=m, n=n, tau=tau, lengths=lengths,
+            self._emit_async_obs(m=self._workers_of(m), n=n, tau=tau,
+                                 lengths=lengths,
                                  ticks=ticks, curve=res.distortion,
-                                 tier_wire=self._tier_wire(mark, ("merge",)))
+                                 tier_wire=self._tier_wire(mark,
+                                                           ("merge",)))
         return res
 
     def _eval(self, eval_data: torch.Tensor, w_srd: torch.Tensor,
@@ -671,11 +689,16 @@ class MeshExecutor:
         late = late_np = None
         if quorum:
             # the (M, n_windows) lateness bits, keyed by global window, drawn
-            # on the host once and moved to the device once
+            # on the host once and moved to the device once; one worker a
+            # process keeps its row of the matrix every rank draws
             late_np = np.asarray(self.network.late_matrix(
-                m, n_windows, tau, window0=t0 // tau), np.float32)
+                self._workers_of(m), n_windows, tau, window0=t0 // tau),
+                np.float32)
             self.last_late_worker_windows += int(late_np.sum())
-            late = torch.from_numpy(late_np).to(self.device)
+            rows = (late_np if self.worker is None
+                    else late_np[self.worker:self.worker + 1])
+            late = torch.from_numpy(np.ascontiguousarray(rows)).to(
+                self.device)
         log = self.transport.log
         mark = log.mark()
         w_srd, curve, trigs, divs = w0, [], [], []
@@ -740,7 +763,8 @@ class MeshExecutor:
         curve = torch.stack(curve)
         if observe:
             self._pending_obs.append((self._emit_sync_obs, dict(
-                scheme=scheme, m=m, n_windows=n_windows, tau=tau, wt=wt,
+                scheme=scheme, m=self._workers_of(m), n_windows=n_windows,
+                tau=tau, wt=wt,
                 tier_wire=tier_wire, w_start=t0 // tau, curve=curve,
                 divergence=torch.stack(divs), trig=bits)))
             if quorum:

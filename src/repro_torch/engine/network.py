@@ -164,7 +164,10 @@ class Tier1BudgetController:
     It adapts ``transport.tier1.frac`` on a ``HierarchicalTransport``, or
     ``transport.frac`` on a flat ``SparseTransport``; a
     ``QuantizedTransport`` is transparent (the knob is on its inner
-    transport)."""
+    transport).  One worker a process, each rank runs its own controller
+    on its own transport: the bytes it prices are its ``CommLog``'s, shape
+    arithmetic equal on every rank, so every rank sets the same ``frac``,
+    and so gathers the same k, after every chunk."""
 
     def __init__(self, network: NetworkModel, *, budget_ticks: int = 2,
                  min_frac: float = 1.0 / 1024.0, max_frac: float = 1.0,

@@ -93,14 +93,17 @@ executor runs one worker a process (``distributed.process_group``): gloo
 on the CPU, NCCL when every rank has a card of its own, gloo over CUDA
 tensors when ranks share one (the ring's hops then run the hop kernel over
 CUDA IPC).  ``--workers`` must equal the world size; ``--hosts H`` splits
-the ranks as ``Topology.simulate`` splits workers, tier 1 over a dense
-``--tier1-transport``.  Every rank draws the same global inputs and keeps
-its own rows; rank 0 prints the report and the kernels' launches on every
-rank, and every rank exits with the run's code.  The sparse transport
-(flat or as tier 1), ``--quorum``, ``--merge``, ``--chaos``, ``--resize``,
-``--tier1-frac auto``, ``--trace``, ``--metrics`` and ``--profile`` exit
-2 naming ROADMAP item 9c there.  ``--save-result OUT.pt`` writes the
-run's ``w_shared``, curve and ticks (rank 0 in a world).
+the ranks as ``Topology.simulate`` splits workers, tier 1 over
+``--tier1-transport`` (sparse by default, a top-k per rank gathered over
+the ranks with its worker coordinate).  Every rank draws the same global
+inputs and keeps its own rows; rank 0 prints the report and the kernels'
+launches on every rank, and every rank exits with the run's code.  The
+sparse transport, ``--quorum``, ``--merge``, ``--chaos`` without kills,
+``--tier1-frac auto``, ``--trace``, ``--metrics`` and ``--profile`` run
+there (every rank observes its run; rank 0 writes the files).
+``--resize``, ``--resume`` and ``--chaos`` with kills (kills are elastic
+resizes) exit 2 naming ROADMAP item 9c-2.  ``--save-result OUT.pt``
+writes the run's ``w_shared``, curve and ticks (rank 0 in a world).
 
 ``--autotune {off,cache,search}`` picks the kernels' tiles
 (``kernels.autotune``; tiles change no bit) and ``--autotune-cache
@@ -294,20 +297,33 @@ def process_refusal(args, world_size: int) -> str | None:
     if args.workers != world_size:
         return (f"--workers {args.workers} must equal the world size "
                 f"{world_size} (one worker a rank)")
-    waits = [(args.transport == "sparse", "--transport sparse"),
-             (args.hosts > 1 and args.tier1_transport == "sparse",
-              "a sparse tier 1 (pass --tier1-transport xla or ring)"),
-             (args.quorum or args.merge, "--quorum / --merge"),
-             (bool(args.chaos), "--chaos"),
-             (bool(args.resize or args.resume), "--resize / --resume"),
-             (args.tier1_frac == "auto", "--tier1-frac auto"),
-             (bool(args.trace or args.metrics or args.profile),
-              "--trace / --metrics / --profile")]
+    waits = [(bool(args.resize or args.resume), "--resize / --resume"),
+             (_chaos_kills(args), "--chaos with kills (a kill is an "
+                                  "elastic resize)")]
     for bad, what in waits:
         if bad:
             return (f"one worker a process does not run {what} yet: ROADMAP "
-                    f"item 9c")
+                    f"item 9c-2")
     return None
+
+
+def _chaos_schedule(args) -> ChaosSchedule:
+    """``--chaos``'s faults over the run's windows; partition targets index
+    ``--hosts``' groups, or 2 logical ones."""
+    return ChaosSchedule.from_spec(
+        args.chaos, windows=args.points // args.tau, m=args.workers,
+        hosts=args.hosts if args.hosts > 1 else 2)
+
+
+def _chaos_kills(args) -> bool:
+    """Does ``--chaos`` draw a kill?  A bad spec is the executor's to
+    refuse."""
+    if not args.chaos:
+        return False
+    try:
+        return bool(_chaos_schedule(args).kill_events)
+    except ValueError:
+        return False
 
 
 def _launch_counts() -> dict:
@@ -318,7 +334,8 @@ def _launch_counts() -> dict:
             "assign": vq_assign.launches_assign,
             "blocked": vq_fused.launches_blocked,
             "topk": vq_fused.launches_topk, "ring": ring.launches_ring,
-            "ring_hop": ring.launches_ring_hop}
+            "ring_hop": ring.launches_ring_hop,
+            "divergence": vq_fused.launches_divergence}
 
 
 def run_process(args) -> int:
@@ -367,21 +384,6 @@ def build_executor(args, dev: torch.device, *, tracer: Tracer | None = None,
     of a torchrun world) the mesh executor with one worker a process.
     Raises ValueError on a configuration the reference refuses (``main``
     prints it and exits 2)."""
-    if groups is not None:
-        from repro_torch.engine.mesh import process_transport
-        from repro_torch.distributed import process_group
-        topology = process_group.current().topology
-        transport = process_transport(args.transport, groups, topology,
-                                      tier1=args.tier1_transport)
-        if args.wire_quant != "off":
-            transport = comm.get_transport("quant", inner=transport,
-                                           mode=args.wire_quant)
-        net_kw = ({"latency_ticks": args.latency} if args.network == "fixed"
-                  else {"p_delay": args.p_delay}
-                  if args.network == "geometric" else {})
-        return get_executor("mesh", network=get_network(args.network,
-                                                        **net_kw),
-                            transport=transport, group=groups, device=dev)
     obs = {"tracer": tracer, "metrics": metrics}
     if args.executor == "thread":
         return get_executor("thread", duration_s=args.duration_s,
@@ -395,12 +397,10 @@ def build_executor(args, dev: torch.device, *, tracer: Tracer | None = None,
     if args.executor != "mesh":
         return get_executor(args.executor, network=network, device=dev,
                             **obs)
-    transport = comm.get_transport(
-        args.transport, **({"frac": args.compress_frac}
-                           if args.transport == "sparse" else {}))
     tier1_auto = args.tier1_frac == "auto"
     kw = {}
     topology = None
+    tier1_frac = None
     if args.hosts > 1:
         if args.tier1_frac is None or tier1_auto:
             tier1_frac = acceptance_sparse_frac(args.kappa, args.dim)
@@ -410,14 +410,29 @@ def build_executor(args, dev: torch.device, *, tracer: Tracer | None = None,
             except ValueError:
                 raise ValueError(f"--tier1-frac must be a float or 'auto', "
                                  f"got {args.tier1_frac!r}") from None
-        # the tier-1 transport first: a bad --tier1-frac reports as such
-        tier1 = (comm.get_transport("sparse", frac=tier1_frac)
-                 if args.tier1_transport == "sparse"
-                 else args.tier1_transport)
-        topology = Topology.from_spec(args.workers, hosts=args.hosts)
-        transport = comm.HierarchicalTransport(transport, tier1,
-                                               topology=topology)
-        kw["topology"] = topology
+    if groups is not None:
+        # one worker a process: the transports over the world's groups
+        from repro_torch.distributed import process_group
+        from repro_torch.engine.mesh import process_transport
+        topology = process_group.current().topology
+        transport = process_transport(
+            args.transport, groups, topology, tier1=args.tier1_transport,
+            frac=args.compress_frac, tier1_frac=tier1_frac or 0.01)
+        kw["group"] = groups
+        topology = None if topology.is_flat else topology
+    else:
+        transport = comm.get_transport(
+            args.transport, **({"frac": args.compress_frac}
+                               if args.transport == "sparse" else {}))
+        if args.hosts > 1:
+            # the tier-1 transport first: a bad --tier1-frac reports as such
+            tier1 = (comm.get_transport("sparse", frac=tier1_frac)
+                     if args.tier1_transport == "sparse"
+                     else args.tier1_transport)
+            topology = Topology.from_spec(args.workers, hosts=args.hosts)
+            transport = comm.HierarchicalTransport(transport, tier1,
+                                                   topology=topology)
+            kw["topology"] = topology
     if args.wire_quant != "off":
         # the narrow wire decorates the whole stack, flat or hierarchical
         transport = comm.get_transport("quant", inner=transport,
@@ -432,11 +447,8 @@ def build_executor(args, dev: torch.device, *, tracer: Tracer | None = None,
             network, budget_ticks=args.tier1_budget_ticks)
     chaos = None
     if args.chaos:
-        # the faults reach the executors through the network model; the
-        # partition targets index --hosts' groups, or 2 logical ones
-        chaos = ChaosSchedule.from_spec(
-            args.chaos, windows=args.points // args.tau, m=args.workers,
-            hosts=args.hosts if args.hosts > 1 else 2)
+        # the faults reach the executors through the network model
+        chaos = _chaos_schedule(args)
         network = ChaosNetwork(network, chaos, topology=topology)
         print(f"chaos: {chaos.describe()}")
     if profiler is not None:
@@ -480,9 +492,11 @@ def run_vq(args, *, groups=None, dev: torch.device | None = None):
     profiler = Profiler(metrics=metrics) if args.profile else None
     executor = build_executor(args, dev, tracer=tracer, metrics=metrics,
                               profiler=profiler, groups=groups)
+    # one worker a process: every rank observes its run, rank 0 writes
+    writer = groups is None or executor.worker == 0
     # armed before the run: a run that dies still leaves its files
     flusher = None
-    if observe:
+    if observe and writer:
         flusher = ExitFlush(
             tracer=tracer if args.trace else None,
             trace_path=args.trace or None,
@@ -523,8 +537,7 @@ def run_vq(args, *, groups=None, dev: torch.device | None = None):
     pts = args.workers * args.points
     print(f"done: C(final)={float(curve[-1]):.5f} in {wall:.2f}s wall "
           f"({wall / pts * 1e6:.2f} us/point over {pts} points)")
-    if args.save_result and (groups is None
-                             or executor.worker == 0):
+    if args.save_result and writer:
         torch.save({"w_shared": res.w_shared.cpu(), "distortion": curve,
                     "wall_ticks": ticks, "wall_s": wall}, args.save_result)
     last_comm = getattr(executor, "last_comm", None)
@@ -543,7 +556,13 @@ def run_vq(args, *, groups=None, dev: torch.device | None = None):
         if probe:
             print(f"  probe: wire {probe['wire_bytes']:,} B over "
                   f"{probe['calls']} windows, merges {merge_b.get('calls', 0)}")
-    if profiler is not None:
+        if getattr(executor, "merge", None) == "quorum":
+            print(f"  quorum: late worker-windows "
+                  f"{executor.last_late_worker_windows:,}")
+        if getattr(executor, "last_tier1_fracs", None):
+            print(f"  tier-1 frac after each chunk: "
+                  f"{executor.last_tier1_fracs}")
+    if profiler is not None and writer:
         print("profile (roofline attribution):")
         print(profiler.summary_table())
         profiler.export_json(args.profile)

@@ -25,7 +25,8 @@ constants are ``distributed.roofline``'s.
 runs one worker per device, so a worker's terms are its device's.  The port
 stacks M workers on one card, where they share its FLOP and byte rates:
 ``note_segment(workers_per_device=)`` takes how many workers share the
-device (M for stacked workers, 1 for one worker a process), and the
+device (M for stacked workers; for one worker a process the ranks that
+share the card, ``process_group.ranks_per_device``), and the
 compute, memory and collective terms, ``window_flops`` and
 ``window_hbm_bytes`` are that many times the per-worker ones.
 ``collective_bytes_per_window`` stays per worker, the unit of the

@@ -23,7 +23,7 @@ the serving read path and the training hot path share one kernel
 shared-memory budget (``ops.codebook_fits_smem``), which stands for the
 reference's ``codebook_fits_vmem``.  Serving across processes
 (``QuantizeService`` and ``launch/serve.py`` over a group) is ROADMAP item
-9c.
+9c-2.
 """
 
 from __future__ import annotations

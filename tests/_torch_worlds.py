@@ -138,37 +138,108 @@ def executor_runs(rank: int, world, ins: dict) -> dict:
     quant = comm.get_transport("quant", inner=comm.RingTransport(
         group=flat.groups[0]), mode="int8")
     run("quant_ring", "delta", quant)
+    out["cloud"] = {name: cloud_run(name, flat, hier, w0, data, ev)
+                    for name in CLOUD_MODES}
     refusals = {}
-    from repro_torch.engine.chaos import ChaosNetwork, ChaosSchedule
-    from repro_torch.obs import MetricsRegistry, Profiler, Tracer
-    chaos = ChaosNetwork(InstantNetwork(), ChaosSchedule.from_spec(
-        "7:slow=1", windows=20, m=4, hosts=2))
-    cases = {"sparse": dict(transport="sparse"),
-             "quorum": dict(merge="quorum"),
-             "dynamic": dict(merge="dynamic"),
-             "tracer": dict(tracer=Tracer()),
-             "metrics": dict(metrics=MetricsRegistry()),
-             "profiler": dict(profiler=Profiler()),
-             "chaos": dict(network=chaos)}
-    for name, kw in cases.items():
-        try:
-            MeshExecutor(**{"network": InstantNetwork(), **kw},
-                         group=flat, device="cpu")
-        except ValueError as e:
-            refusals[name] = str(e)
     try:
         MeshExecutor(InstantNetwork(), group=flat,
                      device="cpu").run_segment("delta", w0, data, ev,
                                                tau=TAU)
     except ValueError as e:
         refusals["elastic"] = str(e)
-    try:
-        comm.HierarchicalTransport(comm.XlaTransport(group=hier.groups[1]),
-                                   "sparse", topology=Topology.simulate(2, 2))
-    except ValueError as e:
-        refusals["sparse_tier1"] = str(e)
     out["refusals"] = refusals
     return out
+
+
+#: The process-mode configurations ``cloud_config`` builds, each held
+#: against the stacked port and the reference.
+CLOUD_MODES = ("sparse", "sparse_tier1", "quorum", "dynamic0", "dynamic",
+               "chaos", "tracer", "metrics", "profiler")
+CLOUD_FRAC = 0.25          # the flat sparse transport's frac
+CLOUD_TIER1_FRAC = 0.0625  # the sparse tier 1's
+CLOUD_THRESH = 1e-4        # the dynamic merge's drift threshold
+CLOUD_CHAOS = "7:kill=1,slow=1,part=1"
+
+
+def cloud_config(name: str, groups=None):
+    """``(network, executor keywords)`` of a cloud mode; with ``groups``
+    (a flat and a 2 x 2 ``Groups``) the transports over them, else the
+    stacked run's, so a test builds both from one place."""
+    from repro_torch.engine.chaos import ChaosNetwork, ChaosSchedule
+    from repro_torch.engine.network import GeometricDelayNetwork, \
+        InstantNetwork
+    from repro_torch.obs import MetricsRegistry, Profiler, Tracer
+    topo = Topology.simulate(2, 2)
+    flat, hier = groups if groups is not None else (None, None)
+    g = None if flat is None else flat.groups[0]
+    kw: dict = {}
+    net = InstantNetwork()
+    if name == "sparse":
+        kw["transport"] = comm.SparseTransport(CLOUD_FRAC, group=g)
+    elif name == "sparse_tier1":
+        t0 = comm.XlaTransport(group=None if hier is None
+                               else hier.group(topo.worker_axis))
+        t1 = comm.SparseTransport(CLOUD_TIER1_FRAC, group=None
+                                  if hier is None
+                                  else hier.group(topo.host_axis))
+        kw["transport"] = comm.HierarchicalTransport(t0, t1, topology=topo)
+        if hier is None:
+            kw["topology"] = topo
+    elif name == "quorum":
+        net = GeometricDelayNetwork(0.2)
+        kw["merge"] = "quorum"
+    elif name in ("dynamic0", "dynamic"):
+        kw.update(merge="dynamic", divergence_thresh=(
+            0.0 if name == "dynamic0" else CLOUD_THRESH))
+    elif name == "chaos":
+        net = ChaosNetwork(InstantNetwork(), ChaosSchedule.from_spec(
+            CLOUD_CHAOS, windows=20, m=4, hosts=2))
+        kw["merge"] = "quorum"
+    else:
+        # observed over the ring: its sums are the stacked ring's bits, so
+        # every metric is the stacked run's
+        kw["transport"] = comm.RingTransport(group=g)
+        kw[name] = {"tracer": Tracer, "metrics": MetricsRegistry,
+                    "profiler": Profiler}[name]()
+    if groups is not None:
+        kw["group"] = hier if name == "sparse_tier1" else flat
+    return net, kw
+
+
+def observed(ex) -> dict:
+    """What an executor observed: the modeled (tick-timeline) spans and
+    counters, the metrics but the run's wall, the profiler's terms."""
+    from repro_torch.obs import NULL_TRACER
+    out: dict = {}
+    tr = ex.tracer
+    if tr is not NULL_TRACER:
+        out["spans"] = [(e.name, e.start_us, e.dur_us, e.track, e.attrs)
+                        for e in tr.spans() if e.process == tr.TICK_PROCESS]
+        out["counters"] = [(e.name, e.value, e.ts_us)
+                           for e in tr.counters()]
+    if ex.metrics is not None:
+        out["metrics"] = [m for m in ex.metrics.snapshot()
+                          if m["name"] != "run_wall_s"]
+    if ex.profiler is not None:
+        rec = ex.profiler.attributions[-1]
+        out["profile"] = {k: rec[k] for k in (
+            "t_compute_s", "t_memory_s", "t_collective_s", "m",
+            "window_flops", "window_hbm_bytes",
+            "collective_bytes_per_window", "workers_per_device")}
+    return out
+
+
+def cloud_run(name, flat, hier, w0, data, ev) -> tuple:
+    """One cloud mode over the groups: (w_shared, curve, ticks, last_comm,
+    trigger bits, late worker-windows, what it observed)."""
+    from repro_torch.engine.mesh import MeshExecutor
+    net, kw = cloud_config(name, (flat, hier))
+    ex = MeshExecutor(net, device="cpu", **kw)
+    res = ex.run("delta", w0, data, ev, tau=TAU)
+    return (_np(res.w_shared), _np(res.distortion), _np(res.wall_ticks),
+            ex.last_comm,
+            None if ex.last_triggers is None else _np(ex.last_triggers),
+            ex.last_late_worker_windows, observed(ex))
 
 
 def lookups(rank: int, world, ins: dict) -> dict:
@@ -258,4 +329,87 @@ def launcher(rank: int, world, argvs: list, vq_sizes: tuple) -> dict:
         with contextlib.redirect_stdout(buf):
             code = dryrun.main(argv)
         out.append((code, buf.getvalue()))
+    return out
+
+
+def cloud_checks(rank: int, world, ins: dict) -> dict:
+    """The cloud setting's pieces over a 4-rank world: the sparse
+    transport and its hierarchical tier 1 call by call, the quorum's
+    count, the dynamic merge's triggers, the tier-1 controller and eq. 9
+    over the sparse transport."""
+    from repro_torch.engine import merge as merge_lib
+    from repro_torch.engine.mesh import MeshExecutor
+    from repro_torch.engine.network import (FixedLatencyNetwork,
+                                            GeometricDelayNetwork,
+                                            InstantNetwork,
+                                            Tier1BudgetController)
+    flat = Topology.flat(world.world_size).make_groups()
+    g = flat.groups[0]
+    out: dict = {"ranks_per_device": process_group.ranks_per_device()}
+    xs = [_t(a)[rank:rank + 1] for a in ins["xs"]]
+    mask = _t(ins["mask"])[rank:rank + 1]
+    # three calls of the sparse transport, its residual threaded: plain,
+    # masked, and a tuple payload
+    for name, frac in (("sparse", ins["frac"]), ("lossless", 1.0)):
+        tr = comm.SparseTransport(frac, group=g)
+        state = tr.init_state(xs[0])
+        sums = []
+        for i, x in enumerate(xs):
+            if i == 1:
+                y, state = tr.masked_all_reduce(x, mask, state=state)
+            else:
+                y, state = tr.all_reduce(x, state=state)
+            sums.append(_np(y))
+        pair, _ = tr.all_reduce((xs[0], xs[1][:, :5] * 2.0))
+        out[name] = (sums, _np(state), tuple(_np(p) for p in pair),
+                     list(tr.log.records))
+    # a sparse tier 1 over the host groups of a 2 x 2 grid, tier 0 the ring
+    topo = Topology.simulate(2, 2)
+    hg = topo.make_groups()
+    hier = comm.HierarchicalTransport(
+        comm.RingTransport(group=hg.group(topo.worker_axis)),
+        comm.SparseTransport(ins["frac"], group=hg.group(topo.host_axis)),
+        topology=topo)
+    state = hier.init_state(xs[0])
+    sums = []
+    for i, x in enumerate(xs):
+        if i == 1:
+            y, state = hier.masked_all_reduce(x, mask, state=state)
+        else:
+            y, state = hier.all_reduce(x, state=state)
+        sums.append(_np(y))
+    out["hier"] = (sums, _np(state["t1"]), list(hier.log.records))
+    # the quorum: 2 of 4 arrive, and 0.75 of 4 is 3
+    w0 = _t(ins["w0"])
+    w_local = _t(ins["w_local"])[rank:rank + 1]
+    q = merge_lib.QuorumMerge(comm.XlaTransport(group=g), quorum_frac=0.75)
+    late = torch.tensor([float(rank % 2)])
+    merged, _ = q(w0, w_local, state=q.init_state(w_local), late=late)
+    out["quorum"] = (q.quorum(q.transport.workers(w_local)), _np(merged))
+    data, ev = _t(ins["data"]), _t(ins["eval"])
+    # the dynamic merge's trigger bits, read on every rank
+    ex = MeshExecutor(InstantNetwork(), merge="dynamic",
+                      divergence_thresh=ins["thresh"], group=flat,
+                      device="cpu")
+    ex.run("delta", w0, data, ev, tau=TAU)
+    out["triggers"] = _np(ex.last_triggers)
+    # the tier-1 controller over a sparse tier 1, chunks of 5 windows
+    net = FixedLatencyNetwork(latency_ticks=1, dcn_bytes_per_tick=64)
+    ex = MeshExecutor(net, transport=comm.HierarchicalTransport(
+        comm.XlaTransport(group=hg.group(topo.worker_axis)),
+        comm.SparseTransport(0.5, group=hg.group(topo.host_axis)),
+        topology=topo), tier1_controller=Tier1BudgetController(net),
+        publish_every=5, group=hg, device="cpu")
+    res = ex.run("delta", w0, data, ev, tau=TAU)
+    out["controller"] = (list(ex.last_tier1_fracs), _np(res.w_shared),
+                         ex.last_comm)
+    # eq. 9 over the lossless sparse transport
+    ex = MeshExecutor(GeometricDelayNetwork(0.5),
+                      transport=comm.SparseTransport(ins["eq9_frac"],
+                                                     group=g),
+                      group=flat, device="cpu")
+    res = ex.run("async_delta", w0, data, ev, tau=TAU,
+                 lengths=_t(ins["lengths"]))
+    out["eq9"] = (_np(res.w_shared), _np(res.distortion),
+                  _np(res.wall_ticks), ex.last_comm)
     return out
