@@ -52,7 +52,7 @@ PyTorch built for CUDA:
      and warm-up; then four more geometric legs, with the launcher's
      ``gc.freeze()`` off, on, on, off, read what the freeze does to p99;
   8. runs eq. 9, ``--scheme async_delta --network geometric``, on 8 x
-     125,000 points: one delta-kernel launch per tick and no window-kernel
+     25,000 points (cut from 125,000, ASYNC_TICKS): one delta-kernel launch per tick and no window-kernel
      launch, its first 200 ticks held against the port's oracle
      (``core.async_vq.scheme_async``) on the same round lengths, and its
      final distortion below the initial one and below twice the sync delta
@@ -74,7 +74,7 @@ PyTorch built for CUDA:
      ``--compress-frac 0.001`` (k = 524) on 8 x 20,000 points, its first 20
      windows held bit for bit against a loop written out here (window
      kernel, payload + residual, the plain selection, the sum); and eq. 9
-     over the sparse transport for 20,000 ticks on the dense eq.-9 run's
+     over the sparse transport for 10,000 ticks on the dense eq.-9 run's
      round lengths, whose curve must equal the dense run's head bit for bit;
   11. holds the blocked assign+delta kernel against the delta kernel, bit
      for bit (assign, mind, counts, zsum), at (8, 1) and (8, 1000) x 4096 x
@@ -116,7 +116,7 @@ PyTorch built for CUDA:
      ``RingTransport().plain()`` and ``quant[identity:ring]`` and held
      against a dense run of those windows; ``--scheme average --transport
      ring`` on 8 x 2,000 points (400 ring launches) against dense average;
-     eq. 9 over the masked ring for 20,000 ticks on the dense eq.-9 run's
+     eq. 9 over the masked ring for 10,000 ticks on the dense eq.-9 run's
      round lengths (20,000 delta and 22,000 ring launches), its curve and
      codebook held against a dense eq.-9 run of those ticks and its first
      2,000 ticks equal to the plain-ring run bit for bit; and
@@ -132,7 +132,7 @@ PyTorch built for CUDA:
      a sparse tier 1 (k = 1,024) at full depth: 12,500 window and top-k
      launches, 3,145,728 / 8,192 B a window, its first 20 windows held
      against ``use_kernels=False`` and its final distortion within 25% of
-     the flat dense run's; eq. 9 over the hierarchy for 20,000 ticks (a
+     the flat dense run's; eq. 9 over the hierarchy for 10,000 ticks (a
      delta and a top-k launch a tick) and, with a dense tier 1, equal to the
      flat eq.-9 run over 2,000 ticks bit for bit; ``--merge dynamic`` at
      threshold 0 equal to plain delta bit for bit (7 B of probe a window),
@@ -167,7 +167,7 @@ PyTorch built for CUDA:
      to the segments' numpy late matrices, observed too (``chaos_kills``
      twice the kills, the reference's count; ``chaos_late_worker_windows``
      == the late matrices); E6, eq. 9 over a
-     ``ChaosNetwork`` (a slowdown, a kill) for 20,000 ticks (cut), one
+     ``ChaosNetwork`` (a slowdown, a kill) for 10,000 ticks (cut), one
      delta launch a tick, the dead worker's rounds never completing, its
      first 200 ticks held against ``scheme_async``;
   19. runs the thread runtime, training while serving and the trace/metrics
@@ -193,31 +193,32 @@ PyTorch built for CUDA:
      ``||w_local - w_shared||^2`` in one pass; no TPU kernel's counterpart)
      against its plain version at (8, 4096, 128), a ragged and a
      misaligned shape, one launch a call, and 1,000 calls back to back
-     with the same bits and the tickets left 0; then ``--scheme delta`` at
-     full depth, two pairs of bare and observed runs in turns (``--trace
-     --metrics``, the collector run before each): curve and codebook ==
-     the main path's bit for bit, 12,500 divergence launches an observed
-     run, ``windows_total`` 12,500, the ``comm_*`` counters ==
+     with the same bits and the tickets left 0; then ``--scheme delta`` on
+     8 x 25,000 points (O1_POINTS, cut from full depth), two pairs of bare
+     and observed runs in turns (``--trace --metrics``, the collector run
+     before each): curve and codebook the same bits in every run, 2,500
+     divergence launches an observed run, ``windows_total`` 2,500, the
+     ``comm_*`` counters ==
      ``CommLog.summarize``, 3,670,016 B of merge a window, their wall
      ratio a read-out; the divergence kernel's inputs captured on the
      observed path for 20 windows, its outputs and the emitted
      ``codebook_divergence`` series against plain; the gate: 16 pairs of
      500-window blocks, bare and observed in turns in one process, the
      reference's estimator (the smaller of the best-of-16 ratio and the
-     median pair ratio) <= 1.03; and eq. 9 for 20,000 ticks, two pairs of
+     median pair ratio) <= 1.03; and eq. 9 for 5,000 ticks, two pairs of
      bare and observed runs in turns, bit for bit, their ratios a
      read-out;
   20. runs the roofline profiler, the report, the comm dry run and the
      examples (queue 1, items 6b and 7), hung where it can be on runs the
-     script already makes: P1, O1's two observed full-depth sync delta runs
-     carry ``--profile``: each one attribution with consistency <= 0.15
-     (the reference's bar), its four terms summing to the attributed window,
-     ``collective_bytes_per_window`` x 12,500 == the run's ``CommLog``
-     logical bytes, loops (12,500 windows, 10 steps), the
+     script already makes: P1, O1's two observed sync delta runs carry
+     ``--profile``: each one attribution with consistency <= 0.15 (the
+     reference's bar), its four terms summing to the attributed window,
+     ``collective_bytes_per_window`` x 2,500 == the run's ``CommLog``
+     logical bytes, loops (2,500 windows, 10 steps), the
      ``roofline_efficiency`` gauges and ``attributed_*_ns`` counters in the
      registry, each term printed in us a window with the card's name and
      power limit (O1's bits and launch counts hold as before); P2, O1's
-     observed eq.-9 run (20,000 ticks) carries a ``Profiler``: 2,000
+     observed eq.-9 run (5,000 ticks) carries a ``Profiler``: 500
      nominal windows, the same checks; P3, E1 carries ``--profile``: one
      attribution over its 3 M-segments, the same checks; P5, the d=3072
      sync run (2,000 points a worker) carries ``--profile``, its terms and
@@ -243,12 +244,12 @@ PyTorch built for CUDA:
      ``dist.all_reduce``'s on the same group (in turns), one hop's device
      time and the one-card fold's; G2, ``torchrun --standalone
      --nproc-per-node 8 -m repro_torch.launch.train --scheme delta
-     --transport ring`` at the slice's width cut to 200 windows, its
+     --transport ring`` at the slice's width cut to 100 windows, its
      codebook == the stacked ring run's bit for bit (first checking that a
      (1, tau, d) window launch and a (1, n, d) eval give row i of the
      (8, ...) ones; where they do not, the legs are held at rtol=1e-4,
-     atol=1e-6), each rank's launches read from the launcher (200 window
-     and 5,600 hop launches a rank); then, through the executor in G1's
+     atol=1e-6), each rank's launches read from the launcher (100 window
+     and 2,800 hop launches a rank); then, through the executor in G1's
      world of 8 (the launcher's inputs, no torchrun start of ~30 s each),
      the dense gloo transport on 100 windows at rtol=1e-4 against the
      stacked ring and ``average`` over the ring on 60 windows bit for bit;
@@ -355,7 +356,40 @@ PyTorch built for CUDA:
      each leg's wall a window beside the stacked run's; the top-k kernel
      at a rank's (1, 524,288) payload against plain and timed beside
      ``torch.topk``;
-  25. times each kernel (the delta sweep also at each kchunk the tuner
+  25. runs elastic runs and the quantization service with one worker a
+     process (``elastic_serve_process_legs``, queue 1, item 9c-2), after
+     item 24, in one spawned world of 8 ranks on the card, each leg held
+     against the stacked run of the same configuration, every rank's
+     launches counted: G14, ``--resize 100:4,200:8 --ckpt-dir`` (E1's shape
+     cut to 3,000 points a worker, 349 windows): codebook and curve == the
+     stacked run bit for bit or, where gloo's sums take another order,
+     the curve within rtol 1e-4 (its largest gap printed), resize events,
+     late points and the whole ``CommLog`` (the ``late_delta`` record) ==
+     the stacked run's, every rank's window launches == the windows of the
+     segments it took part in plus its late delta, its wall a window and
+     each resize's ``wall_s`` beside the stacked run's; G15, ``--resume``
+     from G14's step-200 checkpoint and from its step-100 one (ranks 4-7
+     idle until the grow), each == the straight G14 run's suffix bit for
+     bit; G16, ``--chaos 7:kill=2,slow=1,part=1`` on 200 windows, the kills
+     resizes 8 -> 7 -> 6, events and late worker-windows == the stacked
+     run's; G17, ``--hosts 2 --tier1-transport xla --resize 50:4,100:8``,
+     200 windows, per-tier bytes == the stacked run's and the late delta
+     on tier 1; G18, ``launch.serve --mode vq`` over the 8 ranks at kappa
+     4,096, d 128 (the ``shard_kappa`` plan) and with ``shard_batch``
+     forced (``ShardedLookup(mode=)``), 10,000 geometric requests each: 0
+     failed, versions monotonic, 1,000 sampled responses == plain, every
+     flush and warm-up == the one-process direct plan on its own batch bit
+     for bit, every rank's assign launches == flushes + warm-ups, q/s and
+     p50/p99 beside item 7's direct serve; G19, ``--train-publish`` over
+     the 8 ranks (S1's shape cut to 2,000 points a worker, a publication
+     a window): 0 failed,
+     versions monotonic, at least 2 versions served, the publications and
+     the trainer's events == the stacked run's; to pay for it, item 8's
+     eq. 9 went from 125,000 ticks to 25,000, O1's four runs from 12,500
+     windows to 2,500 and its eq.-9 pairs from 20,000 ticks to 5,000, the
+     sparse and ring eq.-9 legs, eq. 9 over the hierarchy and E6 from
+     20,000 ticks to 10,000, and G2 from 200 windows to 100;
+  26. times each kernel (the delta sweep also at each kchunk the tuner
      weighs; the assign kernel at the flush, the eval and (8, 1) x 4096 x
      3072; the blocked kernel at (8, 1) x 4096 x 3072 with and without the
      epilogue and at (8, 1) x 4096 x 128; the window kernel also at M = 1,
@@ -374,7 +408,7 @@ PyTorch built for CUDA:
      the 3072-wide eq.-9 path with torch.profiler (device time by kernel, the
      device's idle share), after timing 200 dense and ring sync windows in
      turns on the host clock;
-  26. prints one ``{"kernels": [...]}`` line (window, delta, assign,
+  27. prints one ``{"kernels": [...]}`` line (window, delta, assign,
       top-k, blocked, ring and the ring's hop kernel), the card line
       again, and last
       ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -412,7 +446,9 @@ P_DELAY = 0.5           # the paper's geometric delay parameter
 SPARSE_FRAC = 0.01      # the launcher's --compress-frac default
 LOSSY_FRAC = 0.001      # k = 524 < tau * d: the selection drops entries
 LOSSY_POINTS = 20_000   # depth of the lossy sparse eq.-8 leg
-SPARSE_TICKS = 20_000   # depth of the sparse eq.-9 leg
+SPARSE_TICKS = 10_000   # depth of the sparse and ring eq.-9 legs (cut from
+                        # 20,000, 11.9 + 7.7 s and the dense comparison
+                        # on an H100 at 700 W, to pay for item 25)
 # a text-embedding-3-large-shaped codebook (see PERF.md): d=3072 is past
 # the delta kernel's shared memory, so every step takes the blocked kernel
 WIDE_D = 3072
@@ -432,6 +468,8 @@ RING_MASK = (1.0, 0.0, 1.0, 1.0, 0.0, 0.0, 1.0, 0.0)  # a 0/1 mask over M=8
 # the comm layer's legs: M = 8 as 2 host groups of 4 workers
 HOSTS = 2
 COMM_POINTS = 20_000    # points (or ticks) per worker of a cut leg
+HIER_ASYNC_TICKS = 10_000  # eq. 9 over --hosts 2 (cut from COMM_POINTS: 18.0
+                           # s on an H100 at 700 W, to pay for item 25)
 COMM_CHECK_TICKS = 2000  # eq.-9 ticks of the dense-tier-1 == flat check
 QUORUM_P_DELAY = 0.2    # 0.8^11 = 8.6% of worker-windows late at tau = 10
 CTL_FRAC0 = 0.5         # the controller leg's starting tier-1 frac
@@ -446,6 +484,9 @@ CKPT_EVERY = 750
 HIER_RESIZE = ((500, 4), (1000, 8))
 CHAOS_SPEC = "7:kill=2,slow=1,part=1"
 E6_FAULTS = ((5, "slow", 3, 10), (500, "kill", 6))
+E6_TICKS = 10_000       # E6's depth (cut from COMM_POINTS: 10.0 s on an
+                        # H100 at 700 W, to pay for item 25); worker 6's
+                        # 500th round lands near tick 5,500
 # the thread runtime, training while serving and the trace/metrics layer
 # (queue 1, items 5b and 6a): T1's and T2/T3's wall seconds; S1's points a
 # worker (2,333 trainer windows at M = 8, 4, 8) and windows a publication;
@@ -454,7 +495,17 @@ T1_SECONDS = 5.0
 T23_SECONDS = 3.0
 S1_POINTS = 20_000
 S1_PUBLISH = 10
-O1_TICKS = 20_000
+O1_TICKS = 5_000        # O1's eq.-9 pairs (cut from 20,000: four runs at
+                        # ~0.45 ms a tick, to pay for item 25)
+# eq. 9 on the main path (item 8), ticks a worker: cut from N_PER (125,000
+# ticks at 0.4 ms, 50.45 s on an H100 at 700 W) to pay for item 25; the
+# sparse, ring and blocked eq.-9 legs hold their heads against this run,
+# so it stays past their ticks
+ASYNC_TICKS = 25_000
+# O1's full-depth runs, cut from N_PER points a worker (four runs of 12,500
+# windows, 9.0-9.4 s each and a 5.5 s trace export per observed run on an
+# H100 at 700 W) to pay for item 25
+O1_POINTS = 25_000
 # O1's full-depth runs, two bare/observed pairs in turns: the bits, the
 # counters and the trace at full depth, their wall ratio a read-out.  The
 # gate's measurement is O1_BLOCK_PAIRS pairs of O1_BLOCK_WINDOWS-window
@@ -482,7 +533,9 @@ PG_WORLDS = (4, 8)       # G1's worlds
 PG_N = KAPPA * D         # G1's payload: a window's displacement
 PG_RAGGED = 1_000_003    # G1's ragged payload, at 4 ranks
 PG_ITERS = 5             # G1's timed calls a reading
-G2_POINTS = 2_000        # 200 windows of the 8-process ring run, cut
+G2_POINTS = 1_000        # 100 windows of the 8-process ring run (cut from
+                         # 200, 97 ms a window on an H100 at 700 W, to pay
+                         # for item 25)
 G2_XLA_POINTS = 1_000    # 100 windows of the 8-process gloo run, cut
 G2_AVG_POINTS = 600      # 60 windows of the 8-process average run, cut
 # (M * points >= KAPPA: w0 is KAPPA of the points)
@@ -493,7 +546,19 @@ G5_BATCH = 1024          # the 2 x 2 minibatch step's points
 # G3_M ranks for G3_TICKS ticks): windows cut for the gloo handshakes
 CLOUD_POINTS = 2_000     # 200 windows a leg (G7-G9, G11-G13), cut
 G10_POINTS = 600         # 60 windows a G10 leg (3 group rings a window), cut
-G12_CHAOS = "7:kill=0,slow=1,part=1"   # no kill: kills are elastic (9c-2)
+G12_CHAOS = "7:kill=0,slow=1,part=1"   # no kill: G16 (item 25) kills
+# item 25, elastic runs and serving over processes (8 ranks): E1's, E4's
+# and E5's shapes cut for the gloo handshakes (27-40 ms a window, item 24)
+G14_POINTS = 3_000       # 300 windows a worker (E1: 12,500)
+G14_RESIZE = "100:4,200:8"
+G15_FROM = (200, 100)    # G14's checkpoints a resume starts from
+G16_POINTS = 2_000       # 200 windows (E5's chaos spec at full depth: 12,500)
+G17_POINTS = 2_000       # 200 windows (E4: 2,000)
+G17_RESIZE = "50:4,100:8"
+G19_POINTS = 2_000       # S1's trainer cut to 200 windows a worker
+G19_PUBLISH = 1          # a publication a window: over processes a window
+                         # takes ~40 ms, so S1's 10 would leave a 1 s load
+                         # one or two versions to serve
 # item 22, the LM serving path: the launcher's default arch at its published
 # size (its defaults: 3 waves of 4 requests, 16-token prompts, 16 tokens
 # generated), then the other nine configs at full width, at full depth where
@@ -1423,7 +1488,7 @@ def comm_layer_legs(dev, w0, data, eval_data, runs, lengths, payload,
     # -- leg 3: eq. 9 over the hierarchy --------------------------------------
     geo = ["--scheme", "async_delta", "--network", "geometric", "--p-delay",
            str(P_DELAY)]
-    n_t = COMM_POINTS
+    n_t = HIER_ASYNC_TICKS
     res_ha, ex_ha, _ = leg("eq. 9 --hosts 2 (sparse tier 1), cut",
                            flat_args(n_t, *geo) + ["--hosts", str(HOSTS)],
                            delta=n_t, topk=n_t)
@@ -1823,7 +1888,7 @@ def elastic_legs(dev, w0, data, eval_data, runs) -> None:
     # -- E6: eq. 9 over a ChaosNetwork (cut) ----------------------------------
     net6 = ChaosNetwork(GeometricDelayNetwork(P_DELAY),
                         ChaosSchedule(E6_FAULTS, hosts=2))
-    n6 = COMM_POINTS
+    n6 = E6_TICKS
     lengths6 = net6.round_lengths(torch.Generator().manual_seed(SEED), M,
                                   n6 // TAU + 2, TAU)
     zero_counts()
@@ -2980,6 +3045,387 @@ def cloud_process_legs(dev, w0, data, eval_data) -> None:
           f"{time.perf_counter() - t_item:.1f} s")
 
 
+# -- item 25: elastic runs and serving over processes --------------------------
+
+def _elastic_serve_world(rank: int, world, cfg: dict) -> dict:
+    """Item 25's legs on this rank: G14-G17 built as the launcher builds
+    them over the world (``train.build_executor``), G15's resumes each from
+    a directory holding one of G14's steps (rank 0 copies it), then G18's
+    and G19's serving through ``serve.run_vq`` over a group spanning the
+    world (rank 0 serves, the others follow).  Returns each leg's result,
+    launches and wall."""
+    import contextlib
+    import functools
+    import io
+    import shutil
+
+    import torch
+
+    from repro_torch.distributed import process_group
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    from repro_torch.serve import lookup as lookup_lib
+    from repro_torch.topology import Topology
+    dev = world.device
+    train.N_EVAL = cfg["n_eval"]
+    out = {}
+    groups = {}
+    for name, argv in cfg["train"].items():
+        args = train.parse_args(argv)
+        topo = Topology.from_spec(world.world_size, hosts=args.hosts)
+        process_group.set_topology(topo)
+        if args.hosts not in groups:
+            groups[args.hosts] = topo.make_groups()
+        if args.resume:
+            if rank == 0:
+                step = Path(cfg["ckpt"]) / f"step_{cfg['from'][name]:09d}"
+                shutil.copytree(step, Path(args.ckpt_dir) / step.name)
+            process_group.barrier()
+        w0, data, eval_data = train.make_inputs(args, dev)
+        # the launcher's prints stay out of the script's output
+        with contextlib.redirect_stdout(io.StringIO()):
+            ex = train.build_executor(args, dev, groups=groups[args.hosts])
+        zero_counts()
+        t0 = time.perf_counter()
+        res = ex.run(args.scheme, w0, data, eval_data, tau=TAU,
+                     eps0=args.eps0)
+        wall = time.perf_counter() - t0      # run() ends synced, barriered
+        out[name] = {"w_shared": res.w_shared.cpu(),
+                     "distortion": res.distortion.cpu(), "wall_s": wall,
+                     "comm": ex.last_comm, "counts": _cloud_counts(),
+                     "late": ex.last_late_worker_windows,
+                     "events": _event_rows(ex),
+                     "resize_s": [e.wall_s for e in ex.resize_events]}
+    g = process_group.world_group()
+    assign, make = lookup_lib.ShardedLookup.assign, serve.ShardedLookup
+    for name, leg in cfg["serve"].items():
+        args = serve.parse_args(leg["argv"])
+        calls = []
+
+        def recorded(self, z, w):
+            a, m = assign(self, z, w)
+            calls.append((z, w, a, m))
+            return a, m
+
+        if rank == 0 and leg["record"]:
+            lookup_lib.ShardedLookup.assign = recorded
+        if leg["mode"]:
+            serve.ShardedLookup = functools.partial(make, mode=leg["mode"])
+        zero_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                run = serve.run_vq(args, codebook=leg["codebook"],
+                                   sample=cfg["sample"] if rank == 0 else 0,
+                                   keep=1_000_000, group=g, dev=dev)
+        finally:
+            lookup_lib.ShardedLookup.assign = assign
+            serve.ShardedLookup = make
+        o = {"rc": run.rc, "wall_s": time.perf_counter() - t0,
+             "counts": _cloud_counts(), "stats": run.stats}
+        if rank == 0:
+            rep = run.report
+            # every flush and warm-up against the one-process direct plan
+            # on its own batch, after the counts were read (these launches
+            # are no part of the leg)
+            same = 0
+            for z, w, a, m in calls:
+                da, dm = ops.vq_assign(torch.as_tensor(z, device=dev), w)
+                same += same_bits(a, da) and same_bits(m, dm)
+            served = range(rep.versions_min, rep.versions_max + 1)
+            o.update(report=rep, out=buf.getvalue(), direct=(same,
+                                                             len(calls)),
+                     codebooks={v: run.store.get(v).w for v in served},
+                     published=run.store.version,
+                     events=(None if run.trainer is None
+                             else _event_rows(run.trainer)))
+        out[name] = o
+        calls.clear()
+    return out
+
+
+def _event_rows(ex) -> list:
+    """An elastic run's resize events as (window, old M, new M, late
+    points, cause)."""
+    return [(e.window, e.old_m, e.new_m, e.late_points, e.cause)
+            for e in ex.resize_events]
+
+
+def _rank_windows(total: int, boundaries, kills: int = 0) -> list[int]:
+    """Each rank's window launches in an elastic run over a pool of
+    ``total`` points from M workers: the windows of the segments it took
+    part in, and one late-delta launch where it left at a shrink (the
+    pool holding its window).  ``boundaries``: the (window, new M) resizes
+    in order."""
+    segs = segment_windows(total, M, boundaries)
+    ms = [M] + [m for _, m in boundaries]
+    per = [sum(w for w, m in zip(segs, ms) if r < m) for r in range(M)]
+    cursor, m = 0, M
+    for (_, new_m), w in zip(boundaries, segs):
+        cursor += w * m * TAU
+        if new_m < m and total - cursor >= (m - new_m) * TAU:
+            cursor += (m - new_m) * TAU
+            for r in range(new_m, m):
+                per[r] += 1
+        m = new_m
+    return per
+
+
+def elastic_serve_process_legs(dev, trained, geo_run) -> None:
+    """Item 25 (G14-G19): elastic runs and the quantization service with
+    one worker a process on the one card, each leg against the stacked run
+    of the same configuration (G18 against item 7's one-process serve)."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.distributed import process_group
+    from repro_torch.launch import serve, train
+    t_item = time.perf_counter()
+    for label, pts in (("G14", G14_POINTS), ("G16", G16_POINTS),
+                       ("G17", G17_POINTS), ("G19", G19_POINTS)):
+        if M * pts < KAPPA:
+            fail(f"{label}: {M} x {pts} points cannot seed kappa={KAPPA}")
+    cpu = ["--device", "cpu"] if dev.type == "cpu" else []
+    tmp = Path(tempfile.mkdtemp(prefix="elastic_legs_"))
+
+    def base(pts, *extra):
+        return ["--mode", "vq", "--executor", "mesh", "--workers", str(M),
+                "--points", str(pts), "--dim", str(D), "--kappa", str(KAPPA),
+                "--tau", str(TAU), "--seed", str(SEED), "--network",
+                "instant", "--scheme", "delta", *cpu, *extra]
+
+    g14 = base(G14_POINTS, "--resize", G14_RESIZE, "--ckpt-dir")
+    legs = {"G14": g14 + [str(tmp / "g14")]}
+    for step in G15_FROM:
+        legs[f"G15 from {step}"] = g14 + [str(tmp / f"g15_{step}"),
+                                          "--resume"]
+    legs["G16"] = base(G16_POINTS, "--chaos", CHAOS_SPEC)
+    legs["G17"] = base(G17_POINTS, "--hosts", str(HOSTS),
+                       "--tier1-transport", "xla", "--resize", G17_RESIZE)
+    served = ["--mode", "vq", "--kappa", str(KAPPA), "--dim", str(D),
+              "--requests", str(SERVE_REQUESTS), "--seed", str(SEED),
+              "--network", "geometric", "--p-delay", str(P_DELAY), *cpu]
+    g19 = served + ["--train-publish", "--points", str(G19_POINTS), "--tau",
+                    str(TAU), "--publish-every", str(G19_PUBLISH)]
+    codebook = trained.cpu()
+    serve_legs = {
+        "G18 shard_kappa": {"argv": served, "mode": None, "record": True,
+                            "codebook": codebook},
+        "G18 shard_batch": {"argv": served, "mode": "shard_batch",
+                            "record": True, "codebook": codebook},
+        "G19": {"argv": g19, "mode": None, "record": False,
+                "codebook": None}}
+    cfg = {"train": legs, "serve": serve_legs, "n_eval": N_EVAL,
+           "sample": SERVE_SAMPLE, "ckpt": str(tmp / "g14"),
+           "from": {f"G15 from {s}": s for s in G15_FROM}}
+
+    t0 = time.perf_counter()
+    outs = process_group.spawn(_elastic_serve_world, M, cfg, device=dev)
+    print(f"world of {M} ranks (G14-G19): {time.perf_counter() - t0:.1f} s")
+    got = outs[0]
+
+    def stacked(argv):
+        """The stacked run of a leg's configuration, through the
+        launcher."""
+        with contextlib.redirect_stdout(io.StringIO()):
+            res, ex, wall = train.run_vq(train.parse_args(argv), dev=dev)
+        return ({"w_shared": res.w_shared.cpu(),
+                 "distortion": res.distortion.cpu(), "wall_s": wall,
+                 "comm": ex.last_comm, "events": _event_rows(ex),
+                 "late": ex.last_late_worker_windows,
+                 "resize_s": [e.wall_s for e in ex.resize_events]})
+
+    def every_rank_same(name):
+        for r, o in enumerate(outs[1:], 1):
+            mine, lead = o[name], got[name]
+            if not (same_bits(mine["w_shared"], lead["w_shared"])
+                    and same_bits(mine["distortion"], lead["distortion"])
+                    and all(mine[k] == lead[k]
+                            for k in ("comm", "late", "events"))):
+                fail(f"{name}: rank {r} returned another run than rank 0")
+
+    def launches(name, windows):
+        for r, o in enumerate(outs):
+            c = o[name]["counts"]
+            want = {k: windows[r] if k == "window" else 0 for k in c}
+            if c != want:
+                fail(f"{name}: rank {r} launched {c}, expected {want}")
+        print(f"check {name} window launches per rank: "
+              f"{[o[name]['counts']['window'] for o in outs]} (segments "
+              f"taken part in + late deltas), no other kernel")
+
+    def gloo_rule(name, want):
+        """Codebook and curve == the stacked run's bits, or, where gloo's
+        sums take another order than the stacked sum, the curve within
+        rtol 1e-4 (its largest gap printed) and the codebook under
+        ``held_to``'s rule, as item 24's G9."""
+        g = got[name]
+        w_eq = same_bits(g["w_shared"], want["w_shared"])
+        c_eq = same_bits(g["distortion"], want["distortion"])
+        c_err = float(((g["distortion"] - want["distortion"]).abs()
+                       / want["distortion"].abs()).max())
+        print(f"check {name} vs stacked: codebook bitwise {w_eq}, curve "
+              f"bitwise {c_eq}, curve max rel gap {c_err:.3e} (rtol 1e-4)")
+        if not (w_eq and c_eq):
+            held_to(f"{name}, {M} processes (gloo sums) vs stacked",
+                    g["distortion"], want["distortion"], g["w_shared"],
+                    want["w_shared"])
+            if c_err > 1e-4:
+                fail(f"{name}: curve off by {c_err:.3e}")
+
+    def walls(name, want):
+        g, n = got[name], len(got[name]["distortion"])
+        print(f"wall {name}: {g['wall_s'] / n * 1e3:.3f} ms a window in "
+              f"processes vs {want['wall_s'] / n * 1e3:.3f} ms stacked ({n} "
+              f"windows); resize wall_s (ms) "
+              f"{[round(x * 1e3, 3) for x in g['resize_s']]} in processes "
+              f"vs {[round(x * 1e3, 3) for x in want['resize_s']]} stacked")
+
+    def elastic_leg(name, want, total, boundaries):
+        every_rank_same(name)
+        g = got[name]
+        print(f"check {name} events {g['events']} == stacked "
+              f"{g['events'] == want['events']}; late_delta "
+              f"{g['comm']['by_tag'].get('late_delta')} == stacked "
+              f"{g['comm'] == want['comm']} (the whole CommLog); late "
+              f"worker-windows {g['late']} (stacked {want['late']})")
+        if (g["events"] != want["events"] or g["comm"] != want["comm"]
+                or g["late"] != want["late"]):
+            fail(f"{name}: events, the CommLog or the late worker-windows "
+                 f"differ from the stacked run's")
+        gloo_rule(name, want)
+        launches(name, _rank_windows(total, boundaries))
+        walls(name, want)
+
+    def resizes(spec):
+        return [tuple(int(x) for x in e.split(":")) for e in spec.split(",")]
+
+    # G14: 8 -> 4 -> 8 over processes
+    want14 = stacked(base(G14_POINTS, "--resize", G14_RESIZE, "--ckpt-dir",
+                          str(tmp / "stacked14")))
+    b14 = resizes(G14_RESIZE)
+    elastic_leg("G14", want14, M * G14_POINTS, b14)
+    if [e[:3] for e in got["G14"]["events"]] != [(100, 8, 4), (200, 4, 8)]:
+        fail(f"G14: events {got['G14']['events']}")
+
+    # G15: resumes from G14's step-200 and step-100 checkpoints
+    for step in G15_FROM:
+        name = f"G15 from {step}"
+        every_rank_same(name)
+        g, s = got[name], got["G14"]
+        n = len(g["distortion"])
+        ok = (0 < n < len(s["distortion"])
+              and same_bits(g["w_shared"], s["w_shared"])
+              and same_bits(g["distortion"], s["distortion"][-n:])
+              and g["events"] == [e for e in s["events"] if e[0] > step])
+        print(f"check {name}: {n} windows, codebook and curve == the "
+              f"straight G14 run's suffix, bitwise: {ok}; events "
+              f"{g['events']}; {g['wall_s'] / n * 1e3:.3f} ms a window")
+        if not ok:
+            fail(f"{name}: the resumed run differs from the straight run")
+    # resumed launches: the segments after the step; from 100 ranks 4-7
+    # sit out until the grow at 200
+    segs14 = segment_windows(M * G14_POINTS, M, b14)
+    after = {200: [segs14[2]] * M,
+             100: [segs14[1] + segs14[2]] * 4 + [segs14[2]] * 4}
+    for step in G15_FROM:
+        launches(f"G15 from {step}", after[step])
+
+    # G16: E5's chaos spec, the kills as resizes 8 -> 7 -> 6
+    want16 = stacked(legs["G16"])
+    kills = [(e[0], e[2]) for e in want16["events"]]
+    print(f"check G16 {CHAOS_SPEC}: kills {kills}")
+    if [e[1:3] for e in want16["events"]] != [(8, 7), (7, 6)]:
+        fail(f"G16: the stacked run's kills {want16['events']}")
+    elastic_leg("G16", want16, M * G16_POINTS, kills)
+
+    # G17: E4's shape, whole host groups leave and return
+    want17 = stacked(legs["G17"])
+    elastic_leg("G17", want17, M * G17_POINTS, resizes(G17_RESIZE))
+    late = got["G17"]["comm"]["by_tag"]["late_delta"]
+    tiers = {t: v["wire_bytes"] for t, v in
+             got["G17"]["comm"]["by_tag"]["merge"]["by_tier"].items()}
+    print(f"check G17 per-tier merge wire {tiers} == stacked; late delta "
+          f"on tier 1: {late.get('by_tier')}")
+    if set(late.get("by_tier", {})) != {1}:
+        fail("G17: the late delta is not charged to tier 1")
+
+    # G18: the service over 8 ranks, both sharded plans
+    geo = geo_run.report
+    for name in ("G18 shard_kappa", "G18 shard_batch"):
+        g = got[name]
+        rep, st = g["report"], g["stats"]
+        plan = name.split()[1]
+        for r, o in enumerate(outs):
+            oo = o[name]
+            c = oo["counts"]
+            want_a = oo["stats"].flushes + oo["stats"].warmups
+            if oo["rc"] != 0 or c != {k: want_a if k == "assign" else 0
+                                      for k in c}:
+                fail(f"{name}: rank {r} exited {oo['rc']}, launched {c} "
+                     f"for {want_a} flushes and warm-ups")
+        same, n_calls = g["direct"]
+        print(f"{name}: {rep.summary()}; {st.flushes} flushes (full "
+              f"{st.full_flushes}, deadline {st.deadline_flushes}), "
+              f"{st.warmups} warm-ups, assign launches per rank "
+              f"{[o[name]['counts']['assign'] for o in outs]}; every call "
+              f"== the direct plan bitwise: {same} of {n_calls}; vs item "
+              f"7's one-process direct serve {geo.qps:.1f} q/s, p50 "
+              f"{geo.p50_ms:.3f} ms, p99 {geo.p99_ms:.3f} ms")
+        if f"plan={plan}" not in g["out"]:
+            fail(f"{name}: the service did not take the {plan} plan")
+        if rep.failed or not rep.versions_monotonic or same != n_calls:
+            fail(f"{name}: {rep.failed} failed, monotonic "
+                 f"{rep.versions_monotonic}, {same} of {n_calls} calls "
+                 f"== direct")
+        check_served(_served_run(g, dev))
+
+    # G19: training while serving, the trainer over the world
+    g = got["G19"]
+    rep = g["report"]
+    for r, o in enumerate(outs):
+        oo = o["G19"]
+        want_a = oo["stats"].flushes + oo["stats"].warmups
+        if oo["rc"] != 0 or oo["counts"]["assign"] != want_a:
+            fail(f"G19: rank {r} exited {oo['rc']}, {oo['counts']} for "
+                 f"{want_a} flushes and warm-ups")
+    with contextlib.redirect_stdout(io.StringIO()):
+        ref = serve.run_vq(serve.parse_args(g19), sample=SERVE_SAMPLE,
+                           keep=1_000_000)
+    print(f"G19 --train-publish over {M} ranks: {rep.summary()}; "
+          f"published {g['published']} (stacked {ref.store.version}), "
+          f"trainer events {g['events']}; window launches per rank "
+          f"{[o['G19']['counts']['window'] for o in outs]}; stacked: "
+          f"{ref.report.summary()}")
+    if (rep.failed or not rep.versions_monotonic or rep.n_versions < 2
+            or g["published"] != ref.store.version
+            or g["events"] != _event_rows(ref.trainer)):
+        fail("G19: failed requests, versions, publications or the "
+             "trainer's events")
+    check_served(_served_run(g, dev))
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"item 25 (elastic runs and serving over processes): "
+          f"{time.perf_counter() - t_item:.1f} s")
+
+
+def _served_run(leg: dict, dev):
+    """A serving leg's rank-0 report and the codebooks it served, in the
+    shape ``check_served`` reads."""
+    import types
+
+    import torch
+
+    def get(version):
+        w = leg["codebooks"].get(version)
+        return None if w is None else types.SimpleNamespace(
+            w_device=torch.as_tensor(w, device=dev))
+
+    return types.SimpleNamespace(report=leg["report"],
+                                 store=types.SimpleNamespace(get=get))
+
+
 # -- item 22: the LM serving path ---------------------------------------------
 
 def _nbytes(tree) -> int:
@@ -4079,10 +4525,12 @@ def threads_serving_obs_legs(dev, w0, data, eval_data, runs, geo_run,
     if not same or bool(tickets.any()):
         fail("divergence kernel: bits moved between calls, or a ticket "
              "was left set")
-    fixed = runs["delta"][0]
+    o1_windows = O1_POINTS // TAU
+    fixed = None     # the first run's result: every other equals it
     full = ["--executor", "mesh", "--scheme", "delta", "--workers", str(M),
-            "--points", str(N_PER), "--dim", str(D), "--kappa", str(KAPPA),
-            "--tau", str(TAU), "--seed", str(SEED), "--network", "instant"]
+            "--points", str(O1_POINTS), "--dim", str(D), "--kappa",
+            str(KAPPA), "--tau", str(TAU), "--seed", str(SEED), "--network",
+            "instant"]
     walls = {False: [], True: []}
     with tempfile.TemporaryDirectory(prefix="o1_obs_") as tmp:
         for i, observed in enumerate(O1_ORDER):
@@ -4098,25 +4546,26 @@ def threads_serving_obs_legs(dev, w0, data, eval_data, runs, geo_run,
             res, ex, wall = train.run_vq(train.parse_args(argv))
             t_all = time.perf_counter() - t_all
             expect_counts(f"O1 {'observed' if observed else 'bare'}",
-                          window=N_PER // TAU,
-                          divergence=N_PER // TAU if observed else 0)
+                          window=o1_windows,
+                          divergence=o1_windows if observed else 0)
             walls[observed].append(wall)
-            if not (same_bits(res.distortion, fixed.distortion)
-                    and same_bits(res.w_shared, fixed.w_shared)):
-                fail("O1: an observed or bare run differs from the main "
-                     "path's delta run")
+            if fixed is None:
+                fixed = (res.distortion.clone(), res.w_shared.clone())
+            if not (same_bits(res.distortion, fixed[0])
+                    and same_bits(res.w_shared, fixed[1])):
+                fail("O1: an observed run differs from a bare one")
             if not observed:
                 del res, ex
                 continue
             check_attribution(f"P1 O1 observed run {i}", ex,
-                              loops=[[("window", N_PER // TAU), ("step", TAU)]])
+                              loops=[[("window", o1_windows), ("step", TAU)]])
             mt = ex.metrics
             by_tag = ex.last_comm["by_tag"]
             mirror = {tag: {f: int(mt.counter(
                 f"comm_{f}", tag=tag, tier="flat", transport="xla").value)
                 for f in ("calls", "logical_bytes", "wire_bytes")}
                 for tag in by_tag}
-            per_window = by_tag["merge"]["wire_bytes"] / (N_PER // TAU)
+            per_window = by_tag["merge"]["wire_bytes"] / o1_windows
             # the first observed run's trace is read back (each is ~50 MB)
             checked = i == O1_ORDER.index(True)
             errs = check_trace(
@@ -4133,14 +4582,14 @@ def threads_serving_obs_legs(dev, w0, data, eval_data, runs, geo_run,
                   f"{len(ex.tracer.spans()):,} spans, check_trace "
                   f"{(errs or 'clean') if checked else 'not read'}")
             if (mt.counter("windows_total", scheme="delta").value
-                    != N_PER // TAU or per_window != 3_670_016 or errs
+                    != o1_windows or per_window != 3_670_016 or errs
                     or any(mirror[t] != {f: v[f] for f in mirror[t]}
                            for t, v in by_tag.items())):
                 fail("O1: windows_total, the comm mirror, the merge bytes "
                      "or the trace are wrong")
             del res, ex, mt
     ratios = [o / b for o, b in zip(walls[True], walls[False])]
-    print(f"O1 full depth (--scheme delta, in the order "
+    print(f"O1 {O1_POINTS:,} points a worker (--scheme delta, in the order "
           f"{['observed' if o else 'bare' for o in O1_ORDER]}): walls bare "
           f"{[round(w, 3) for w in walls[False]]} s, "
           f"observed {[round(w, 3) for w in walls[True]]} s, pair ratios "
@@ -4557,25 +5006,31 @@ def main() -> None:
 
     # -- 8. eq. 9 at full width ------------------------------------------------
     zero_counts()
-    res_a, ex_a, wall_a = train.run_vq(train.parse_args(
+    args_a = train.parse_args(
         ["--executor", "mesh", "--scheme", "async_delta", "--workers", str(M),
-         "--points", str(N_PER), "--dim", str(D), "--kappa", str(KAPPA),
+         "--points", str(ASYNC_TICKS), "--dim", str(D), "--kappa", str(KAPPA),
          "--tau", str(TAU), "--seed", str(SEED), "--network", "geometric",
-         "--p-delay", str(P_DELAY)]))
+         "--p-delay", str(P_DELAY)])
+    res_a, ex_a, wall_a = train.run_vq(args_a)
+    # the launcher's own inputs at this depth (a draw of ASYNC_TICKS points
+    # a worker, not a prefix of the N_PER draw): the checks against this
+    # run's head take them
+    w0_a, data_a, eval_a = train.make_inputs(args_a, dev)
     counts_a = {"window": vq_fused.launches, "delta": vq_assign.launches}
     curve_a = res_a.distortion.cpu()
     merge_a = ex_a.last_comm["by_tag"]["merge"]
     print(f"main path --scheme async_delta: C first {float(curve_a[0]):.6f} "
           f"last {float(curve_a[-1]):.6f}, wall {wall_a:.2f} s "
-          f"({wall_a / (M * N_PER) * 1e6:.3f} us/point), launches "
+          f"({wall_a / (M * ASYNC_TICKS) * 1e6:.3f} us/point), launches "
           f"{counts_a}, merge wire {merge_a['wire_bytes']:,} B over "
           f"{merge_a['calls']:,} masked reduces")
-    if counts_a["delta"] != N_PER or counts_a["window"] or (
+    if counts_a["delta"] != ASYNC_TICKS or counts_a["window"] or (
             vq_fused.launches_blocked):
-        fail(f"async_delta: launches {counts_a}, expected {N_PER} delta "
-             f"and no window or blocked launch")
+        fail(f"async_delta: launches {counts_a}, expected {ASYNC_TICKS} "
+             f"delta and no window or blocked launch")
     c_sync = float(runs["delta"][0].distortion[-1])
-    if (len(curve_a) != N_PER // 10 or res_a.w_shared.shape != (KAPPA, D)
+    if (len(curve_a) != ASYNC_TICKS // 10
+            or res_a.w_shared.shape != (KAPPA, D)
             or not bool(torch.isfinite(curve_a).all())):
         fail("async_delta: result of the wrong shape or not finite")
     if not (float(curve_a[-1]) < float(curve_a[0])
@@ -4584,12 +5039,12 @@ def main() -> None:
              f"below the initial one and 2x the sync delta run's {c_sync:.6f}")
     n_c = ASYNC_CHECK_TICKS
     lengths = GeometricDelayNetwork(P_DELAY).round_lengths(
-        torch.Generator().manual_seed(SEED), M, N_PER // TAU + 2, TAU)
+        torch.Generator().manual_seed(SEED), M, ASYNC_TICKS // TAU + 2, TAU)
     lengths_c = lengths[:, : n_c // TAU + 2]
-    oracle_a = async_vq.scheme_async(w0, data[:, :n_c], eval_data, tau=TAU,
+    oracle_a = async_vq.scheme_async(w0_a, data_a[:, :n_c], eval_a, tau=TAU,
                                      lengths=lengths_c)
     short_a = MeshExecutor(GeometricDelayNetwork(P_DELAY), device=dev).run(
-        "async_delta", w0, data[:, :n_c], eval_data, tau=TAU,
+        "async_delta", w0_a, data_a[:, :n_c], eval_a, tau=TAU,
         lengths=lengths_c)
     head_a = res_a.distortion[: n_c // 10]
     held_to(f"async_delta first {n_c} ticks vs scheme_async", head_a,
@@ -4689,7 +5144,7 @@ def main() -> None:
         transport=comm.get_transport("sparse", frac=SPARSE_FRAC), device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res_sa = sparse_async.run("async_delta", w0, data[:, :n_t], eval_data,
+    res_sa = sparse_async.run("async_delta", w0_a, data_a[:, :n_t], eval_a,
                               tau=TAU, lengths=lengths[:, : n_t // TAU + 2])
     curve_sa = res_sa.distortion.cpu()
     wall_sa = time.perf_counter() - t0
@@ -4700,7 +5155,7 @@ def main() -> None:
     print(f"eq. 9 --transport sparse --compress-frac {SPARSE_FRAC}, {n_t} "
           f"ticks: C last {float(curve_sa[-1]):.6f}, wall {wall_sa:.2f} s "
           f"({wall_sa / (M * n_t) * 1e6:.3f} us/point; dense eq. 9 "
-          f"{wall_a / (M * N_PER) * 1e6:.3f}), launches {counts_sa}, merge "
+          f"{wall_a / (M * ASYNC_TICKS) * 1e6:.3f}), launches {counts_sa}, merge "
           f"wire {merge_sa['wire_bytes']:,} B; curve == dense eq.-9 head "
           f"{head_ok}")
     if counts_sa != {"window": 0, "topk": n_t, "delta": n_t}:
@@ -4789,8 +5244,8 @@ def main() -> None:
                           smem_budget_bytes=FORCE_BUDGET, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res_f = forced.run("async_delta", w0, data[:, :n_b], eval_data, tau=TAU,
-                       lengths=lengths[:, : n_b // TAU + 2])
+    res_f = forced.run("async_delta", w0_a, data_a[:, :n_b], eval_a,
+                       tau=TAU, lengths=lengths[:, : n_b // TAU + 2])
     curve_f = res_f.distortion.cpu()
     wall_f = time.perf_counter() - t0
     counts_f = launch_counts()
@@ -5071,7 +5526,7 @@ def main() -> None:
     print(f"eq. 9 --transport ring (masked ring every tick), {n_t} ticks: C "
           f"last {float(curve_rq[-1]):.6f}, wall {wall_rq:.2f} s "
           f"({wall_rq / (M * n_t) * 1e6:.3f} us/point; dense eq. 9 "
-          f"{wall_a / (M * N_PER) * 1e6:.3f}), launches {counts_rq}, merge "
+          f"{wall_a / (M * ASYNC_TICKS) * 1e6:.3f}), launches {counts_rq}, merge "
           f"wire {merge_rq['wire_bytes']:,} B")
     if merge_rq["wire_bytes"] != n_t * ring_wire:
         fail(f"ring eq. 9: merge wire {merge_rq['wire_bytes']:,} B")
@@ -5121,10 +5576,11 @@ def main() -> None:
         subprocess_legs(Path(tmp))
     pg = process_group_legs(dev, w0, data, eval_data)
     cloud_process_legs(dev, w0, data, eval_data)
+    elastic_serve_process_legs(dev, trained, geo_run)
     lm_serving_legs(dev)
     lm_training_legs(dev)
 
-    # -- 25. timing at the main path's shapes ---------------------------------
+    # -- 26. timing at the main path's shapes ---------------------------------
     # every kernel, plain and library time by kernel_ms (L2 cold, host time
     # hidden); "warm" is time_ms over back-to-back wrapper calls (L2 warm,
     # the wrapper's host time included), a read-out beside it

@@ -10,15 +10,22 @@
     delta, eq. 8 applied to its stale window, scaled by staleness.
 
   * ``build_groups``: the process groups of a plan's (data, model) grid
-    over the world's first ranks, the counterpart of ``build_mesh``.  The
-    elastic executor over processes (a rank leaving the world, ``--resize``
-    / ``--resume`` and chaos kills under torchrun) is ROADMAP item 9c-2.
+    over the world's first ranks, the counterpart of ``build_mesh``.
+  * ``build_count_groups``: the groups of every worker count an elastic
+    run over processes visits, built up front on every rank: each count's
+    worker grid over ranks 0 .. m - 1 and a group spanning them (the late
+    deltas' gather, a grow's broadcast).  ``torch.distributed.new_group``
+    is collective over the whole world, so a rank outside a count's grid
+    still makes its groups, in the same order as every other rank; the
+    counts come from the resize schedule and the chaos kills, which every
+    rank knows before the run, so no control message is needed.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -58,6 +65,42 @@ def build_groups(plan: RemeshPlan):
     grid, axes = Topology.flat(plan.data * plan.model).rank_grid(
         model=plan.model)
     return grid_groups(grid, axes)
+
+
+@dataclasses.dataclass(frozen=True)
+class CountGroups:
+    """One worker count's groups over the world's first ``m`` ranks."""
+
+    #: the count's worker grid (``topology.Groups``): ``(workers,)`` flat,
+    #: ``(hosts, workers)`` for whole host groups (one host included)
+    grid: object
+    #: the ``ProcessGroup`` of ranks 0 .. m - 1 (None on a rank past them)
+    span: object
+
+
+def build_count_groups(counts, *, workers_per_host: int | None = None,
+                       host_axis: str = "hosts",
+                       worker_axis: str = "workers") -> dict[int, CountGroups]:
+    """``{m: CountGroups}`` for every count in ``counts``, made in
+    ascending order; every rank of the world calls it with the same
+    counts.  ``workers_per_host``: each count is whole host groups of that
+    many ranks, its grid ``(m // workers_per_host, workers_per_host)``."""
+    from repro_torch.topology import grid_groups
+    out = {}
+    for m in sorted(set(counts)):
+        ranks = np.arange(m)
+        if workers_per_host is None:
+            grid = grid_groups(ranks, (worker_axis,))
+            span = grid.groups[0]
+        else:
+            if m % workers_per_host:
+                raise ValueError(
+                    f"M={m} is not whole host groups of {workers_per_host}")
+            grid = grid_groups(ranks.reshape(-1, workers_per_host),
+                               (host_axis, worker_axis))
+            span = grid_groups(ranks, (worker_axis,)).groups[0]
+        out[m] = CountGroups(grid=grid, span=span)
+    return out
 
 
 def staleness_scale(delay_windows: int, *, gamma: float = 0.5) -> float:

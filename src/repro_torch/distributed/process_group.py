@@ -173,6 +173,15 @@ def set_topology(topology: Topology) -> None:
     w.topology = topology
 
 
+def world_group():
+    """A new process group spanning the world in rank order: a caller's
+    own, so its collectives never share a group with another thread's."""
+    import numpy as np
+
+    from repro_torch.topology import grid_groups
+    return grid_groups(np.arange(current().world_size), ("world",)).groups[0]
+
+
 def destroy() -> None:
     """Release the ring's staging buffers and leave the world."""
     global _world
@@ -223,6 +232,19 @@ def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     out = [torch.empty_like(src) for _ in range(p)]
     dist.all_gather(out, src, group=group)
     return torch.stack(out).to(t.device)
+
+
+def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """t from the group's rank ``src`` onto every member, in place (every
+    rank passes a tensor of the same shape and dtype); returns t."""
+    root = src if group is None else dist.get_global_rank(group, src)
+    if _staged("broadcast", t):
+        host = t.cpu()
+        dist.broadcast(host, src=root, group=group)
+        t.copy_(host)
+    else:
+        dist.broadcast(t, src=root, group=group)
+    return t
 
 
 def all_gather_object(obj, group=None) -> list:

@@ -67,6 +67,33 @@ segment notes its own shapes, and the run's wall, started and ended with
 the device drained, is attributed across them, so an elastic run gives one
 attribution whose ``segments`` counts its M-segments.  The late deltas are
 no program's collective and stay out of it.
+
+One worker a process (``group=``, a process group spanning the world in
+rank order; ``distributed.process_group``): worker i is rank i, and a
+count of M runs on ranks 0 .. M - 1, the counterpart of the reference
+rebuilding its device mesh at every resize.  ``prepare`` builds, on every
+rank and before the first window, the groups of every count the schedule
+and the chaos kills will visit (``elastic.build_count_groups``); the cap
+is the world's size, the counterpart of ``len(jax.devices())``.  Each
+count's ``MeshExecutor`` runs over its grid with the executor's transport
+rebuilt over it (``process_transport``; whole host groups on a
+hierarchical topology), sharing one ``CommLog``.  Every rank holds the
+global inputs and keeps the run's cursor itself, so a rank past the
+current count takes no part in that segment and waits for the grow that
+includes it, which hands it ``w_srd`` by one broadcast from rank 0 over
+the new count's ranks.  At a shrink each departing rank runs its in-flight
+window at ``(1, tau, d)`` on its rows of the pool; the rows are gathered
+over the old count's ranks in rank order and summed with the stacked
+``torch.sum``, so the merge is the stacked run's bit for bit, and every
+rank records the same ``late_delta``.  A chaos kill leaves the last active
+rank idle in the world until the run ends.  Rank 0 writes the checkpoints;
+every rank passes a world barrier at each resize, so the next window
+starts with the file on disk, and a resume restores on every rank.
+``run`` returns rank 0's result on every rank (the idle ranks' part of it
+by one broadcast at the end); its wall starts and ends with the device
+drained and a world barrier, and ``ResizeStats.wall_s`` is each rank's own
+reading of its resize (the device drained at its start; the world
+barrier at its end included), rank 0's the one the launcher reports.
 """
 
 from __future__ import annotations
@@ -84,8 +111,9 @@ from repro_torch.comm.api import WORKER_AXIS
 from repro_torch.core import vq
 from repro_torch.core.schemes import SchemeResult
 from repro_torch.distributed import elastic as elastic_lib
+from repro_torch.distributed import process_group
 from repro_torch.engine import api
-from repro_torch.engine.mesh import MeshExecutor, _hier_of
+from repro_torch.engine.mesh import MeshExecutor, _hier_of, process_transport
 from repro_torch.engine.network import InstantNetwork, NetworkModel
 from repro_torch.obs import NULL_TRACER, MetricsRegistry, Tracer
 from repro_torch.topology import Topology
@@ -169,11 +197,29 @@ class ResizeStats:
     checkpoint_s: float = 0.0
 
 
-def _regrouped(transport: comm.Transport, topology: Topology
-               ) -> comm.Transport:
+def _regrouped(transport: comm.Transport, topology: Topology,
+               groups=None) -> comm.Transport:
     """``transport`` over ``topology``: its hierarchical transport (under a
-    quantized wire, if any) regrouped, sharing the logs."""
+    quantized wire, if any) regrouped, sharing the logs.  With ``groups``
+    (a count's grid over processes), the same transport built over them by
+    ``process_transport``, sharing ``transport``'s log."""
     hier = _hier_of(transport)
+    if groups is not None:
+        if isinstance(transport, comm.QuantizedTransport):
+            raise ValueError(
+                "an elastic run over processes takes a dense, ring, sparse "
+                "or hierarchical transport (a quantized wire's residual is "
+                "per-worker state a resize does not carry)")
+        if hier is None:
+            out = process_transport(transport.name, groups,
+                                    frac=getattr(transport, "frac", 0.01))
+        else:
+            out = process_transport(
+                hier.tier0.name, groups, topology, tier1=hier.tier1.name,
+                frac=getattr(hier.tier0, "frac", 0.01),
+                tier1_frac=getattr(hier.tier1, "frac", 0.01))
+        out.log = transport.log
+        return out
     if hier is None:
         return transport
     if transport is hier:
@@ -207,7 +253,10 @@ class ElasticMeshExecutor:
     chaos:             a ``ChaosSchedule`` whose kills shrink the run.
     checkpoint_every:  a periodic checkpoint every N global windows.
     merge:             None or 'quorum', for every segment.
-    max_workers:       the largest worker count (None: any).
+    max_workers:       the largest worker count (None: any; over processes
+                       the world's size).
+    group:             one worker a process: a process group spanning the
+                       world in rank order (see the module docstring).
     tracer, metrics:   ``repro_torch.obs`` sinks shared by every segment.
     profiler:          an ``obs.Profiler`` shared by every segment.
     use_kernels, fused, smem_budget_bytes, device: as ``MeshExecutor``.
@@ -229,7 +278,7 @@ class ElasticMeshExecutor:
                  smem_budget_bytes: int | None = None,
                  tracer: Tracer | None = None,
                  metrics: MetricsRegistry | None = None,
-                 profiler=None,
+                 profiler=None, group=None,
                  device: str | torch.device | None = None):
         if not isinstance(schedule, ResizeSchedule):
             schedule = ResizeSchedule(schedule)
@@ -287,6 +336,17 @@ class ElasticMeshExecutor:
         self.merge = merge
         self.quorum_frac = quorum_frac
         self.max_workers = max_workers
+        # one worker a process: this rank, the world's size, and every
+        # visited count's groups (built by prepare)
+        self.group = group
+        self.rank = 0
+        self._counts: dict[int, elastic_lib.CountGroups] = {}
+        if group is not None:
+            self._check_world(group)
+            self.rank = process_group.group_rank(group)
+            world = process_group.group_size(group)
+            self.max_workers = world if max_workers is None else min(
+                max_workers, world)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.metrics = metrics
         if metrics is not None:
@@ -310,26 +370,89 @@ class ElasticMeshExecutor:
         return (self.topology.worker_axis if self.topology is not None
                 else WORKER_AXIS)
 
+    @staticmethod
+    def _check_world(group) -> None:
+        import torch.distributed as dist
+        ranks = dist.get_process_group_ranks(group)
+        if ranks != list(range(dist.get_world_size())):
+            raise ValueError(
+                f"group= must span the world in rank order (worker i is "
+                f"rank i), got ranks {ranks}")
+
+    def _active(self, m: int) -> bool:
+        """Does this rank run a worker of an ``m``-worker segment?"""
+        return self.rank < m
+
+    def _visits(self, m: int, after: int) -> set[int]:
+        """The worker counts a run at ``m`` after global window ``after``
+        visits: every boundary's target, clamped, in order."""
+        out = {m}
+        for _, cause, new_m in self._boundaries(after):
+            m, _ = self._clamp_m(max(1, m - 1) if cause == "chaos_kill"
+                                 else new_m)
+            out.add(m)
+        return out
+
+    def _boundaries(self, after: int) -> list[tuple[int, str, int]]:
+        """Scheduled resizes and injected deaths past global window
+        ``after``, each a (window, cause, target M) barrier in order; a
+        kill's target is resolved when it fires (the current M less one)."""
+        out = [(e.window, "schedule", e.new_m)
+               for e in self.schedule if e.window > after]
+        if self.chaos is not None:
+            out += [(ce.window, "chaos_kill", -1)
+                    for ce in self.chaos.kill_events if ce.window > after]
+        out.sort(key=lambda b: (b[0], b[1] != "schedule"))
+        return out
+
+    def prepare(self, m0: int) -> None:
+        """Over processes, build the groups of every worker count a run
+        starting at ``m0`` workers visits (collective over the world: every
+        rank calls it, in the same order as its other group builders).
+        ``run`` calls it itself; a caller whose other threads use the world
+        calls it first, on the main thread."""
+        self._build(self._visits(self._clamp_m(m0)[0], 0))
+
+    def _build(self, counts) -> None:
+        """The groups of the counts not built yet, in ascending order."""
+        if self.group is None:
+            return
+        missing = sorted(set(counts) - set(self._counts))
+        if missing:
+            self._counts.update(elastic_lib.build_count_groups(
+                missing, workers_per_host=(self.topology.workers_per_host
+                                           if self._hierarchical else None),
+                host_axis=self.topology.host_axis if self.topology else
+                "hosts", worker_axis=self._axis))
+
+    def _topology_for(self, m: int) -> Topology | None:
+        """``m`` workers' topology: on a hierarchical one ``m //
+        workers_per_host`` whole host groups."""
+        if not self._hierarchical:
+            return None
+        return Topology.from_spec(
+            m, hosts=max(1, m // self.topology.workers_per_host),
+            host_axis=self.topology.host_axis,
+            worker_axis=self.topology.worker_axis)
+
     def _executor_for(self, m: int) -> MeshExecutor:
         """The executor for ``m`` workers (cached): on a hierarchical
-        topology it holds ``m // workers_per_host`` whole host groups."""
+        topology it holds ``m // workers_per_host`` whole host groups; over
+        processes it runs over the count's grid (on its ranks only)."""
         if m not in self._mesh_ex:
-            topo = None
-            if self._hierarchical:
-                topo = Topology.from_spec(
-                    m, hosts=max(1, m // self.topology.workers_per_host),
-                    host_axis=self.topology.host_axis,
-                    worker_axis=self.topology.worker_axis)
+            topo = self._topology_for(m)
+            groups = None if self.group is None else self._counts[m].grid
             transport = _regrouped(self.transport, topo or Topology.flat(
-                m, worker_axis=self._axis))
+                m, worker_axis=self._axis), groups)
             self._mesh_ex[m] = MeshExecutor(
                 self.network, transport=transport,
                 use_kernels=self.use_kernels, fused=self.fused,
                 smem_budget_bytes=self.smem_budget_bytes, merge=self.merge,
                 quorum_frac=self.quorum_frac,
-                staleness_gamma=self.staleness_gamma, topology=topo,
+                staleness_gamma=self.staleness_gamma,
+                topology=topo if groups is None else None,
                 tracer=self.tracer, metrics=self.metrics,
-                profiler=self.profiler, device=self.device)
+                profiler=self.profiler, group=groups, device=self.device)
         return self._mesh_ex[m]
 
     def _clamp_m(self, requested: int
@@ -386,30 +509,38 @@ class ElasticMeshExecutor:
                 self.on_window(gw, w)
             if (periodic and gw % self.checkpoint_every == 0
                     and gw > self._last_ckpt_window):
-                with self.tracer.span("checkpoint", step=gw, periodic=True):
-                    self.checkpointer.save(gw, self._state(
-                        w, t0 + wi * tau, cursor + wi * m * tau, gw, m,
-                        tick_offset + wi * wt))
+                if self.rank == 0:      # over processes rank 0 writes
+                    with self.tracer.span("checkpoint", step=gw,
+                                          periodic=True):
+                        self.checkpointer.save(gw, self._state(
+                            w, t0 + wi * tau, cursor + wi * m * tau, gw, m,
+                            tick_offset + wi * wt))
+                    if self.metrics is not None:
+                        self.metrics.counter("periodic_checkpoints").inc()
                 self._last_ckpt_window = gw
-                if self.metrics is not None:
-                    self.metrics.counter("periodic_checkpoints").inc()
 
         return hook
 
     # -- public API ---------------------------------------------------------
+
+    def _drain(self) -> None:
+        """Wait for the device and, over processes, for every rank."""
+        device_lib.synchronize(self.device)
+        if self.group is not None:
+            process_group.barrier(self.group)
 
     def run(self, scheme: str, w0: torch.Tensor, data: torch.Tensor,
             eval_data: torch.Tensor, *, tau: int, eps0: float = 0.5,
             decay: float = 1.0, generator: torch.Generator | None = None,
             lengths: torch.Tensor | None = None) -> SchemeResult:
         del generator, lengths  # the sync schemes draw nothing
-        device_lib.synchronize(self.device)
+        self._drain()
         t_wall = time.perf_counter()
         with self.tracer.span("run", scheme=scheme, executor=self.name,
                               m=data.shape[0] if data.dim() == 3 else None):
             res = self._run(scheme, w0, data, eval_data, tau=tau, eps0=eps0,
                             decay=decay)
-        device_lib.synchronize(self.device)
+        self._drain()
         wall_s = time.perf_counter() - t_wall
         if self.metrics is not None:
             self.metrics.histogram("run_wall_s", executor=self.name,
@@ -466,16 +597,11 @@ class ElasticMeshExecutor:
             cur_m, _ = self._clamp_m(int(st["m"]))
             resumed = True
 
-        # one boundary list: scheduled resizes and injected deaths, each a
-        # (window, cause, target M) barrier; a kill's target is resolved
-        # when it fires (the current M less one)
-        boundaries = [(e.window, "schedule", e.new_m)
-                      for e in self.schedule if e.window > window_idx]
-        if self.chaos is not None:
-            boundaries += [(ce.window, "chaos_kill", -1)
-                           for ce in self.chaos.kill_events
-                           if ce.window > window_idx]
-        boundaries.sort(key=lambda b: (b[0], b[1] != "schedule"))
+        boundaries = self._boundaries(window_idx)
+        # over processes, every count this run (or the run a resume
+        # continues) visits
+        self._build(self._visits(self._clamp_m(m0)[0], 0)
+                    | self._visits(cur_m, window_idx))
         ei = 0
         curves: list[torch.Tensor] = []
         ticks: list[torch.Tensor] = []
@@ -488,25 +614,19 @@ class ElasticMeshExecutor:
                                                      target - window_idx)
             if seg_w > 0:
                 seg_pts = cur_m * seg_w * tau
-                # the pool's next seg_pts points as cur_m time-major streams
-                with self.tracer.span("resplit", m=cur_m, windows=seg_w,
-                                      points=seg_pts):
-                    seg_data = pool[cursor: cursor + seg_pts].reshape(
-                        seg_w * tau, cur_m, d).transpose(0, 1).contiguous()
-                mex = self._executor_for(cur_m)
-                # assigned every segment: the executors are cached, so a
-                # previous run's hook must not survive into this one
-                mex.on_window = self._segment_hook(
-                    window_idx, t0, cursor, cur_m, tau, wt, tick_offset)
-                mex.publish_every = self.publish_every
-                res = mex.run_segment(
-                    scheme, w_srd, seg_data,
-                    self._eval_streams(eval_pool, cur_m), tau=tau,
-                    eps0=eps0, decay=decay, t0=t0)
-                self.last_late_worker_windows += mex.last_late_worker_windows
-                w_srd = res.w_shared
-                curves.append(res.distortion)
-                ticks.append(tick_offset + res.wall_ticks)
+                if self._active(cur_m):
+                    res = self._segment(
+                        scheme, w_srd, pool, eval_pool, cur_m, seg_w,
+                        cursor=cursor, t0=t0, window_idx=window_idx,
+                        tick_offset=tick_offset, tau=tau, wt=wt, eps0=eps0,
+                        decay=decay)
+                    w_srd = res.w_shared
+                    curves.append(res.distortion)
+                    ticks.append(tick_offset + res.wall_ticks)
+                else:
+                    # an idle rank: its part of the result comes from rank 0
+                    curves.append(None)
+                    ticks.append(None)
                 tick_offset += seg_w * wt
                 cursor += seg_pts
                 t0 += seg_w * tau
@@ -526,6 +646,8 @@ class ElasticMeshExecutor:
         self.last_comm = comm.CommLog.summarize(
             self.transport.log.since(comm_mark))
         self.transport.log.mirror_metrics()
+        if self.group is not None and curves:
+            w_srd, curves, ticks = self._from_rank0(w_srd, curves, ticks)
         if not curves:
             if resumed:
                 # the checkpoint holds a complete run: report its state
@@ -539,7 +661,68 @@ class ElasticMeshExecutor:
         return SchemeResult(w_shared=w_srd, wall_ticks=torch.cat(ticks),
                             distortion=torch.cat(curves))
 
+    def _segment(self, scheme: str, w_srd, pool, eval_pool, m: int,
+                 seg_w: int, *, cursor: int, t0: int, window_idx: int,
+                 tick_offset: int, tau: int, wt: int, eps0: float,
+                 decay: float) -> SchemeResult:
+        """``seg_w`` windows on ``m`` workers from the pool's ``cursor``."""
+        seg_pts = m * seg_w * tau
+        d = pool.shape[-1]
+        # the pool's next seg_pts points as m time-major streams
+        with self.tracer.span("resplit", m=m, windows=seg_w,
+                              points=seg_pts):
+            seg_data = pool[cursor: cursor + seg_pts].reshape(
+                seg_w * tau, m, d).transpose(0, 1).contiguous()
+        mex = self._executor_for(m)
+        # assigned every segment: the executors are cached, so a previous
+        # run's hook must not survive into this one
+        mex.on_window = self._segment_hook(window_idx, t0, cursor, m, tau,
+                                           wt, tick_offset)
+        mex.publish_every = self.publish_every
+        res = mex.run_segment(scheme, w_srd, seg_data,
+                              self._eval_streams(eval_pool, m), tau=tau,
+                              eps0=eps0, decay=decay, t0=t0)
+        self.last_late_worker_windows += mex.last_late_worker_windows
+        return res
+
+    def _from_rank0(self, w_srd, curves, ticks):
+        """Over processes, rank 0's codebook, curve, ticks, ``last_comm``
+        and late worker-windows on every rank: an idle rank missed some
+        segments (the active ones hold the same bits already)."""
+        w_srd = process_group.broadcast(
+            w_srd if self.rank == 0 else torch.empty_like(w_srd), 0,
+            self.group)
+        mine = None
+        if self.rank == 0:
+            mine = (torch.cat(curves).cpu(), torch.cat(ticks),
+                    self.last_comm, self.last_late_worker_windows)
+        curve, tick, self.last_comm, self.last_late_worker_windows = (
+            process_group.all_gather_object(mine, self.group)[0])
+        return w_srd, [curve.to(self.device)], [tick]
+
     # -- resize event -------------------------------------------------------
+
+    def _late_windows(self, w_srd, late, cur_m: int, new_m: int, t0: int, *,
+                      tau: int, eps0: float, decay: float) -> torch.Tensor:
+        """The departing workers' in-flight windows from the shared
+        version, (n_dep, kappa, d): one launch over their ``late`` rows
+        (n_dep, tau, d) stacked, or, over processes, each departing rank's
+        (1, tau, d) window gathered over the old count's ranks in rank
+        order (the others send zeros)."""
+        eps = vq.default_steps(
+            torch.arange(t0 + 1, t0 + tau + 1, device=self.device),
+            eps0=eps0, decay=decay)
+        mex = self._executor_for(cur_m)
+        if self.group is None:
+            return mex._local_window(w_srd, late, eps)
+        if self.rank >= new_m:
+            j = self.rank - new_m
+            mine = mex._local_window(w_srd, late[j:j + 1].contiguous(), eps)
+        else:
+            mine = torch.zeros((1, *w_srd.shape), dtype=w_srd.dtype,
+                               device=self.device)
+        rows = process_group.all_gather(mine, self._counts[cur_m].span)
+        return rows[new_m:cur_m, 0]
 
     def _do_resize(self, ev: ResizeEvent, w_srd: torch.Tensor, cur_m: int,
                    pool: torch.Tensor, cursor: int, t0: int, window_idx: int,
@@ -567,15 +750,13 @@ class ElasticMeshExecutor:
                             n_dep, tau, pool.shape[-1])
                         cursor += need
                         late_pts = need
-                        eps = vq.default_steps(
-                            torch.arange(t0 + 1, t0 + tau + 1,
-                                         device=self.device),
-                            eps0=eps0, decay=decay)
-                        w_fin = self._executor_for(cur_m)._local_window(
-                            w_srd, late, eps)
-                        w_srd = elastic_lib.merge_late_delta(
-                            w_srd, torch.sum(w_srd - w_fin, dim=0),
-                            delay_windows=1, gamma=self.staleness_gamma)
+                        if self._active(cur_m):
+                            w_fin = self._late_windows(
+                                w_srd, late, cur_m, new_m, t0, tau=tau,
+                                eps0=eps0, decay=decay)
+                            w_srd = elastic_lib.merge_late_delta(
+                                w_srd, torch.sum(w_srd - w_fin, dim=0),
+                                delay_windows=1, gamma=self.staleness_gamma)
                         # each departing worker uploads one (kappa, d) f32
                         # delta; on a hierarchical topology they were whole
                         # host groups, so the upload crossed tier 1
@@ -593,18 +774,26 @@ class ElasticMeshExecutor:
                     if mt is not None:
                         mt.counter("late_delta_skipped").inc()
             with tr.span("remesh", m=new_m):
-                self._executor_for(new_m)
+                if self._active(new_m):
+                    self._executor_for(new_m)
+                if self.group is not None and new_m > cur_m \
+                        and self._active(new_m):
+                    # the joining ranks take the shared version from rank 0
+                    w_srd = process_group.broadcast(
+                        w_srd if self.rank == 0 else torch.empty_like(w_srd),
+                        0, self._counts[new_m].span)
             if self.checkpointer is not None:
                 # the post-event state: a resume from here continues bit
                 # for bit
-                with tr.span("checkpoint", step=window_idx):
-                    t_ck = time.perf_counter()
-                    self.checkpointer.save(window_idx, self._state(
-                        w_srd, t0, cursor, window_idx, new_m,
-                        tick_offset + self.resize_cost_ticks))
-                    ckpt_s = time.perf_counter() - t_ck
+                if self.rank == 0:
+                    with tr.span("checkpoint", step=window_idx):
+                        t_ck = time.perf_counter()
+                        self.checkpointer.save(window_idx, self._state(
+                            w_srd, t0, cursor, window_idx, new_m,
+                            tick_offset + self.resize_cost_ticks))
+                        ckpt_s = time.perf_counter() - t_ck
                 ckpt_step = window_idx
-            device_lib.synchronize(self.device)
+            self._drain()
         wall_s = time.perf_counter() - t_start
         if mt is not None:
             mt.counter("resize_events").inc()

@@ -111,7 +111,7 @@ dense or sparse, across hosts).  ``group`` is a flat ``ProcessGroup`` or a
 ``"sparse"``) or a transport built over those groups.  ``run`` returns the
 same curve, ``w_shared`` and ``last_comm`` on every rank, its wall between
 a ``device.synchronize`` and a group barrier at each end.  Everything the
-stacked run takes runs here too, but elastic segments: the quorum merge
+stacked run takes runs here too: the quorum merge
 (this rank's row of the shared late matrix, the quorum counted on the
 group's size), the dynamic merge (the probe a (1,) payload reduced over
 the group, so every rank reads the same trigger bits), the tier-1
@@ -125,7 +125,8 @@ window launches the divergence kernel at (1, kappa, d) and reduces
 (distortion, divergence) on the one "eval" record.  The profiler's terms
 are per card: ``workers_per_device`` is the number of ranks sharing this
 rank's device (``process_group.ranks_per_device``).  Elastic segments
-(``run_segment``) raise naming ROADMAP item 9c-2.
+(``run_segment``) run over the count's groups as on stacked workers
+(``ElasticMeshExecutor(group=)``).
 
 ``profiler=`` (``obs.Profiler``) attributes each run's wall to compute,
 memory, collective and host terms per window, as the reference's does.  A
@@ -161,10 +162,6 @@ from repro_torch.kernels import ops, vq_fused
 from repro_torch.obs import (NULL_TRACER, CounterEvent, MetricsRegistry,
                              SpanEvent, Tracer)
 from repro_torch.topology import Topology
-
-
-#: The message of every process-mode refusal.
-ITEM_9C = "one worker a process does not run {what} yet: ROADMAP item 9c-2"
 
 
 def _over(name: str, group, frac: float) -> comm.Transport:
@@ -610,8 +607,6 @@ class MeshExecutor:
         resized run keeps the eps_t sequence a fixed-M run sees, and the
         quorum merge's late bits keyed by global window ``t0 // tau``.  The
         merge state starts fresh, as the reference's does."""
-        if self.worker is not None:
-            raise ValueError(ITEM_9C.format(what="elastic segments"))
         if scheme == "async_delta":
             raise ValueError(
                 "elastic segments support the synchronous schemes "

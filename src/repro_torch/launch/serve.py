@@ -48,6 +48,18 @@ back, and a host-to-device copy from pageable memory can return before it
 lands, so a flush on another stream could read a half-written snapshot.
 On one stream a flush waits behind the training windows queued before it.
 
+Under a torchrun world (``torchrun --standalone --nproc-per-node P -m
+repro_torch.launch.serve --mode vq ...``) the service spans the world:
+``ShardedLookup`` over a group of every rank with ``auto`` routing (past
+the shared-memory budget, as kappa 4,096 at d 128, ``shard_kappa``), rank
+0 owning the store, the queue, the flush thread and the load, the other
+ranks following its flushes (``serve.service.follow``); rank 0 prints the
+report and each rank's flushes, warm-ups, failures and assign launches,
+and every rank exits with the run's code (the largest rank's).
+``--train-publish`` there runs its elastic trainer on ``min(8, P)`` ranks
+on a thread of every rank, over groups of its own, rank 0's store
+publishing.
+
 ``--trace OUT.json`` / ``--metrics OUT.jsonl`` write the trace (flush,
 load and trainer spans, the trainer's tick timeline) and append the
 metrics registry (latency, fill and queue histograms, the trainer's
@@ -57,7 +69,9 @@ metrics) as JSON lines.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
+import io
 import threading
 import time
 from typing import NamedTuple
@@ -67,13 +81,14 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.configs import registry
 from repro_torch.data import synthetic
+from repro_torch.distributed import process_group
 from repro_torch.engine import (ElasticMeshExecutor, InstantNetwork,
                                 ResizeSchedule, get_network)
 from repro_torch.models.api import get_api
 from repro_torch.models.common import ModelConfig
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.serve import (CodebookStore, LoadReport, QuantizeService,
-                               ServiceStats, ShardedLookup, run_load)
+                               ServiceStats, ShardedLookup, follow, run_load)
 from repro_torch.training import steps as steps_lib
 
 #: Stacked workers of the --train-publish trainer (the reference's
@@ -154,13 +169,36 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def _no_publish(window: int, w: torch.Tensor) -> None:
+    """A follower's trainer hook: rank 0 publishes (every rank's trainer
+    takes the same chunks)."""
+
+
+def _follow(lookup, trainer, trainer_thread, trainer_err) -> ServeRun:
+    """A follower rank: its trainer thread, if any, beside the service's
+    follower loop until rank 0's stop header."""
+    if trainer_thread is not None:
+        trainer_thread.start()
+    try:
+        stats = follow(lookup)
+    finally:
+        if trainer_thread is not None:
+            trainer_thread.join()
+    rc = 1 if stats.failed or trainer_err else 0
+    return ServeRun(rc, None, stats, None, trainer)
+
+
 def run_vq(args, *, codebook: torch.Tensor | None = None,
-           sample: int = 0, keep: int = 16) -> ServeRun:
+           sample: int = 0, keep: int = 16, group=None,
+           dev: torch.device | None = None) -> ServeRun:
     """Store -> service -> load -> report.  ``codebook`` (kappa, d), when
     given, is served instead of one drawn from ``args.seed`` (not with
     ``--train-publish``, whose trainer starts from its own); ``sample``
     keeps that many (query, response) pairs in the report; ``keep`` is the
-    store's snapshot history."""
+    store's snapshot history.  ``group``: a process group spanning the
+    world, whose ranks share the lookup (rank 0 serves, the others
+    follow), on ``dev``; a follower's ``ServeRun`` holds its code and its
+    ``follow`` counts only."""
     if args.smoke:
         args.requests = min(args.requests, 100)
         args.points = min(args.points, 200)
@@ -175,53 +213,58 @@ def run_vq(args, *, codebook: torch.Tensor | None = None,
         print(f"error: --publish-every must be >= 1, got "
               f"{args.publish_every}")
         return ServeRun(2, None, None, None)
-    dev = device_lib.resolve(args.device)
+    dev = device_lib.resolve(args.device) if dev is None else dev
+    leader = group is None or process_group.group_rank(group) == 0
+    m_train = (TRAIN_WORKERS if group is None
+               else min(TRAIN_WORKERS, process_group.group_size(group)))
     observe = bool(args.trace or args.metrics)
     tracer = Tracer() if observe else None
     metrics = MetricsRegistry() if observe else None
     data = None
     if codebook is None:
-        n_points = TRAIN_WORKERS * args.points if args.train_publish else \
+        n_points = m_train * args.points if args.train_publish else \
             args.points
         if n_points < args.kappa:
             print(f"error: --points {args.points} is less than --kappa "
                   f"{args.kappa}; the codebook is kappa distinct points")
             return ServeRun(2, None, None, None)
-        gen = torch.Generator(device=dev).manual_seed(args.seed)
-        m = TRAIN_WORKERS if args.train_publish else 1
-        data = synthetic.replicate_stream(gen, m, n=args.points, d=args.dim)
-        codebook = synthetic.kmeanspp_init(gen, data.reshape(-1, args.dim),
-                                           args.kappa)
+        if leader or args.train_publish:
+            gen = torch.Generator(device=dev).manual_seed(args.seed)
+            m = m_train if args.train_publish else 1
+            data = synthetic.replicate_stream(gen, m, n=args.points,
+                                              d=args.dim)
+            codebook = synthetic.kmeanspp_init(
+                gen, data.reshape(-1, args.dim), args.kappa)
 
-    net_kw = {}
-    if args.network == "fixed":
-        net_kw["latency_ticks"] = args.latency
-    elif args.network == "geometric":
-        net_kw["p_delay"] = args.p_delay
-    network = get_network(args.network, **net_kw)
-
-    store = CodebookStore(codebook, device=dev, keep=keep)
-    lookup = ShardedLookup(device=dev)
-    kappa, d = store.latest().w.shape
-    print(f"serve: devices={lookup.n_shards} plan={lookup.plan(kappa, d)} "
-          f"max_batch={lookup.n_shards * 128} "
-          f"max_delay={args.max_delay_ms}ms network={args.network} "
-          f"kappa={kappa} d={d} device={dev}"
-          + (" train-publish" if args.train_publish else ""))
+    lookup = ShardedLookup(group=group, device=dev)
+    store = CodebookStore(codebook, device=dev, keep=keep) if leader else None
+    if leader:
+        kappa, d = store.latest().w.shape
+        print(f"serve: devices={lookup.n_shards} plan="
+              f"{lookup.plan(kappa, d)} max_batch={lookup.n_shards * 128} "
+              f"max_delay={args.max_delay_ms}ms network={args.network} "
+              f"kappa={kappa} d={d} device={dev}"
+              + (" train-publish" if args.train_publish else ""))
 
     trainer = trainer_thread = None
     trainer_err: list[Exception] = []
     if args.train_publish:
         # a live elastic run publishes into the store mid-load: it grows
-        # and shrinks its worker set AND hot-swaps the served codebook
+        # and shrinks its worker set AND hot-swaps the served codebook.
+        # Over a process group it runs on every rank, over groups of its
+        # own made here, before any thread starts; rank 0 publishes.
         n_windows = args.points // args.tau
         schedule = ResizeSchedule(
-            [(max(1, n_windows // 3), max(1, TRAIN_WORKERS // 2)),
-             (max(2, 2 * n_windows // 3), TRAIN_WORKERS)])
+            [(max(1, n_windows // 3), max(1, m_train // 2)),
+             (max(2, 2 * n_windows // 3), m_train)])
         trainer = ElasticMeshExecutor(
-            schedule, network=InstantNetwork(), on_window=store.publisher(),
-            publish_every=args.publish_every, max_workers=TRAIN_WORKERS,
-            tracer=tracer, metrics=metrics, device=dev)
+            schedule, network=InstantNetwork(),
+            on_window=store.publisher() if leader else _no_publish,
+            publish_every=args.publish_every, max_workers=m_train,
+            tracer=tracer, metrics=metrics,
+            group=None if group is None else process_group.world_group(),
+            device=dev)
+        trainer.prepare(m_train)
         eval_data = data[:, : min(100, args.points)]
 
         def train() -> None:
@@ -232,6 +275,15 @@ def run_vq(args, *, codebook: torch.Tensor | None = None,
                 trainer_err.append(e)
 
         trainer_thread = threading.Thread(target=train, name="train-publish")
+    if not leader:
+        return _follow(lookup, trainer, trainer_thread, trainer_err)
+
+    net_kw = {}
+    if args.network == "fixed":
+        net_kw["latency_ticks"] = args.latency
+    elif args.network == "geometric":
+        net_kw["p_delay"] = args.p_delay
+    network = get_network(args.network, **net_kw)
 
     t0 = time.perf_counter()
     with QuantizeService(store, lookup,
@@ -373,10 +425,44 @@ def run_lm(args) -> LmRun:
     return LmRun(0, cfg, params, tokens, init_s, prefill_ms, decode_ms, tok_s)
 
 
+def run_process(args) -> int:
+    """The VQ service across the torchrun world (joined here, or the world
+    this process is already in): rank 0 serves and prints, the others
+    follow; returns the run's exit code, every rank the same."""
+    from repro_torch.kernels import vq_assign
+    own = not process_group.in_world()
+    world = (process_group.init(device=args.device) if own
+             else process_group.current())
+    try:
+        group = process_group.world_group()
+        quiet = (contextlib.redirect_stdout(io.StringIO()) if world.rank
+                 else contextlib.nullcontext())
+        with quiet:
+            run = run_vq(args, group=group, dev=world.device)
+        st = run.stats
+        mine = (run.rc, (st.flushes, st.warmups, st.failed) if st else None,
+                vq_assign.launches_assign)
+        every = process_group.all_gather_object(mine, group)
+        if world.rank == 0 and all(e[1] for e in every):
+            print("per rank: flushes "
+                  f"{[e[1][0] for e in every]}, warmups "
+                  f"{[e[1][1] for e in every]}, failed "
+                  f"{[e[1][2] for e in every]}, assign launches "
+                  f"{[e[2] for e in every]}", flush=True)
+        process_group.barrier(group)
+    finally:
+        if own:
+            process_group.destroy()
+    return max(e[0] for e in every)
+
+
 def main(argv=None) -> int:
     device_lib.pin_full_f32()
     args = parse_args(argv)
     if args.mode == "vq":
+        from repro_torch.launch.train import in_torchrun_world
+        if in_torchrun_world():
+            return run_process(args)
         return run_vq(args).rc
     return run_lm(args).rc
 

@@ -98,12 +98,15 @@ the ranks as ``Topology.simulate`` splits workers, tier 1 over
 the ranks with its worker coordinate).  Every rank draws the same global
 inputs and keeps its own rows; rank 0 prints the report and the kernels'
 launches on every rank, and every rank exits with the run's code.  The
-sparse transport, ``--quorum``, ``--merge``, ``--chaos`` without kills,
+sparse transport, ``--quorum``, ``--merge``, ``--chaos``,
 ``--tier1-frac auto``, ``--trace``, ``--metrics`` and ``--profile`` run
-there (every rank observes its run; rank 0 writes the files).
-``--resize``, ``--resume`` and ``--chaos`` with kills (kills are elastic
-resizes) exit 2 naming ROADMAP item 9c-2.  ``--save-result OUT.pt``
-writes the run's ``w_shared``, curve and ticks (rank 0 in a world).
+there (every rank observes its run; rank 0 writes the files), and so do
+``--resize``, ``--resume`` and chaos kills: the elastic executor over the
+world (``ElasticMeshExecutor(group=)``), a count of M on ranks 0 .. M - 1,
+the ranks past it idle until a grow includes them, a kill leaving the
+last active rank idle; rank 0 writes the checkpoints and prints the resize
+events.  ``--save-result OUT.pt`` writes the run's ``w_shared``, curve and
+ticks (rank 0 in a world).
 
 ``--autotune {off,cache,search}`` picks the kernels' tiles
 (``kernels.autotune``; tiles change no bit) and ``--autotune-cache
@@ -129,6 +132,7 @@ from repro_torch.comm.sweep import acceptance_sparse_frac
 from repro_torch.configs import registry
 from repro_torch.data import synthetic
 from repro_torch.data.pipeline import DataConfig, lm_batch
+from repro_torch.distributed import process_group
 from repro_torch.engine import (ChaosNetwork, ChaosSchedule,
                                 Tier1BudgetController, Topology,
                                 get_executor, get_network)
@@ -297,13 +301,6 @@ def process_refusal(args, world_size: int) -> str | None:
     if args.workers != world_size:
         return (f"--workers {args.workers} must equal the world size "
                 f"{world_size} (one worker a rank)")
-    waits = [(bool(args.resize or args.resume), "--resize / --resume"),
-             (_chaos_kills(args), "--chaos with kills (a kill is an "
-                                  "elastic resize)")]
-    for bad, what in waits:
-        if bad:
-            return (f"one worker a process does not run {what} yet: ROADMAP "
-                    f"item 9c-2")
     return None
 
 
@@ -342,7 +339,6 @@ def run_process(args) -> int:
     """The mesh executor with one worker a process of the torchrun world
     (joined here, or the world this process is already in); returns the
     run's exit code (every rank the same)."""
-    from repro_torch.distributed import process_group
     own = not process_group.in_world()
     world = (process_group.init(device=args.device) if own
              else process_group.current())
@@ -410,9 +406,9 @@ def build_executor(args, dev: torch.device, *, tracer: Tracer | None = None,
             except ValueError:
                 raise ValueError(f"--tier1-frac must be a float or 'auto', "
                                  f"got {args.tier1_frac!r}") from None
-    if groups is not None:
+    elastic = bool(args.resize) or _chaos_kills(args)
+    if groups is not None and not elastic:
         # one worker a process: the transports over the world's groups
-        from repro_torch.distributed import process_group
         from repro_torch.engine.mesh import process_transport
         topology = process_group.current().topology
         transport = process_transport(
@@ -421,6 +417,10 @@ def build_executor(args, dev: torch.device, *, tracer: Tracer | None = None,
         kw["group"] = groups
         topology = None if topology.is_flat else topology
     else:
+        # the stacked transport; an elastic run over processes rebuilds it
+        # over each worker count's groups
+        if groups is not None:
+            kw["group"] = process_group.world_group()
         transport = comm.get_transport(
             args.transport, **({"frac": args.compress_frac}
                                if args.transport == "sparse" else {}))
@@ -459,7 +459,7 @@ def build_executor(args, dev: torch.device, *, tracer: Tracer | None = None,
     elif merge == "dynamic":
         kw.update(merge=merge, divergence_thresh=args.divergence_thresh,
                   max_stale=args.max_stale)
-    if not (args.resize or (chaos is not None and chaos.kill_events)):
+    if not elastic:
         return get_executor("mesh", network=network, transport=transport,
                             device=dev, **obs, **kw)
     # elastic: a schedule, or a chaos kill to shrink at
@@ -493,7 +493,7 @@ def run_vq(args, *, groups=None, dev: torch.device | None = None):
     executor = build_executor(args, dev, tracer=tracer, metrics=metrics,
                               profiler=profiler, groups=groups)
     # one worker a process: every rank observes its run, rank 0 writes
-    writer = groups is None or executor.worker == 0
+    writer = groups is None or process_group.current().rank == 0
     # armed before the run: a run that dies still leaves its files
     flusher = None
     if observe and writer:

@@ -21,12 +21,21 @@ rank runs the assign kernel on its part (the plain version on the CPU), so
 the serving read path and the training hot path share one kernel
 (``csrc/vq_delta.cu``).  ``plan()`` routes ``auto`` by the port's
 shared-memory budget (``ops.codebook_fits_smem``), which stands for the
-reference's ``codebook_fits_vmem``.  Serving across processes
-(``QuantizeService`` and ``launch/serve.py`` over a group) is ROADMAP item
-9c-2.
+reference's ``codebook_fits_vmem``.  ``QuantizeService`` serves over a
+group: rank 0 runs the service and hands every flush to the other ranks'
+``serve.service.follow`` loops, so every rank calls ``assign`` on the same
+arguments.
+
+A rank whose kernel raises still takes its part in the plan's collectives,
+with the failure sentinel (assignment -1, the min distance ``-inf`` in
+``shard_kappa``), and raises; a rank that finds the sentinel in the
+gathered assignments raises too, so a failure on any rank fails the call
+on every rank, and no rank is left waiting in a collective.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -147,14 +156,36 @@ class ShardedLookup:
         from repro_torch.distributed import process_group
         return process_group.group_rank(self.group)
 
+    def _local(self, fn, rows: int):
+        """This rank's ``fn()`` -> ``(assign, mind, None)``, or, when it
+        raises, ``(the failure sentinel, the exception)``: rows of -1 and
+        ``-inf`` for the plan's collectives to carry to every rank."""
+        try:
+            return (*fn(), None)
+        except Exception as e:  # noqa: BLE001 - raised after the collectives
+            return (torch.full((rows,), -1, dtype=torch.int32,
+                               device=self.device),
+                    torch.full((rows,), -math.inf, device=self.device), e)
+
+    @staticmethod
+    def _raise_failed(assign: torch.Tensor, err) -> None:
+        """Raise this rank's exception, or one naming another rank's
+        failure when the sentinel reached ``assign``."""
+        if err is not None:
+            raise err
+        if bool((assign < 0).any()):
+            raise RuntimeError("the lookup failed on another rank of its "
+                               "group")
+
     def _shard_batch(self, z, w):
         from repro_torch.distributed import process_group
         rows = z.shape[0] // self.n_shards
         r = self._rank()
-        a, m = ops.vq_assign(z[r * rows:(r + 1) * rows].contiguous(),
-                             w.contiguous())
+        a, m, err = self._local(lambda: ops.vq_assign(
+            z[r * rows:(r + 1) * rows].contiguous(), w.contiguous()), rows)
         a = process_group.all_gather(a, self.group).reshape(-1)
         m = process_group.all_gather(m, self.group).reshape(-1)
+        self._raise_failed(a, err)
         return a, m
 
     def _shard_kappa(self, z, w):
@@ -168,5 +199,10 @@ class ShardedLookup:
             # they never win the local argmin on the last shard
             w_l = torch.cat([w_l, w_l.new_full((pad, w.shape[1]),
                                                _PAD_FILL)])
-        a, m = ops.vq_assign(z.contiguous(), w_l.contiguous())
-        return min_tournament(m, a + r * k_local, self.group)
+        a, m, err = self._local(lambda: ops.vq_assign(z.contiguous(),
+                                                      w_l.contiguous()),
+                                z.shape[0])
+        index = a if err is not None else a + r * k_local
+        garg, gmin = min_tournament(m, index, self.group)
+        self._raise_failed(garg, err)
+        return garg, gmin

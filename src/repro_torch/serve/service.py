@@ -20,6 +20,18 @@ the flush thread's track and, per flush, the ``serve_flush_wall_s`` and
 ``serve_batch_fill`` histograms, the ``serve_queue_depth`` gauge and the
 ``serve_flushes``, ``serve_rows`` and ``serve_padded_rows`` counters
 (``serve_failed`` for a failed flush).
+
+Over a process group (a ``ShardedLookup(group=)`` of more than one shard)
+rank 0 owns the store, the queue, the flush thread and the load, and the
+other ranks run ``follow(lookup)``.  For every lookup call, the warm-ups'
+included, rank 0 broadcasts a header (kind, padded rows, real rows,
+codebook version, kappa, d), then the padded batch, and, when the version
+changed since its last call, the codebook; every rank then calls
+``lookup.assign`` on the same arguments.  ``stop`` sends a stop header
+after the queue drains.  A lookup that raises on any rank raises on every
+rank (``ShardedLookup`` carries the failure through its collectives): rank
+0's flush fails its futures, a follower counts it in ``failed``, and both
+go on to the next call, so no rank waits for one that left.
 """
 
 from __future__ import annotations
@@ -30,10 +42,17 @@ import time
 from concurrent.futures import Future
 
 import numpy as np
+import torch
 
 from repro_torch.obs import NULL_TRACER, MetricsRegistry, Tracer
 from repro_torch.serve.codebook_store import CodebookStore
 from repro_torch.serve.lookup import ShardedLookup
+
+
+#: A lookup call's header kinds (over a process group).
+FLUSH, WARMUP, STOP = 0, 1, 2
+#: The header: kind, padded rows, real rows, codebook version, kappa, d.
+HEADER = 6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +135,17 @@ class QuantizeService:
             raise ValueError(f"max_delay_s must be >= 0, got {max_delay_s}")
         self.max_delay_s = max_delay_s
         self.warmup = warmup
+        # over a process group: the lookup's group, the last codebook
+        # version the followers were sent, and whether they were stopped
+        self._group = self.lookup.group if self.lookup.n_shards > 1 else None
+        if self._group is not None:
+            from repro_torch.distributed import process_group
+            if process_group.group_rank(self._group) != 0:
+                raise ValueError(
+                    "over a process group rank 0 runs the service; the other "
+                    "ranks run serve.service.follow(lookup)")
+        self._sent_version = 0
+        self._followers_stopped = False
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.metrics = metrics
         self.stats = ServiceStats()
@@ -136,11 +166,18 @@ class QuantizeService:
             snap = self.store.latest()
             d = snap.w.shape[1]
             align = self.batch_align
-            for rows in sorted({align, -(-self.max_batch // align) * align}):
-                _, mind = self.lookup.assign(np.zeros((rows, d), np.float32),
-                                             snap.w_device)
-                mind.cpu()   # waits for the device
-                self.stats.warmups += 1
+            try:
+                for rows in sorted({align,
+                                    -(-self.max_batch // align) * align}):
+                    _, mind = self._lookup(np.zeros((rows, d), np.float32),
+                                           snap, WARMUP, 0)
+                    mind.cpu()   # waits for the device
+                    self.stats.warmups += 1
+            except Exception:
+                with self._cond:
+                    self._running = False
+                self._stop_followers()
+                raise
         self._thread = threading.Thread(target=self._flush_loop,
                                         name="quantize-flush", daemon=True)
         self._thread.start()
@@ -157,6 +194,38 @@ class QuantizeService:
         assert self._thread is not None
         self._thread.join()
         self._thread = None
+        self._stop_followers()
+
+    # -- over a process group -----------------------------------------------
+
+    def _announce(self, kind: int, rows: int = 0, real: int = 0,
+                  snap=None) -> None:
+        """Broadcast a lookup call's header to the followers."""
+        from repro_torch.distributed import process_group
+        kappa, d = snap.w.shape if snap is not None else (0, 0)
+        version = snap.version if snap is not None else 0
+        head = torch.tensor([kind, rows, real, version, kappa, d],
+                            dtype=torch.int64, device=self.lookup.device)
+        process_group.broadcast(head, 0, self._group)
+
+    def _stop_followers(self) -> None:
+        if self._group is not None and not self._followers_stopped:
+            self._announce(STOP)
+            self._followers_stopped = True
+
+    def _lookup(self, z: np.ndarray, snap, kind: int, real: int):
+        """``lookup.assign(z, snap's codebook)``; over a process group the
+        followers get the header, ``z`` and a changed codebook first."""
+        if self._group is None:
+            return self.lookup.assign(z, snap.w_device)
+        from repro_torch.distributed import process_group
+        self._announce(kind, z.shape[0], real, snap)
+        zt = process_group.broadcast(
+            torch.as_tensor(z, device=self.lookup.device), 0, self._group)
+        if snap.version != self._sent_version:
+            process_group.broadcast(snap.w_device, 0, self._group)
+            self._sent_version = snap.version
+        return self.lookup.assign(zt, snap.w_device)
 
     def __enter__(self) -> "QuantizeService":
         return self.start()
@@ -241,7 +310,7 @@ class QuantizeService:
                 if pad:
                     z = np.concatenate([z, np.zeros((pad, z.shape[1]),
                                                     np.float32)])
-                assign, mind = self.lookup.assign(z, snap.w_device)
+                assign, mind = self._lookup(z, snap, FLUSH, rows)
                 assign = assign.cpu().numpy()
                 mind = mind.cpu().numpy()
         except Exception as e:  # noqa: BLE001 - the fault goes to the callers
@@ -279,3 +348,42 @@ class QuantizeService:
             self.stats.full_flushes += 1
         else:
             self.stats.deadline_flushes += 1
+
+
+def follow(lookup: ShardedLookup) -> ServiceStats:
+    """A follower rank of a service over ``lookup``'s group: every lookup
+    call rank 0's ``QuantizeService`` announces, until its stop header.
+    Returns this rank's counts: ``flushes`` and ``warmups`` (its assign
+    calls), ``rows`` and ``padded_rows``, and ``failed`` calls."""
+    from repro_torch.distributed import process_group
+    group, dev = lookup.group, lookup.device
+    if lookup.n_shards < 2 or process_group.group_rank(group) == 0:
+        raise ValueError("follow runs on ranks 1.. of a sharded lookup's "
+                         "group; rank 0 runs the QuantizeService")
+    stats = ServiceStats()
+    w, version = None, 0
+    while True:
+        head = process_group.broadcast(
+            torch.zeros(HEADER, dtype=torch.int64, device=dev), 0, group)
+        kind, rows, real, ver, kappa, d = head.tolist()
+        if kind == STOP:
+            return stats
+        z = process_group.broadcast(
+            torch.empty((rows, d), dtype=torch.float32, device=dev), 0,
+            group)
+        if ver != version:
+            w = process_group.broadcast(
+                torch.empty((kappa, d), dtype=torch.float32, device=dev), 0,
+                group)
+            version = ver
+        try:
+            lookup.assign(z, w)
+        except Exception:  # noqa: BLE001 - rank 0 fails the flush's futures
+            stats.failed += 1
+            continue
+        if kind == WARMUP:
+            stats.warmups += 1
+        else:
+            stats.flushes += 1
+            stats.rows += real
+            stats.padded_rows += rows - real

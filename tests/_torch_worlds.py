@@ -140,15 +140,17 @@ def executor_runs(rank: int, world, ins: dict) -> dict:
     run("quant_ring", "delta", quant)
     out["cloud"] = {name: cloud_run(name, flat, hier, w0, data, ev)
                     for name in CLOUD_MODES}
-    refusals = {}
-    try:
-        MeshExecutor(InstantNetwork(), group=flat,
-                     device="cpu").run_segment("delta", w0, data, ev,
-                                               tau=TAU)
-    except ValueError as e:
-        refusals["elastic"] = str(e)
-    out["refusals"] = refusals
+    # an elastic segment over the group, its step schedule from t0
+    ex = MeshExecutor(InstantNetwork(), transport="ring", group=flat,
+                      device="cpu")
+    seg = ex.run_segment("delta", w0, data, ev, tau=TAU, t0=SEGMENT_T0)
+    out["segment"] = (_np(seg.w_shared), _np(seg.distortion),
+                      _np(seg.wall_ticks), ex.last_comm)
     return out
+
+
+#: The global step an elastic segment of ``executor_runs`` starts from.
+SEGMENT_T0 = 30
 
 
 #: The process-mode configurations ``cloud_config`` builds, each held
@@ -412,4 +414,160 @@ def cloud_checks(rank: int, world, ins: dict) -> dict:
                  lengths=_t(ins["lengths"]))
     out["eq9"] = (_np(res.w_shared), _np(res.distortion),
                   _np(res.wall_ticks), ex.last_comm)
+    return out
+
+
+# -- elastic runs and serving over processes ------------------------------------
+
+#: The elastic runs' schedule: 4 -> 2 -> 4 (and, over 2 hosts of 2 ranks,
+#: whole host groups leave and return).
+ELASTIC_SCHEDULE = ((20, 2), (40, 4))
+#: Periodic checkpoints every 10 windows: 30 falls inside the shrunk
+#: segment, with ranks 2-3 idle until the grow at 40.
+ELASTIC_EVERY = 10
+#: The steps a resume starts from: both resizes and the periodic one.
+ELASTIC_RESUMES = (20, 30, 40)
+#: A kill of worker 1 at window 10 shrinks 4 -> 3; the late row of index 1
+#: stays with the survivor that holds it (the reference's quirk).
+ELASTIC_CHAOS = ((10, "kill", 1), (14, "slow", 0, 3), (30, "partition", 0, 2))
+ELASTIC_FRAC = 1.0 / 32.0   # the sparse tier 1 of the host-group run
+
+
+def _result(ex, res) -> tuple:
+    return (_np(res.w_shared), _np(res.distortion), _np(res.wall_ticks),
+            ex.last_comm,
+            [(e.window, e.old_m, e.new_m, e.late_points, e.cause,
+              e.checkpoint_step) for e in ex.resize_events],
+            ex.last_late_worker_windows)
+
+
+def elastic_config(name: str):
+    """``(schedule, executor keywords)`` of an elastic run over 4 workers,
+    stacked; ``elastic_runs`` runs each over the world."""
+    from repro_torch.engine import ChaosNetwork, ChaosSchedule, \
+        InstantNetwork
+    if name == "chaos":
+        sched = ChaosSchedule(ELASTIC_CHAOS, hosts=2)
+        return (), {"network": ChaosNetwork(InstantNetwork(), sched),
+                    "chaos": sched, "merge": "quorum"}
+    if name == "hosts":
+        topo = Topology.from_spec(4, hosts=2)
+        return ELASTIC_SCHEDULE, {
+            "topology": topo, "transport": comm.HierarchicalTransport(
+                "xla", comm.SparseTransport(ELASTIC_FRAC), topology=topo)}
+    return ELASTIC_SCHEDULE, {}
+
+
+def elastic_runs(rank: int, world, ins: dict, ckdir: str) -> dict:
+    """``ElasticMeshExecutor`` over the world: the 4 -> 2 -> 4 run with
+    its checkpoints (rank 0 writes them under ``ckdir/flat``), a resume
+    from each, a resume from the reference's checkpoint in
+    ``ckdir/ref``, a chaos kill and whole host groups."""
+    import shutil
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.engine import ElasticMeshExecutor
+    w0, data, ev = _t(ins["w0"]), _t(ins["data"]), _t(ins["eval"])
+    g = process_group.world_group()
+    out: dict = {}
+
+    def run(key, name="flat", **kw):
+        sched, cfg = elastic_config(name)
+        ex = ElasticMeshExecutor(sched, group=g, device="cpu", **cfg, **kw)
+        out[key] = _result(ex, ex.run("delta", w0, data, ev, tau=TAU))
+
+    run("flat", checkpointer=Checkpointer(os.path.join(ckdir, "flat"),
+                                          keep=10),
+        checkpoint_every=ELASTIC_EVERY)
+    for step in ELASTIC_RESUMES:
+        # a directory holding only that step: a resume restores the latest
+        where = os.path.join(ckdir, f"resume_{step}")
+        if rank == 0:
+            name = f"step_{step:09d}"
+            shutil.copytree(os.path.join(ckdir, "flat", name),
+                            os.path.join(where, name))
+        process_group.barrier(g)
+        run(f"resume_{step}", checkpointer=Checkpointer(where), resume=True)
+    run("from_ref", checkpointer=Checkpointer(os.path.join(ckdir, "ref")),
+        resume=True)
+    run("chaos", "chaos")
+    run("hosts", "hosts")
+    return out
+
+
+def _served(futures) -> tuple:
+    """The responses' assignments, min distances and versions, or the
+    exception of each future that failed."""
+    got = []
+    for f in futures:
+        try:
+            got.append(f.result(timeout=60))
+        except Exception as e:  # noqa: BLE001 - the test reads it
+            got.append(e)
+    return got
+
+
+def serve_runs(rank: int, world, ins: dict, argvs: list) -> dict:
+    """``QuantizeService`` over the world under both sharded plans (rank 0
+    serves, the others follow), a codebook published mid-load; a lookup
+    that raises on rank 2; then ``launch.serve.main`` under a torchrun-like
+    environment."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serve import (CodebookStore, QuantizeService,
+                                   ShardedLookup, follow)
+    g = process_group.world_group()
+    out: dict = {}
+    queries = [_t(q).numpy() for q in ins["queries"]]
+    half = len(queries) // 2
+
+    def leg(key, mode, publish=True):
+        lookup = ShardedLookup(mode=mode, group=g, device="cpu")
+        if rank:
+            out[key] = follow(lookup)
+            return
+        # every call's padded batch, codebook and result, held against the
+        # direct plan on the same arguments
+        calls, assign = [], lookup.assign
+
+        def recorded(z, w):
+            a, m = assign(z, w)
+            calls.append((_np(z), _np(w), _np(a), _np(m)))
+            return a, m
+
+        lookup.assign = recorded
+        store = CodebookStore(ins["w"], device="cpu")
+        with QuantizeService(store, lookup, max_delay_s=1e-3) as svc:
+            got = _served([svc.submit(q) for q in queries[:half]])
+            if publish:
+                store.publish(ins["w2"])
+            got += _served([svc.submit(q) for q in queries[half:]])
+        out[key] = (got, svc.stats, svc.batch_align, svc.max_batch, calls)
+
+    for mode in ("auto", "shard_batch", "shard_kappa"):
+        leg(mode, mode)
+    # rank 2's kernel raises on its third call: the first flush after the
+    # two warm-ups
+    real, calls = ops.vq_assign, [0]
+
+    def flaky(z, w):
+        calls[0] += 1
+        if rank == 2 and calls[0] == 3:
+            raise RuntimeError("deliberate kernel failure on this rank")
+        return real(z, w)
+
+    ops.vq_assign = flaky
+    try:
+        leg("failing", "shard_kappa", publish=False)
+    finally:
+        ops.vq_assign = real
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world.world_size),
+                      LOCAL_RANK=str(rank))
+    runs = []
+    for argv in argvs:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            code = serve.main(argv)
+        runs.append((code, buf.getvalue()))
+    out["launcher"] = runs
     return out

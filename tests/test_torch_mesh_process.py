@@ -12,8 +12,9 @@ d)`` window and a ``(1, n, d)`` eval give row i of the ``(M, ...)`` ones,
 so the curve does too.  The cloud modes (the sparse transport flat and as
 tier 1, the quorum and dynamic merges, chaos, and the tracer, metrics and
 profiler) are each held against the stacked run of the same configuration
-and the reference's mesh; elastic segments wait for ROADMAP item 9c-2 and
-raise naming it.
+and the reference's mesh; an elastic segment over the group (its step
+schedule from a global step) equals the stacked ring's segment bit for
+bit.
 """
 
 import jax
@@ -206,11 +207,19 @@ def test_quantized_ring_over_group_equals_stacked(runs):
     assert last == stacked_comm
 
 
-@pytest.mark.parametrize("mode", ["elastic"])
-def test_modes_waiting_for_9c_raise_naming_it(runs, mode):
-    _, outs = runs
-    for o in outs:
-        assert "item 9c-2" in o["refusals"][mode]
+@pytest.mark.parametrize("t0", [worlds.SEGMENT_T0])
+def test_elastic_segment_over_the_group_equals_stacked(runs, t0):
+    ins, outs = runs
+    _same_on_every_rank(outs, "segment")
+    w, curve, ticks, last = outs[0]["segment"]
+    ex = MeshExecutor(InstantNetwork(), transport="ring", device="cpu")
+    res = ex.run_segment("delta", *(torch.from_numpy(ins[k])
+                                     for k in ("w0", "data", "eval")),
+                         tau=TAU, t0=t0)
+    np.testing.assert_array_equal(w, res.w_shared.numpy())
+    np.testing.assert_array_equal(curve, res.distortion.numpy())
+    np.testing.assert_array_equal(ticks, res.wall_ticks.numpy())
+    assert last == ex.last_comm
 
 
 def _ref_cloud(ins, mode):

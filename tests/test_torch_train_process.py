@@ -6,8 +6,9 @@ world itself is ``process_group.spawn``'s, on a ``FileStore``).
 Rank 0 prints one summary and every rank exits with the run's code: the
 sparse transport (flat and as tier 1), the quorum and dynamic merges,
 chaos without kills, the tier-1 controller and the observed and profiled
-run (rank 0 writes the files) exit 0; ``--resize`` and a chaos kill, which
-wait for ROADMAP item 9c-2, exit 2 naming it.  The dry run's cells run at
+run (rank 0 writes the files) exit 0, and so do ``--resize`` and a chaos
+kill (the elastic executor over the world; rank 0 prints the resize
+events).  The dry run's cells run at
 a shrunk shape (its module constants set in the ranks) and must print
 every rank's record.
 """
@@ -77,15 +78,26 @@ def test_process_run_prints_one_summary_and_exits_0(world):
 
 
 @pytest.mark.parametrize("i,needle", [(3, "must equal the world size 2"),
-                                      (4, "runs in one process"),
-                                      (5, "--chaos with kills"),
-                                      (6, "--resize / --resume")])
+                                      (4, "runs in one process")])
 def test_refused_combinations_exit_2(world, i, needle):
     for r in range(2):
         assert world[r][i][0] == 2
     assert needle in world[0][i][1]
-    if i >= 5:
-        assert "ROADMAP item 9c-2" in world[0][i][1]
+
+
+@pytest.mark.parametrize("i,needles", [
+    (5, ["chaos: seed=7: kill@", "resize @window", "M 2 -> 1",
+         "late points merged: 10"]),
+    (6, ["resize @window 10: M 2 -> 1 (late points merged: 10"])])
+def test_elastic_runs_exit_0_with_rank_0s_resize_lines(world, i, needles):
+    for r in range(2):
+        assert world[r][i][0] == 0
+    out = world[0][i][1]
+    assert out.count("done: C(final)=") == 1
+    assert "one worker a process" in out and "launches per rank:" in out
+    for needle in needles:
+        assert needle in out
+    assert world[1][i][1] == ""                # rank 0 prints
 
 
 @pytest.mark.parametrize("i,needles", [
