@@ -244,14 +244,14 @@ PyTorch built for CUDA:
      ``dist.all_reduce``'s on the same group (in turns), one hop's device
      time and the one-card fold's; G2, ``torchrun --standalone
      --nproc-per-node 8 -m repro_torch.launch.train --scheme delta
-     --transport ring`` at the slice's width cut to 100 windows, its
+     --transport ring`` at the slice's width cut to 52 windows, its
      codebook == the stacked ring run's bit for bit (first checking that a
      (1, tau, d) window launch and a (1, n, d) eval give row i of the
      (8, ...) ones; where they do not, the legs are held at rtol=1e-4,
-     atol=1e-6), each rank's launches read from the launcher (100 window
-     and 2,800 hop launches a rank); then, through the executor in G1's
+     atol=1e-6), each rank's launches read from the launcher (52 window
+     and 1,456 hop launches a rank); then, through the executor in G1's
      world of 8 (the launcher's inputs, no torchrun start of ~30 s each),
-     the dense gloo transport on 100 windows at rtol=1e-4 against the
+     the dense gloo transport on 52 windows at rtol=1e-4 against the
      stacked ring and ``average`` over the ring on 60 windows bit for bit;
      each window's wall beside the stacked run's; G3,
      eq. 9 in 4 processes for 1,200 ticks over the group ring on the
@@ -304,13 +304,15 @@ PyTorch built for CUDA:
      (d_model 4,096, GQA 32/8, d_ff 14,336, vocab 49,152, bf16) with the
      depth cut to 8 of 36 layers (2.148 B params; AdamW's 12 B a parameter
      is 99 GB at 36) and the launcher's defaults (8 x 64 tokens, lr 1e-3,
-     AdamW, the state donated), 60 steps: every loss and grad norm finite,
+     AdamW, the state donated), 40 steps (60 until item 26): every loss
+     and grad norm finite,
      the last 10 steps' mean loss below the first 10's, the peak memory;
      then 5 steps timed and traced (ms a step, tok/s, busy share, the
      largest kernels) beside the bound (6 N T FLOPs at the bf16 peak plus
      AdamW's 22 B a parameter at the HBM rate); hymba-1.5b, mamba2-2.7b
      and whisper-tiny at full depth and olmoe and internvl2 at 2 layers,
-     full width, 10 steps each (finite, the params moved); (b) granite-8b
+     full width, 5 steps each (10 until item 26; finite, the params
+     moved); (b) granite-8b
      at 2 layers (838.9 M params, an 8.4 GB checkpoint; the free disk
      printed): two straight 20-step runs bit for bit, and 20 steps with
      ``--ckpt-every 10``, the step-20 checkpoint removed, ``--resume`` from
@@ -334,18 +336,18 @@ PyTorch built for CUDA:
      built as the launcher builds it over the world's groups, held
      against the stacked run of the same configuration, with every rank's
      launches counted: G7, ``--transport sparse --compress-frac 0.01``,
-     200 windows (cut), codebook and curve == the stacked sparse run bit
+     100 windows (cut), codebook and curve == the stacked sparse run bit
      for bit, 293,552 B of merge wire a merge, a top-k launch a merge, and
      eq. 9 over sparse in 4 processes for 1,200 ticks (cut) == the stacked
      run; G8, ``--hosts 2 --transport ring`` with the default sparse tier 1
-     (k = 1,024), 200 windows, == the stacked run bit for bit (the ring
+     (k = 1,024), 100 windows, == the stacked run bit for bit (the ring
      tier 0 keeps the stacked fold), 3,145,728 / 8,192 B a window; G9,
-     ``--quorum --network geometric --p-delay 0.2``, 200 windows, late
+     ``--quorum --network geometric --p-delay 0.2``, 100 windows, late
      worker-windows == the stacked run's and the numpy late matrix's; G10,
      ``--merge dynamic`` over the ring, 100 windows each (cut): at
      threshold 0 == ``--scheme delta`` over the ring bit for bit, at item
      17's T every rank's trigger bits == the stacked run's; G11, the
-     tier-1 controller from frac 0.5 in chunks of 100 windows, every
+     tier-1 controller from frac 0.5 in chunks of 50 windows, every
      rank's frac sequence == the stacked run's; G12, ``--chaos
      7:kill=0,slow=1,part=1 --hosts 2``, late worker-windows == the
      stacked run's and the schedule's matrix; G13, G7's width over the
@@ -361,7 +363,8 @@ PyTorch built for CUDA:
      item 24, in one spawned world of 8 ranks on the card, each leg held
      against the stacked run of the same configuration, every rank's
      launches counted: G14, ``--resize 100:4,200:8 --ckpt-dir`` (E1's shape
-     cut to 3,000 points a worker, 349 windows): codebook and curve == the
+     cut to 2,500 points a worker, 299 windows; 3,000 until item 26):
+     codebook and curve == the
      stacked run bit for bit or, where gloo's sums take another order,
      the curve within rtol 1e-4 (its largest gap printed), resize events,
      late points and the whole ``CommLog`` (the ``late_delta`` record) ==
@@ -370,7 +373,7 @@ PyTorch built for CUDA:
      each resize's ``wall_s`` beside the stacked run's; G15, ``--resume``
      from G14's step-200 checkpoint and from its step-100 one (ranks 4-7
      idle until the grow), each == the straight G14 run's suffix bit for
-     bit; G16, ``--chaos 7:kill=2,slow=1,part=1`` on 200 windows, the kills
+     bit; G16, ``--chaos 7:kill=2,slow=1,part=1`` on 100 windows, the kills
      resizes 8 -> 7 -> 6, events and late worker-windows == the stacked
      run's; G17, ``--hosts 2 --tier1-transport xla --resize 50:4,100:8``,
      200 windows, per-tier bytes == the stacked run's and the late delta
@@ -388,8 +391,42 @@ PyTorch built for CUDA:
      eq. 9 went from 125,000 ticks to 25,000, O1's four runs from 12,500
      windows to 2,500 and its eq.-9 pairs from 20,000 ticks to 5,000, the
      sparse and ring eq.-9 legs, eq. 9 over the hierarchy and E6 from
-     20,000 ticks to 10,000, and G2 from 200 windows to 100;
-  26. times each kernel (the delta sweep also at each kchunk the tuner
+     20,000 ticks to 10,000, and G2 from 200 windows to 100; to pay for
+     item 26, G2's ring and gloo legs went to 52 windows, item 24's legs
+     from 200 windows to 100 and G16 from 200 to 100;
+  26. runs the LM's placement over processes (``placement_legs``, queue
+     1, item 8b-2), after item 23, in one spawned world of 2 ranks sharing
+     the card (gloo over CUDA tensors; NCCL refuses two ranks on one
+     device) and one torchrun start, with no kernel of the port's own (the
+     reference compiles this path with XLA; every rank's counts 0), each
+     leg against the one-process run: L1, ``torchrun --standalone
+     --nproc-per-node 2 -m repro_torch.launch.train --mode lm --arch
+     granite_8b --smoke --data-axis 2``, 20 steps with ``--ckpt-every 10``
+     (the straight run through the launcher's torchrun path inside the
+     world), the step-20 checkpoint moved aside and ``--resume`` from step
+     10 under torchrun == the straight run bit for bit, rank 0's lines the
+     reference's; L2, granite-8b at its published width through ``run_lm``
+     over the (2, 1) grid, its depth the smaller of what the memory rule
+     allows (two AdamW replicas on the card, the gloo staging on the host)
+     and PL_L2_LAYERS, 10 steps (finite, the ranks equal, ms a step beside
+     the one-process run at that depth on rank 0, each rank's peak), the
+     f32 bucket's all-reduce timed alone, and in f32 with TF32 off 3 SGD
+     steps == the one-process step on the whole batch at rtol=1e-4,
+     atol=1e-5 max|x|; L3, olmoe-1b-7b at its published config and full
+     depth (64 experts, 32 a rank, dropless) with ``moe_ep`` over a (1, 2)
+     grid: forward logits == the one-process forward within LM_DECODE_REL,
+     each rank's expert leaves == its ``local_shard``, and in f32 at 2
+     layers logits, loss and every grad == the one-process ``moe_apply``
+     run (L2's rule); L4, granite-8b at its published width and 4 layers,
+     2 stages of 2 over a (2, 1, 1) grid, 4 microbatches of 8 x 64 tokens:
+     the bf16 loss within PP_BF16_RTOL of the plain loss, in f32 the loss
+     and grads == the plain ones (L2's rule), a forward + backward's wall
+     beside the one-process one; L5, ``python -m
+     repro_torch.launch.dryrun --all`` as a subprocess beside the world:
+     exit 0, 80 records, the skips ``cell_applicable``'s, granite-8b x
+     train_4k at 16x16 printed, and the roofline's LM terms on one device
+     at item 22's decode and item 23's step;
+  27. times each kernel (the delta sweep also at each kchunk the tuner
      weighs; the assign kernel at the flush, the eval and (8, 1) x 4096 x
      3072; the blocked kernel at (8, 1) x 4096 x 3072 with and without the
      epilogue and at (8, 1) x 4096 x 128; the window kernel also at M = 1,
@@ -408,7 +445,7 @@ PyTorch built for CUDA:
      the 3072-wide eq.-9 path with torch.profiler (device time by kernel, the
      device's idle share), after timing 200 dense and ring sync windows in
      turns on the host clock;
-  27. prints one ``{"kernels": [...]}`` line (window, delta, assign,
+  28. prints one ``{"kernels": [...]}`` line (window, delta, assign,
       top-k, blocked, ring and the ring's hop kernel), the card line
       again, and last
       ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -426,6 +463,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -533,10 +571,11 @@ PG_WORLDS = (4, 8)       # G1's worlds
 PG_N = KAPPA * D         # G1's payload: a window's displacement
 PG_RAGGED = 1_000_003    # G1's ragged payload, at 4 ranks
 PG_ITERS = 5             # G1's timed calls a reading
-G2_POINTS = 1_000        # 100 windows of the 8-process ring run (cut from
+G2_POINTS = 520          # 52 windows of the 8-process ring run (cut from
                          # 200, 97 ms a window on an H100 at 700 W, to pay
-                         # for item 25)
-G2_XLA_POINTS = 1_000    # 100 windows of the 8-process gloo run, cut
+                         # for item 25, then from 100 for item 26; 8 x 520
+                         # points still seed kappa = 4,096)
+G2_XLA_POINTS = 520      # 52 windows of the 8-process gloo run, cut
 G2_AVG_POINTS = 600      # 60 windows of the 8-process average run, cut
 # (M * points >= KAPPA: w0 is KAPPA of the points)
 G3_M, G3_TICKS = 4, 1_200  # eq. 9 in 4 processes, cut
@@ -544,15 +583,20 @@ G4_KAPPAS = (4096, 4099)   # the lookup plans' codebooks, one ragged
 G5_BATCH = 1024          # the 2 x 2 minibatch step's points
 # item 24, the paper's cloud merges over processes (8 ranks, G7's eq. 9 in
 # G3_M ranks for G3_TICKS ticks): windows cut for the gloo handshakes
-CLOUD_POINTS = 2_000     # 200 windows a leg (G7-G9, G11-G13), cut
+CLOUD_POINTS = 1_000     # 100 windows a leg (G7-G9, G11-G13), cut (from
+                         # 200 to pay for item 26: 0.8-1.0 s a window of
+                         # the 8 ranks' legs together on an H100 at 700 W)
+G11_PUBLISH = 50         # G11's windows a chunk: 2 chunks in 100 windows
 G10_POINTS = 600         # 60 windows a G10 leg (3 group rings a window), cut
 G12_CHAOS = "7:kill=0,slow=1,part=1"   # no kill: G16 (item 25) kills
 # item 25, elastic runs and serving over processes (8 ranks): E1's, E4's
 # and E5's shapes cut for the gloo handshakes (27-40 ms a window, item 24)
-G14_POINTS = 3_000       # 300 windows a worker (E1: 12,500)
+G14_POINTS = 2_500       # 250 windows a worker (E1: 12,500; 300 until item
+                         # 26)
 G14_RESIZE = "100:4,200:8"
 G15_FROM = (200, 100)    # G14's checkpoints a resume starts from
-G16_POINTS = 2_000       # 200 windows (E5's chaos spec at full depth: 12,500)
+G16_POINTS = 1_000       # 100 windows (E5's chaos spec at full depth: 12,500;
+                         # 200 until item 26, 55-62 ms a window)
 G17_POINTS = 2_000       # 200 windows (E4: 2,000)
 G17_RESIZE = "50:4,100:8"
 G19_POINTS = 2_000       # S1's trainer cut to 200 windows a worker
@@ -585,18 +629,37 @@ LM_BF16_PEAK = 989e12          # bf16 dense FLOP/s of an H100 SXM at 700 W
 # replicas (granite: M = 2, every replica's AdamW state is kept; whisper:
 # the paper's 8)
 LMT_LAYERS = 8                 # granite-8b: 2.148 B params, 25.8 GB state
-LMT_STEPS = 60
+LMT_STEPS = 40                 # 60 until item 26
 LMT_TIMED = 5                  # steps timed and traced after the run
 LMT_OTHERS = (("hymba_1p5b", None), ("mamba2_2p7b", None),
               ("whisper_tiny", None), ("olmoe_1b_7b", 2),
               ("internvl2_76b", 2))
-LMT_OTHER_STEPS = 10
+LMT_OTHER_STEPS = 5            # 10 until item 26
 LMT_CUT = 2                    # (b) and (d): 838.9 M params
 LMT_DET_STEPS = 20             # (b): --ckpt-every 10, then --resume
 LMT_WINDOWS = 2                # (d): windows a merge
 LMT_TAU = 2
 LMT_WINDOW_M = (("granite_8b", 2), ("whisper_tiny", 8))
 LMT_TOPK_M = 4                 # (e): the top-k kernel's timed payload rows
+# item 26, the LM's placement over processes: 2 ranks sharing the card over
+# gloo (NCCL refuses two ranks on one device)
+PL_L1_STEPS = 20               # L1: --ckpt-every 10, then --resume from 10
+PL_L2_STEPS = 10
+# L2's depth: the memory rule allows 7 of item 23's 8 layers (1.93 B params),
+# but gloo moves the f32 bucket at 0.8-1.0 GB/s between two ranks on one
+# H100 at 700 W (7.72 GB in 7.8-9.7 s): 10 s a step, 100 s for 10 steps, past
+# the item's 150 s; 2 layers take ~3.7 s a step
+PL_L2_LAYERS = 2
+PL_CARD_BYTES_A_PARAM = 16     # L2: AdamW's 12 B, the bucket's 4 B
+PL_RANK_SLACK = 3 << 30        # L2: a rank's context, activations, caches
+PL_ALLREDUCE_REPS = 1          # L2: the bucket's all-reduce, timed alone
+PL_SGD_STEPS = 3               # L2: the f32 steps against one process
+PL_SGD_LR = 0.1
+PL_L3_ROWS, PL_L3_SEQ = 2, 64  # L3: the batch of the EP forward
+PL_L4_LAYERS = 4               # L4: 2 stages of 2 layers
+PL_L4_MICRO = 4
+PL_L4_ROWS, PL_L4_SEQ = 8, 64
+PP_BF16_RTOL = 2e-3            # L4: the reference's bar on the bf16 loss
 # read before each call kernel_ms times: 20 times the H100's 50 MB L2, and
 # ~0.3 ms of device time in which the host enqueues the call
 L2_FLUSH_BYTES = 1 << 30
@@ -2670,7 +2733,7 @@ def _cloud_world(rank: int, world, cfg: dict) -> dict:
                 ex = MeshExecutor(net, transport=process_transport(
                     "xla", g, topo, tier1="sparse", tier1_frac=CTL_FRAC0),
                     tier1_controller=Tier1BudgetController(net),
-                    publish_every=CTL_PUBLISH, group=g, device=dev)
+                    publish_every=G11_PUBLISH, group=g, device=dev)
             else:
                 with quiet:
                     ex = train.build_executor(args, dev, groups=g)
@@ -2956,7 +3019,7 @@ def cloud_process_legs(dev, w0, data, eval_data) -> None:
     ex11 = MeshExecutor(net, transport=comm.HierarchicalTransport(
         "xla", comm.get_transport("sparse", frac=CTL_FRAC0), topology=topo),
         tier1_controller=Tier1BudgetController(net),
-        publish_every=CTL_PUBLISH, device=dev)
+        publish_every=G11_PUBLISH, device=dev)
     a11 = train.parse_args(legs["G11"])
     w011, data11, eval11 = train.make_inputs(a11, dev)
     device_lib.synchronize(dev)
@@ -3424,6 +3487,551 @@ def _served_run(leg: dict, dev):
 
     return types.SimpleNamespace(report=leg["report"],
                                  store=types.SimpleNamespace(get=get))
+
+
+# -- item 26: the LM's placement over processes --------------------------------
+
+def _allclose_ratio(got, want, rtol: float = 1e-4) -> float:
+    """max |got - want| / (atol + rtol |want|) with atol = 1e-5 max |want|
+    (item 23 (c)'s rule): <= 1 holds."""
+    want = want.float()
+    got = got.float()
+    atol = 1e-5 * float(want.abs().max())
+    den = atol + rtol * want.abs()
+    return float(((got - want).abs() / den.clamp(min=1e-30)).max())
+
+
+def _tree_ratio(got, want, rtol: float = 1e-4) -> float:
+    from repro_torch.optim.optimizers import tree_leaves
+    return max(_allclose_ratio(a, b, rtol)
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def _lm_layers_params(cfg, layers: int) -> int:
+    import dataclasses
+    return dataclasses.replace(cfg, n_layers=layers).n_params()
+
+
+def _placement_world(rank: int, world, cfg: dict) -> dict:
+    """Item 26's legs on this rank of a world of 2 (gloo over CUDA tensors,
+    the ranks sharing the card): L1's straight run through the launcher's
+    torchrun path, L2 data parallelism (``run_lm`` over the (2, 1) grid, the
+    bucket's all-reduce alone, rank 0's one-process run at the same depth,
+    3 f32 SGD steps against the one-process step on the whole batch), L3
+    expert parallelism over a (1, 2) grid and L4 the pipeline over a (2, 1,
+    1) grid, each against the one-process run on this rank.  Returns this
+    rank's readings."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch import device as device_lib
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    from repro_torch.distributed import process_group, sharding
+    from repro_torch.launch import train
+    from repro_torch.models import common
+    from repro_torch.models.api import get_api
+    from repro_torch.optim import optimizers
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.topology import grid_groups, make_host_groups
+    from repro_torch.training import pipeline, steps
+
+    device_lib.pin_full_f32()
+    if cfg["smoke"]:                   # the CPU rehearsal's widths
+        registry.get_config = registry.get_smoke_config
+    dev = world.device
+    cuda = dev.type == "cuda"
+    cpu = [] if cuda else ["--device", "cpu"]
+    zero_counts()
+    out: dict = {}
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def reset_peak():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak_gib():
+        return (torch.cuda.max_memory_allocated(dev) / 2**30 if cuda
+                else None)
+
+    def timed(fn, reps: int = 3) -> tuple:
+        """(the last result, the median wall ms of ``reps`` calls after a
+        warm-up, each between device syncs; None with no reps)."""
+        res = fn()
+        if not reps:
+            return res, None
+        walls = []
+        for _ in range(reps):
+            del res
+            device_lib.synchronize(dev)
+            t0 = time.perf_counter()
+            res = fn()
+            device_lib.synchronize(dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return res, sorted(walls)[reps // 2]
+
+    # -- L1: the launcher's torchrun path, the straight run -----------------
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world.world_size),
+                      LOCAL_RANK=str(rank))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = train.main(cfg["l1"])
+    out["l1"] = {"code": code, "log": buf.getvalue()}
+    if rank == 0:       # the parent's --resume under torchrun may start
+        Path(cfg["l1_done"]).touch()
+
+    full = registry.get_config("granite_8b")
+    groups = make_host_groups(data=2)
+    sizes = common.layout_sizes(groups)
+    coords = sharding.layout_coords(groups)
+    data_group = groups.group("data")
+
+    # -- L2 (a): data parallelism at the chosen depth -----------------------
+    cut = dataclasses.replace(full, n_layers=cfg["l2_layers"])
+    args = train.parse_args(["--mode", "lm", "--arch", "granite_8b",
+                             "--steps", str(PL_L2_STEPS), "--seed",
+                             str(SEED), "--log-every", str(PL_L2_STEPS),
+                             *cpu])
+    free()
+    reset_peak()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run = train.run_lm(args, cfg=cut, groups=groups, dev=dev)
+    n = sum(x.numel() for x in tree_leaves(run.state["params"]))
+    l2 = {"losses": run.losses.float().numpy(),
+          "gnorms": run.grad_norms.float().numpy(), "wall_s": run.wall_s,
+          "peak_gib": peak_gib(), "n_params": n, "log": buf.getvalue()}
+    del run
+    free()
+    bucket = torch.ones(n + 1, dtype=torch.float32, device=dev)
+    walls = []
+    for _ in range(PL_ALLREDUCE_REPS):
+        device_lib.synchronize(dev)
+        process_group.barrier()
+        t0 = time.perf_counter()
+        process_group.all_reduce(bucket, "sum", data_group)
+        device_lib.synchronize(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    l2["allreduce_ms"] = walls
+    l2["bucket_ok"] = bool((bucket == 2.0 ** PL_ALLREDUCE_REPS).all())
+    del bucket
+    free()
+    if rank == 0:      # the one-process run at this depth, rank 1 waiting
+        with contextlib.redirect_stdout(io.StringIO()):
+            one = train.run_lm(args, cfg=cut, dev=dev)
+        l2["one_wall_s"] = one.wall_s
+        l2["one_losses"] = one.losses.float().numpy()
+        del one
+        free()
+    process_group.barrier()
+
+    # -- L2 (b): 3 f32 SGD steps against the one-process step ---------------
+    c32 = dataclasses.replace(full, n_layers=LMT_CUT, dtype=torch.float32)
+    sgd = optimizers.sgd(PL_SGD_LR)
+    dcfg = DataConfig(c32.vocab, 64, 8, SEED)
+    batches = [lm_batch(dcfg, i, device=dev) for i in range(PL_SGD_STEPS)]
+    plain = steps.make_train_step(c32, sgd)
+    st = steps.init_train_state(c32, sgd, SEED, device=dev)
+    want = []
+    for b in batches:
+        st, m = plain(st, b)
+        want.append(torch.stack([m["loss"], m["grad_norm"]]))
+    want_params = st["params"]
+    del st
+    free()
+    dp = steps.make_train_step(c32, sgd, data_group=data_group)
+    st = steps.init_train_state(c32, sgd, SEED, device=dev)
+    bspecs = sharding.batch_specs(c32, sizes, batches[0])
+    got = []
+    for b in batches:
+        st, m = dp(st, sharding.local_tree(b, bspecs, sizes, coords))
+        got.append(torch.stack([m["loss"], m["grad_norm"]]))
+    l2["sgd_metrics_ratio"] = _allclose_ratio(torch.stack(got),
+                                              torch.stack(want))
+    l2["sgd_params_ratio"] = _tree_ratio(st["params"], want_params)
+    l2["sgd_loss"] = [float(x[0]) for x in got]
+    out["l2"] = l2
+    del st, want_params, batches
+    free()
+
+    # -- L3: expert parallelism over a (1, 2) grid --------------------------
+    ep_groups = grid_groups(np.arange(2).reshape(1, 2), ("data", "model"))
+    model_group = ep_groups.group("model")
+    ep_sizes = common.layout_sizes(ep_groups)
+    ep_coords = sharding.layout_coords(ep_groups)
+    ocfg = registry.get_config("olmoe_1b_7b")
+    # capacity E: dropless at any T, as item 22 serves it
+    ocfg = dataclasses.replace(ocfg, capacity_factor=float(ocfg.n_experts))
+    l3: dict = {"layers": ocfg.n_layers, "experts": ocfg.n_experts}
+
+    def ep_forward(c, params, batch):
+        common.set_run_options(moe_ep=True, model_group=model_group)
+        try:
+            return get_api(c).forward(params, batch)
+        finally:
+            common.set_run_options(moe_ep=False, model_group=None)
+
+    def ep_loss(c, params, batch):
+        common.set_run_options(moe_ep=True, model_group=model_group)
+        try:
+            return steps.loss_and_grads(get_api(c).loss_fn, params, batch)
+        finally:
+            common.set_run_options(moe_ep=False, model_group=None)
+
+    reset_peak()
+    api = get_api(ocfg)
+    params = api.init(SEED, device=dev)
+    batch = lm_batch(DataConfig(ocfg.vocab, PL_L3_SEQ, PL_L3_ROWS, SEED), 0,
+                     device=dev)
+    with torch.no_grad():
+        ref, l3["one_ms"] = timed(lambda: api.forward(params, batch))
+        ep = sharding.moe_ep_params(ocfg, params, ep_groups)
+        e_loc = ocfg.n_experts // 2
+        lo = rank * e_loc
+        l3["shard_ok"] = all(
+            torch.equal(ep["blocks"][k], params["blocks"][k][:, lo:lo + e_loc])
+            for k in ("w_gate", "w_up", "w_down"))
+        l3["shard_shapes"] = [tuple(ep["blocks"][k].shape)
+                              for k in ("w_gate", "w_up", "w_down")]
+        del params
+        free()
+        logits, l3["ep_ms"] = timed(lambda: ep_forward(ocfg, ep, batch))
+    l3["gap"] = _rel_gap(logits, ref)
+    l3["n_diff"] = int((logits != ref).sum())
+    l3["peak_gib"] = peak_gib()
+    del ep, ref, logits
+    free()
+    o32 = dataclasses.replace(ocfg, n_layers=LMT_CUT, dtype=torch.float32)
+    api = get_api(o32)
+    params = api.init(SEED, device=dev)
+    batch = lm_batch(DataConfig(o32.vocab, PL_L3_SEQ, PL_L3_ROWS, SEED), 0,
+                     device=dev)
+    loss_w, grads_w = steps.loss_and_grads(api.loss_fn, params, batch)
+    with torch.no_grad():
+        logits_w = api.forward(params, batch)
+    ep = sharding.moe_ep_params(o32, params, ep_groups)
+    grads_w = sharding.moe_ep_params(o32, grads_w, ep_groups)
+    del params
+    free()
+    loss_g, grads_g = ep_loss(o32, ep, batch)
+    with torch.no_grad():
+        logits_g = ep_forward(o32, ep, batch)
+    l3["f32_logits_ratio"] = _allclose_ratio(logits_g, logits_w)
+    l3["f32_loss_ratio"] = _allclose_ratio(loss_g, loss_w)
+    l3["f32_grads_ratio"] = _tree_ratio(grads_g, grads_w)
+    out["l3"] = l3
+    del ep, grads_w, grads_g, logits_w, logits_g
+    free()
+
+    # -- L4: the pipeline over a (2, 1, 1) grid -----------------------------
+    pp_groups = grid_groups(np.arange(2).reshape(2, 1, 1),
+                            ("pod", "data", "model"))
+    l4: dict = {}
+    for label, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        gcfg = dataclasses.replace(full, n_layers=PL_L4_LAYERS, dtype=dtype)
+        api = get_api(gcfg)
+        params = api.init(SEED, device=dev)
+        batch = lm_batch(DataConfig(gcfg.vocab, PL_L4_SEQ, PL_L4_ROWS, SEED),
+                         0, device=dev)
+        pp = pipeline.make_pp_loss_fn(gcfg, pp_groups, n_micro=PL_L4_MICRO)
+        sp = pipeline.stage_params(params, pp_groups)
+        reps = 1 if dtype == torch.bfloat16 else 0     # timed in bf16 only
+        (loss_w, grads_w), one_ms = timed(
+            lambda: steps.loss_and_grads(api.loss_fn, params, batch), reps)
+        grads_w = pipeline.stage_params(grads_w, pp_groups)
+        (loss_p, grads_p), pp_ms = timed(
+            lambda: steps.loss_and_grads(pp, sp, batch), reps)
+        l4[label] = {"loss": float(loss_p), "plain": float(loss_w),
+                     "rel": abs(float(loss_p) - float(loss_w))
+                     / abs(float(loss_w)),
+                     "loss_ratio": _allclose_ratio(loss_p, loss_w),
+                     "grads_ratio": _tree_ratio(grads_p, grads_w),
+                     "pp_ms": pp_ms, "one_ms": one_ms,
+                     "evals": len(pp.transport.log.records)}
+        del params, sp, grads_w, grads_p
+        free()
+    out["l4"] = l4
+    from repro_torch.kernels import vq_fused
+    out["counts"] = {**launch_counts(),
+                     "divergence": vq_fused.launches_divergence}
+    return out
+
+
+def placement_legs(dev) -> None:
+    """Item 26 (L1-L5): the LM's placement over processes, in one spawned
+    world of 2 ranks on the card and one torchrun start, each leg against
+    the one-process run of the same configuration."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.distributed import process_group, roofline
+
+    t_item = time.perf_counter()
+    card = card_line()
+    smoke = dev.type == "cpu"
+    cpu = ["--device", "cpu"] if smoke else []
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    tmp = Path(tempfile.mkdtemp(prefix="placement_legs_"))
+
+    # L5 runs beside the world: host arithmetic, no device
+    dry_out = tmp / "dryrun_lm.json"
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--out", str(dry_out)], cwd=tmp, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+    # L2's depth: the deepest of item 23's that fits two AdamW replicas on
+    # the card (12 B a parameter of state, the grads' 2 B, the f32 bucket's
+    # 4 B and new grads' 2 B while it unpacks) and the gloo staging of two
+    # f32 buckets on the host, one bucket under 2^31 entries
+    full = registry.get_config("granite_8b")
+    if smoke:
+        layers = 2
+    else:
+        gc.collect()
+        torch.cuda.empty_cache()
+        card_free = torch.cuda.mem_get_info()[0]
+        host_free = _host_available()
+        fits = 0
+        for depth in range(LMT_LAYERS, LMT_CUT - 1, -1):
+            n = _lm_layers_params(full, depth)
+            if (2 * (PL_CARD_BYTES_A_PARAM * n + PL_RANK_SLACK) <= card_free
+                    and 2 * 2 * 4 * n <= host_free and n + 1 < 2**31):
+                fits = depth
+                break
+        layers = min(fits, PL_L2_LAYERS)
+        print(f"L2 depth: the memory rule allows {fits} of item 23's "
+              f"{LMT_LAYERS} layers (card free {card_free / 2**30:.2f} GiB, "
+              f"host available {host_free / 2**30:.2f} GiB); run at "
+              f"{layers} ({_lm_layers_params(full, max(layers, 1)):,} "
+              f"params), gloo's bucket rate bounding the time")
+        if layers < LMT_CUT:
+            fail(f"L2: not even {LMT_CUT} layers fit two replicas")
+
+    ck = tmp / "l1"
+    l1 = ["--mode", "lm", "--arch", "granite_8b", "--smoke", "--data-axis",
+          "2", "--steps", str(PL_L1_STEPS), "--ckpt-every", "10",
+          "--log-every", "10", "--ckpt-dir", str(ck), "--seed", str(SEED),
+          *cpu]
+    done = tmp / "l1_straight_done"
+    cfg = {"smoke": smoke, "l1": l1, "l2_layers": layers,
+           "l1_done": str(done)}
+    straight = tmp / "l1_straight"
+    straight.mkdir()
+    last = f"step_{PL_L1_STEPS:09d}"
+    resumed: dict = {}
+    stop = threading.Event()
+
+    def resume_l1():
+        """Once the world's straight run is done: its step-20 checkpoint
+        moved aside (a crash), then ``--resume`` under torchrun, beside the
+        world's L2-L4."""
+        while not done.exists():
+            if stop.wait(0.2):
+                return
+        shutil.move(str(ck / last), str(straight / last))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+             *l1, "--resume"], cwd=tmp, env=env, capture_output=True,
+            text=True, timeout=SUBPROCESS_TIMEOUT_S)
+        resumed.update(code=res.returncode, out=res.stdout, err=res.stderr,
+                       wall=time.perf_counter() - t0)
+
+    resumer = threading.Thread(target=resume_l1)
+    resumer.start()
+    t0 = time.perf_counter()
+    try:
+        outs = process_group.spawn(_placement_world, 2, cfg, device=dev)
+    finally:
+        stop.set()
+        resumer.join()
+    print(f"world of 2 ranks (L1 straight, L2-L4; L1's resume beside it): "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- L1 -------------------------------------------------------------------
+    if resumed.get("code") != 0:
+        print(resumed.get("out", "")[-4000:])
+        print(resumed.get("err", "")[-4000:])
+        fail(f"L1 --resume: torchrun exited {resumed.get('code')}")
+    res_out, res_wall = resumed["out"], resumed["wall"]
+    a, b = ck / last, straight / last
+    names = sorted(p.name for p in b.iterdir())
+    same = names == sorted(p.name for p in a.iterdir()) and all(
+        (np.load(a / f).tobytes() == np.load(b / f).tobytes()
+         and np.load(a / f).dtype == np.load(b / f).dtype)
+        for f in names if f.endswith(".npy"))
+    log0 = outs[0]["l1"]["log"]
+    first = log0.splitlines()[0] if log0 else ""
+    want_lines = [f"step {s:5d}  loss" for s in (10, PL_L1_STEPS)]
+    lines_ok = (all(x in log0 for x in want_lines)
+                and "mesh={'data': 2, 'model': 1}" in first
+                and f"done: {PL_L1_STEPS} steps" in log0
+                and outs[1]["l1"]["log"] == ""
+                and "resumed from step 10" in res_out
+                and "done: 10 steps" in res_out)
+    # "step 20  loss ...  gnorm ..." without the tok/s, straight and resumed
+    loss20, loss20r = ([x.split("  tok/s")[0] for x in text.splitlines()
+                        if x.startswith(f"step {PL_L1_STEPS:5d}")]
+                       for text in (log0, res_out))
+    print(f"L1 torchrun --nproc-per-node 2 launch.train --mode lm --arch "
+          f"granite_8b --smoke --data-axis 2: {PL_L1_STEPS} steps, ckpt "
+          f"every 10 (exit codes {[o['l1']['code'] for o in outs]}); the "
+          f"step-{PL_L1_STEPS} checkpoint removed, --resume from 10 under "
+          f"torchrun ({res_wall:.1f} s): step-{PL_L1_STEPS} state == the "
+          f"straight run's bit for bit: {same}; lines: {first!r}, "
+          f"{loss20[:1]} / resumed {loss20r[:1]}")
+    if not (same and lines_ok and all(o["l1"]["code"] == 0 for o in outs)
+            and loss20 and loss20 == loss20r):
+        print(log0)
+        print(res_out)
+        fail("L1: the torchrun run, its lines or its resume")
+
+    # -- L2 -------------------------------------------------------------------
+    l2 = [o["l2"] for o in outs]
+    n = l2[0]["n_params"]
+    step_ms = l2[0]["wall_s"] / PL_L2_STEPS * 1e3
+    one_ms = l2[0]["one_wall_s"] / PL_L2_STEPS * 1e3
+    ar = sorted(l2[0]["allreduce_ms"])[len(l2[0]["allreduce_ms"]) // 2]
+    gap = float(np.max(np.abs(l2[0]["losses"] - l2[0]["one_losses"])
+                       / np.abs(l2[0]["one_losses"])))
+    print(f"L2 granite-8b at its published width, {layers} layers ({n:,} "
+          f"params), data parallel over 2 ranks, {PL_L2_STEPS} steps of 8 x "
+          f"64 tokens: loss {l2[0]['losses'][0]:.4f} -> "
+          f"{l2[0]['losses'][-1]:.4f}; {step_ms:.1f} ms a step (the "
+          f"one-process run at this depth on rank 0: {one_ms:.1f}); the f32 "
+          f"bucket's all-reduce ({4 * (n + 1) / 1e9:.2f} GB) alone: "
+          f"{[round(x, 1) for x in l2[0]['allreduce_ms']]} ms (median "
+          f"{ar:.1f}), sum right {all(x['bucket_ok'] for x in l2)}; peak "
+          f"device memory a rank {[x['peak_gib'] for x in l2]} GiB; losses "
+          f"vs the one-process run's, max rel {gap:.3e} (bf16, read-out); "
+          f"{card}")
+    if not (all(np.isfinite(x["losses"]).all() and np.isfinite(
+            x["gnorms"]).all() for x in l2)
+            and np.array_equal(l2[0]["losses"], l2[1]["losses"])
+            and all(x["bucket_ok"] for x in l2)):
+        fail("L2: losses not finite, ranks disagree, or the bucket's sum")
+    ratios = [(x["sgd_metrics_ratio"], x["sgd_params_ratio"]) for x in l2]
+    print(f"L2 f32 (TF32 off), {LMT_CUT} layers, {PL_SGD_STEPS} SGD steps: "
+          f"data parallel vs the one-process step on the whole batch, "
+          f"|gap| / (atol + rtol |want|) at rtol 1e-4, atol 1e-5 max|x| "
+          f"(<= 1 holds): loss and grad norm {[r[0] for r in ratios]}, "
+          f"params {[r[1] for r in ratios]}; losses {l2[0]['sgd_loss']}")
+    if max(max(r) for r in ratios) > 1.0:
+        fail("L2: the f32 data-parallel steps differ from the one-process "
+             "step")
+
+    # -- L3 -------------------------------------------------------------------
+    l3 = [o["l3"] for o in outs]
+    print(f"L3 olmoe-1b-7b at its published config, {l3[0]['layers']} "
+          f"layers, {l3[0]['experts']} experts, {l3[0]['experts'] // 2} a "
+          f"rank (dropless), "
+          f"moe_ep over 2 ranks: forward logits vs the one-process forward, "
+          f"max rel gap {[x['gap'] for x in l3]} (bound {LM_DECODE_REL}), "
+          f"{[x['n_diff'] for x in l3]} logits differ; forward "
+          f"{[round(x['ep_ms'], 2) for x in l3]} ms (one process "
+          f"{[round(x['one_ms'], 2) for x in l3]}); expert leaves == "
+          f"local_shard {[x['shard_ok'] for x in l3]}, shapes "
+          f"{l3[0]['shard_shapes']}; peak {[x['peak_gib'] for x in l3]} GiB")
+    print(f"L3 f32 at {LMT_CUT} layers vs the one-process moe_apply run "
+          f"(rule as L2): logits {[x['f32_logits_ratio'] for x in l3]}, loss "
+          f"{[x['f32_loss_ratio'] for x in l3]}, every grad "
+          f"{[x['f32_grads_ratio'] for x in l3]}")
+    if not all(x["gap"] <= LM_DECODE_REL and x["shard_ok"]
+               and max(x["f32_logits_ratio"], x["f32_loss_ratio"],
+                       x["f32_grads_ratio"]) <= 1.0 for x in l3):
+        fail("L3: expert parallelism differs from the one-process MoE")
+
+    # -- L4 -------------------------------------------------------------------
+    l4 = [o["l4"] for o in outs]
+    for label in ("bf16", "f32"):
+        r = [x[label] for x in l4]
+        print(f"L4 granite-8b at its published width, {PL_L4_LAYERS} layers, "
+              f"2 stages of {PL_L4_LAYERS // 2}, n_micro {PL_L4_MICRO}, "
+              f"{PL_L4_ROWS} x {PL_L4_SEQ} tokens, {label}: pipelined loss "
+              f"{r[0]['loss']:.6f} vs plain {r[0]['plain']:.6f} (rel "
+              f"{r[0]['rel']:.3e}); loss ratio {[x['loss_ratio'] for x in r]},"
+              f" grads ratio {[x['grads_ratio'] for x in r]} (rule as L2"
+              f"{'; a read-out in bf16' if label == 'bf16' else ''}); "
+              f"forward + backward {[x['pp_ms'] for x in r]} ms "
+              f"pipelined, {[x['one_ms'] for x in r]} ms one "
+              f"process; eval records {[x['evals'] for x in r]}")
+    if not (all(x["bf16"]["rel"] <= PP_BF16_RTOL for x in l4)
+            and all(max(x["f32"]["loss_ratio"], x["f32"]["grads_ratio"])
+                    <= 1.0 for x in l4)
+            and l4[0]["bf16"]["loss"] == l4[1]["bf16"]["loss"]):
+        fail("L4: the pipelined loss or grads differ from the plain ones")
+
+    counts = [o["counts"] for o in outs]
+    if any(any(c.values()) for c in counts):
+        fail(f"L1-L4: a kernel of the port's own launched {counts}; the "
+             f"reference runs this path on XLA")
+
+    # -- L5 -------------------------------------------------------------------
+    text, _ = dry.communicate(timeout=SUBPROCESS_TIMEOUT_S)
+    recs = json.loads(dry_out.read_text()) if dry_out.exists() else []
+    skips = 2 * sum(not registry.cell_applicable(registry.get_config(a), c)[0]
+                    for a in registry.ARCH_IDS for c in registry.SHAPES)
+    got_skips = sum(r["status"] == "skipped" for r in recs)
+    cell = next((r for r in recs if r["arch"] == "granite_8b"
+                 and r["shape"] == "train_4k" and r["mesh"] == "16x16"), None)
+    if dry.returncode != 0 or len(recs) != 80 or got_skips != skips \
+            or cell is None or any(r["status"] == "error" for r in recs):
+        print(text[-4000:])
+        fail(f"L5: dryrun --all exited {dry.returncode}, {len(recs)} records, "
+             f"{got_skips} skipped (cell_applicable: {skips})")
+    t = cell["roofline"]
+    print(f"L5 dryrun --all: exit 0, {len(recs)} records, {got_skips} "
+          f"skipped (== cell_applicable's {skips}); granite-8b x train_4k "
+          f"[16x16]: {cell['memory']['argument_bytes'] / 2**30:.3f} GiB of "
+          f"arguments a device, compute {t['t_compute']:.4f} s, memory "
+          f"{t['t_memory']:.4f} s, collective {t['t_collective']} "
+          f"({t['collective_note']}), dominant {t['dominant']}, MFU bound "
+          f"{t['mfu_bound']:.3f}")
+    # the roofline's LM half at item 22's decode and item 23's step, one
+    # device: beside the hand bounds those items print
+    one = roofline.MeshShape(1, 1, 1)
+    dec = roofline.roofline_terms(
+        full, registry.ShapeCell("item22", "decode", 32, 4), one, None)
+    t23 = dataclasses.replace(full, n_layers=LMT_LAYERS)
+    trn = roofline.roofline_terms(
+        t23, registry.ShapeCell("item23", "train", 64, 8), one, None)
+    print(f"L5 roofline_terms on one device: item 22's decode (granite-8b, "
+          f"batch 4, 32 positions) compute {dec['t_compute'] * 1e3:.3f} ms, "
+          f"memory {dec['t_memory'] * 1e3:.3f} ms ({dec['device_bytes']:,.0f}"
+          f" B: weights {dec['bytes_detail']['weights']:,.0f}, cache "
+          f"{dec['bytes_detail']['cache']:,.0f}); item 23's step ({LMT_LAYERS}"
+          f" layers, 8 x 64 tokens) compute {trn['t_compute'] * 1e3:.3f} ms "
+          f"({trn['device_flops']:,.0f} FLOPs, full remat), memory "
+          f"{trn['t_memory'] * 1e3:.3f} ms ({trn['device_bytes']:,.0f} B: "
+          f"weights {trn['bytes_detail']['weights']:,.0f}, optimizer "
+          f"{trn['bytes_detail']['opt']:,.0f}, activations "
+          f"{trn['bytes_detail']['activations']:,.0f}); {card}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"item 26 (the LM's placement over processes): "
+          f"{time.perf_counter() - t_item:.1f} s")
+
+
+def _host_available() -> int:
+    """MemAvailable from /proc/meminfo, in bytes."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    return 0
 
 
 # -- item 22: the LM serving path ---------------------------------------------
@@ -5579,8 +6187,9 @@ def main() -> None:
     elastic_serve_process_legs(dev, trained, geo_run)
     lm_serving_legs(dev)
     lm_training_legs(dev)
+    placement_legs(dev)
 
-    # -- 26. timing at the main path's shapes ---------------------------------
+    # -- 27. timing at the main path's shapes ---------------------------------
     # every kernel, plain and library time by kernel_ms (L2 cold, host time
     # hidden); "warm" is time_ms over back-to-back wrapper calls (L2 warm,
     # the wrapper's host time included), a read-out beside it

@@ -21,9 +21,12 @@ package restores in the other:
   * ``save_async`` copies every leaf to host numpy in the caller's thread,
     then hands the I/O to a daemon thread; ``wait`` raises the first write
     error;
-  * ``restore`` returns tensors on ``device`` (the counterpart of the
-    reference's ``shardings=``): leaves are stored whole, so the restarting
-    run's worker count does not matter to the read;
+  * ``restore`` returns tensors on ``device``: leaves are stored whole, so
+    the restarting run's worker count does not matter to the read; with
+    ``placement=`` (a ``distributed.sharding.Placement``, the counterpart of
+    the reference's ``shardings=``, its lines 138-165) each rank reads the
+    whole stored leaves and keeps its slices under the placement's specs, so
+    a checkpoint written under one layout restores under another;
   * the ``keep`` newest steps are retained.
 """
 
@@ -222,10 +225,13 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target: Any, *, device=None) -> Any:
+    def restore(self, step: int, target: Any, *, device=None,
+                placement=None) -> Any:
         """Step ``step`` in the structure of ``target`` (a tree of tensors,
-        arrays or scalars whose shapes the leaves must have), as tensors on
-        ``device`` (``cuda`` unless the caller asks for ``"cpu"``)."""
+        arrays or scalars whose shapes the leaves must have: the whole
+        leaves), as tensors on ``device`` (``cuda`` unless the caller asks
+        for ``"cpu"``).  With ``placement`` each leaf is cut to this rank's
+        slice on the host before it moves."""
         device = device_lib.resolve(device)
         path = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(path, "manifest.json")) as f:
@@ -235,6 +241,10 @@ class Checkpointer:
             raise ValueError(
                 f"checkpoint has {manifest['n_leaves']} leaves, target has "
                 f"{len(want)}")
+        specs = placement.spec_leaves() if placement is not None else None
+        if specs is not None and len(specs) != len(want):
+            raise ValueError(f"the placement has {len(specs)} specs, the "
+                             f"target {len(want)} leaves")
         loaded = []
         for i, leaf in enumerate(want):
             arr = np.load(os.path.join(path, f"leaf_{i:05d}.npy"))
@@ -242,5 +252,9 @@ class Checkpointer:
                 raise ValueError(
                     f"leaf {manifest['names'][i]}: checkpoint shape "
                     f"{arr.shape} != target {_shape(leaf)}")
-            loaded.append(_from_host(arr, manifest["dtypes"][i], device))
+            if specs is None:
+                loaded.append(_from_host(arr, manifest["dtypes"][i], device))
+            else:
+                whole = _from_host(arr, manifest["dtypes"][i], "cpu")
+                loaded.append(placement.local(whole, specs[i]).to(device))
         return _unflatten(target, iter(loaded))

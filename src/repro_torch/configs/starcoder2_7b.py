@@ -2,8 +2,8 @@
 
 GQA (4 KV heads), RoPE.  36 q-heads do NOT divide the 16-way TP axis, so
 attention runs replicated on 'model' and the MLP carries the TP sharding
-(the reference's distributed/sharding.py policy; the port runs on
-one card and has no sharding yet, ROADMAP queue 1, item 8b-2).
+(the policy of ``distributed/sharding.py``, the reference's and the
+port's).
 """
 import torch
 

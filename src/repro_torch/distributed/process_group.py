@@ -257,6 +257,72 @@ def barrier(group=None) -> None:
     dist.barrier(group=group)
 
 
+# -- collectives inside autograd (Megatron's conjugate pair) ------------------------
+
+def _f32_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """A new tensor: the f32 sum of t over the group, cast back to t's
+    dtype."""
+    out = t.to(torch.float32, copy=True).contiguous()
+    all_reduce(out, "sum", group)
+    return out.to(t.dtype)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward, sum over the group backward: the input of a
+    computation every rank of the group holds the same of, whose
+    ranks' shares of the gradient add up (the experts of expert
+    parallelism, the stages of a pipeline)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _f32_sum(g, ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Sum over the group forward, identity backward: the output of a
+    computation split over the group, every rank's downstream the same."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _f32_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """Sum over the group both ways: a statistic of every rank's own data
+    that each rank's loss reads whole, its gradients averaged over the
+    group afterwards (a data-parallel batch's shares)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _f32_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _f32_sum(g, ctx.group), None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _ReduceFromGroup.apply(x, group)
+
+
+def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _SumOverGroup.apply(x, group)
+
+
 # -- local worlds ---------------------------------------------------------------
 
 def _child(rank: int, fn, nprocs: int, store_path: str, out_dir: str,

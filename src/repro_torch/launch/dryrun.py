@@ -1,4 +1,5 @@
-"""The comm dry run, counterpart of ``repro/launch/dryrun.py --comm``.
+"""The dry run, counterpart of ``repro/launch/dryrun.py``: the comm suite,
+the ``paper_vq`` cells and the LM cells.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --comm \\
         [--sparse-frac F] [--device cpu] [--out dryrun_comm.json]
@@ -37,11 +38,39 @@ warm up and once timed, between two ``device.synchronize`` calls, and rank
 the cell: its inputs and the step; "not measured" on the CPU), the
 ``CommRecord`` bytes and ``VqCell``'s compute, memory and collective terms
 for each rank.  The reference lowers and compiles these cells; eager
-PyTorch runs them.  Its other modes lower the LM cells: ``--arch`` (but
-``paper_vq``), ``--shape`` (but those two), ``--all``, ``--multi-pod`` and
-``--both-meshes`` exit 2 naming ROADMAP queue 1, item 8b-2: the models and
-configs are ported (item 8a), but the LM cells need the roofline's LM half
-and the sharding (``distributed/sharding.py``) that item 8b-2 brings.
+PyTorch runs them.
+
+The LM cells (the reference's ``build_cell`` and ``run_cell``, its lines
+47-172 and 211-321)::
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmoe_1b_7b \
+        --shape train_4k [--multi-pod] [--merge delta --tau 10] \
+        [--quantized] [--out dryrun_lm.json]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all   # 80 cells
+
+price each (arch x shape) cell on the production layout
+(``topology.production_grid``: (data, model) = (16, 16), or (pod, data,
+model) = (2, 16, 16) with ``--multi-pod``; ``--both-meshes`` and ``--all``
+take both) as spec arithmetic, where the reference lowers and compiles on
+256 / 512 placeholder devices.  Nothing is allocated: the arguments are
+tensors on the ``meta`` device.  ``cell_applicable`` skips the cells the
+reference skips (long_500k on full attention).  A train cell places its
+state by ``sharding.param_specs`` (FSDP where ``registry.uses_fsdp``), its
+optimizer state by ``opt_specs_like`` and its batch by ``batch_specs``;
+with ``--merge`` on the multi-pod layout it is the reference's window
+step, whose batch takes a leading tau dim and whose state the merge's
+extra leaves (``delta_prev``, ``residual``).  A prefill cell also gives
+its decode cache's specs, and a decode cell places the cache, the tokens
+and, with ``--quantized``, the int8 weights' replicated scales.  Each
+record holds the reference's keys: ``arch``, ``shape``, ``mesh``,
+``merge``, ``status``, ``reason`` (a skip's), ``roofline``
+(``distributed.roofline.roofline_terms`` at the H100's rates) and
+``memory.argument_bytes`` (``sharding.device_bytes`` of the cell's
+arguments, exact shape arithmetic).  The collective term is ``None`` and
+``roofline.collective_note`` says "not lowered": the reference reads it
+from the compiled HLO, which is XLA's.  Records merge by key into
+``--out`` (default ``dryrun_lm.json``); the run exits 1 if a cell errs.
+``--device`` does not matter to these cells: they touch no device.
 """
 
 from __future__ import annotations
@@ -56,6 +85,7 @@ import torch
 from repro_torch import comm
 from repro_torch import device as device_lib
 from repro_torch.comm import sweep
+from repro_torch.configs import registry
 
 #: points a worker of the COMM and HIER cells: ``BENCH_comm.json``'s and
 #: ``BENCH_hier.json``'s
@@ -175,6 +205,191 @@ def run_vq_cells(shape: str, *, device=None, model: int = 1) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the LM cells: spec arithmetic on the production layout
+# ---------------------------------------------------------------------------
+
+#: the reference's ``--merge`` choices
+MERGES = ("none", "allreduce", "average", "delta", "async_delta",
+          "delta_sparse")
+
+
+def production_sizes(multi_pod: bool) -> dict:
+    """``{axis: size}`` of the production layout."""
+    from repro_torch.topology import production_grid
+    grid, axes = production_grid(multi_pod=multi_pod)
+    return dict(zip(axes, grid.shape))
+
+
+def cell_arguments(cfg, cell, sizes: dict, *, use_fsdp: bool,
+                   window: bool = False, merge: str = "none", tau: int = 10,
+                   quantized: bool = False) -> dict:
+    """``{name: (tree, specs)}`` of the cell's step arguments, shapes on
+    the ``meta`` device, placed on a layout of ``sizes``; a prefill cell
+    adds its output cache as ``"cache_out"``."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import quantization
+    from repro_torch.models.api import get_api
+    from repro_torch.optim import optimizers
+    from repro_torch.optim.optimizers import tree_map
+    pspecs = sharding.param_specs(cfg, sizes, use_fsdp=use_fsdp)
+    params = get_api(cfg).init(0, device="meta")
+    meta = torch.device("meta")
+    if cell.kind == "train":
+        opt = optimizers.adamw(optimizers.cosine_schedule(3e-4))
+        state = {"params": params, "opt_state": opt.init(params),
+                 "step": torch.empty((), dtype=torch.int32, device=meta)}
+        specs = {"params": pspecs,
+                 "opt_state": sharding.opt_specs_like(pspecs,
+                                                      state["opt_state"]),
+                 "step": sharding.P()}
+        if window:
+            extra = {"async_delta": "delta_prev",
+                     "delta_sparse": "residual"}.get(merge)
+            if extra is not None:   # the merge's f32 params-shaped state
+                state[extra] = tree_map(
+                    lambda p: torch.empty(p.shape, dtype=torch.float32,
+                                          device=meta), params)
+                specs[extra] = pspecs
+            batch = registry.input_specs(cfg, cell, tau=tau)
+            bspecs = {k: sharding.P(None, *sharding.batch_specs(
+                cfg, sizes, {"x": v[0]})["x"]) for k, v in batch.items()}
+        else:
+            batch = registry.input_specs(cfg, cell)
+            bspecs = sharding.batch_specs(cfg, sizes, batch)
+        return {"state": (state, specs), "batch": (batch, bspecs)}
+    if cell.kind == "prefill":
+        batch = registry.input_specs(cfg, cell)
+        cache = registry.cache_shapes(cfg, registry.ShapeCell(
+            cell.name, "decode", cell.seq_len, cell.global_batch))
+        return {"params": (params, pspecs),
+                "batch": (batch, sharding.batch_specs(cfg, sizes, batch)),
+                "cache_out": (cache, sharding.cache_specs(cfg, sizes,
+                                                          cache))}
+    tokens = registry.input_specs(cfg, cell)["tokens"]
+    cache = registry.cache_shapes(cfg, cell)
+    if quantized:
+        params = quantization.quantize_tree(params)
+
+        def place(leaf, spec):
+            if isinstance(leaf, quantization.QuantizedLeaf):
+                return quantization.QuantizedLeaf(
+                    q=spec, scale=sharding.P(*([None] * leaf.scale.dim())),
+                    dtype=leaf.dtype)
+            return spec
+
+        pspecs = tree_map(place, params, pspecs)
+    return {"params": (params, pspecs),
+            "cache": (cache, sharding.cache_specs(cfg, sizes, cache)),
+            "tokens": (tokens, sharding.batch_specs(
+                cfg, sizes, {"tokens": tokens})["tokens"])}
+
+
+def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
+             merge: str = "none", tau: int = 10, verbose: bool = True,
+             quantized: bool = False) -> dict:
+    """One LM cell's record (the reference's ``run_cell`` keys)."""
+    from repro_torch.distributed import roofline, sharding
+    rec: dict = {"arch": arch_id, "shape": shape_name,
+                 "mesh": "2x16x16" if multi_pod else "16x16",
+                 "merge": merge}
+    if quantized:
+        rec["quantized"] = True
+    cfg = registry.get_config(arch_id)
+    cell = next(s for s in registry.SHAPES if s.name == shape_name)
+    ok, why = registry.cell_applicable(cfg, cell)
+    if not ok:
+        rec.update(status="skipped", reason=why)
+        if verbose:
+            print(f"SKIP {arch_id} x {shape_name}: {why}")
+        return rec
+    t0 = time.perf_counter()
+    try:
+        sizes = production_sizes(multi_pod)
+        window = merge != "none" and multi_pod and cell.kind == "train"
+        args = cell_arguments(
+            cfg, cell, sizes,
+            use_fsdp=registry.uses_fsdp(arch_id) and cell.kind == "train",
+            window=window, merge=merge, tau=tau,
+            quantized=quantized and cell.kind == "decode")
+        per = {k: sharding.device_bytes(t, s, sizes)
+               for k, (t, s) in args.items()}
+        terms = roofline.roofline_terms(cfg, cell,
+                                        roofline.mesh_shape(multi_pod), None)
+        rec.update({
+            "status": "ok", "reason": "",
+            "build_s": round(time.perf_counter() - t0, 3),
+            "per_step_divisor": tau if window else 1,
+            "roofline": terms,
+            "memory": {"argument_bytes": sum(
+                v for k, v in per.items() if k != "cache_out"),
+                "argument_detail": {k: v for k, v in per.items()
+                                    if k != "cache_out"}},
+        })
+        if "cache_out" in per:
+            rec["memory"]["output_cache_bytes"] = per["cache_out"]
+            rec["cache_specs"] = {k: list(v) for k, v in
+                                  args["cache_out"][1].items()}
+        if verbose:
+            gb = rec["memory"]["argument_bytes"] / 2**30
+            print(f"OK   {arch_id} x {shape_name} [{rec['mesh']}, "
+                  f"merge={merge}] args={gb:.3f}GiB/dev "
+                  f"dom={terms['dominant']} t=({terms['t_compute']:.4f},"
+                  f"{terms['t_memory']:.4f},not lowered)s "
+                  f"mfu<={terms['mfu_bound']:.2f}")
+    except Exception as e:  # noqa: BLE001 -- report, do not end the sweep
+        rec["status"] = "error"
+        rec["error"] = f"{type(e).__name__}: {e}"[:2000]
+        if verbose:
+            print(f"FAIL {arch_id} x {shape_name} [{rec['mesh']}]: "
+                  f"{rec['error'][:300]}")
+    return rec
+
+
+def _merge_into(path: str, results: list[dict]) -> None:
+    """``results`` merged by key into the JSON list at ``path``."""
+    existing = []
+    if os.path.exists(path):
+        with open(path) as f:
+            existing = json.load(f)
+
+    def keyf(r):
+        return (r["arch"], r["shape"], r["mesh"], r.get("merge", "none"),
+                r.get("quantized", False), r.get("transport", "none"))
+
+    merged = {keyf(r): r for r in existing}
+    for r in results:
+        merged[keyf(r)] = r
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(list(merged.values()), f, indent=1)
+
+
+def run_lm_cells(args) -> int:
+    """The LM cells the flags name; returns the exit code."""
+    if args.all:
+        cells = [(a, c.name) for a in registry.ARCH_IDS
+                 for c in registry.SHAPES]
+    elif args.arch and args.shape:
+        cells = [(args.arch, args.shape)]
+    else:
+        print("error: need --arch and --shape (or --all)")
+        return 2
+    meshes = ([False, True] if (args.both_meshes or args.all)
+              else [args.multi_pod])
+    results = [run_cell(arch, shape, multi_pod=mp, merge=args.merge,
+                        tau=args.tau, quantized=args.quantized)
+               for arch, shape in cells for mp in meshes]
+    out = args.out or "dryrun_lm.json"
+    _merge_into(out, results)
+    bad = [r for r in results if r["status"] == "error"]
+    print(f"\n{len(results)} cells: "
+          f"{sum(r['status'] == 'ok' for r in results)} ok, "
+          f"{sum(r['status'] == 'skipped' for r in results)} skipped, "
+          f"{len(bad)} failed; records -> {out}")
+    return 1 if bad else 0
+
+
 def run_comm_suite(*, sparse_frac: float | None = None, device=None,
                    verbose: bool = True) -> list[dict]:
     """The COMM, HIER and ADPT records, as the reference's
@@ -267,17 +482,28 @@ def run_comm_suite(*, sparse_frac: float | None = None, device=None,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.dryrun",
-        description="The comm dry run: measured wire bytes per scheme x "
-                    "transport on the PyTorch port.")
-    ap.add_argument("--arch", help="paper_vq, or an LM cell (not ported)")
-    ap.add_argument("--shape", help="vq_stream or vq_batch with --arch "
-                                    "paper_vq, or an LM shape (not ported)")
+        description="The dry run on the PyTorch port: the LM cells' spec "
+                    "arithmetic, the comm suite's measured wire bytes, the "
+                    "paper_vq cells.")
+    ap.add_argument("--arch", choices=registry.ARCH_IDS + ["paper_vq"],
+                    help="an LM arch, or paper_vq")
+    ap.add_argument("--shape",
+                    choices=[s.name for s in registry.SHAPES]
+                    + list(VQ_SHAPES),
+                    help="an LM shape, or vq_stream / vq_batch with --arch "
+                         "paper_vq")
     ap.add_argument("--all", action="store_true",
-                    help="the LM sweep (not ported)")
+                    help="every LM (arch x shape) cell on both layouts")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the multi-pod mesh (not ported)")
+                    help="the (2, 16, 16) layout")
     ap.add_argument("--both-meshes", action="store_true",
-                    help="both meshes (not ported)")
+                    help="both layouts")
+    ap.add_argument("--merge", default="none", choices=MERGES,
+                    help="train cells on the multi-pod layout: the window "
+                         "step of this merge")
+    ap.add_argument("--tau", type=int, default=10)
+    ap.add_argument("--quantized", action="store_true",
+                    help="int8 weight-only decode (decode cells only)")
     ap.add_argument("--comm", action="store_true",
                     help="the comm suite: measured wire bytes per scheme x "
                          "transport (8 stacked workers)")
@@ -288,11 +514,19 @@ def main(argv=None) -> int:
                     help="--shape vq_batch: ranks the codebook's rows are "
                          "split over (a divisor of the world size)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--out", default="dryrun_comm.json")
+    ap.add_argument("--out", default="",
+                    help="records file (default dryrun_comm.json with "
+                         "--comm, dryrun_lm.json for the LM cells)")
     args = ap.parse_args(argv)
 
-    if args.arch == "paper_vq" and not (args.all or args.multi_pod
-                                        or args.both_meshes):
+    if args.comm:
+        return run_comm(args)
+    if args.arch == "paper_vq" and not args.all:
+        if args.multi_pod or args.both_meshes:
+            print("error: the paper_vq cells run over the world they are "
+                  "started in; --multi-pod/--both-meshes place the LM "
+                  "cells")
+            return 2
         if args.shape not in (None, *VQ_SHAPES):
             print(f"error: the paper_vq cells are {VQ_SHAPES}, got "
                   f"--shape {args.shape}")
@@ -304,36 +538,23 @@ def main(argv=None) -> int:
         except ValueError as e:
             print(f"error: {e}")
             return 2
-    if args.arch or args.shape or args.all or args.multi_pod \
-            or args.both_meshes:
-        print("error: --arch/--shape/--all/--multi-pod/--both-meshes lower "
-              "the LM cells, which need the roofline's LM half and the "
-              "sharding of ROADMAP queue 1, item 8b-2; this dry run has "
-              "--comm and --arch paper_vq")
+    if args.shape in VQ_SHAPES:
+        print(f"error: --shape {args.shape} is a paper_vq cell; give "
+              f"--arch paper_vq")
         return 2
-    if not args.comm:
-        print("error: need --comm (the LM and paper_vq cells are not "
-              "ported)")
+    if not (args.all or args.arch or args.shape):
+        print("error: need --comm, --all, or --arch and --shape")
         return 2
+    return run_lm_cells(args)
 
+
+def run_comm(args) -> int:
+    """The comm suite and its three bars; returns the exit code."""
     device_lib.pin_full_f32()
     dev = device_lib.resolve(args.device)
     results = run_comm_suite(sparse_frac=args.sparse_frac, device=dev)
-    existing = []
-    if os.path.exists(args.out):
-        with open(args.out) as f:
-            existing = json.load(f)
-
-    def keyf(r):
-        return (r["arch"], r["shape"], r["mesh"], r.get("merge", "none"),
-                r.get("quantized", False), r.get("transport", "none"))
-
-    merged = {keyf(r): r for r in existing}
-    for r in results:
-        merged[keyf(r)] = r
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(list(merged.values()), f, indent=1)
+    out = args.out or "dryrun_comm.json"
+    _merge_into(out, results)
     # compression applies to displacement merges; 'average' ships means,
     # which ride dense on every transport
     worst = min((r["wire_reduction_vs_dense"] for r in results
@@ -350,7 +571,7 @@ def main(argv=None) -> int:
           f"inter-host tier-1 reduction = {worst_inter:.2f}x "
           f"(acceptance bars: both >= 4x at k/kappa <= 0.25); "
           f"dynamic-vs-fixed wire (max over quant levels) = "
-          f"{worst_adapt:.2f}x (bar: <= 1.0); records -> {args.out}")
+          f"{worst_adapt:.2f}x (bar: <= 1.0); records -> {out}")
     return 0 if (worst >= 4.0 and worst_inter >= 4.0
                  and 0.0 < worst_adapt <= 1.0) else 1
 

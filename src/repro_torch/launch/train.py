@@ -11,11 +11,29 @@ latest checkpoint there, bit for bit, since batch i is a function of
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite_8b \\
         --smoke --steps 200 --ckpt-dir /tmp/ckpt [--resume] --device cpu
 
-It prints ``arch=... device=...``, then ``step N  loss ...  gnorm ...
-tok/s ...`` every ``--log-every`` steps (the only place the host waits
-for the card) and ``done: ...``.  ``--data-axis`` takes 1 only: placement
-over a device mesh is ROADMAP item 8b-2.  An encoder-decoder arch
+It prints ``arch=... device=... mesh=...``, then ``step N  loss ...
+gnorm ...  tok/s ...`` every ``--log-every`` steps (the only place the
+host waits for the card) and ``done: ...``.  An encoder-decoder arch
 (whisper-tiny) exits 2: the pipeline draws no encoder frames.
+
+``--data-axis D`` is data parallelism, the reference's ``make_host_mesh
+(data=D)`` (its lines 526-544): under a torchrun world the first D ranks
+form a (data, model) = (D, 1) grid (``topology.make_host_groups``, clamped
+to the world as the reference clamps to its devices), every rank holds
+the whole state and takes its rows of each step's batch
+(``sharding.batch_specs``: every rank the whole batch where D does not
+divide it), and the grads and loss are averaged over the data group in
+one flat f32 bucket a step (``steps.mean_over_group``) before the clip and
+AdamW, which run identically on every rank::
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --mode lm --arch granite_8b --smoke \
+        --data-axis 2 --steps 20 --ckpt-dir /tmp/ckpt --device cpu
+
+Rank 0 prints the lines and writes the checkpoints; ``--resume`` restores
+on every rank; ranks past the grid take no part and exit 0.  In one
+process ``--data-axis D`` clamps to 1 and prints the mesh, as the
+reference does on one device.
 
 VQ mode::
 
@@ -161,7 +179,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--data-axis", type=int, default=1,
-                    help="data-parallel mesh axis; 1 only (one card)")
+                    help="data-parallel ranks of a torchrun world (clamped "
+                         "to the world; 1 in one process)")
     ap.add_argument("--log-every", type=int, default=10)
     # VQ-mode options (--mode vq): engine backend + paper hyperparameters
     ap.add_argument("--executor", choices=("sim", "mesh", "thread"),
@@ -596,55 +615,90 @@ class LmRun(NamedTuple):
     wall_s: float
 
 
-def run_lm(args, cfg=None) -> LmRun:
+def run_lm(args, cfg=None, *, groups=None, dev=None) -> LmRun:
     """LM training, the reference's ``--mode lm`` block: ``cfg`` (default:
     the registry's ``--arch``, reduced with ``--smoke``) trained for
-    ``--steps`` steps on ``--device``, with its checkpoints and resume."""
-    dev = device_lib.resolve(args.device)
+    ``--steps`` steps on ``--device`` (or ``dev``), with its checkpoints and
+    resume.  ``groups``: this rank's (data, model) groups of a
+    ``--data-axis`` world (``run_lm_process``), None for one process; its
+    rank 0 prints and writes the checkpoints."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import common
+    dev = device_lib.resolve(args.device) if dev is None else dev
     if cfg is None:
         cfg = (registry.get_smoke_config(args.arch) if args.smoke
                else registry.get_config(args.arch))
+    sizes = (common.layout_sizes(groups) if groups is not None
+             else {"data": 1, "model": 1})
+    coords = (sharding.layout_coords(groups) if groups is not None
+              else {"data": 0, "model": 0})
+    data_group = groups.group("data") if sizes["data"] > 1 else None
+    rank0 = coords["data"] == 0
+    say = print if rank0 else (lambda *a, **k: None)   # rank 0 prints
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu")
-    print(f"arch={cfg.name} device={where} params={cfg.n_params():,}")
+    say(f"arch={cfg.name} device={where} params={cfg.n_params():,} "
+        f"mesh={sizes}")
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
                       global_batch=args.batch, seed=args.seed)
     opt = optimizers.adamw(optimizers.cosine_schedule(
         args.lr, warmup=20, total=args.steps))
     # the state is donated to the step, as the reference's launcher donates
     # it to its jitted step
-    step_fn = steps_lib.make_train_step(cfg, opt, donate=True)
+    step_fn = steps_lib.make_train_step(cfg, opt, donate=True,
+                                        data_group=data_group)
     state = steps_lib.init_train_state(cfg, opt, args.seed, device=dev)
-    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
+    shape = torch.empty((args.batch, args.seq_len), device="meta")
+    bspecs = sharding.batch_specs(cfg, sizes, {"tokens": shape,
+                                               "labels": shape})
+    ckpt = (Checkpointer(args.ckpt_dir) if args.ckpt_dir
+            and (rank0 or args.resume) else None)
     start = 0
     if ckpt and args.resume:
         latest = ckpt.latest_step()
         if latest is not None:
-            state = ckpt.restore(latest, state, device=dev)
+            pspecs = sharding.param_specs(cfg, sizes, use_fsdp=False)
+            specs = {"params": pspecs,
+                     "opt_state": sharding.opt_specs_like(
+                         pspecs, state["opt_state"]),
+                     "step": sharding.P()}
+            state = ckpt.restore(latest, state, device=dev,
+                                 placement=sharding.Placement(specs, sizes,
+                                                              coords))
             start = latest
-            print(f"resumed from step {start}")
+            say(f"resumed from step {start}")
+    if not rank0:
+        ckpt = None                 # rank 0 writes the checkpoints
     losses, gnorms = [], []
-    device_lib.synchronize(dev)
-    t0 = time.perf_counter()
-    for i in range(start, args.steps):
-        batch = lm_batch(dcfg, i, device=dev)  # step-indexed: restartable
-        state, metrics = step_fn(state, batch)
-        losses.append(metrics["loss"])
-        gnorms.append(metrics["grad_norm"])
-        if (i + 1) % args.log_every == 0:
-            loss = float(metrics["loss"])
-            tps = ((i + 1 - start) * args.batch * args.seq_len
-                   / (time.perf_counter() - t0))
-            print(f"step {i + 1:5d}  loss {loss:.4f}  "
-                  f"gnorm {float(metrics['grad_norm']):.2f}  "
-                  f"tok/s {tps:,.0f}")
-        if ckpt and (i + 1) % args.ckpt_every == 0:
-            ckpt.save_async(i + 1, state)
-    if ckpt:
-        ckpt.wait()
-    device_lib.synchronize(dev)
-    wall = time.perf_counter() - t0
-    print(f"done: {args.steps - start} steps in {wall:.1f}s")
+    opts = common.get_run_options()
+    held = opts.data_group
+    opts.data_group = data_group    # the MoE's load-balance statistics
+    try:
+        device_lib.synchronize(dev)
+        t0 = time.perf_counter()
+        for i in range(start, args.steps):
+            # step-indexed: restartable; this rank's rows of it
+            batch = sharding.local_tree(lm_batch(dcfg, i, device=dev),
+                                        bspecs, sizes, coords)
+            state, metrics = step_fn(state, batch)
+            losses.append(metrics["loss"])
+            gnorms.append(metrics["grad_norm"])
+            if (i + 1) % args.log_every == 0:
+                loss = float(metrics["loss"])
+                tps = ((i + 1 - start) * args.batch * args.seq_len
+                       / (time.perf_counter() - t0))
+                say(f"step {i + 1:5d}  loss {loss:.4f}  "
+                    f"gnorm {float(metrics['grad_norm']):.2f}  "
+                    f"tok/s {tps:,.0f}")
+            if ckpt and (i + 1) % args.ckpt_every == 0:
+                ckpt.save_async(i + 1, state)
+        if ckpt:
+            ckpt.wait()
+        device_lib.synchronize(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        opts.data_group = held
+    say(f"done: {args.steps - start} steps in {wall:.1f}s")
 
     def host(xs):
         return torch.stack(xs).cpu() if xs else torch.zeros(0)
@@ -652,21 +706,34 @@ def run_lm(args, cfg=None) -> LmRun:
     return LmRun(state, host(losses), host(gnorms), start, wall)
 
 
+def run_lm_process(args) -> int:
+    """LM mode over the torchrun world (joined here, or the world this
+    process is already in): the first ``--data-axis`` ranks train data
+    parallel, rank 0 printing; ranks past the grid take no part.  Returns
+    0."""
+    from repro_torch.topology import make_host_groups
+    own = not process_group.in_world()
+    world = (process_group.init(device=args.device) if own
+             else process_group.current())
+    try:
+        groups = make_host_groups(data=args.data_axis)
+        if groups.coords:           # rank 0 is always on the grid
+            run_lm(args, groups=groups, dev=world.device)
+    finally:
+        if own:
+            process_group.destroy()
+    return 0
+
+
 def lm_refusal(args) -> str | None:
     """Why LM mode cannot run these arguments, or None."""
-    if args.data_axis != 1:
-        return (f"--data-axis {args.data_axis}: placement over a device "
-                f"mesh is ROADMAP item 8b-2; one card takes --data-axis 1")
-    if in_torchrun_world():
-        return ("LM mode runs in one process on one card; placement over "
-                "processes is ROADMAP item 8b-2")
     if registry.get_smoke_config(args.arch).family == "encdec":
         return (f"--arch {args.arch} is an encoder-decoder: the synthetic "
                 f"LM pipeline draws tokens, not the encoder's frames")
     if min(args.steps, args.batch, args.seq_len, args.log_every,
-           args.ckpt_every) < 1:
-        return ("--steps, --batch, --seq-len, --log-every and --ckpt-every "
-                "must be >= 1")
+           args.ckpt_every, args.data_axis) < 1:
+        return ("--steps, --batch, --seq-len, --log-every, --ckpt-every "
+                "and --data-axis must be >= 1")
     return None
 
 
@@ -676,8 +743,11 @@ def main(argv=None) -> int:
     if args.mode == "lm":
         why = lm_refusal(args)
         if why is not None:
-            print(f"error: {why}")
+            if os.environ.get("RANK", "0") == "0":
+                print(f"error: {why}")
             return 2
+        if in_torchrun_world():
+            return run_lm_process(args)
         run_lm(args)
         return 0
     if args.points < args.tau:

@@ -6,9 +6,11 @@ leaves (no ``L`` axis); ``transformer.py`` / ``encdec.py`` loop them over
 the stacked layers.  Each is written in the reference's spelling with
 plain torch ops (einsum contractions, f32 scores and states, the casts back
 to the activations' dtype where the reference has them).  No Pallas kernel
-lies on this path in the reference: XLA compiles it.  The reference's
-``moe_apply_ep`` (``shard_map`` expert parallelism, opt-in and off by
-default) is ROADMAP queue 1, item 8b-2.
+lies on this path in the reference: XLA compiles it.  ``moe_apply_ep``
+is the reference's opt-in expert parallelism (its ``shard_map`` over
+'model') over a process group: ``moe_apply`` takes it under
+``RunOptions.moe_ep`` with a ``model_group`` whose size divides the
+expert count.
 """
 
 from __future__ import annotations
@@ -205,36 +207,91 @@ def _moe_route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor):
     return gates, unit_e, torch.where(keep, unit_pos, 0), keep, cap
 
 
-def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Top-k MoE over a (B, T, D) block, per-row capacity
-    (capacity_factor * T * k / E a sequence).
+def _moe_experts(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                 router: torch.Tensor, lo: int, n_loc: int) -> torch.Tensor:
+    """Experts ``lo .. lo + n_loc - 1`` of a (B, T, D) block (``p``'s expert
+    leaves hold just those): routing on the whole router, the dispatch of
+    the kept units bound for them, their FFNs and the gate-weighted combine,
+    as an f32 (B, T, D) partial.
 
-    The dispatch writes only the kept units into the (B, E, C, D) buffer
+    The dispatch writes only those units into the (B, n_loc, C, D) buffer
     with a plain indexed store: kept units have distinct (expert, rank)
-    slots, so no two writes meet and the store needs no atomics.  Dropped
-    units go to a spare slot C that is cut off before the experts run
-    (the reference adds zeros at slot 0 instead: the same buffer)."""
+    slots, so no two writes meet and the store needs no atomics.  The other
+    units go to a spare slot C that is cut off before the experts run (the
+    reference adds zeros at slot 0 instead: the same buffer).  The gate
+    products are in the activations' dtype and their sum over k is f32, so
+    a partial is rounded once, where the group's sum of them ends."""
     b, t, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    gates, unit_e, unit_pos, keep, cap = _moe_route(cfg, p["router"], x)
+    k = cfg.top_k
+    gates, unit_e, unit_pos, keep, cap = _moe_route(cfg, router, x)
+    mine = keep & (unit_e >= lo) & (unit_e < lo + n_loc)
+    e_local = torch.where(mine, unit_e - lo, 0)
     # each token k times, (B, U, D): an expand, whose backward sums the k
     # copies in a fixed order (repeat_interleave's adds with atomics on
     # the card)
     xu = x[:, :, None].expand(b, t, k, d).reshape(b, t * k, d)
     rows = torch.arange(b, device=x.device)[:, None]
-    buf = torch.zeros((b, e, cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[rows, unit_e, torch.where(keep, unit_pos, cap)] = xu
-    buf = buf[:, :, :cap]                                       # (B,E,C,D)
+    buf = torch.zeros((b, n_loc, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[rows, e_local, torch.where(mine, unit_pos, cap)] = xu
+    buf = buf[:, :, :cap]                                       # (B,El,C,D)
 
     h = F.silu(torch.einsum("becd,edf->becf", buf, p["w_gate"])) \
         * torch.einsum("becd,edf->becf", buf, p["w_up"])
     yb = torch.einsum("becf,efd->becd", h, p["w_down"])
 
-    yu = yb[rows, unit_e, unit_pos]                             # (B, U, D)
-    yu = yu * keep[..., None]
-    y = torch.sum(yu.reshape(b, t, k, d)
-                  * gates[..., None].to(yu.dtype), dim=2)
-    return y.to(x.dtype)
+    yu = yb[rows, e_local, torch.where(mine, unit_pos, 0)]      # (B, U, D)
+    yu = yu * mine[..., None]
+    return torch.sum((yu.reshape(b, t, k, d)
+                      * gates[..., None].to(yu.dtype)).float(), dim=2)
+
+
+def moe_apply_ep(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                 group) -> torch.Tensor:
+    """Expert-parallel MoE over the process group ``group``, counterpart of
+    the reference's ``moe_apply_ep`` (its lines 214-272).
+
+    Each rank holds ``n_experts / |group|`` experts (``p``'s expert leaves
+    are its slice under ``sharding.param_specs``: ``sharding.moe_ep_params``)
+    and the whole router.  Routing runs on every rank, each rank dispatches
+    only the units bound for its experts, runs them, applies the
+    gate-weighted combine locally, and the f32 partial (B, T, D) is summed
+    over the group once (the reference rounds each shard's partial to the
+    activations' dtype before its f32 psum, which in bf16 at olmoe's 16
+    layers moved the logits 5.4% of their largest on an H100; kept in f32,
+    the sum is ``moe_apply``'s).  The gradient takes Megatron's conjugate
+    pair: ``x`` and the router enter through ``copy_to_group`` (identity
+    forward, the ranks' gradient shares summed backward) and the partial
+    leaves through ``reduce_from_group`` (sum forward, identity backward),
+    so every rank gets the whole gradient of its replicated inputs and of
+    its own experts."""
+    from repro_torch.distributed import process_group
+    e = cfg.n_experts
+    tp = process_group.group_size(group)
+    e_loc = e // tp
+    if e % tp or p["w_gate"].shape[0] != e_loc:
+        raise ValueError(
+            f"expert parallelism over {tp} ranks needs this rank's "
+            f"{e}/{tp} experts, got {p['w_gate'].shape[0]}")
+    part = _moe_experts(cfg, p, process_group.copy_to_group(x, group),
+                        process_group.copy_to_group(p["router"], group),
+                        process_group.group_rank(group) * e_loc, e_loc)
+    return process_group.reduce_from_group(part, group).to(x.dtype)
+
+
+def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Top-k MoE over a (B, T, D) block, per-row capacity
+    (capacity_factor * T * k / E a sequence): every expert on this rank
+    (``_moe_experts``).  Under ``RunOptions.moe_ep`` with a ``model_group``
+    whose size divides the expert count, ``moe_apply_ep`` runs instead, as
+    in the reference (its lines 291-297)."""
+    opts = common.get_run_options()
+    group = opts.model_group
+    if opts.moe_ep and group is not None:
+        from repro_torch.distributed import process_group
+        if cfg.n_experts % process_group.group_size(group) == 0:
+            return moe_apply_ep(cfg, p, x, group)
+    return _moe_experts(cfg, p, x, p["router"], 0,
+                        cfg.n_experts).to(x.dtype)
 
 
 def init_moe(cfg: ModelConfig, gen, n_layers: int, *, device=None) -> dict:
@@ -250,12 +307,23 @@ def init_moe(cfg: ModelConfig, gen, n_layers: int, *, device=None) -> dict:
 
 
 def moe_aux_loss(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Load-balancing auxiliary loss (Switch-style) for one block."""
+    """Load-balancing auxiliary loss (Switch-style) for one block.  Under a
+    ``RunOptions.data_group`` (a data-parallel run, every rank the same
+    count of tokens) the two router statistics are averaged over the group
+    first (``process_group.sum_over_group``, one call), so the loss is the
+    global batch's, as the reference's GSPMD computes it."""
     logits = (x.reshape(-1, cfg.d_model) @ p["router"]).float()
     probs = torch.softmax(logits, dim=-1)
     top1 = torch.argmax(probs, dim=-1)
     frac = torch.mean(F.one_hot(top1, cfg.n_experts).float(), dim=0)
     imp = torch.mean(probs, dim=0)
+    group = common.get_run_options().data_group
+    if group is not None:
+        from repro_torch.distributed import process_group
+        n = process_group.group_size(group)
+        both = process_group.sum_over_group(torch.stack([frac, imp]), group)
+        frac, imp = torch.div(both, torch.full((), float(n),
+                                               device=both.device))
     return cfg.n_experts * torch.sum(frac * imp)
 
 

@@ -1,14 +1,24 @@
 """Shared model machinery, counterpart of ``repro/models/common.py``: the
-config dataclass, init, norms and RoPE.
+config dataclass, the run options, the placement rules, init, norms and
+RoPE.
 
 Models are plain functions over nested dicts of tensors:
 ``init(cfg, seed) -> params``, ``forward(cfg, params, batch) -> logits``.
 Layer stacks keep the reference's stacked leading ``L`` axis, so params map
 one to one onto the reference's pytree; the port loops over ``L`` in Python
-where the reference scans.  The reference's GSPMD placement
-(``shard_heads``, ``shard_seq``, ``ShardingRules``, ``make_rules``,
-``axis_ok``) is a no-op on one card with no mesh and is left out (ROADMAP
-queue 1, item 8b-2).
+where the reference scans.
+
+The placement rules (``axis_ok``, ``ShardingRules``, ``make_rules``;
+reference lines 238-273) resolve which axis of a layout each logical dim
+takes.  A layout is an ordered mapping of axis name to size, such as
+``{"pod": 2, "data": 16, "model": 16}``, or a ``topology.Groups``, where
+the reference takes a ``jax.sharding.Mesh``.  ``distributed.sharding``
+builds every leaf's spec from them.  The reference's ``shard_heads`` and
+``shard_seq`` (lines 138-193) are GSPMD layout hints on activations inside
+a replica and change no value; the port's three process forms (data
+parallelism, expert parallelism over ``RunOptions.model_group``, the
+pipeline over ``pod``) split no activation inside a replica, so they have
+no counterpart.
 """
 
 from __future__ import annotations
@@ -119,8 +129,89 @@ class ModelConfig:
 
 @dataclasses.dataclass
 class RunOptions:
+    # Megatron-style sequence parallelism, the reference's default: the
+    # residual stream split over 'model' between blocks.  The port splits no
+    # activation inside a replica; the roofline's activation bytes read it
+    # (``distributed.roofline.roofline_terms``)
+    seq_parallel: bool = True
     # query-chunk size of the memory-efficient attention loop
     q_chunk: int = 512
+    # expert parallelism over ``model_group`` (``blocks.moe_apply_ep``):
+    # each rank of the group holds n_experts / its size of the experts
+    moe_ep: bool = False
+    # the process group expert parallelism runs over, in the place of the
+    # reference's ``mesh`` (None: every expert on this rank)
+    model_group: Any = None
+    # the data-parallel group of a ``--data-axis`` run: the MoE's
+    # load-balance loss sums its router statistics over it, so it is the
+    # global batch's, as under the reference's GSPMD
+    data_group: Any = None
+
+
+_RUN_OPTIONS = RunOptions()
+
+
+def set_run_options(**kw) -> RunOptions:
+    for k, v in kw.items():
+        if not hasattr(_RUN_OPTIONS, k):
+            raise AttributeError(f"RunOptions has no option {k!r}")
+        setattr(_RUN_OPTIONS, k, v)
+    return _RUN_OPTIONS
+
+
+def get_run_options() -> RunOptions:
+    return _RUN_OPTIONS
+
+
+# ---------------------------------------------------------------------------
+# placement rules
+# ---------------------------------------------------------------------------
+# Logical dims and the layout axis each takes where its size divides:
+#   vocab, heads (q-head count), kv (kv-head count), mlp (d_ff / d_inner),
+#   expert (expert count) -> 'model'; the stacked layer dim never; the
+#   batch -> ('pod', 'data'); fsdp: one more weight dim over 'data'.
+
+
+def axis_ok(size: int, mesh_axis_size: int) -> bool:
+    return mesh_axis_size > 0 and size % mesh_axis_size == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """Resolved logical -> layout-axis mapping for one (config, layout)
+    pair."""
+    tp: str | None            # axis of tensor parallelism ('model')
+    fsdp: str | None          # axis of param / optimizer sharding ('data')
+    dp: tuple[str, ...]       # batch axes, e.g. ('pod', 'data')
+    tp_size: int
+    fsdp_size: int
+
+    def heads(self, n: int) -> str | None:
+        return self.tp if axis_ok(n, self.tp_size) else None
+
+    def dim(self, size: int) -> str | None:
+        return self.tp if axis_ok(size, self.tp_size) else None
+
+    def fsdp_dim(self, size: int) -> str | None:
+        return self.fsdp if axis_ok(size, self.fsdp_size) else None
+
+
+def layout_sizes(layout) -> dict[str, int]:
+    """``{axis: size}`` in axis order, of an ordered mapping or of a
+    ``topology.Groups`` (its ``axes`` and ``shape``)."""
+    if hasattr(layout, "axes") and hasattr(layout, "shape"):
+        return dict(zip(layout.axes, layout.shape))
+    return {str(k): int(v) for k, v in dict(layout).items()}
+
+
+def make_rules(layout, *, use_fsdp: bool) -> ShardingRules:
+    sizes = layout_sizes(layout)
+    return ShardingRules(
+        tp="model" if "model" in sizes else None,
+        fsdp="data" if (use_fsdp and "data" in sizes) else None,
+        dp=tuple(a for a in ("pod", "data") if a in sizes),
+        tp_size=sizes.get("model", 1), fsdp_size=sizes.get("data", 1),
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -148,12 +148,18 @@ def _head(cfg: ModelConfig, params: dict) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def block_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                window: int = 0) -> torch.Tensor:
+    """One layer (its leaves ``p``) over the (B, T, D) residual stream."""
+    x, _ = _mixer(cfg, p, x, window, state=False)
+    return _mlp(cfg, p, x)
+
+
 def forward(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     x = _embed_inputs(cfg, params, batch)
     for w, p in zip(_layer_windows(cfg),
                     common.layers(params["blocks"], cfg.n_layers)):
-        x, _ = _mixer(cfg, p, x, w, state=False)
-        x = _mlp(cfg, p, x)
+        x = block_apply(cfg, p, x, w)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ _head(cfg, params)
 

@@ -13,8 +13,11 @@
   * ``make_prefill_step`` -- one forward over the prompt that also fills the
     decode cache.
 
-The reference places the replicas on a mesh axis; its sharding of params
-over the other mesh axes is ROADMAP queue 1, item 8b-2.
+The reference places the replicas on a mesh axis; here they are a
+leading replica dim on one card.  The placement over processes is
+``distributed.sharding`` (specs), ``launch.train --data-axis`` (data
+parallelism), ``models.blocks.moe_apply_ep`` (expert parallelism) and
+``training.pipeline`` (GPipe stages).
 """
 
 from __future__ import annotations
@@ -61,17 +64,59 @@ def loss_and_grads(loss_fn, params: dict, batch: dict
     return loss.detach(), tree_unflatten(params, grads)
 
 
+def mean_over_group(loss: torch.Tensor, leaves: list, group
+                    ) -> tuple[torch.Tensor, list]:
+    """The group's mean of ``loss`` and of each gradient leaf, in ONE f32
+    all-reduce of a flat bucket (a gloo call is a handshake of a few ms,
+    so one a leaf would cost a model's leaf count of them).  ``leaves`` is
+    emptied as the bucket fills, so the old gradients are freed as they
+    are copied; returns the mean loss and new leaves in their own dtypes
+    (none a view of the bucket)."""
+    from repro_torch.distributed import process_group
+    meta = [(g.shape, g.dtype) for g in leaves]
+    total = sum(g.numel() for g in leaves)
+    bucket = torch.empty(total + 1, dtype=torch.float32, device=loss.device)
+    at = 0
+    for i, (shape, _) in enumerate(meta):
+        n = shape.numel()
+        bucket[at:at + n].copy_(leaves[i].reshape(-1))
+        leaves[i] = None
+        at += n
+    bucket[at].copy_(loss)
+    process_group.all_reduce(bucket, "sum", group)
+    bucket.div_(torch.full((), float(process_group.group_size(group)),
+                           device=bucket.device))
+    out, at = [], 0
+    for shape, dtype in meta:
+        n = shape.numel()
+        out.append(bucket[at:at + n].view(shape).to(dtype, copy=True))
+        at += n
+    return bucket[at].clone(), out
+
+
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
-                    *, clip: float = 1.0, donate: bool = False) -> Callable:
+                    *, clip: float = 1.0, donate: bool = False,
+                    data_group=None) -> Callable:
     """``train_step(state, batch) -> (state, {"loss", "grad_norm"})``, the
     metrics device tensors (nothing waits on the host).  With ``donate``
     the step writes the new params and moments into ``state``'s tensors,
     as the reference's launcher donates its state to the jitted step
-    (``optim.optimizers``: 12 B a bf16 parameter, not 22)."""
+    (``optim.optimizers``: 12 B a bf16 parameter, not 22).
+
+    With ``data_group`` (data parallelism: every rank the same state,
+    ``batch`` its rows of the global batch) the loss and the grads are
+    averaged over the group (``mean_over_group``) before the clip, so the
+    clip and the update run identically on every rank, as the reference's
+    GSPMD averages the grads over its 'data' axis."""
     api = get_api(cfg)
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         loss, grads = loss_and_grads(api.loss_fn, state["params"], batch)
+        if data_group is not None:
+            leaves = tree_leaves(grads)
+            del grads
+            loss, leaves = mean_over_group(loss, leaves, data_group)
+            grads = tree_unflatten(state["params"], leaves)
         grads, gnorm = clip_by_global_norm(grads, clip)
         params, opt_state = optimizer.update(
             grads, state["opt_state"], state["params"], donate=donate)

@@ -571,3 +571,140 @@ def serve_runs(rank: int, world, ins: dict, argvs: list) -> dict:
         runs.append((code, buf.getvalue()))
     out["launcher"] = runs
     return out
+
+
+# -- the LM's placement over processes -----------------------------------------
+
+def _tree_np(tree):
+    """A tree of tensors as numpy arrays (f32 for floats)."""
+    if isinstance(tree, dict):
+        return {k: _tree_np(v) for k, v in tree.items()}
+    return _np(tree.float() if tree.is_floating_point() else tree)
+
+
+def _tree_t(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_t(v) for k, v in tree.items()}
+    return _t(tree)
+
+
+def shard_round_trips(rank: int, world, ins: dict) -> dict:
+    """Every rank's ``local_shard`` of each leaf on a (2, 2) (data, model)
+    grid, gathered back with ``gather_shards``."""
+    from repro_torch.distributed import sharding
+    groups = grid_groups(np.arange(4).reshape(2, 2), ("data", "model"))
+    sizes = dict(zip(groups.axes, groups.shape))
+    coords = sharding.layout_coords(groups)
+    out = {}
+    for name, (x, spec) in ins.items():
+        spec = sharding.P(*spec)
+        local = sharding.local_shard(_t(x), spec, sizes, coords)
+        out[name] = (_np(local), _np(sharding.gather_shards(local, spec,
+                                                            groups)))
+    return out
+
+
+def _ep_config(name: str):
+    import dataclasses
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get_smoke_config(name),
+                               dtype=torch.float32)
+
+
+def moe_ep_runs(rank: int, world, ins: dict) -> dict:
+    """Expert parallelism over a (1, 2) (data, model) grid: layer 0's
+    ``moe_apply_ep`` on ``ins["x"]`` and its grads under the cotangent
+    ``ins["r"]``, and the whole smoke model's loss, logits and grads with
+    ``RunOptions.moe_ep``; this rank's experts only."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import blocks, common
+    from repro_torch.models.api import get_api
+    from repro_torch.training import steps
+    cfg = _ep_config("olmoe_1b_7b")
+    groups = grid_groups(np.arange(2).reshape(1, 2), ("data", "model"))
+    g = groups.group("model")
+    params = sharding.moe_ep_params(cfg, _tree_t(ins["params"]), groups)
+    p0 = common.layer_slice(params["blocks"], 0)
+    x = _t(ins["x"]).requires_grad_()
+    leaves = {k: p0[k].detach().requires_grad_()
+              for k in ("router", "w_gate", "w_up", "w_down")}
+    y = blocks.moe_apply_ep(cfg, leaves, x, g)
+    grads = torch.autograd.grad((y * _t(ins["r"])).sum(),
+                                [x, *leaves.values()])
+    out = {"y": _np(y), "grads": [_np(t) for t in grads],
+           "shard": {k: _np(params["blocks"][k])
+                     for k in ("w_gate", "w_up", "w_down")}}
+    batch = _tree_t(ins["batch"])
+    common.set_run_options(moe_ep=True, model_group=g)
+    try:
+        loss, grads = steps.loss_and_grads(get_api(cfg).loss_fn, params,
+                                           batch)
+        with torch.no_grad():
+            logits = get_api(cfg).forward(params, batch)
+    finally:
+        common.set_run_options(moe_ep=False, model_group=None)
+    out.update(loss=float(loss), logits=_np(logits), model_grads=_tree_np(
+        grads))
+    return out
+
+
+def pipeline_runs(rank: int, world, ins: dict) -> dict:
+    """GPipe over a (2, 1, 1) (pod, data, model) grid: the pipelined loss
+    and grads of the granite smoke model, this rank's stage."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.training import pipeline, steps
+    cfg = dataclasses.replace(registry.get_smoke_config("granite_8b"),
+                              dtype=torch.float32, n_layers=ins["layers"])
+    groups = grid_groups(np.arange(2).reshape(2, 1, 1),
+                         ("pod", "data", "model"))
+    out = {}
+    for n_micro in ins["n_micro"]:
+        loss_fn = pipeline.make_pp_loss_fn(cfg, groups, n_micro=n_micro)
+        params = pipeline.stage_params(_tree_t(ins["params"]), groups)
+        loss, grads = steps.loss_and_grads(loss_fn, params,
+                                           _tree_t(ins["batch"]))
+        out[n_micro] = {"loss": float(loss), "grads": _tree_np(grads),
+                        "records": list(loss_fn.transport.log.records)}
+    return out
+
+
+def lm_data_parallel(rank: int, world, ins: dict) -> dict:
+    """``launch.train``'s LM mode over this world: ``run_lm`` on the (2, 1)
+    grid for each config named, then the launcher itself under a
+    torchrun-like environment (a straight run with checkpoints, its
+    resume, a grid of one rank beside an idle one)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+    from repro_torch.topology import make_host_groups
+    groups = make_host_groups(data=2)
+    out: dict = {}
+    for arch in ins["archs"]:
+        cfg = dataclasses.replace(registry.get_smoke_config(arch),
+                                  dtype=torch.float32)
+        args = train.parse_args(ins["argv"] + ["--arch", arch])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run = train.run_lm(args, cfg=cfg, groups=groups,
+                               dev=torch.device("cpu"))
+        out[arch] = {"losses": _np(run.losses), "gnorms": _np(run.grad_norms),
+                     "params": _tree_np(run.state["params"]),
+                     "log": buf.getvalue()}
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world.world_size),
+                      LOCAL_RANK=str(rank))
+    runs = []
+    for argv in ins["launcher"]:
+        if argv == "drop":   # a crash: rank 0 moves the last step aside
+            dist.barrier()
+            if rank == 0:
+                import shutil
+                shutil.move(ins["drop"], ins["keep"])
+            dist.barrier()
+            continue
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            code = train.main(argv)
+        runs.append((code, buf.getvalue()))
+    out["launcher"] = runs
+    return out

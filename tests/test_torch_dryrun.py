@@ -6,8 +6,9 @@ VQ examples (``examples/*_torch.py``) and the mesh run's wall, on the CPU.
   committed ``BENCH_comm.json`` and ``BENCH_hier.json`` figures (shape
   arithmetic); the adapt cells' fixed-merge bytes equal ``BENCH_adapt.json``
   and its dynamic cells are held to the file's per-merge prices, as
-  ``tests/test_torch_sweep.py`` holds them.  The LM and ``paper_vq`` flags
-  exit 2.
+  ``tests/test_torch_sweep.py`` holds them.  The LM flags write the LM
+  cells' records (``tests/test_torch_roofline_lm.py`` holds their
+  contents); a ``paper_vq`` cell with an LM shape, or no mode, exits 2.
 * ``sweep.sparse_reduction`` and ``sweep.ring_parity`` equal the
   reference's on the same cell dicts.
 * Each example runs with its size constants cut and prints its table.
@@ -113,18 +114,26 @@ def test_dryrun_records_name_their_cells(dry):
         assert r["mesh"] in ("8x1", "2x4")
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--arch", "olmoe_1b_7b", "--shape", "train_4k"], "item 8b"),
-    (["--all"], "item 8b"),
-    (["--multi-pod", "--comm"], "item 8b"),
-    (["--both-meshes"], "item 8b"),
-    (["--arch", "paper_vq", "--shape", "train_4k"], "vq_stream"),
-    (["--arch", "paper_vq", "--all"], "item 8b"),
-    ([], "--comm"),
+@pytest.mark.parametrize("argv,code,item", [
+    (["--arch", "olmoe_1b_7b", "--shape", "train_4k"], 0, "1 cells: 1 ok"),
+    (["--all"], 0, "80 cells: 64 ok, 16 skipped, 0 failed"),
+    (["--multi-pod", "--comm"], 0, "comm cells on cpu"),
+    (["--both-meshes"], 2, "--arch and --shape"),
+    (["--arch", "paper_vq", "--shape", "train_4k"], 2, "vq_stream"),
+    (["--arch", "paper_vq", "--all"], 0, "80 cells: 64 ok"),
+    ([], 2, "--comm"),
 ])
-def test_dryrun_lm_and_paper_vq_flags_exit_2(argv, item, capsys):
-    assert dryrun.main(argv + ["--device", "cpu"]) == 2
+def test_dryrun_lm_and_paper_vq_flags_exit_2(argv, code, item, capsys,
+                                             tmp_path):
+    """The LM flags run the LM cells (``--comm`` first, as the reference;
+    ``--all`` takes every arch, ``--arch paper_vq`` too); a layout flag
+    with no cell, a paper_vq cell with an LM shape, or no mode at all,
+    exits 2."""
+    out = ["--out", str(tmp_path / "records.json")]
+    assert dryrun.main(argv + ["--device", "cpu"] + out) == code
     assert item in capsys.readouterr().out
+    if code == 0:
+        assert json.loads((tmp_path / "records.json").read_text())
 
 
 CELL_SETS = {

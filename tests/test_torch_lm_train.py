@@ -9,7 +9,9 @@
     loss falls; ``--resume`` continues bit for bit: a run to 2N steps
     checkpointing at N, whose step-2N checkpoint is then removed (a crash
     after step N), resumes at N and ends on the uninterrupted run's bits;
-    ``--data-axis`` other than 1 and an encoder-decoder arch exit 2.
+    an encoder-decoder arch exits 2, and ``--data-axis 2`` in one process
+    clamps to 1 (data parallelism over a world:
+    ``tests/test_torch_lm_data_parallel.py``).
   * ``examples/train_lm_torch.py`` runs its failure and restart at a cut
     size (its model cut to 2 layers of 64, 16 steps).
 """
@@ -160,15 +162,19 @@ def test_resume_continues_bit_for_bit(tmp_path, capsys):
     assert int(resumed.state["step"]) == 2 * n
 
 
-@pytest.mark.parametrize("argv,why", [
-    (["--data-axis", "2"], "8b-2"),
-    (["--arch", "whisper_tiny"], "encoder-decoder"),
-    (["--steps", "0"], ">= 1"),
+@pytest.mark.parametrize("argv,code,why", [
+    (["--data-axis", "2", "--steps", "2", "--log-every", "1"], 0,
+     "mesh={'data': 1, 'model': 1}"),
+    (["--arch", "whisper_tiny"], 2, "encoder-decoder"),
+    (["--steps", "0"], 2, ">= 1"),
 ])
-def test_lm_refusals_exit_2(argv, why, capsys):
-    assert train.main(["--smoke", "--device", "cpu", *argv]) == 2
+def test_lm_refusals_exit_2(argv, code, why, capsys):
+    """The two refusals left exit 2; ``--data-axis 2`` in one process
+    clamps to the one device there is and prints the mesh, as the
+    reference's ``make_host_mesh`` does."""
+    assert train.main(["--smoke", "--device", "cpu", *argv]) == code
     out = capsys.readouterr().out
-    assert out.startswith("error:") and why in out
+    assert out.startswith("error:" if code else "arch=") and why in out
 
 
 def test_lm_mode_raises_without_cuda(monkeypatch):
