@@ -336,18 +336,18 @@ PyTorch built for CUDA:
      built as the launcher builds it over the world's groups, held
      against the stacked run of the same configuration, with every rank's
      launches counted: G7, ``--transport sparse --compress-frac 0.01``,
-     100 windows (cut), codebook and curve == the stacked sparse run bit
+     60 windows (cut), codebook and curve == the stacked sparse run bit
      for bit, 293,552 B of merge wire a merge, a top-k launch a merge, and
      eq. 9 over sparse in 4 processes for 1,200 ticks (cut) == the stacked
      run; G8, ``--hosts 2 --transport ring`` with the default sparse tier 1
-     (k = 1,024), 100 windows, == the stacked run bit for bit (the ring
+     (k = 1,024), 60 windows, == the stacked run bit for bit (the ring
      tier 0 keeps the stacked fold), 3,145,728 / 8,192 B a window; G9,
-     ``--quorum --network geometric --p-delay 0.2``, 100 windows, late
+     ``--quorum --network geometric --p-delay 0.2``, 60 windows, late
      worker-windows == the stacked run's and the numpy late matrix's; G10,
-     ``--merge dynamic`` over the ring, 100 windows each (cut): at
+     ``--merge dynamic`` over the ring, 60 windows each (cut): at
      threshold 0 == ``--scheme delta`` over the ring bit for bit, at item
      17's T every rank's trigger bits == the stacked run's; G11, the
-     tier-1 controller from frac 0.5 in chunks of 50 windows, every
+     tier-1 controller from frac 0.5 in chunks of 30 windows, every
      rank's frac sequence == the stacked run's; G12, ``--chaos
      7:kill=0,slow=1,part=1 --hosts 2``, late worker-windows == the
      stacked run's and the schedule's matrix; G13, G7's width over the
@@ -393,7 +393,8 @@ PyTorch built for CUDA:
      sparse and ring eq.-9 legs, eq. 9 over the hierarchy and E6 from
      20,000 ticks to 10,000, and G2 from 200 windows to 100; to pay for
      item 26, G2's ring and gloo legs went to 52 windows, item 24's legs
-     from 200 windows to 100 and G16 from 200 to 100;
+     from 200 windows to 100 and G16 from 200 to 100; to pay for item 27,
+     item 24's legs went to 60 windows and item 26's L2 to 3 steps;
   26. runs the LM's placement over processes (``placement_legs``, queue
      1, item 8b-2), after item 23, in one spawned world of 2 ranks sharing
      the card (gloo over CUDA tensors; NCCL refuses two ranks on one
@@ -423,10 +424,30 @@ PyTorch built for CUDA:
      and grads == the plain ones (L2's rule), a forward + backward's wall
      beside the one-process one; L5, ``python -m
      repro_torch.launch.dryrun --all`` as a subprocess beside the world:
-     exit 0, 80 records, the skips ``cell_applicable``'s, granite-8b x
-     train_4k at 16x16 printed, and the roofline's LM terms on one device
-     at item 22's decode and item 23's step;
-  27. times each kernel (the delta sweep also at each kchunk the tuner
+     exit 0, 80 records, the skips ``cell_applicable``'s, every one of the
+     64 ok records with a numeric collective term lowered from the placed
+     program (item 27 (d)), granite-8b x train_4k at 16x16 printed, and the
+     roofline's LM terms on one device at item 22's decode and item 23's
+     step; L2 runs 3 steps (10 until item 27);
+  27. runs the reference's placement as a program (``tensor_parallel_legs``,
+     queue 1, item 8c), after item 26, in one spawned world of 2 ranks
+     sharing the card (gloo over CUDA tensors), granite-8b at its published
+     width (d_model 4,096, GQA 32/8, d_ff 14,336, vocab 49,152) cut to 2
+     layers, each leg against the one-process run: (a) tensor parallelism
+     and the sequence-parallel residual stream over a (1, 2) grid, one
+     forward + backward + gradient sync of 4 x 64 tokens: the bf16 loss
+     within PP_BF16_RTOL, in f32 (TF32 off) the loss and every gradient
+     shard within TP_GRAD_RTOL of its leaf's largest; (b) FSDP and data
+     parallelism over a (2, 1) grid, one f32 AdamW step: loss, grad norm
+     and each rank's param shards at L2's rule; (c) greedy decoding of 4
+     rows (item 22's batch), a 16-token prompt and 8 tokens, over the
+     cache's 24 positions split over the (1, 2) grid, in f32 (bf16's
+     near-ties can flip a greedy token between two summation orders):
+     tokens == one process; each placed step's collectives by kind, as
+     its ranks recorded them, == ``hlo_analysis.lower_cell``'s for the
+     same step; every rank's kernel counts 0 (no kernel on this path); the
+     ms of each leg beside one process;
+  28. times each kernel (the delta sweep also at each kchunk the tuner
      weighs; the assign kernel at the flush, the eval and (8, 1) x 4096 x
      3072; the blocked kernel at (8, 1) x 4096 x 3072 with and without the
      epilogue and at (8, 1) x 4096 x 128; the window kernel also at M = 1,
@@ -445,7 +466,7 @@ PyTorch built for CUDA:
      the 3072-wide eq.-9 path with torch.profiler (device time by kernel, the
      device's idle share), after timing 200 dense and ring sync windows in
      turns on the host clock;
-  28. prints one ``{"kernels": [...]}`` line (window, delta, assign,
+  29. prints one ``{"kernels": [...]}`` line (window, delta, assign,
       top-k, blocked, ring and the ring's hop kernel), the card line
       again, and last
       ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -583,10 +604,12 @@ G4_KAPPAS = (4096, 4099)   # the lookup plans' codebooks, one ragged
 G5_BATCH = 1024          # the 2 x 2 minibatch step's points
 # item 24, the paper's cloud merges over processes (8 ranks, G7's eq. 9 in
 # G3_M ranks for G3_TICKS ticks): windows cut for the gloo handshakes
-CLOUD_POINTS = 1_000     # 100 windows a leg (G7-G9, G11-G13), cut (from
+CLOUD_POINTS = 600       # 60 windows a leg (G7-G9, G11-G13), cut (from
                          # 200 to pay for item 26: 0.8-1.0 s a window of
-                         # the 8 ranks' legs together on an H100 at 700 W)
-G11_PUBLISH = 50         # G11's windows a chunk: 2 chunks in 100 windows
+                         # the 8 ranks' legs together on an H100 at 700 W;
+                         # from 100 for item 27; 8 x 600 points still seed
+                         # kappa = 4,096)
+G11_PUBLISH = 30         # G11's windows a chunk: 2 chunks in 60 windows
 G10_POINTS = 600         # 60 windows a G10 leg (3 group rings a window), cut
 G12_CHAOS = "7:kill=0,slow=1,part=1"   # no kill: G16 (item 25) kills
 # item 25, elastic runs and serving over processes (8 ranks): E1's, E4's
@@ -644,7 +667,7 @@ LMT_TOPK_M = 4                 # (e): the top-k kernel's timed payload rows
 # item 26, the LM's placement over processes: 2 ranks sharing the card over
 # gloo (NCCL refuses two ranks on one device)
 PL_L1_STEPS = 20               # L1: --ckpt-every 10, then --resume from 10
-PL_L2_STEPS = 10
+PL_L2_STEPS = 3                # 10 until item 27 (3.6 s a step)
 # L2's depth: the memory rule allows 7 of item 23's 8 layers (1.93 B params),
 # but gloo moves the f32 bucket at 0.8-1.0 GB/s between two ranks on one
 # H100 at 700 W (7.72 GB in 7.8-9.7 s): 10 s a step, 100 s for 10 steps, past
@@ -660,6 +683,14 @@ PL_L4_LAYERS = 4               # L4: 2 stages of 2 layers
 PL_L4_MICRO = 4
 PL_L4_ROWS, PL_L4_SEQ = 8, 64
 PP_BF16_RTOL = 2e-3            # L4: the reference's bar on the bf16 loss
+# item 27, the placement as a program: 2 ranks sharing the card over gloo;
+# granite-8b at its published width cut to TP_LAYERS layers
+TP_LAYERS = 2
+TP_ROWS, TP_SEQ = 4, 64        # (a), (b): the batch of a step
+TP_GRAD_RTOL = 1e-4            # (a): f32 grads, of each leaf's largest
+TP_LR = 1e-3                   # (b): one AdamW step
+TP_RESOLVED = 1e-3             # (b): |g| past AdamW's eps by 1e3 and more
+TP_PROMPT, TP_GEN, TP_DECODE_ROWS = 16, 8, 4   # (c): item 22's batch
 # read before each call kernel_ms times: 20 times the H100's 50 MB L2, and
 # ~0.3 ms of device time in which the host enqueues the call
 L2_FLUSH_BYTES = 1 << 30
@@ -3989,18 +4020,26 @@ def placement_legs(dev) -> None:
     got_skips = sum(r["status"] == "skipped" for r in recs)
     cell = next((r for r in recs if r["arch"] == "granite_8b"
                  and r["shape"] == "train_4k" and r["mesh"] == "16x16"), None)
+    oks = [r for r in recs if r["status"] == "ok"]
+    lowered = sum(isinstance(r["roofline"]["t_collective"], float)
+                  and r["roofline"]["collective_note"] == "lowered"
+                  for r in oks)
     if dry.returncode != 0 or len(recs) != 80 or got_skips != skips \
-            or cell is None or any(r["status"] == "error" for r in recs):
+            or cell is None or any(r["status"] == "error" for r in recs) \
+            or lowered != len(oks) or len(oks) != 64:
         print(text[-4000:])
         fail(f"L5: dryrun --all exited {dry.returncode}, {len(recs)} records, "
-             f"{got_skips} skipped (cell_applicable: {skips})")
+             f"{got_skips} skipped (cell_applicable: {skips}), {lowered} of "
+             f"{len(oks)} ok records with a lowered collective term")
     t = cell["roofline"]
     print(f"L5 dryrun --all: exit 0, {len(recs)} records, {got_skips} "
-          f"skipped (== cell_applicable's {skips}); granite-8b x train_4k "
+          f"skipped (== cell_applicable's {skips}), {lowered} of {len(oks)} "
+          f"ok records with a numeric collective term; granite-8b x train_4k "
           f"[16x16]: {cell['memory']['argument_bytes'] / 2**30:.3f} GiB of "
           f"arguments a device, compute {t['t_compute']:.4f} s, memory "
-          f"{t['t_memory']:.4f} s, collective {t['t_collective']} "
-          f"({t['collective_note']}), dominant {t['dominant']}, MFU bound "
+          f"{t['t_memory']:.4f} s, collective {t['t_collective']:.4f} s "
+          f"({t['collective_note']}: {cell['collectives']['total_bytes']:,}"
+          f" B), dominant {t['dominant']}, MFU bound "
           f"{t['mfu_bound']:.3f}")
     # the roofline's LM half at item 22's decode and item 23's step, one
     # device: beside the hand bounds those items print
@@ -4023,6 +4062,309 @@ def placement_legs(dev) -> None:
           f"{trn['bytes_detail']['activations']:,.0f}); {card}")
     shutil.rmtree(tmp, ignore_errors=True)
     print(f"item 26 (the LM's placement over processes): "
+          f"{time.perf_counter() - t_item:.1f} s")
+
+
+# -- item 27: the placement as a program ----------------------------------------
+
+def _grads_rtol_ratio(got, want) -> float:
+    """max over leaves of max|got - want| / (TP_GRAD_RTOL max|want|):
+    <= 1 holds."""
+    from repro_torch.optim.optimizers import tree_leaves
+    return max(float((a.float() - b.float()).abs().max())
+               / (TP_GRAD_RTOL * float(b.float().abs().max()) or 1e-30)
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def _tensor_parallel_world(rank: int, world, cfg: dict) -> dict:
+    """Item 27's legs on this rank of a world of 2 sharing the card: (a)
+    tensor and sequence parallelism over a (1, 2) grid, one forward and
+    backward in bf16 (timed) and f32 against the one-process run; (b) FSDP
+    and data parallelism over a (2, 1) grid, one f32 AdamW step against
+    the one-process step; (c) greedy decoding over a sequence-split cache
+    on the (1, 2) grid in f32 against one process.  Each placed leg records
+    its collectives.  Returns this rank's readings."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import device as device_lib
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    from repro_torch.distributed import process_group, sharding
+    from repro_torch.models import common
+    from repro_torch.models.api import get_api
+    from repro_torch.optim import optimizers
+    from repro_torch.topology import grid_groups
+    from repro_torch.training import steps
+
+    device_lib.pin_full_f32()
+    if cfg["smoke"]:                   # the CPU rehearsal's widths
+        registry.get_config = registry.get_smoke_config
+    dev = world.device
+    cuda = dev.type == "cuda"
+    zero_counts()
+    full = registry.get_config("granite_8b")
+    tp = grid_groups(np.arange(2).reshape(1, 2), ("data", "model"))
+    dp = grid_groups(np.arange(2).reshape(2, 1), ("data", "model"))
+    out: dict = {}
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def sync():
+        device_lib.synchronize(dev)
+
+    def wall(fn) -> tuple:
+        """(fn's result, its wall ms between device syncs)."""
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def placed(groups, fsdp: bool, fn):
+        common.set_run_options(layout=groups, fsdp=fsdp)
+        try:
+            return fn()
+        finally:
+            common.set_run_options(layout=None, fsdp=False)
+
+    def shard(tree, groups, c, fsdp: bool):
+        sizes = common.layout_sizes(groups)
+        return sharding.local_tree(
+            tree, sharding.param_specs(c, sizes, use_fsdp=fsdp), sizes,
+            sharding.layout_coords(groups))
+
+    # -- (a) TP + SP on model = 2 ---------------------------------------------
+    a: dict = {}
+    for label, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        c = dataclasses.replace(full, n_layers=TP_LAYERS, dtype=dtype)
+        api = get_api(c)
+        params = api.init(SEED, device=dev)
+        batch = lm_batch(DataConfig(c.vocab, TP_SEQ, TP_ROWS, SEED), 0,
+                         device=dev)
+
+        def one():
+            return steps.loss_and_grads(api.loss_fn, params, batch)
+
+        def run():
+            with process_group.record_collectives() as log:
+                loss, grads = steps.loss_and_grads(api.loss_fn, local, batch)
+                pl = common.placement(c)
+                loss, grads = steps.sync_grads(pl, loss, grads)
+                steps.clip_placed(pl, grads, 1.0)
+            return loss, grads, log.bytes_by_kind()
+
+        one()                                    # warm-up
+        (loss_w, grads_w), one_ms = wall(one)
+        grads_w = shard(grads_w, tp, c, False)
+        local = shard(params, tp, c, False)
+        del params
+        free()
+        placed(tp, False, run)                   # warm-up
+        (loss_p, grads_p, by), tp_ms = wall(lambda: placed(tp, False, run))
+        a[label] = {"loss": float(loss_p), "plain": float(loss_w),
+                    "rel": abs(float(loss_p) - float(loss_w))
+                    / abs(float(loss_w)),
+                    "grads_ratio": _grads_rtol_ratio(grads_p, grads_w),
+                    "tp_ms": tp_ms, "one_ms": one_ms, "bytes": by}
+        del local, grads_w, grads_p
+        free()
+    out["a"] = a
+
+    # -- (b) FSDP + DP on data = 2: one AdamW step --------------------------------
+    c = dataclasses.replace(full, n_layers=TP_LAYERS, dtype=torch.float32)
+    opt = optimizers.adamw(TP_LR)
+    st = steps.init_train_state(c, opt, SEED, device=dev)
+    batch = lm_batch(DataConfig(c.vocab, TP_SEQ, TP_ROWS, SEED), 0,
+                     device=dev)
+    (st_w, m_w), one_ms = wall(lambda: steps.make_train_step(c, opt)(
+        st, batch))
+    want = shard(st_w["params"], dp, c, True)
+    # AdamW's first moment after one step is (1 - b1) x the clipped grads
+    mu_w = shard(st_w["opt_state"].mu, dp, c, True)
+    del st_w
+    local = shard(st["params"], dp, c, True)
+    del st
+    free()
+    lst = {"params": local, "opt_state": opt.init(local),
+           "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    sizes = common.layout_sizes(dp)
+    lb = sharding.local_tree(batch, sharding.batch_specs(c, sizes, batch),
+                             sizes, sharding.layout_coords(dp))
+    step = steps.make_train_step(c, opt)
+
+    def fsdp_step():
+        with process_group.record_collectives() as log:
+            res = step(lst, lb)
+        return res, log.bytes_by_kind()
+
+    ((lst2, m_p), by), fsdp_ms = wall(lambda: placed(dp, True, fsdp_step))
+    mu_p = lst2["opt_state"].mu
+    # AdamW's step is lr g / (|g| + eps), which turns a rounding-level
+    # difference of a gradient near 0 into one of up to 2 lr: the params
+    # are held at L2's rule where |g| >= TP_RESOLVED of its leaf's largest
+    resolved = optimizers.tree_map(
+        lambda m: m.abs() >= TP_RESOLVED * m.abs().max(), mu_w)
+    out["b"] = {"params_ratio": _tree_ratio(
+                    optimizers.tree_map(torch.masked_select, lst2["params"],
+                                        resolved),
+                    optimizers.tree_map(torch.masked_select, want,
+                                        resolved)),
+                "params_ratio_all": _tree_ratio(lst2["params"], want),
+                "grads_ratio": _grads_rtol_ratio(mu_p, mu_w),
+                "resolved": sum(int(x.sum()) for x in
+                                optimizers.tree_leaves(resolved)),
+                "metrics_ratio": _allclose_ratio(
+                    torch.stack([m_p["loss"], m_p["grad_norm"]]),
+                    torch.stack([m_w["loss"], m_w["grad_norm"]])),
+                "loss": float(m_p["loss"]), "plain": float(m_w["loss"]),
+                "fsdp_ms": fsdp_ms, "one_ms": one_ms, "bytes": by,
+                "local": sum(x.numel() for x in
+                             optimizers.tree_leaves(lst2["params"]))}
+    del lst, lst2, want, local, mu_p, mu_w, resolved
+    free()
+
+    # -- (c) decode on a sequence-split cache, model = 2 ----------------------
+    api = get_api(c)
+    params = api.init(SEED, device=dev)
+    prompt = lm_batch(DataConfig(c.vocab, TP_PROMPT, TP_DECODE_ROWS, SEED),
+                      0, device=dev)["tokens"]
+    max_len = TP_PROMPT + TP_GEN
+
+    def greedy(p):
+        """The tokens, and the collectives of the prefill and of the first
+        decode step (bytes by kind)."""
+        with torch.no_grad():
+            with process_group.record_collectives() as pre:
+                logits, cache = api.prefill(p, {"tokens": prompt}, max_len)
+            toks = [logits.argmax(-1)]
+            dec = None
+            for _ in range(TP_GEN - 1):
+                with process_group.record_collectives() as log:
+                    logits, cache = api.decode_step(p, cache,
+                                                    toks[-1][:, None])
+                dec = log.bytes_by_kind() if dec is None else dec
+                toks.append(logits[:, 0].argmax(-1))
+        return torch.stack(toks, 1), pre.bytes_by_kind(), dec
+
+    (tok_w, *_), one_ms = wall(lambda: greedy(params))
+    local = shard(params, tp, c, False)
+    del params
+    free()
+    (tok_p, pre, dec), tp_ms = wall(lambda: placed(tp, False,
+                                                   lambda: greedy(local)))
+    out["c"] = {"equal": bool(torch.equal(tok_p, tok_w)),
+                "tokens": tok_p.cpu().tolist(), "tp_ms": tp_ms,
+                "one_ms": one_ms, "prefill_bytes": pre, "decode_bytes": dec}
+    del local
+    free()
+    out["counts"] = launch_counts()
+    return out
+
+
+def tensor_parallel_legs(dev) -> None:
+    """Item 27 (a)-(c): the reference's placement as a program, in one
+    spawned world of 2 ranks on the card, each leg against the one-process
+    run, and each placed step's recorded collectives against
+    ``distributed.hlo_analysis.lower_cell``'s figure for the same step.
+    (d) is item 26's L5."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.distributed import hlo_analysis, process_group
+
+    t_item = time.perf_counter()
+    card = card_line()
+    smoke = dev.type == "cpu"
+    t0 = time.perf_counter()
+    outs = process_group.spawn(_tensor_parallel_world, 2, {"smoke": smoke},
+                               device=dev)
+    print(f"world of 2 ranks ((a)-(c)): {time.perf_counter() - t0:.1f} s")
+    full = (registry.get_smoke_config if smoke
+            else registry.get_config)("granite_8b")
+
+    def lowered(dtype, sizes, fsdp, cell=None):
+        c = dataclasses.replace(full, n_layers=TP_LAYERS, dtype=dtype)
+        cell = cell or registry.ShapeCell("item27", "train", TP_SEQ,
+                                          TP_ROWS)
+        return hlo_analysis.lower_cell(c, cell, sizes,
+                                       use_fsdp=fsdp)["bytes_by_kind"]
+
+    tp_sizes, dp_sizes = {"data": 1, "model": 2}, {"data": 2, "model": 1}
+    ok = True
+    for label, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        r = [o["a"][label] for o in outs]
+        want = lowered(dtype, tp_sizes, False)
+        same = all(x["bytes"] == want for x in r)
+        print(f"27(a) granite-8b at its published width, {TP_LAYERS} layers,"
+              f" {TP_ROWS} x {TP_SEQ} tokens, TP + SP over model = 2, "
+              f"{label}: loss {r[0]['loss']:.6f} vs one process "
+              f"{r[0]['plain']:.6f} (rel {[x['rel'] for x in r]}); grads "
+              f"max|gap| / ({TP_GRAD_RTOL} max|want|) a leaf "
+              f"{[x['grads_ratio'] for x in r]}; forward + backward + sync "
+              f"{[round(x['tp_ms'], 1) for x in r]} ms (one process "
+              f"{[round(x['one_ms'], 1) for x in r]}); recorded bytes by kind"
+              f" {r[0]['bytes']} vs lower_cell {want}: equal {same}")
+        ok &= same
+        if label == "bf16":
+            ok &= all(x["rel"] <= PP_BF16_RTOL for x in r)
+        else:
+            ok &= all(x["grads_ratio"] <= 1.0 and x["rel"] <= TP_GRAD_RTOL
+                      for x in r)
+    if not ok:
+        fail("27(a): TP + SP differs from one process, or its recorded "
+             "collectives from the lowered step")
+    b = [o["b"] for o in outs]
+    want = lowered(torch.float32, dp_sizes, True)
+    same = all(x["bytes"] == want for x in b)
+    print(f"27(b) FSDP + DP over data = 2, f32, one AdamW step (lr {TP_LR}):"
+          f" loss {b[0]['loss']:.6f} vs one process {b[0]['plain']:.6f}; "
+          f"|gap| / (atol + rtol |want|) at rtol 1e-4, atol 1e-5 max|x| (<= 1"
+          f" holds): loss and grad norm {[x['metrics_ratio'] for x in b]}; "
+          f"the clipped grads' shards (AdamW's first moment) max|gap| / "
+          f"({TP_GRAD_RTOL} max|want|) {[x['grads_ratio'] for x in b]}; "
+          f"each rank's params where |g| >= {TP_RESOLVED} of its leaf's "
+          f"largest ({[x['resolved'] for x in b]} of {b[0]['local']:,}) "
+          f"{[x['params_ratio'] for x in b]}, at every entry "
+          f"{[x['params_ratio_all'] for x in b]} (a read-out); the step "
+          f"{[round(x['fsdp_ms'], 1) for x in b]} ms (one process "
+          f"{[round(x['one_ms'], 1) for x in b]}); recorded bytes by kind "
+          f"{b[0]['bytes']} vs lower_cell {want}: equal {same}")
+    if not (same and all(max(x["params_ratio"], x["metrics_ratio"],
+                             x["grads_ratio"]) <= 1.0 for x in b)):
+        fail("27(b): the FSDP step differs from one process, or its "
+             "recorded collectives from the lowered step")
+    c = [o["c"] for o in outs]
+    want_pre = lowered(torch.float32, tp_sizes, False, registry.ShapeCell(
+        "item27", "prefill", TP_PROMPT, TP_DECODE_ROWS))
+    want_dec = lowered(torch.float32, tp_sizes, False, registry.ShapeCell(
+        "item27", "decode", TP_PROMPT + TP_GEN, TP_DECODE_ROWS))
+    same = all(x["prefill_bytes"] == want_pre and x["decode_bytes"]
+               == want_dec for x in c)
+    print(f"27(c) greedy decoding, {TP_DECODE_ROWS} rows, {TP_PROMPT}-token "
+          f"prompt, {TP_GEN} tokens, the cache's {TP_PROMPT + TP_GEN} "
+          f"positions split over model = 2, f32: tokens == one process "
+          f"{[x['equal'] for x in c]} ({c[0]['tokens'][0]}...); prefill + "
+          f"decode {[round(x['tp_ms'], 1) for x in c]} ms (one process "
+          f"{[round(x['one_ms'], 1) for x in c]}); recorded bytes by kind: "
+          f"prefill {c[0]['prefill_bytes']} vs lower_cell {want_pre}, one "
+          f"decode step {c[0]['decode_bytes']} vs lower_cell {want_dec}: "
+          f"equal {same}; {card}")
+    if not (same and all(x["equal"] for x in c)):
+        fail("27(c): decoding over the split cache differs from one process,"
+             " or its recorded collectives from the lowered cells")
+    counts = [o["counts"] for o in outs]
+    if any(any(v.values()) for v in counts):
+        fail(f"27: a kernel of the port's own launched {counts}; the "
+             f"reference runs this path on XLA")
+    print(f"item 27 (the placement as a program): "
           f"{time.perf_counter() - t_item:.1f} s")
 
 
@@ -4906,13 +5248,16 @@ def lm_training_legs(dev) -> None:
     tk, tl = in_turns(lambda: vq_fused.vq_topk(big, k_emb),
                       lambda: torch.topk(big.abs(), k_emb, dim=1), 3)
     n_big = big.shape[1]
+    # the plain version (a stable sort of 4 x 201 M entries, ~20 GB of
+    # transients): one warm-up, one timed call
+    tp = kernel_ms(lambda: vq_fused.vq_topk_plain(big, k_emb), 1, warmup=1)
     tb = bound(4 * 2 * LMT_TOPK_M * n_big + 8 * LMT_TOPK_M * k_emb,
                LMT_TOPK_M * n_big)
     print(f"timing top-k {tuple(big.shape)}, k={k_emb:,} (granite-8b's "
           f"embedding delta, captured from the sparse merge and stacked "
           f"to {LMT_TOPK_M} rows): kernel {r4(tk)} ms, torch.topk(|x|) "
-          f"{r4(tl)} ms (in turns; selection only), bound {tb[0]:.4f} ms "
-          f"({tb[1]}); {topk_plan_line(big)}; {card}")
+          f"{r4(tl)} ms (in turns; selection only), plain {tp:.4f} ms, "
+          f"bound {tb[0]:.4f} ms ({tb[1]}); {topk_plan_line(big)}; {card}")
     del big, emb
     gc.collect()
     torch.cuda.empty_cache()
@@ -6188,8 +6533,9 @@ def main() -> None:
     lm_serving_legs(dev)
     lm_training_legs(dev)
     placement_legs(dev)
+    tensor_parallel_legs(dev)
 
-    # -- 27. timing at the main path's shapes ---------------------------------
+    # -- 28. timing at the main path's shapes ---------------------------------
     # every kernel, plain and library time by kernel_ms (L2 cold, host time
     # hidden); "warm" is time_ms over back-to-back wrapper calls (L2 warm,
     # the wrapper's host time included), a read-out beside it

@@ -36,6 +36,7 @@ the caller sets another with ``set_topology``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import pickle
@@ -259,12 +260,11 @@ def barrier(group=None) -> None:
 
 # -- collectives inside autograd (Megatron's conjugate pair) ------------------------
 
-def _f32_sum(t: torch.Tensor, group) -> torch.Tensor:
+def _f32_sum(t: torch.Tensor, group, scope: str | None = None
+             ) -> torch.Tensor:
     """A new tensor: the f32 sum of t over the group, cast back to t's
     dtype."""
-    out = t.to(torch.float32, copy=True).contiguous()
-    all_reduce(out, "sum", group)
-    return out.to(t.dtype)
+    return reduce_along(t, group, scope=scope).to(t.dtype)
 
 
 class _CopyToGroup(torch.autograd.Function):
@@ -275,12 +275,12 @@ class _CopyToGroup(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        ctx.group = group
+        ctx.group, ctx.scope = group, current_scope()
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return _f32_sum(g, ctx.group), None
+        return _f32_sum(g, ctx.group, ctx.scope), None
 
 
 class _ReduceFromGroup(torch.autograd.Function):
@@ -303,12 +303,12 @@ class _SumOverGroup(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        ctx.group = group
+        ctx.group, ctx.scope = group, current_scope()
         return _f32_sum(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        return _f32_sum(g, ctx.group), None
+        return _f32_sum(g, ctx.group, ctx.scope), None
 
 
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
@@ -321,6 +321,240 @@ def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
 
 def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:
     return _SumOverGroup.apply(x, group)
+
+
+# -- the placement's collectives, recorded ----------------------------------------
+#
+# The tensor-parallel placement (``models.common.Placed``) moves activations
+# and weights with the collectives below.  Each appends a ``Collective`` to
+# every open ``CollectiveLog`` (``record_collectives``): its kind under the
+# reference's HLO name, the axis, and its RESULT bytes on this rank, as the
+# reference's ``hlo_analysis`` counts a collective.  Over a ``RecordingGroup``
+# (a layout that only records: ``RecordingLayout``) nothing moves, and on
+# the ``meta`` device nothing is computed: the dry run runs a cell's step so
+# (``distributed.hlo_analysis.lower_cell``).
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    kind: str          # all-gather | reduce-scatter | all-reduce
+    axis: str          # a recording group's axis; "" over a real group
+    nbytes: int        # the result's bytes on this rank
+    scope: str         # "" outside a layer loop, else the stack's name
+
+
+class CollectiveLog:
+    """The ``Collective``s of the placement, in call order."""
+
+    def __init__(self):
+        self.records: list[Collective] = []
+
+    def bytes_by_kind(self) -> dict:
+        out: dict = {}
+        for r in self.records:
+            out[r.kind] = out.get(r.kind, 0) + r.nbytes
+        return out
+
+
+_logs: list[CollectiveLog] = []
+_scope = [""]
+
+
+@contextlib.contextmanager
+def record_collectives(log: CollectiveLog | None = None):
+    """Append the placement's collectives to ``log`` (a new one by
+    default) while the block runs; yields the log."""
+    log = CollectiveLog() if log is None else log
+    _logs.append(log)
+    try:
+        yield log
+    finally:
+        _logs.remove(log)
+
+
+@contextlib.contextmanager
+def collective_scope(name: str):
+    """Tag the collectives of the block with ``name`` (a layer stack's,
+    whose records the dry run multiplies by its layer count)."""
+    _scope.append(name)
+    try:
+        yield
+    finally:
+        _scope.pop()
+
+
+def current_scope() -> str:
+    return _scope[-1]
+
+
+def _note(kind: str, group, out: torch.Tensor, scope: str | None) -> None:
+    """Record a collective; ``scope`` is the one its forward ran in (a
+    backward runs after the layer loop has left its scope)."""
+    if _logs:
+        axis = group.axis if isinstance(group, RecordingGroup) else ""
+        rec = Collective(kind, axis, out.numel() * out.element_size(),
+                         _scope[-1] if scope is None else scope)
+        for log in _logs:
+            log.records.append(rec)
+
+
+@dataclasses.dataclass(frozen=True)
+class RecordingGroup:
+    """One axis of a ``RecordingLayout``: its size and this rank's index;
+    a collective over it records and moves nothing."""
+
+    axis: str
+    size: int
+    rank: int
+
+
+@dataclasses.dataclass(frozen=True)
+class RecordingLayout:
+    """A layout that only records, with the part of ``topology.Groups``'
+    interface the placement reads (``axes``, ``shape``, ``coords``,
+    ``group``): the rank at ``coords`` of a grid of ``shape``."""
+
+    axes: tuple
+    shape: tuple
+    coords: tuple
+
+    @classmethod
+    def of(cls, sizes: dict, coords: dict | None = None
+           ) -> "RecordingLayout":
+        coords = coords or {}
+        return cls(tuple(sizes), tuple(int(v) for v in sizes.values()),
+                   tuple(int(coords.get(a, 0)) for a in sizes))
+
+    def group(self, axis: str) -> RecordingGroup:
+        i = self.axes.index(axis)
+        return RecordingGroup(axis, self.shape[i], self.coords[i])
+
+
+def size_of(group) -> int:
+    return group.size if isinstance(group, RecordingGroup) else \
+        group_size(group)
+
+
+def rank_of(group) -> int:
+    return group.rank if isinstance(group, RecordingGroup) else \
+        group_rank(group)
+
+
+def gather_along(t: torch.Tensor, dim: int, group,
+                 scope: str | None = None) -> torch.Tensor:
+    """Every rank's t concatenated along ``dim`` in the group's order (an
+    all-gather)."""
+    p = size_of(group)
+    if p == 1:      # a group of one moves nothing (nor does XLA's)
+        return t
+    if isinstance(group, RecordingGroup):
+        shape = list(t.shape)
+        shape[dim] *= p
+        out = t.new_empty(shape)
+    else:
+        out = torch.cat(tuple(all_gather(t, group)), dim=dim)
+    _note("all-gather", group, out, scope)
+    return out
+
+
+def reduce_along(t: torch.Tensor, group, op: str = "sum",
+                 scope: str | None = None) -> torch.Tensor:
+    """A new f32 tensor: t's sum (or max) over the group (an all-reduce;
+    a bf16 t is summed in f32)."""
+    out = t.to(torch.float32, copy=True).contiguous()
+    if size_of(group) == 1:
+        return out
+    if not isinstance(group, RecordingGroup):
+        all_reduce(out, op, group)
+    _note("all-reduce", group, out, scope)
+    return out
+
+
+def reduce_scatter_along(t: torch.Tensor, dim: int, group,
+                         scope: str | None = None) -> torch.Tensor:
+    """This rank's slice along ``dim`` of t's f32 sum over the group (a
+    reduce-scatter).  gloo takes no reduce-scatter of CUDA tensors, so it
+    runs as an all-reduce and a slice; it is recorded as what it is."""
+    p, r = size_of(group), rank_of(group)
+    n = t.shape[dim] // p
+    if p == 1:
+        return t.to(torch.float32, copy=True)
+    if isinstance(group, RecordingGroup):
+        shape = list(t.shape)
+        shape[dim] = n
+        out = t.new_empty(shape, dtype=torch.float32)
+    else:
+        full = t.to(torch.float32, copy=True).contiguous()
+        all_reduce(full, "sum", group)
+        out = full.narrow(dim, r * n, n).contiguous()
+    _note("reduce-scatter", group, out, scope)
+    return out
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """All-gather along a dim forward, reduce-scatter backward: a shard
+    (of the sequence, of a weight) entering a computation whose ranks each
+    hold a partial of its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.scope = dim, group, current_scope()
+        return gather_along(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter_along(g, ctx.dim, ctx.group,
+                                     ctx.scope).to(g.dtype), None, None)
+
+
+class _ScatterToGroup(torch.autograd.Function):
+    """Reduce-scatter along a dim forward, all-gather backward: a partial
+    (a row-parallel product) leaving as this rank's shard of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.scope = dim, group, current_scope()
+        return reduce_scatter_along(x, dim, group).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (gather_along(g.contiguous(), ctx.dim, ctx.group, ctx.scope),
+                None, None)
+
+
+class _SplitToGroup(torch.autograd.Function):
+    """This rank's slice along a dim forward, the slice's gradient padded
+    with zeros backward (no collective): a value every rank holds whole
+    leaving as this rank's shard; its gradient is then each rank's partial
+    of the whole one."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        p, r = size_of(group), rank_of(group)
+        n = x.shape[dim] // p
+        ctx.dim, ctx.at, ctx.full = dim, r * n, x.shape[dim]
+        return x.narrow(dim, r * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        shape = list(g.shape)
+        shape[ctx.dim] = ctx.full
+        out = g.new_zeros(shape)
+        out.narrow(ctx.dim, ctx.at, g.shape[ctx.dim]).copy_(g)
+        return out, None, None
+
+
+def gather_from_group(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _GatherFromGroup.apply(x, dim, group)
+
+
+def scatter_to_group(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The shard of x's sum over the group (summed in f32, cast back to
+    x's dtype)."""
+    return _ScatterToGroup.apply(x, dim, group)
+
+
+def split_to_group(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _SplitToGroup.apply(x, dim, group)
 
 
 # -- local worlds ---------------------------------------------------------------

@@ -45,10 +45,12 @@ prices it per device at one H100 SXM's rates (NVIDIA H100 80GB HBM3 at its
     rate a collective between cards would move at.
 
 The reference reads its collective bytes from the compiled program's HLO
-(``hlo_analysis``), which is XLA's; nothing lowers the port's cells, so
-``roofline_terms`` takes ``collective_bytes_per_dev=None`` and then
-reports the collective term as ``None`` ("not lowered") and takes the
-dominant term and the MFU bound over the compute and memory terms.
+(its ``hlo_analysis``); the port's dry run reads them from its placed
+program lowered on ``meta`` tensors (``distributed.hlo_analysis``), and
+``roofline_terms`` prices them at ``NVLINK_BW`` ("lowered").  A caller
+with no program passes ``collective_bytes_per_dev=None``: the collective
+term is then ``None`` ("not lowered") and the dominant term and the MFU
+bound are taken over the compute and memory terms.
 """
 
 from __future__ import annotations
@@ -273,7 +275,7 @@ def roofline_terms(cfg: ModelConfig, cell: ShapeCell, mesh: MeshShape,
         **{f"t_{k}": v for k, v in terms.items()},
         "dominant": dominant,
         "collective_note": ("not lowered" if collective_bytes_per_dev is None
-                            else "measured"),
+                            else "lowered"),
         "device_flops": dev_flops,
         "device_bytes": by["total"],
         "bytes_detail": by,

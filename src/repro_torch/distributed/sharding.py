@@ -288,6 +288,19 @@ def _shard(dim_size: int, entry, sizes: dict, coords: dict | None
     return dim_size // n, idx
 
 
+def local_shape(shape: tuple, spec: P, sizes: dict) -> tuple:
+    """The shape of a rank's slice of a leaf of ``shape`` under ``spec``."""
+    return tuple(_shard(n, entry, sizes, None)[0] if _axes(entry) else n
+                 for n, entry in zip(shape, spec))
+
+
+def local_meta(tree, specs, sizes: dict):
+    """``tree``'s leaves as ``meta`` tensors of a rank's slice shapes."""
+    return tree_map(lambda leaf, spec: torch.empty(
+        local_shape(tuple(leaf.shape), spec, sizes), dtype=leaf.dtype,
+        device="meta"), tree, specs)
+
+
 def local_shard(leaf: torch.Tensor, spec: P, sizes: dict, coords: dict
                 ) -> torch.Tensor:
     """This rank's slice of the whole ``leaf`` under ``spec``, at

@@ -51,9 +51,9 @@ The LM cells (the reference's ``build_cell`` and ``run_cell``, its lines
 price each (arch x shape) cell on the production layout
 (``topology.production_grid``: (data, model) = (16, 16), or (pod, data,
 model) = (2, 16, 16) with ``--multi-pod``; ``--both-meshes`` and ``--all``
-take both) as spec arithmetic, where the reference lowers and compiles on
-256 / 512 placeholder devices.  Nothing is allocated: the arguments are
-tensors on the ``meta`` device.  ``cell_applicable`` skips the cells the
+take both), where the reference lowers and compiles on 256 / 512
+placeholder devices.  Nothing is allocated: the arguments are tensors on
+the ``meta`` device.  ``cell_applicable`` skips the cells the
 reference skips (long_500k on full attention).  A train cell places its
 state by ``sharding.param_specs`` (FSDP where ``registry.uses_fsdp``), its
 optimizer state by ``opt_specs_like`` and its batch by ``batch_specs``;
@@ -66,10 +66,17 @@ record holds the reference's keys: ``arch``, ``shape``, ``mesh``,
 ``merge``, ``status``, ``reason`` (a skip's), ``roofline``
 (``distributed.roofline.roofline_terms`` at the H100's rates) and
 ``memory.argument_bytes`` (``sharding.device_bytes`` of the cell's
-arguments, exact shape arithmetic).  The collective term is ``None`` and
-``roofline.collective_note`` says "not lowered": the reference reads it
-from the compiled HLO, which is XLA's.  Records merge by key into
-``--out`` (default ``dryrun_lm.json``); the run exits 1 if a cell errs.
+arguments, exact shape arithmetic) and ``collectives``: the cell's step
+lowered by ``distributed.hlo_analysis.lower_cell``, the placed program
+(tensor, sequence and FSDP parallelism, ``models.common.Placed``) run once
+on ``meta`` shard shapes over a layout that only records, each stack cut
+to one layer and its records multiplied by its layer count, in the place
+of the reference's compiled HLO.  Its total over ``per_step_divisor``
+(tau for a window) is the collective term (``roofline.collective_note``
+"lowered"), priced at ``NVLINK_BW``.  A ``--quantized`` decode cell lowers
+the bf16 step: the int8 leaves are dequantized a layer at a time on each
+rank and move no other bytes.  Records merge by key into ``--out``
+(default ``dryrun_lm.json``); the run exits 1 if a cell errs.
 ``--device`` does not matter to these cells: they touch no device.
 """
 
@@ -289,7 +296,7 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
              merge: str = "none", tau: int = 10, verbose: bool = True,
              quantized: bool = False) -> dict:
     """One LM cell's record (the reference's ``run_cell`` keys)."""
-    from repro_torch.distributed import roofline, sharding
+    from repro_torch.distributed import hlo_analysis, roofline, sharding
     rec: dict = {"arch": arch_id, "shape": shape_name,
                  "mesh": "2x16x16" if multi_pod else "16x16",
                  "merge": merge}
@@ -314,12 +321,21 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
             quantized=quantized and cell.kind == "decode")
         per = {k: sharding.device_bytes(t, s, sizes)
                for k, (t, s) in args.items()}
+        coll = hlo_analysis.lower_cell(
+            cfg, cell, sizes,
+            use_fsdp=registry.uses_fsdp(arch_id) and cell.kind == "train",
+            merge=merge if window else "none", tau=tau)
+        # a window lowers tau local steps and its merge: per step, as the
+        # reference normalizes it
+        div = tau if window else 1
         terms = roofline.roofline_terms(cfg, cell,
-                                        roofline.mesh_shape(multi_pod), None)
+                                        roofline.mesh_shape(multi_pod),
+                                        coll["total_bytes"] / div)
         rec.update({
             "status": "ok", "reason": "",
             "build_s": round(time.perf_counter() - t0, 3),
-            "per_step_divisor": tau if window else 1,
+            "per_step_divisor": div,
+            "collectives": coll,
             "roofline": terms,
             "memory": {"argument_bytes": sum(
                 v for k, v in per.items() if k != "cache_out"),
@@ -333,9 +349,10 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
         if verbose:
             gb = rec["memory"]["argument_bytes"] / 2**30
             print(f"OK   {arch_id} x {shape_name} [{rec['mesh']}, "
-                  f"merge={merge}] args={gb:.3f}GiB/dev "
+                  f"merge={merge}] build={rec['build_s']}s "
+                  f"args={gb:.3f}GiB/dev coll={coll['total_bytes']:.3e}B "
                   f"dom={terms['dominant']} t=({terms['t_compute']:.4f},"
-                  f"{terms['t_memory']:.4f},not lowered)s "
+                  f"{terms['t_memory']:.4f},{terms['t_collective']:.4f})s "
                   f"mfu<={terms['mfu_bound']:.2f}")
     except Exception as e:  # noqa: BLE001 -- report, do not end the sweep
         rec["status"] = "error"

@@ -52,7 +52,8 @@ def inv_sqrt_f32(dh: int) -> float:
 
 def attention_train(cfg: ModelConfig, p: dict, x: torch.Tensor,
                     *, causal: bool = True, window: int = 0,
-                    q_chunk: int = 512, return_kv: bool = False):
+                    q_chunk: int = 512, return_kv: bool = False,
+                    kv_index: list | None = None):
     """Self-attention over a (B, T, D) block, chunked over query blocks.
 
     Exact softmax per query chunk against the full K/V (the reference's
@@ -63,16 +64,27 @@ def attention_train(cfg: ModelConfig, p: dict, x: torch.Tensor,
     rounds of eager launches here.  Each query's row is the same softmax
     either way.  ``window`` > 0 masks to a sliding window.  The
     probabilities are cast to the activations' dtype before the PV
-    product, as the reference casts them."""
+    product, as the reference casts them.
+
+    The head counts are the leaves': a rank's shard of ``wq`` (and of
+    ``wk`` / ``wv``) under tensor parallelism runs its own heads.
+    ``kv_index`` names the K/V head of each query head when ``wk`` / ``wv``
+    are whole and ``wq`` a shard (``attention_placed``).  ``return_kv``
+    returns the K/V of every head the leaves give."""
     b, t, _ = x.shape
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
+    hq, hkv = p["wq"].shape[-1] // dh, p["wk"].shape[-1] // dh
     pos = torch.arange(t, dtype=torch.int32, device=x.device)[None]
     q = _split_heads(x @ p["wq"], hq)
-    k = _split_heads(x @ p["wk"], hkv)
-    v = _split_heads(x @ p["wv"], hkv)
+    k_all = _split_heads(x @ p["wk"], hkv)
+    v_all = _split_heads(x @ p["wv"], hkv)
     if cfg.rope_theta > 0:
         q = rope(q, pos, cfg.rope_theta)
-        k = rope(k, pos, cfg.rope_theta)
+        k_all = rope(k_all, pos, cfg.rope_theta)
+    k, v = k_all, v_all
+    if kv_index is not None:
+        k, v = k[:, :, kv_index], v[:, :, kv_index]
+        hkv = len(kv_index)
     g = hq // hkv
     q = q.reshape(b, t, hkv, g, dh)
 
@@ -94,7 +106,7 @@ def attention_train(cfg: ModelConfig, p: dict, x: torch.Tensor,
         outs.append(torch.einsum("bhgts,bshd->bthgd", probs, v))
     out = torch.cat(outs, dim=1).reshape(b, t, hq * dh)
     if return_kv:
-        return out @ p["wo"], k, v
+        return out @ p["wo"], k_all, v_all
     return out @ p["wo"]
 
 
@@ -185,17 +197,22 @@ def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _moe_route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor):
+def _moe_route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor,
+               logits: torch.Tensor | None = None):
     """Shared routing: per-row ranks and capacity mask.
 
     Returns (gates (B,T,k), unit_e (B,U), unit_pos (B,U), keep (B,U), cap);
     units are in (T, k) order, so the per-row rank cumsum drops the same
     units the reference drops, and a dropped unit's position is 0.
+    ``logits``: the (B, T, E) router logits when the caller has them (a
+    router split over the experts, gathered), else ``x @ router``.
     """
     b, t, _ = x.shape
     e, k = cfg.n_experts, cfg.top_k
     u = t * k
-    logits = (x @ router).float()                               # (B, T, E)
+    if logits is None:
+        logits = x @ router
+    logits = logits.float()                                     # (B, T, E)
     gates, idx = _top_k(torch.softmax(logits, dim=-1), k)        # (B, T, k)
     gates = gates / torch.sum(gates, dim=-1, keepdim=True)
     cap = int(cfg.capacity_factor * t * k / e) or 1
@@ -208,7 +225,8 @@ def _moe_route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor):
 
 
 def _moe_experts(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                 router: torch.Tensor, lo: int, n_loc: int) -> torch.Tensor:
+                 router: torch.Tensor, lo: int, n_loc: int,
+                 logits: torch.Tensor | None = None) -> torch.Tensor:
     """Experts ``lo .. lo + n_loc - 1`` of a (B, T, D) block (``p``'s expert
     leaves hold just those): routing on the whole router, the dispatch of
     the kept units bound for them, their FFNs and the gate-weighted combine,
@@ -223,7 +241,7 @@ def _moe_experts(cfg: ModelConfig, p: dict, x: torch.Tensor,
     a partial is rounded once, where the group's sum of them ends."""
     b, t, d = x.shape
     k = cfg.top_k
-    gates, unit_e, unit_pos, keep, cap = _moe_route(cfg, router, x)
+    gates, unit_e, unit_pos, keep, cap = _moe_route(cfg, router, x, logits)
     mine = keep & (unit_e >= lo) & (unit_e < lo + n_loc)
     e_local = torch.where(mine, unit_e - lo, 0)
     # each token k times, (B, U, D): an expand, whose backward sums the k
@@ -304,27 +322,6 @@ def init_moe(cfg: ModelConfig, gen, n_layers: int, *, device=None) -> dict:
         "w_up": init((n_layers, e, d, f)),
         "w_down": init((n_layers, e, f, d)),
     }
-
-
-def moe_aux_loss(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Load-balancing auxiliary loss (Switch-style) for one block.  Under a
-    ``RunOptions.data_group`` (a data-parallel run, every rank the same
-    count of tokens) the two router statistics are averaged over the group
-    first (``process_group.sum_over_group``, one call), so the loss is the
-    global batch's, as the reference's GSPMD computes it."""
-    logits = (x.reshape(-1, cfg.d_model) @ p["router"]).float()
-    probs = torch.softmax(logits, dim=-1)
-    top1 = torch.argmax(probs, dim=-1)
-    frac = torch.mean(F.one_hot(top1, cfg.n_experts).float(), dim=0)
-    imp = torch.mean(probs, dim=0)
-    group = common.get_run_options().data_group
-    if group is not None:
-        from repro_torch.distributed import process_group
-        n = process_group.group_size(group)
-        both = process_group.sum_over_group(torch.stack([frac, imp]), group)
-        frac, imp = torch.div(both, torch.full((), float(n),
-                                               device=both.device))
-    return cfg.n_experts * torch.sum(frac * imp)
 
 
 # ---------------------------------------------------------------------------
@@ -408,7 +405,9 @@ def mamba_train(cfg: ModelConfig, p: dict, x: torch.Tensor,
     returns (conv_x_tail, conv_bc_tail, ssm_state) to seed decode after a
     prefill."""
     b, t, _ = x.shape
-    di, h, pdim = cfg.d_inner, cfg.ssm_heads, cfg.ssm_headdim
+    # a rank's shard of the inner width and the heads under tensor
+    # parallelism: the widths are the leaves'
+    di, h, pdim = p["in_x"].shape[-1], p["in_dt"].shape[-1], cfg.ssm_headdim
     n = cfg.ssm_state
     z = x @ p["in_z"]                       # (B, T, di)
     xs_raw = x @ p["in_x"]                  # (B, T, di) pre-conv
@@ -440,8 +439,8 @@ def mamba_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     conv_bc_st: (B, W-1, 2n); ssm_state: (B, H, P, N).  Returns (out,
     conv_x_st, conv_bc_st, ssm_state), the states new tensors."""
     b = x.shape[0]
-    di, n, h, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_headdim
+    di, n, h, pdim = (p["in_x"].shape[-1], cfg.ssm_state,
+                      p["in_dt"].shape[-1], cfg.ssm_headdim)
     z = (x @ p["in_z"])[:, 0]                              # (B, di)
     xs = x @ p["in_x"]                                     # (B, 1, di)
     bcs = x @ p["in_bc"]                                   # (B, 1, 2n)
@@ -488,3 +487,250 @@ def init_mamba(cfg: ModelConfig, gen, n_layers: int, *, device=None) -> dict:
         "D": full(1.0),
         "dt_bias": full(-1.0),
     }
+
+
+# ---------------------------------------------------------------------------
+# the placement's forms: tensor parallelism over 'model'
+# ---------------------------------------------------------------------------
+# Each form takes this rank's leaves (``sharding.param_specs``: heads,
+# d_ff, experts, d_inner over 'model' where their counts divide it) and a
+# (B, T, D) input every rank of 'model' holds whole (``Placed.enter``), and
+# returns ``(out, partial)``: ``partial`` when the output is this rank's
+# share of a row-parallel sum (``Placed.leave`` reduces it), else the
+# output is whole on every rank.
+
+def _tp_ok(pl, n: int) -> bool:
+    return pl.tp > 1 and n > 0 and n % pl.tp == 0
+
+
+def kv_index(cfg: ModelConfig, pl) -> list[int]:
+    """The K/V head of each of this rank's query heads, when the query
+    heads split over 'model' and the K/V heads do not (granite-8b's 8 K/V
+    heads on 16 ranks): rank r takes the groups of its own query heads."""
+    hq_l = cfg.n_heads // pl.tp
+    g = cfg.n_heads // cfg.n_kv_heads
+    return [(pl.tp_rank * hq_l + i) // g for i in range(hq_l)]
+
+
+def attention_placed(cfg: ModelConfig, p: dict, h: torch.Tensor, pl, *,
+                     causal: bool = True, window: int = 0,
+                     return_kv: bool = False):
+    """Self-attention, heads over 'model' where the query heads divide it
+    (the K/V heads too, or each rank takes its query heads' groups of the
+    whole K/V); where they do not (starcoder2's 36 heads, hymba's 25 on 16
+    ranks) every rank runs it whole.  Returns ``(attention_train's result,
+    partial)``."""
+    part = _tp_ok(pl, cfg.n_heads)
+    idx = (kv_index(cfg, pl) if part and not _tp_ok(pl, cfg.n_kv_heads)
+           else None)
+    return attention_train(cfg, p, h, causal=causal, window=window,
+                           return_kv=return_kv, kv_index=idx), part
+
+
+def mlp_placed(cfg: ModelConfig, p: dict, h: torch.Tensor, pl, *,
+               gelu: bool = False):
+    """SwiGLU (or GELU) with d_ff over 'model' where it divides."""
+    y = gelu_mlp(p, h) if gelu else swiglu(p, h)
+    return y, _tp_ok(pl, cfg.d_ff)
+
+
+def moe_placed(cfg: ModelConfig, p: dict, h: torch.Tensor, pl):
+    """Top-k MoE with the experts over 'model' where they divide it, the
+    reference's ``_moe_shard`` placement of the (B, E, C, D) buffers (the
+    batch over the DP axes, each rank its own experts): the router's
+    columns are this rank's experts', so the logits are gathered over
+    'model' first (their gradient's partials reduce-scattered back); each
+    rank dispatches the units bound for its experts (``_moe_experts``) and
+    its f32 partial leaves through ``Placed.leave``."""
+    from repro_torch.distributed import process_group
+    if not _tp_ok(pl, cfg.n_experts):
+        return moe_apply(cfg, p, h), False
+    e_loc = cfg.n_experts // pl.tp
+    logits = process_group.gather_from_group(h @ p["router"], h.dim() - 1,
+                                             pl.tp_group)
+    return _moe_experts(cfg, p, h, None, pl.tp_rank * e_loc, e_loc,
+                        logits=logits), True
+
+
+#: Mamba2 leaves split over d_inner, and the dim each splits on
+_DI_LEAVES = {"in_z": -1, "in_x": -1, "conv_x": -1, "out_proj": 0}
+
+
+def mamba_leaves(cfg: ModelConfig, p: dict, pl) -> tuple[dict, bool]:
+    """``(leaves, partial)`` of the Mamba2 mixer: d_inner and the SSM heads
+    over 'model' where the heads divide it (``in_bc`` and ``conv_bc``
+    whole, so B and C are every rank's); where d_inner divides and the
+    heads do not (hymba's 50 heads on 16 ranks) its d_inner leaves are
+    gathered and the mixer runs whole."""
+    from repro_torch.distributed import process_group
+    if _tp_ok(pl, cfg.ssm_heads):
+        return p, True
+    if _tp_ok(pl, cfg.d_inner):
+        p = dict(p)
+        for name, dim in _DI_LEAVES.items():
+            leaf = p[name]
+            p[name] = process_group.gather_from_group(
+                leaf, dim % leaf.dim(), pl.tp_group)
+    return p, False
+
+
+def mamba_placed(cfg: ModelConfig, p: dict, h: torch.Tensor, pl, *,
+                 return_state: bool = False):
+    p, part = mamba_leaves(cfg, p, pl)
+    return mamba_train(cfg, p, h, return_state=return_state), part
+
+
+def moe_aux_loss(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor,
+                 pl) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style) for one block of the
+    stream ``x`` (this rank's positions when it is split, else whole) with
+    this rank's router columns: the router gathered over 'model' where the
+    experts split, the two router statistics averaged over 'model' (the
+    positions' shares; identity backward, as each rank's loss reads the
+    average whole) and over the DP axes (the batch's shares), so the loss
+    is the global batch's, as the reference's GSPMD computes it.  With no
+    layout, a ``RunOptions.data_group`` (a data-parallel run, every rank
+    the same count of tokens) is the DP axis."""
+    from repro_torch.distributed import process_group
+    if _tp_ok(pl, cfg.n_experts):
+        router = process_group.gather_from_group(router, 1, pl.tp_group)
+    logits = x.reshape(-1, cfg.d_model) @ router
+    probs = torch.softmax(logits.float(), dim=-1)
+    top1 = torch.argmax(probs, dim=-1)
+    frac = torch.mean(F.one_hot(top1, cfg.n_experts).float(), dim=0)
+    imp = torch.mean(probs, dim=0)
+    both = torch.stack([frac, imp])
+    over = [(a, pl.group(a)) for a in ("model", *pl.rules.dp)
+            if pl.sizes.get(a, 1) > 1]
+    data_group = common.get_run_options().data_group
+    if pl.layout is None and data_group is not None:
+        over = [("data", data_group)]
+    for axis, g in over:
+        n = process_group.size_of(g)
+        both = (process_group.reduce_from_group(both, g) if axis == "model"
+                else process_group.sum_over_group(both, g))
+        both = torch.div(both, torch.full((), float(n), device=both.device))
+    return cfg.n_experts * torch.sum(both[0] * both[1])
+
+
+# -- decode over a cache whose sequence is split ------------------------------
+
+def seq_split(pl, seq_axes: tuple) -> bool:
+    """Are a cache's positions split over more than one rank?"""
+    return any(pl.sizes[a] > 1 for a in seq_axes)
+
+
+def split_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lo: int, last: int | None, window: int, pl,
+                 seq_axes: tuple) -> torch.Tensor:
+    """Attention of one query position over a cache whose positions are
+    split over ``seq_axes`` (``sharding.cache_specs``): q (B, 1, Hq, Dh)
+    every head; k, v (B, S_loc, Hkv, Dh) this rank's positions ``lo ..
+    lo + S_loc - 1``; positions past ``last`` (and, with ``window``, at or
+    before ``last - window``) masked.  Each rank's partial softmax (its
+    max, its sum of exponentials and its PV product) is combined by two
+    f32 all-reduces over each axis: a max, then the sums.  Returns the f32
+    (B, 1, Hq * Dh) output, the whole cache's softmax."""
+    from repro_torch.distributed import process_group
+    b, _, hq, dh = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    s = torch.einsum("bthgd,bshd->bhgts", q.reshape(b, 1, hkv, g, dh),
+                     k).float() / sqrt_f32(dh)
+    kpos = lo + torch.arange(k.shape[1], device=q.device)
+    if last is not None:
+        mask = kpos <= last
+        if window > 0:
+            mask &= kpos > last - window
+        s = torch.where(mask, s, _NEG)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    axes = [a for a in seq_axes if pl.sizes[a] > 1]
+    for a in axes:
+        m = process_group.reduce_along(m, pl.group(a), "max")
+    e = torch.exp(s - m)                                   # (b,h,g,1,S)
+    pv = torch.einsum("bhgts,bshd->bthgd", e, v.float())   # (b,1,h,g,dh)
+    both = torch.cat([pv, torch.sum(e, dim=-1).permute(0, 3, 1, 2)[
+        ..., None]], dim=-1)
+    for a in axes:
+        both = process_group.reduce_along(both, pl.group(a))
+    out = both[..., :dh] / both[..., dh:]
+    return out.reshape(b, 1, hq * dh)
+
+
+def _mine(out: torch.Tensor, pl, n_heads: int, dh: int) -> torch.Tensor:
+    """This rank's heads' columns of an all-heads (B, 1, H * Dh) output."""
+    hl = n_heads // pl.tp
+    return out[..., pl.tp_rank * hl * dh:(pl.tp_rank + 1) * hl * dh]
+
+
+def attention_decode_placed(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                            k_cache: torch.Tensor, v_cache: torch.Tensor,
+                            cur_len: int, pl, seq_axes: tuple, *,
+                            window: int = 0):
+    """One-token decode over this rank's positions of the cache.  The new
+    token's query heads (and K/V heads, where they split) are gathered over
+    'model'; its K/V are written IN PLACE on the one rank whose positions
+    hold ``cur_len``; ``split_attend`` combines the ranks' softmax; each
+    rank's own heads' columns of the output go through its ``wo`` rows.
+    Where neither the heads nor the positions split (no layout, or one
+    rank on the cache's axes) it is ``attention_decode``, whose PV product
+    runs in the activations' dtype as the reference's does;
+    ``split_attend`` keeps its partial PV products in f32 until the ranks'
+    sum.  Returns ``(out, partial)``."""
+    from repro_torch.distributed import process_group
+    b = x.shape[0]
+    dh = cfg.head_dim
+    part = _tp_ok(pl, cfg.n_heads)
+    if not part and not seq_split(pl, seq_axes):
+        return attention_decode(cfg, p, x, k_cache, v_cache, cur_len,
+                                window=window), False
+    pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=x.device)
+    q = _split_heads(x @ p["wq"], p["wq"].shape[-1] // dh)
+    k = _split_heads(x @ p["wk"], p["wk"].shape[-1] // dh)
+    v = _split_heads(x @ p["wv"], p["wv"].shape[-1] // dh)
+    if cfg.rope_theta > 0:
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+    if part:
+        q = process_group.gather_along(q, 2, pl.tp_group)
+        if _tp_ok(pl, cfg.n_kv_heads):
+            k = process_group.gather_along(k, 2, pl.tp_group)
+            v = process_group.gather_along(v, 2, pl.tp_group)
+    lo = pl.seq_index(seq_axes) * k_cache.shape[1]
+    if lo <= cur_len < lo + k_cache.shape[1]:
+        k_cache[:, cur_len - lo] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, cur_len - lo] = v[:, 0].to(v_cache.dtype)
+    out = split_attend(q, k_cache, v_cache, lo, cur_len, window, pl,
+                       seq_axes).to(x.dtype)
+    if part:
+        out = _mine(out, pl, cfg.n_heads, dh)
+    return out @ p["wo"], part
+
+
+def mamba_decode_placed(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                        conv_x_st: torch.Tensor, conv_bc_st: torch.Tensor,
+                        ssm_state: torch.Tensor, pl):
+    """One Mamba2 step with this rank's leaves (``mamba_leaves``) and
+    states: a conv state split over its channels where the mixer needs it
+    whole (``conv_bc`` always, ``conv_x`` when the mixer runs whole) is
+    gathered for the step and this rank's channels kept.  Returns
+    ``(out, conv_x, conv_bc, ssm, partial)``."""
+    from repro_torch.distributed import process_group
+    p, part = mamba_leaves(cfg, p, pl)
+    split = {}
+    for name, st, whole in (("x", conv_x_st, p["in_x"].shape[-1]),
+                            ("bc", conv_bc_st, 2 * cfg.ssm_state)):
+        split[name] = st.shape[-1] != whole
+    if split["x"]:
+        conv_x_st = process_group.gather_along(conv_x_st.contiguous(), 2,
+                                               pl.tp_group)
+    if split["bc"]:
+        conv_bc_st = process_group.gather_along(conv_bc_st.contiguous(), 2,
+                                                pl.tp_group)
+    y, hx, hbc, st = mamba_decode(cfg, p, x, conv_x_st, conv_bc_st,
+                                  ssm_state)
+    if split["x"]:
+        hx = pl.own(hx, 2)
+    if split["bc"]:
+        hbc = pl.own(hbc, 2)
+    return y, hx, hbc, st, part

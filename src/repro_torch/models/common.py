@@ -13,12 +13,31 @@ reference lines 238-273) resolve which axis of a layout each logical dim
 takes.  A layout is an ordered mapping of axis name to size, such as
 ``{"pod": 2, "data": 16, "model": 16}``, or a ``topology.Groups``, where
 the reference takes a ``jax.sharding.Mesh``.  ``distributed.sharding``
-builds every leaf's spec from them.  The reference's ``shard_heads`` and
-``shard_seq`` (lines 138-193) are GSPMD layout hints on activations inside
-a replica and change no value; the port's three process forms (data
-parallelism, expert parallelism over ``RunOptions.model_group``, the
-pipeline over ``pod``) split no activation inside a replica, so they have
-no counterpart.
+builds every leaf's spec from them.
+
+The placement as a program (``RunOptions.layout``, ``placement``,
+``Placed``): where the reference hands its mesh to GSPMD, which partitions
+the program and pins the residual stream with ``shard_seq`` (its lines
+167-190), the port runs each rank's own shard of the model under a
+``topology.Groups`` (a real world) or a
+``process_group.RecordingLayout`` (a program that only records its
+collectives, on ``meta`` tensors).  ``Placed`` holds the rules and the
+collectives of that form: tensor parallelism over 'model' (Megatron's
+column / row pairs, ``models.blocks``), the residual stream
+sequence-parallel between the sub-blocks (``Placed.enter`` gathers the
+sequence, ``Placed.leave`` reduce-scatters a partial sum or slices a whole
+value), FSDP over 'data' (``Placed.unshard`` gathers a weight before use,
+its gradient reduce-scattered back) and the batch over ('pod', 'data').
+With no layout, ``placed`` gives the one-rank form of it, so the models
+keep one body an entry point: every collective is an identity there.
+
+Gradients under a placement: a leaf a rank holds a shard of gets its
+shard's whole gradient; a leaf every rank of the 'model' group holds whole
+gets a partial on each rank, summed over the group by the train step
+(``training.steps.sync_grads``), as a value every rank holds whole (the
+gathered sequence, the routing logits) gets a partial gradient that the
+gather's reduce-scatter sums.  The reference's ``shard_heads`` has no
+caller there and no counterpart here.
 """
 
 from __future__ import annotations
@@ -28,6 +47,7 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import device as device_lib
 
@@ -129,10 +149,10 @@ class ModelConfig:
 
 @dataclasses.dataclass
 class RunOptions:
-    # Megatron-style sequence parallelism, the reference's default: the
-    # residual stream split over 'model' between blocks.  The port splits no
-    # activation inside a replica; the roofline's activation bytes read it
-    # (``distributed.roofline.roofline_terms``)
+    # Megatron-style sequence parallelism, the reference's default: under a
+    # ``layout`` the residual stream is split over 'model' between the
+    # sub-blocks (``Placed.seq_sharded``); the roofline's activation bytes
+    # read it too (``distributed.roofline.roofline_terms``)
     seq_parallel: bool = True
     # query-chunk size of the memory-efficient attention loop
     q_chunk: int = 512
@@ -146,6 +166,13 @@ class RunOptions:
     # load-balance loss sums its router statistics over it, so it is the
     # global batch's, as under the reference's GSPMD
     data_group: Any = None
+    # the placement the model runs under, the counterpart of the
+    # reference's ``mesh``: a ``topology.Groups`` of a real world or a
+    # ``process_group.RecordingLayout``; params are this rank's shards
+    # under ``sharding.param_specs(cfg, layout, use_fsdp=fsdp)``.  None:
+    # the whole model on this rank
+    layout: Any = None
+    fsdp: bool = False
 
 
 _RUN_OPTIONS = RunOptions()
@@ -212,6 +239,266 @@ def make_rules(layout, *, use_fsdp: bool) -> ShardingRules:
         dp=tuple(a for a in ("pod", "data") if a in sizes),
         tp_size=sizes.get("model", 1), fsdp_size=sizes.get("data", 1),
     )
+
+
+# ---------------------------------------------------------------------------
+# the placement as a program
+# ---------------------------------------------------------------------------
+
+_SPECS: dict = {}
+
+
+class Placed:
+    """The placement ``RunOptions.layout`` sets, as the model's forms read
+    it: the rules, this rank's coords, the groups, and the collectives at
+    the residual stream's boundaries (``enter`` / ``leave``), of FSDP
+    (``unshard``) and of the vocabulary-parallel embedding, head and
+    cross-entropy (``embed``, ``head``, ``whole_logits``,
+    ``cross_entropy``)."""
+
+    def __init__(self, cfg: ModelConfig, opts: RunOptions):
+        self.cfg, self.layout = cfg, opts.layout
+        whole = opts.layout is None
+        self.sizes = {} if whole else layout_sizes(opts.layout)
+        self.coords = ({} if whole
+                       else dict(zip(opts.layout.axes, opts.layout.coords)))
+        self.fsdp = opts.fsdp and not whole
+        self.rules = make_rules(self.sizes, use_fsdp=self.fsdp)
+        self.seq_parallel = opts.seq_parallel
+        self.tp = self.sizes.get("model", 1)
+        self.tp_rank = self.coords.get("model", 0)
+
+    def group(self, axis: str):
+        return self.layout.group(axis)
+
+    @property
+    def tp_group(self):
+        return self.layout.group("model")
+
+    def specs(self) -> dict:
+        """``sharding.param_specs`` of the config on this layout (each
+        config's once)."""
+        key = (self.cfg, tuple(self.sizes.items()), self.fsdp)
+        if key not in _SPECS:
+            from repro_torch.distributed import sharding
+            _SPECS[key] = sharding.param_specs(self.cfg, self.sizes,
+                                               use_fsdp=self.fsdp)
+        return _SPECS[key]
+
+    # -- the reference's shard_seq -------------------------------------------
+
+    def seq_sharded(self, t: int) -> bool:
+        """The reference's ``shard_seq`` rule for a (B, T, D) stream of T
+        positions: on with ``seq_parallel`` and a 'model' axis of more
+        than one rank, for T >= 2 that the axis divides."""
+        return (self.seq_parallel and self.tp > 1 and t >= 2
+                and t % self.tp == 0)
+
+    def enter(self, h: torch.Tensor, sp: bool) -> torch.Tensor:
+        """A sub-block's normed input, whole on every rank: the sequence
+        gathered over 'model' when the stream is split (its gradient's
+        partials reduce-scattered back)."""
+        if not sp:
+            return h
+        from repro_torch.distributed import process_group
+        return process_group.gather_from_group(h, 1, self.tp_group)
+
+    def leave(self, y: torch.Tensor, sp: bool, *, partial: bool,
+              dtype) -> torch.Tensor:
+        """A sub-block's output as the stream holds it: a ``partial`` (a
+        row-parallel product, each rank a share of the sum) reduce-scattered
+        over the sequence, or all-reduced when the stream is whole; a value
+        every rank holds whole sliced to this rank's positions (no
+        collective) or kept."""
+        from repro_torch.distributed import process_group as pg
+        if self.tp > 1:
+            g = self.tp_group
+            if partial:
+                y = (pg.scatter_to_group(y, 1, g) if sp
+                     else pg.sum_over_group(y, g))
+            elif sp:
+                y = pg.split_to_group(y, 1, g)
+        return y.to(dtype)
+
+    def own(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's slice over 'model' of a whole ``t`` along ``dim``."""
+        n = t.shape[dim] // self.tp
+        return t.narrow(dim, self.tp_rank * n, n)
+
+    # -- decode caches -----------------------------------------------------------
+
+    def seq_index(self, axes: tuple) -> int:
+        """This rank's shard index along ``axes``, the first outermost."""
+        idx = 0
+        for a in axes:
+            idx = idx * self.sizes[a] + self.coords[a]
+        return idx
+
+    def dp_size(self) -> int:
+        return math.prod(self.sizes[a] for a in self.rules.dp)
+
+    # -- FSDP ------------------------------------------------------------------
+
+    def unshard(self, leaf, spec) -> torch.Tensor:
+        """``leaf`` with its dims over 'data' (FSDP) gathered: this rank's
+        TP shard, whole over 'data'.  ``spec`` has one entry a dim of
+        ``leaf``."""
+        from repro_torch.distributed import process_group
+        if not self.fsdp:
+            return leaf
+        for d, entry in enumerate(spec):
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            if "data" in axes:
+                leaf = process_group.gather_from_group(
+                    leaf, d, self.group("data"))
+        return leaf
+
+    def unshard_layer(self, p: dict, stack: str) -> dict:
+        """One layer's leaves of ``stack`` (``layers``' views of this rank's
+        shards) with their FSDP dims gathered; the caller runs it under
+        ``process_group.collective_scope(stack)``."""
+        if not self.fsdp:
+            return p
+        specs = self.specs()[stack]
+        return {k: self.unshard(v, specs[k][1:]) for k, v in p.items()}
+
+    def top(self, params: dict, key: str) -> torch.Tensor:
+        """A leaf outside the stacks (``embed``, ``lm_head``, a norm),
+        gathered over 'data' where FSDP splits it."""
+        if not self.fsdp:
+            return params[key]
+        return self.unshard(params[key], self.specs()[key])
+
+    # -- the vocabulary-parallel embedding, head and loss ---------------------
+
+    def vocab_split(self) -> bool:
+        return self.tp > 1 and self.specs()["embed"][0] == "model"
+
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor
+              ) -> tuple[torch.Tensor, bool]:
+        """``(rows, partial)``: the embedding of ``tokens`` from this rank's
+        table.  Split over the vocabulary, each rank looks up the tokens in
+        its own rows, zeros elsewhere: a partial.  Split over d_model (no
+        vocabulary split), the table is gathered whole first."""
+        from repro_torch.distributed import process_group
+        # F.embedding's backward sums a repeated token's rows in a fixed
+        # order on the card; table[tokens] backs through an atomic
+        # accumulate
+        if self.tp == 1:
+            return F.embedding(tokens, table), False
+        spec = self.specs()["embed"]
+        if spec[0] == "model":
+            v_loc = table.shape[0]
+            lo = self.tp_rank * v_loc
+            mine = (tokens >= lo) & (tokens < lo + v_loc)
+            rows = F.embedding(torch.where(mine, tokens - lo, 0), table)
+            return rows * mine[..., None].to(rows.dtype), True
+        if spec[1] == "model":
+            table = process_group.gather_from_group(table, 1, self.tp_group)
+        return F.embedding(tokens, table), False
+
+    def head(self, params: dict) -> torch.Tensor:
+        """This rank's (D, V / |model|) columns of the head (the tied
+        embedding's rows transposed), or the whole head."""
+        from repro_torch.distributed import process_group
+        if self.cfg.tie_embeddings:
+            table = self.top(params, "embed")
+            if self.tp > 1 and self.specs()["embed"][1] == "model":
+                table = process_group.gather_from_group(table, 1,
+                                                        self.tp_group)
+            return table.T
+        return self.top(params, "lm_head")
+
+    def whole_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """Every rank's vocabulary columns gathered (no gradient)."""
+        if not self.vocab_split():
+            return logits
+        from repro_torch.distributed import process_group
+        return process_group.gather_along(logits.contiguous(),
+                                          logits.dim() - 1, self.tp_group)
+
+    def cross_entropy(self, logits: torch.Tensor, labels: torch.Tensor
+                      ) -> torch.Tensor:
+        """``cross_entropy`` of the (B, T, V / |model|) logits of this
+        rank's vocabulary columns (``_VocabParallelCE``), or of whole logits
+        every rank of 'model' holds, its gradient counted on the group's
+        first rank."""
+        if self.vocab_split():
+            v_loc = logits.shape[-1]
+            return _VocabParallelCE.apply(logits, labels,
+                                          self.tp_rank * v_loc,
+                                          self.tp_group)
+        loss = cross_entropy(logits, labels)
+        if self.tp > 1:
+            loss = _FirstRank.apply(loss, self.tp_rank)
+        return loss
+
+
+class _FirstRank(torch.autograd.Function):
+    """Identity forward; backward keeps the gradient on the 'model'
+    group's first rank and zeros it elsewhere: a value every rank computes
+    whole, from leaves whose gradients the group then sums."""
+
+    @staticmethod
+    def forward(ctx, x, rank):
+        ctx.rank = rank
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.rank == 0 else torch.zeros_like(g)), None
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Mean next-token cross-entropy over labels >= 0 of logits split over
+    the vocabulary (Megatron's vocab-parallel loss): the row max
+    all-reduced (max), then the sum of exponentials and the gold logit in
+    one f32 all-reduce.  The loss is whole on every rank, which seeds it
+    with 1; the backward gives each rank its own columns' gradient,
+    ``softmax - onehot`` over the count of labels."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo, group):
+        from repro_torch.distributed import process_group as pg
+        ctx.dtype = logits.dtype
+        logits = logits.float()
+        v_loc = logits.shape[-1]
+        m = pg.reduce_along(torch.amax(logits, dim=-1), group, "max")
+        e = torch.exp(logits - m[..., None])
+        lab = labels.long()
+        mine = (lab >= lo) & (lab < lo + v_loc)
+        gold = torch.gather(logits, -1, torch.where(mine, lab - lo, 0)[
+            ..., None])[..., 0] * mine
+        both = pg.reduce_along(torch.stack([torch.sum(e, dim=-1), gold]),
+                               group)
+        mask = (labels >= 0).float()
+        n = torch.clamp(torch.sum(mask), min=1.0)
+        logz = m + torch.log(both[0])
+        ctx.save_for_backward(e, both[0], lab, mine, mask, n)
+        ctx.lo = lo
+        return torch.sum((logz - both[1]) * mask) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s, lab, mine, mask, n = ctx.saved_tensors
+        grad = e / s[..., None]
+        onehot = torch.zeros_like(grad).scatter_(
+            -1, torch.where(mine, lab - ctx.lo, 0)[..., None],
+            mine[..., None].to(grad.dtype))
+        grad = (grad - onehot) * (mask * g / n)[..., None]
+        return grad.to(ctx.dtype), None, None, None
+
+
+def placed(cfg: ModelConfig) -> Placed:
+    """The ``Placed`` view of ``RunOptions.layout`` for ``cfg``; with no
+    layout, the whole model on this rank: one rank on every axis, where
+    every collective of the forms is an identity and none is issued."""
+    return Placed(cfg, _RUN_OPTIONS)
+
+
+def placement(cfg: ModelConfig) -> Placed | None:
+    """``placed(cfg)`` when a layout is set, else None."""
+    return None if _RUN_OPTIONS.layout is None else placed(cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -94,6 +94,89 @@ def mean_over_group(loss: torch.Tensor, leaves: list, group
     return bucket[at].clone(), out
 
 
+def _spec_axes(spec) -> set:
+    out: set = set()
+    for entry in spec:
+        if entry is not None:
+            out.update(entry if isinstance(entry, tuple) else (entry,))
+    return out
+
+
+def sync_axes(pl, spec) -> tuple:
+    """The axes a leaf's gradient under ``spec`` is summed over after the
+    backward: 'model' where every rank of it holds the leaf whole (each
+    has a partial), and each DP axis of more than one rank that does not
+    split it (FSDP's 'data' was reduce-scattered by the backward)."""
+    have = _spec_axes(spec)
+    return tuple(a for a in ("model", *pl.rules.dp)
+                 if pl.sizes.get(a, 1) > 1 and a not in have)
+
+
+def sync_grads(pl, loss: torch.Tensor, grads: dict
+               ) -> tuple[torch.Tensor, dict]:
+    """The placement's gradient sync: each leaf's gradient summed over its
+    ``sync_axes`` and divided by the DP size (the batch's mean), the loss
+    averaged over the DP axes; one f32 bucket an axis set, all-reduced
+    once over each of its axes."""
+    from repro_torch.distributed import process_group, sharding
+    specs = sharding.spec_leaves(pl.specs())
+    leaves = tree_leaves(grads)
+    dp = tuple(a for a in pl.rules.dp if pl.sizes[a] > 1)
+    buckets: dict = {}
+    for i, spec in enumerate(specs):
+        buckets.setdefault(sync_axes(pl, spec), []).append(i)
+    buckets.setdefault(dp, [])
+    n_dp = float(pl.dp_size())
+    out = list(leaves)
+    for axes, idx in buckets.items():
+        if not axes and not dp:
+            continue
+        parts = [leaves[i].reshape(-1).float() for i in idx]
+        if axes == dp:
+            parts.append(loss.reshape(1).float())
+        flat = torch.cat(parts)
+        for a in axes:
+            flat = process_group.reduce_along(flat, pl.group(a))
+        if dp:
+            flat = flat / n_dp
+        at = 0
+        for i in idx:
+            n = leaves[i].numel()
+            out[i] = flat[at:at + n].view(leaves[i].shape).to(leaves[i].dtype)
+            at += n
+        if axes == dp:
+            loss = flat[at].clone()
+    return loss, tree_unflatten(grads, out)
+
+
+def placed_global_norm(pl, grads: dict) -> torch.Tensor:
+    """``global_norm`` of synced gradient shards: each leaf's f32 sum of
+    squares over the ranks of 'model' and 'data' that hold it whole,
+    summed over both groups (two f32 scalar all-reduces)."""
+    from repro_torch.distributed import process_group, sharding
+    total = None
+    for g, spec in zip(tree_leaves(grads), sharding.spec_leaves(pl.specs())):
+        have = _spec_axes(spec)
+        rep = 1
+        for a in ("model", "data"):
+            if a not in have:
+                rep *= pl.sizes.get(a, 1)
+        sq = torch.sum(torch.square(g.float())) / rep
+        total = sq if total is None else total + sq
+    for a in ("model", "data"):
+        if pl.sizes.get(a, 1) > 1:
+            total = process_group.reduce_along(total, pl.group(a))
+    return torch.sqrt(total)
+
+
+def clip_placed(pl, grads: dict, max_norm: float):
+    """``clip_by_global_norm`` of synced gradient shards."""
+    norm = placed_global_norm(pl, grads)
+    one = torch.ones((), dtype=torch.float32, device=norm.device)
+    scale = torch.minimum(one, max_norm / (norm + 1e-9))
+    return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
+
+
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                     *, clip: float = 1.0, donate: bool = False,
                     data_group=None) -> Callable:
@@ -107,11 +190,26 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     ``batch`` its rows of the global batch) the loss and the grads are
     averaged over the group (``mean_over_group``) before the clip, so the
     clip and the update run identically on every rank, as the reference's
-    GSPMD averages the grads over its 'data' axis."""
+    GSPMD averages the grads over its 'data' axis.
+
+    Under a placement (``RunOptions.layout``: ``state`` holds this rank's
+    shards of the params and moments, ``batch`` its rows) the grads are
+    synced by ``sync_grads`` and clipped by ``clip_placed``, and the
+    optimizer updates the local shards (``sharding.opt_specs_like``)."""
+    from repro_torch.models import common
     api = get_api(cfg)
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         loss, grads = loss_and_grads(api.loss_fn, state["params"], batch)
+        pl = common.placement(cfg)
+        if pl is not None:
+            loss, grads = sync_grads(pl, loss, grads)
+            grads, gnorm = clip_placed(pl, grads, clip)
+            params, opt_state = optimizer.update(
+                grads, state["opt_state"], state["params"], donate=donate)
+            return ({"params": params, "opt_state": opt_state,
+                     "step": state["step"] + 1},
+                    {"loss": loss, "grad_norm": gnorm})
         if data_group is not None:
             leaves = tree_leaves(grads)
             del grads
@@ -232,16 +330,7 @@ def make_window_step(cfg: ModelConfig, optimizer: Optimizer, *,
             "error-feedback residual every window (the window step only "
             "carries residual state for DELTA_SPARSE); use "
             "Merge.DELTA_SPARSE instead")
-    sparse = isinstance(tsp, comm.SparseTransport)
-    strategy = {
-        Merge.ALLREDUCE: lambda: None,
-        Merge.AVERAGE: lambda: merge_lib.AverageMerge(tsp),
-        Merge.DELTA: lambda: merge_lib.DeltaMerge(tsp),
-        Merge.ASYNC_DELTA: lambda: merge_lib.AsyncDeltaMerge(tsp),
-        Merge.DELTA_SPARSE: lambda: merge_lib.SparseDeltaMerge(
-            tsp if sparse else None,
-            frac=None if sparse else compress_frac),
-    }[merge]()
+    strategy = make_strategy(merge, tsp, compress_frac)
     local = make_train_step(cfg, optimizer, clip=clip)
     m = workers
 
@@ -301,18 +390,6 @@ def make_window_step(cfg: ModelConfig, optimizer: Optimizer, *,
                 dst[i].copy_(x)
         return w_local, opt_local, losses
 
-    def carry_in(carry):
-        """A merge carry as the strategy takes it: tuples of stacked
-        leaves, ``{"own", "comm"}`` of two for a stateful ASYNC_DELTA."""
-        if isinstance(carry, dict) and set(carry) == {"own", "comm"}:
-            return {k: tuple(tree_leaves(v)) for k, v in carry.items()}
-        return tuple(tree_leaves(carry))
-
-    def carry_out(like, carry):
-        if isinstance(like, dict) and set(like) == {"own", "comm"}:
-            return {k: tree_unflatten(like[k], carry[k]) for k in like}
-        return tree_unflatten(like, carry)
-
     def window_step(state: dict, batches: dict) -> tuple[dict, dict]:
         b = next(iter(batches.values())).shape[1]
         if b % m:
@@ -326,25 +403,68 @@ def make_window_step(cfg: ModelConfig, optimizer: Optimizer, *,
                 state, batches)
             return out, {"loss": torch.mean(torch.stack(losses))}
         w_local, opt_local, losses = replicas(state, batches)
-        w0 = tuple(_shared(x) for x in tree_leaves(state["params"]))
-        if merge in (Merge.AVERAGE, Merge.DELTA):
-            merged, _ = strategy(w0, w_local)
-            # consensus moments keep the replicas exchangeable
-            opt_mean, _ = tsp.all_reduce(opt_local, op="mean")
-            out["opt_state"] = _expanded(
-                tree_unflatten(state["opt_state"], opt_mean), m)
-        else:
-            out["opt_state"] = tree_unflatten(state["opt_state"], opt_local)
-            key = "residual" if merge is Merge.DELTA_SPARSE else "delta_prev"
-            merged, carry = strategy(w0, w_local, carry_in(state[key]))
-            out[key] = carry_out(state[key], carry)
-        # a merge of a shared start is shared (one row); eq. 9's is not
-        out["params"] = tree_unflatten(state["params"], [
-            x if x.dim() == like.dim() else x.expand(m, *x.shape)
-            for x, like in zip(merged, tree_leaves(state["params"]))])
+        out.update(merge_phase(merge, strategy, tsp, state, w_local,
+                               opt_local, m))
         return out, {"loss": torch.mean(torch.stack(losses))}
 
     return window_step
+
+
+def make_strategy(merge: Merge, tsp: comm.Transport,
+                  compress_frac: float = 0.01):
+    """The ``engine.merge`` strategy of ``merge`` over ``tsp`` (None for
+    ALLREDUCE, whose mean runs in the steps)."""
+    sparse = isinstance(tsp, comm.SparseTransport)
+    return {
+        Merge.ALLREDUCE: lambda: None,
+        Merge.AVERAGE: lambda: merge_lib.AverageMerge(tsp),
+        Merge.DELTA: lambda: merge_lib.DeltaMerge(tsp),
+        Merge.ASYNC_DELTA: lambda: merge_lib.AsyncDeltaMerge(tsp),
+        Merge.DELTA_SPARSE: lambda: merge_lib.SparseDeltaMerge(
+            tsp if sparse else None,
+            frac=None if sparse else compress_frac),
+    }[merge]()
+
+
+def _carry_in(carry):
+    """A merge carry as the strategy takes it: tuples of stacked leaves,
+    ``{"own", "comm"}`` of two for a stateful ASYNC_DELTA."""
+    if isinstance(carry, dict) and set(carry) == {"own", "comm"}:
+        return {k: tuple(tree_leaves(v)) for k, v in carry.items()}
+    return tuple(tree_leaves(carry))
+
+
+def _carry_out(like, carry):
+    if isinstance(like, dict) and set(like) == {"own", "comm"}:
+        return {k: tree_unflatten(like[k], carry[k]) for k in like}
+    return tree_unflatten(like, carry)
+
+
+def merge_phase(merge: Merge, strategy, tsp: comm.Transport, state: dict,
+                w_local: tuple, opt_local: tuple, m: int) -> dict:
+    """A window's merge (every merge but ALLREDUCE): the params through
+    ``strategy``, the moments averaged over the replicas (AVERAGE, DELTA)
+    or kept with the merge's carry (DELTA_SPARSE's residual, ASYNC_DELTA's
+    last deltas).  Returns the state's new ``params``, ``opt_state`` and
+    carry; the dry run lowers it on ``meta`` leaves for its records."""
+    out: dict = {}
+    w0 = tuple(_shared(x) for x in tree_leaves(state["params"]))
+    if merge in (Merge.AVERAGE, Merge.DELTA):
+        merged, _ = strategy(w0, w_local)
+        # consensus moments keep the replicas exchangeable
+        opt_mean, _ = tsp.all_reduce(opt_local, op="mean")
+        out["opt_state"] = _expanded(
+            tree_unflatten(state["opt_state"], opt_mean), m)
+    else:
+        out["opt_state"] = tree_unflatten(state["opt_state"], opt_local)
+        key = "residual" if merge is Merge.DELTA_SPARSE else "delta_prev"
+        merged, carry = strategy(w0, w_local, _carry_in(state[key]))
+        out[key] = _carry_out(state[key], carry)
+    # a merge of a shared start is shared (one row); eq. 9's is not
+    out["params"] = tree_unflatten(state["params"], [
+        x if x.dim() == like.dim() else x.expand(m, *x.shape)
+        for x, like in zip(merged, tree_leaves(state["params"]))])
+    return out
 
 
 def init_window_state(cfg: ModelConfig, optimizer: Optimizer, seed: int,

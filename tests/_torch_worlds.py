@@ -708,3 +708,157 @@ def lm_data_parallel(rank: int, world, ins: dict) -> dict:
         runs.append((code, buf.getvalue()))
     out["launcher"] = runs
     return out
+
+
+# -- the placement as a program: tensor, sequence and FSDP parallelism ---------
+
+#: the layouts of the tensor-parallel world of 4 ranks: (data, model) grids;
+#: (1, 2) twice, on ranks 0-1 and 2-3
+TP_GRIDS = {"1x2": (np.arange(2).reshape(1, 2), np.arange(2, 4).reshape(1, 2)),
+            "1x4": (np.arange(4).reshape(1, 4),),
+            "2x2": (np.arange(4).reshape(2, 2),)}
+
+
+def _tp_layouts() -> dict:
+    """This rank's groups on each layout of ``TP_GRIDS`` (every rank makes
+    every grid's groups, in the same order)."""
+    out = {}
+    for name, grids in TP_GRIDS.items():
+        for grid in grids:
+            groups = grid_groups(grid, ("data", "model"))
+            if groups.coords:
+                out[name] = groups
+    return out
+
+
+#: the layouts of the bf16 loss, where the vocabulary does not split:
+#: (data 2, model 1), on ranks 0-1 and 2-3
+BF16_GRIDS = (np.arange(2).reshape(2, 1), np.arange(2, 4).reshape(2, 1))
+
+
+def _greedy(api, params, batch: dict, max_len: int, steps_n: int):
+    """Greedy tokens: the prompt's last logits (``api.prefill``; the
+    encoder-decoder's cache from its frames and its first token from the
+    forward's last position), then ``steps_n`` decode steps over the cache.
+    Returns the tokens, the bytes by kind of the collectives of the
+    prefill and of the first decode step, and the cache."""
+    with torch.no_grad():
+        with process_group.record_collectives() as pre:
+            logits, cache = api.prefill(params, batch, max_len)
+        toks = [logits.argmax(-1)]
+        dec = None
+        for _ in range(steps_n):
+            with process_group.record_collectives() as log:
+                logits, cache = api.decode_step(params, cache,
+                                                toks[-1][:, None])
+            dec = log.bytes_by_kind() if dec is None else dec
+            toks.append(logits[:, 0].argmax(-1))
+    return torch.stack(toks, 1), pre.bytes_by_kind(), dec, cache
+
+
+def _past_the_cache(api, params, cache: dict, max_len: int) -> bool:
+    """Does a decode step at ``cur_len`` = ``max_len`` (no position of the
+    whole cache left) raise ValueError?"""
+    tokens = torch.zeros((cache["ssm" if "ssm" in cache else "k"].shape[1],
+                          1), dtype=torch.int32)
+    try:
+        with torch.no_grad():
+            api.decode_step(params, {**cache, "cur_len": max_len}, tokens)
+    except ValueError:
+        return True
+    return False
+
+
+def tensor_parallel_runs(rank: int, world, ins: dict) -> dict:
+    """Each smoke config of ``ins["archs"]`` (f32, the reference's init) on
+    each layout of ``TP_GRIDS``, FSDP off and on, this rank's shards: the
+    loss and the synced grads (``steps.sync_grads``) of the placed loss, its
+    logits, and the collectives recorded over the loss, the sync and the
+    clip; then greedy decoding on the sequence-split cache (FSDP off), the
+    collectives of its prefill and of its first decode step, and whether a
+    step past the cache raises.  Last, each config's loss in bf16 on the
+    (data 2, model 1) layouts of ``BF16_GRIDS``, this rank's rows."""
+    import dataclasses
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models import common
+    from repro_torch.models.api import get_api
+    from repro_torch.training import steps
+    layouts = _tp_layouts()
+    out: dict = {}
+    for arch in ins["archs"]:
+        cfg = _ep_config(arch)
+        api = get_api(cfg)
+        params = _tree_t(ins["params"][arch])
+        batch = _tree_t(ins["batch"][arch])
+        prompt = {k: v for k, v in batch.items() if k != "labels"}
+        for name, groups in layouts.items():
+            sizes = common.layout_sizes(groups)
+            coords = sharding.layout_coords(groups)
+            local_batch = sharding.local_tree(
+                batch, sharding.batch_specs(cfg, sizes, batch), sizes, coords)
+            local_prompt = {k: v for k, v in local_batch.items()
+                            if k != "labels"}
+            for fsdp in (False, True):
+                specs = sharding.param_specs(cfg, sizes, use_fsdp=fsdp)
+                local = sharding.local_tree(params, specs, sizes, coords)
+                common.set_run_options(layout=groups, fsdp=fsdp)
+                try:
+                    with process_group.record_collectives() as log:
+                        loss, grads = steps.loss_and_grads(api.loss_fn, local,
+                                                           local_batch)
+                        pl = common.placement(cfg)
+                        loss, grads = steps.sync_grads(pl, loss, grads)
+                        steps.clip_placed(pl, grads, 1.0)
+                    with torch.no_grad():
+                        logits = api.forward(local, local_batch)
+                    run = {"coords": coords, "sizes": sizes,
+                           "loss": float(loss), "grads": _tree_np(grads),
+                           "logits": _np(logits),
+                           "bytes": log.bytes_by_kind()}
+                    if not fsdp:
+                        toks, pre, dec, cache = _greedy(
+                            api, local, local_prompt, ins["max_len"],
+                            ins["decode_steps"])
+                        run.update(tokens=_np(toks), prefill_bytes=pre,
+                                   decode_bytes=dec,
+                                   past_the_cache=_past_the_cache(
+                                       api, local, cache, ins["max_len"]))
+                finally:
+                    common.set_run_options(layout=None, fsdp=False)
+                out[(arch, name, fsdp)] = run
+        del prompt
+    # the bf16 loss where the vocabulary does not split: each rank's rows
+    for grid in BF16_GRIDS:
+        groups = grid_groups(grid, ("data", "model"))
+        if not groups.coords:
+            continue
+        sizes = common.layout_sizes(groups)
+        coords = sharding.layout_coords(groups)
+        for arch in ins["archs"]:
+            cfg = dataclasses.replace(_ep_config(arch), dtype=torch.bfloat16)
+            params = as_dtypes(cfg, _tree_t(ins["params"][arch]))
+            batch = _tree_t(ins["batch"][arch])
+            local = sharding.local_tree(
+                params, sharding.param_specs(cfg, sizes, use_fsdp=False),
+                sizes, coords)
+            local_batch = sharding.local_tree(
+                batch, sharding.batch_specs(cfg, sizes, batch), sizes, coords)
+            common.set_run_options(layout=groups)
+            try:
+                with torch.no_grad():
+                    loss = get_api(cfg).loss_fn(local, local_batch)
+            finally:
+                common.set_run_options(layout=None)
+            out[(arch, "bf16", coords["data"])] = {
+                "coords": coords, "sizes": sizes, "loss": float(loss)}
+    return out
+
+
+def as_dtypes(cfg, params: dict) -> dict:
+    """``params`` with each leaf cast to the dtype ``cfg``'s init gives it
+    (in bf16: the weights bf16, the norms and the SSM's scalars f32)."""
+    from repro_torch.models.api import get_api
+    from repro_torch.optim.optimizers import tree_map
+    return tree_map(lambda x, m: x.to(m.dtype), params,
+                    get_api(cfg).init(0, device="meta"))

@@ -66,7 +66,7 @@ def test_checker_catches_forbidden_imports(tmp_path):
     "repro_torch.optim.optimizers", "repro_torch.optim.compression",
     "repro_torch.data.pipeline", "repro_torch.launch.train",
     "repro_torch.engine.merge", "repro_torch.distributed.sharding",
-    "repro_torch.training.pipeline",
+    "repro_torch.training.pipeline", "repro_torch.distributed.hlo_analysis",
     *(f"repro_torch.configs.{arch}" for arch in (
         "granite_34b", "granite_8b", "starcoder2_7b", "command_r_35b",
         "whisper_tiny", "moonshot_v1_16b_a3b", "olmoe_1b_7b",

@@ -12,8 +12,9 @@ reference's, and the dry run's LM cells.
     two;
   * ``dryrun --all --device cpu``: exit 0, 80 records, the skips
     ``cell_applicable``'s, no error, every record with the reference's
-    keys; ``--multi-pod --merge``, ``--quantized`` and the prefill cell's
-    cache specs.
+    keys and a lowered collective term taken into the dominant term;
+    ``--multi-pod --merge``, ``--quantized`` and the prefill cell's cache
+    specs.
 """
 
 import json
@@ -115,7 +116,7 @@ def test_collective_term_not_lowered():
                                              terms["t_memory"])
     lowered = roofline.roofline_terms(cfg, c, roofline.mesh_shape(False),
                                       0.0)
-    assert lowered["collective_note"] == "measured"
+    assert lowered["collective_note"] == "lowered"
     assert lowered["mfu_bound"] == terms["mfu_bound"]
 
 
@@ -124,7 +125,11 @@ def test_collective_term_not_lowered():
 # ---------------------------------------------------------------------------
 
 KEYS = {"arch", "shape", "mesh", "merge", "status", "reason", "roofline",
-        "memory"}
+        "memory", "collectives"}
+#: the reference's ``analyze_collectives`` keys (its ``tpu_adjusted_bytes``
+#: corrects an XLA:CPU promotion the port does not have)
+COLL_KEYS = {"total_bytes", "bytes_by_kind", "count_by_kind", "loops",
+             "in_loop_bytes", "top_ops"}
 
 
 @pytest.fixture(scope="module")
@@ -155,8 +160,14 @@ def test_records_hold_the_references_keys(sweep):
         assert KEYS <= set(r), r["arch"]
         assert r["merge"] == "none"
         t = r["roofline"]
-        assert t["t_collective"] is None
-        assert t["collective_note"] == "not lowered"
+        # the placed step lowered on meta shards (distributed.hlo_analysis)
+        coll = r["collectives"]
+        assert set(coll) == COLL_KEYS
+        assert t["collective_note"] == "lowered"
+        assert t["t_collective"] == coll["total_bytes"] / roofline.NVLINK_BW
+        assert coll["total_bytes"] > 0
+        assert t["dominant"] == max(("compute", "memory", "collective"),
+                                    key=lambda k: t[f"t_{k}"])
         assert r["memory"]["argument_bytes"] > 0
 
 
