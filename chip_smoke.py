@@ -237,12 +237,18 @@ PyTorch built for CUDA:
   21. runs one worker a process on the one card (``process_group_legs``;
      gloo over CUDA tensors, NCCL refusing two ranks on one device; the
      kernels are built here before any rank starts): G1, the hop kernel
-     (``csrc/vq_ring_hop.cu``, the ring's hops over CUDA IPC) in worlds of
-     4 and 8 ranks at (M, 524,288) and (4, 1,000,003), every rank's result
-     == ``ring_all_reduce_plain`` of the stacked rows bit for bit, masked
-     and unmasked, with 2 (M - 1) hop launches a call, its ms a call beside
-     ``dist.all_reduce``'s on the same group (in turns), one hop's device
-     time and the one-card fold's; G2, ``torchrun --standalone
+     (``csrc/vq_ring_hop.cu``, the ring's hops over CUDA IPC, waiting for
+     each other on the card through stream waits on the ranks' progress
+     counters) in worlds of 4 and 8 ranks at (M, 524,288) and (4,
+     1,000,003): 3 calls back to back on different inputs with no host
+     sync between them, every rank's results == ``ring_all_reduce_plain``
+     of the stacked rows bit for bit, masked and unmasked, with 2 (M - 1)
+     hop launches a call and no ``dist.barrier`` or synchronize among them;
+     its ms a call beside ``dist.all_reduce``'s on the same group (in
+     turns, each the mean of 5 calls enqueued back to back), each step of
+     one call on rank 0's stream, its waits on the neighbours included
+     (CUDA events), one hop's device time and the one-card fold's; G2,
+     ``torchrun --standalone
      --nproc-per-node 8 -m repro_torch.launch.train --scheme delta
      --transport ring`` at the slice's width cut to 52 windows, its
      codebook == the stacked ring run's bit for bit (first checking that a
@@ -439,7 +445,10 @@ PyTorch built for CUDA:
      within PP_BF16_RTOL, in f32 (TF32 off) the loss and every gradient
      shard within TP_GRAD_RTOL of its leaf's largest; (b) FSDP and data
      parallelism over a (2, 1) grid, one f32 AdamW step: loss, grad norm
-     and each rank's param shards at L2's rule; (c) greedy decoding of 4
+     and each rank's param shards at L2's rule where |g| >= TP_RESOLVED of
+     its leaf's largest (every entry a read-out), then one f32 SGD step
+     over the same grid: loss, grad norm and every entry of each rank's
+     param shards at L2's rule; (c) greedy decoding of 4
      rows (item 22's batch), a 16-token prompt and 8 tokens, over the
      cache's 24 positions split over the (1, 2) grid, in f32 (bf16's
      near-ties can flip a greedy token between two summation orders):
@@ -478,6 +487,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -592,12 +602,19 @@ PG_WORLDS = (4, 8)       # G1's worlds
 PG_N = KAPPA * D         # G1's payload: a window's displacement
 PG_RAGGED = 1_000_003    # G1's ragged payload, at 4 ranks
 PG_ITERS = 5             # G1's timed calls a reading
+G1_CALLS = 3             # G1's calls back to back, each on new inputs
 G2_POINTS = 520          # 52 windows of the 8-process ring run (cut from
                          # 200, 97 ms a window on an H100 at 700 W, to pay
                          # for item 25, then from 100 for item 26; 8 x 520
                          # points still seed kappa = 4,096)
 G2_XLA_POINTS = 520      # 52 windows of the 8-process gloo run, cut
 G2_AVG_POINTS = 600      # 60 windows of the 8-process average run, cut
+G2_LEGS = {"ring delta": ["--scheme", "delta", "--transport", "ring",
+                          "--points", str(G2_POINTS)],
+           "xla delta": ["--scheme", "delta", "--transport", "xla",
+                         "--points", str(G2_XLA_POINTS)],
+           "ring average": ["--scheme", "average", "--transport", "ring",
+                            "--points", str(G2_AVG_POINTS)]}
 # (M * points >= KAPPA: w0 is KAPPA of the points)
 G3_M, G3_TICKS = 4, 1_200  # eq. 9 in 4 processes, cut
 G4_KAPPAS = (4096, 4099)   # the lookup plans' codebooks, one ragged
@@ -2245,7 +2262,10 @@ def subprocess_legs(tmp: Path) -> None:
 
 def _pg_timed(fn, group, iters: int, dev) -> float:
     """ms a call of fn on this rank, every rank calling it at once: the
-    host clock between a device sync and a group barrier at each end."""
+    host clock between a device sync and a group barrier at each end, over
+    ``iters`` calls enqueued back to back, so a call that does not wait on
+    the host (the group ring) is read as the mean of a pipeline, not as one
+    call's latency."""
     import torch.distributed as dist
 
     from repro_torch import device as device_lib
@@ -2260,10 +2280,42 @@ def _pg_timed(fn, group, iters: int, dev) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
+@contextlib.contextmanager
+def _host_waits():
+    """Counts the host waits made inside the block: ``dist.barrier``,
+    ``torch.cuda.synchronize`` and ``torch.cuda.Stream.synchronize``
+    calls, by name, in the list it yields."""
+    from unittest import mock
+
+    import torch
+    import torch.distributed as dist
+    seen = []
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            seen.append(name)
+            return fn(*args, **kwargs)
+        return call
+
+    with mock.patch.object(dist, "barrier",
+                           counted("dist.barrier", dist.barrier)), \
+            mock.patch.object(torch.cuda, "synchronize",
+                              counted("torch.cuda.synchronize",
+                                      torch.cuda.synchronize)), \
+            mock.patch.object(torch.cuda.Stream, "synchronize",
+                              counted("Stream.synchronize",
+                                      torch.cuda.Stream.synchronize)):
+        yield seen
+
+
 def _g1_hops(rank: int, world, cfg: dict) -> dict:
-    """G1 on this rank: the group ring against ring_all_reduce_plain of the
-    stacked rows on the card, bit for bit, masked and unmasked, its hop
-    launches, and its time beside dist.all_reduce's on the same group."""
+    """G1 on this rank: G1_CALLS group-ring calls back to back on different
+    inputs, with no host wait between them, each against
+    ring_all_reduce_plain of the stacked rows on the card, bit for bit,
+    masked and unmasked; the hop launches and host waits of those calls;
+    the ring's time beside dist.all_reduce's on the same group; and on rank
+    0 one hop's device time and each step's time, its waits on the
+    neighbours included (``ring.step_events``)."""
     import torch
 
     from repro_torch.comm import ring
@@ -2275,20 +2327,26 @@ def _g1_hops(rank: int, world, cfg: dict) -> dict:
     g = Topology.flat(w).make_groups().groups[0]
     out = {"checks": [], "times": {}}
     for n in cfg["g1_sizes"][w]:
-        gen = torch.Generator(device=dev).manual_seed(SEED + 21)
-        x = torch.randn((w, n), generator=gen, device=dev)
+        xs = []
+        for i in range(G1_CALLS):
+            gen = torch.Generator(device=dev).manual_seed(SEED + 21 + i)
+            xs.append(torch.randn((w, n), generator=gen, device=dev))
         mask = (torch.arange(w, device=dev) % 3 != 1).to(torch.float32)
+        ring.ring_all_reduce_group(xs[0][rank], g)   # the handle exchange
         for masked in (False, True):
             m = mask if masked else None
             before = ring.launches_ring_hop
-            got = ring.ring_all_reduce_group(
-                x[rank], g, None if m is None else m[rank:rank + 1])
+            with _host_waits() as waits:
+                got = [ring.ring_all_reduce_group(
+                    x[rank], g, None if m is None else m[rank:rank + 1])
+                    for x in xs]
             launched = ring.launches_ring_hop - before
-            want = ring.ring_all_reduce_plain(x, m)
-            out["checks"].append(((w, n, masked), same_bits(got, want),
-                                  launched))
+            ok = all(same_bits(a, ring.ring_all_reduce_plain(x, m))
+                     for a, x in zip(got, xs))
+            out["checks"].append(((w, n, masked), ok, launched, waits))
         if n != cfg["pg_n"]:
             continue
+        x = xs[0]
         y = x[rank].clone()
         out["barrier_ms"] = _pg_timed(lambda: process_group.barrier(g), g,
                                       cfg["iters"] * 5, dev)
@@ -2300,11 +2358,26 @@ def _g1_hops(rank: int, world, cfg: dict) -> dict:
                   "group ring"):
             times[k].append(_pg_timed(legs[k], g, cfg["iters"], dev))
         out["times"][n] = times
-        if rank == 0 and dev.type == "cuda":
+        if dev.type != "cuda":
+            continue
+        lib = _build.library()
+        # each step's time on rank 0's stream (its waits on the neighbours'
+        # counters, its kernel, its counter write), in a call after a synced
+        # barrier
+        process_group.barrier(g)
+        ring.step_events = [] if rank == 0 else None
+        try:
+            ring.ring_all_reduce_group(x[rank], g)
+        finally:
+            events, ring.step_events = ring.step_events, None
+        torch.cuda.synchronize()
+        if rank == 0:
+            out["step_ms"] = [a.elapsed_time(b) for a, b in events]
+        process_group.barrier(g)
+        if rank == 0:
             # one reduce-scatter hop's device time: the kernel alone, rank 0
             # launching while the others wait at the barrier below
             st = ring._staging[(id(g), w * (-(-n // w)))]
-            lib = _build.library()
             chunk = -(-n // w)
             stream = _build.current_stream(dev)
             ev = [(torch.cuda.Event(enable_timing=True),
@@ -2407,16 +2480,28 @@ def _pg_world8(rank: int, world, cfg: dict) -> dict:
 
 
 def _check_g1(label: str, outs: list) -> dict:
-    """Every rank's G1 checks: bits and 2 (M - 1) hops a call."""
+    """Every rank's G1 checks: G1_CALLS calls back to back, each == plain
+    bit for bit, 2 (M - 1) hops a call and no host wait among them."""
     for r, o in enumerate(outs):
-        for (w, n, masked), ok, launched in o["g1"]["checks"]:
+        for (w, n, masked), ok, launched, waits in o["g1"]["checks"]:
+            want = G1_CALLS * 2 * (w - 1)
             print(f"check G1 hop kernel ({w}, {n:,}){' masked' if masked else ''}"
-                  f" rank {r}: == plain bitwise {ok}, hop launches "
-                  f"{launched} (want {2 * (w - 1)})")
-            if not ok or launched != 2 * (w - 1):
+                  f" rank {r}: {G1_CALLS} calls back to back == plain "
+                  f"bitwise {ok}, hop launches {launched} (want {want}), "
+                  f"host waits {len(waits)} (want 0)")
+            if not ok or launched != want or waits:
                 fail(f"G1 {label}: the group ring on rank {r} differs from "
-                     f"the plain version or launched {launched} hops")
+                     f"the plain version, launched {launched} hops or "
+                     f"waited on the host ({waits})")
     return outs[0]["g1"]
+
+
+def g2_full(cpu: list) -> list:
+    """The launcher's arguments that G2's legs share (``G2_LEGS`` adds
+    each leg's own): M workers at the slice's width."""
+    return ["--mode", "vq", "--executor", "mesh", "--workers", str(M),
+            "--dim", str(D), "--kappa", str(KAPPA), "--tau", str(TAU),
+            "--seed", str(SEED), "--network", "instant", *cpu]
 
 
 def _torchrun(n: int, argv: list, tmp: Path, label: str, env: dict
@@ -2518,15 +2603,7 @@ def process_group_legs(dev, w0, data, eval_data) -> dict:
           f"bitwise: {eval_eq}")
 
     # G1 + G3-G5 in a world of 4, then G1 and two G2 legs in a world of 8
-    full8 = ["--mode", "vq", "--executor", "mesh", "--workers", str(M),
-             "--dim", str(D), "--kappa", str(KAPPA), "--tau", str(TAU),
-             "--seed", str(SEED), "--network", "instant", *cpu]
-    legs = {"ring delta": ["--scheme", "delta", "--transport", "ring",
-                           "--points", str(G2_POINTS)],
-            "xla delta": ["--scheme", "delta", "--transport", "xla",
-                          "--points", str(G2_XLA_POINTS)],
-            "ring average": ["--scheme", "average", "--transport", "ring",
-                             "--points", str(G2_AVG_POINTS)]}
+    full8, legs = g2_full(cpu), G2_LEGS
     full4 = ["--mode", "vq", "--executor", "mesh", "--workers", str(G3_M),
              "--points", str(G3_TICKS), "--dim", str(D), "--kappa",
              str(KAPPA), "--tau", str(TAU), "--seed", str(SEED), "--network",
@@ -2565,15 +2642,26 @@ def process_group_legs(dev, w0, data, eval_data) -> dict:
         hop[w] = {"ms": mean(t["group ring"]), "library_ms":
                   mean(t["dist.all_reduce"]), "plain_ms": plain,
                   "bound": fb, "fold_ms": fold}
+        steps = g1[w]["step_ms"]
         print(f"timing G1 group ring ({w}, {PG_N:,}), {w} processes: "
               f"{r4(t['group ring'])} ms a call, dist.all_reduce (gloo, "
               f"CUDA tensors) {r4(t['dist.all_reduce'])} ms (in turns, host "
-              f"clock, every rank); a group barrier "
+              f"clock, every rank; each the mean of {PG_ITERS} calls "
+              f"enqueued back to back); a group barrier "
               f"{g1[w]['barrier_ms']:.4f} ms; one hop's device time "
               f"{g1[w].get('hop_ms', float('nan')):.4f} ms; the one-card "
               f"fold on the stacked rows {fold:.4f} ms; plain "
               f"{plain:.4f} ms; bound {fb[0]:.4f} ms ({fb[1]}; the hops' own "
               f"bytes {hb[0]:.4f} ms)")
+        if len(steps) != 2 * w - 1:
+            fail(f"G1 ({w} ranks): rank 0 timed {len(steps)} steps of a "
+                 f"call, want {2 * w - 1}")
+        mid = sorted(steps)[len(steps) // 2]
+        print(f"timing G1 group ring ({w}, {PG_N:,}): each of the "
+              f"{len(steps)} steps of one call on rank 0's stream, its waits "
+              f"on the neighbours' counters, its kernel and its counter "
+              f"write (CUDA events): {r4(steps)} ms; median {mid:.4f}, max "
+              f"{max(steps):.4f}, sum {sum(steps):.4f} ms")
 
     # G3: eq. 9 in 4 processes on the stacked run's round lengths
     args4 = train.parse_args(full4)
@@ -4228,6 +4316,27 @@ def _tensor_parallel_world(rank: int, world, cfg: dict) -> dict:
                              optimizers.tree_leaves(lst2["params"]))}
     del lst, lst2, want, local, mu_p, mu_w, resolved
     free()
+    # one f32 SGD step over the same placement: its update, lr x the
+    # clipped grads, has no |g| + eps to magnify a rounding-level gap, so
+    # every entry is held at L2's rule, as item 26's L2 holds its steps
+    sgd = optimizers.sgd(PL_SGD_LR)
+    st = steps.init_train_state(c, sgd, SEED, device=dev)
+    st_w, m_w = steps.make_train_step(c, sgd)(st, batch)
+    want = shard(st_w["params"], dp, c, True)
+    local = shard(st["params"], dp, c, True)
+    del st, st_w
+    free()
+    lst = {"params": local, "opt_state": sgd.init(local),
+           "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    step = steps.make_train_step(c, sgd)
+    lst2, m_p = placed(dp, True, lambda: step(lst, lb))
+    out["b"]["sgd_params_ratio"] = _tree_ratio(lst2["params"], want)
+    out["b"]["sgd_moved_ratio"] = _tree_ratio(local, want)   # the step's size
+    out["b"]["sgd_metrics_ratio"] = _allclose_ratio(
+        torch.stack([m_p["loss"], m_p["grad_norm"]]),
+        torch.stack([m_w["loss"], m_w["grad_norm"]]))
+    del lst, lst2, want, local, lb, batch
+    free()
 
     # -- (c) decode on a sequence-split cache, model = 2 ----------------------
     api = get_api(c)
@@ -4337,9 +4446,16 @@ def tensor_parallel_legs(dev) -> None:
           f"{[round(x['fsdp_ms'], 1) for x in b]} ms (one process "
           f"{[round(x['one_ms'], 1) for x in b]}); recorded bytes by kind "
           f"{b[0]['bytes']} vs lower_cell {want}: equal {same}")
+    print(f"27(b) FSDP + DP over data = 2, f32, one SGD step (lr "
+          f"{PL_SGD_LR}) against one process, L2's rule at every entry (<= 1"
+          f" holds): params {[x['sgd_params_ratio'] for x in b]}, loss and "
+          f"grad norm {[x['sgd_metrics_ratio'] for x in b]}; the params "
+          f"before the step, on the same rule "
+          f"{[x['sgd_moved_ratio'] for x in b]}")
     if not (same and all(max(x["params_ratio"], x["metrics_ratio"],
-                             x["grads_ratio"]) <= 1.0 for x in b)):
-        fail("27(b): the FSDP step differs from one process, or its "
+                             x["grads_ratio"], x["sgd_params_ratio"],
+                             x["sgd_metrics_ratio"]) <= 1.0 for x in b)):
+        fail("27(b): the FSDP steps differ from one process, or their "
              "recorded collectives from the lowered step")
     c = [o["c"] for o in outs]
     want_pre = lowered(torch.float32, tp_sizes, False, registry.ShapeCell(

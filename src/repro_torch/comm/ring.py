@@ -27,8 +27,14 @@ process group, in the same chunking and fold order, so every rank gets the
 bits of ``ring_all_reduce_plain`` of the stacked rows.  On the CPU a hop is
 a gloo send/recv of one chunk and the add; on the card it is one launch of
 ``kernels/csrc/vq_ring_hop.cu``, which reads the left neighbour's staging
-buffer through a CUDA IPC mapping, with a stream sync and a group barrier
-between hops.
+buffer through a CUDA IPC mapping.  The hops wait for each other on the
+card, as the reference's wait on its DMA and barrier semaphores: each
+rank's staging allocation carries a progress counter, and
+``hop_schedule`` spells out each step's chunk and the counters it waits
+for.  A call enqueues the stage, the hops and the copy out on the current
+stream, each step behind the driver's stream waits on the neighbours'
+counters and ahead of a stream write of its own, and returns without
+waiting: no host sync and no barrier inside a call.
 
 ``ring_all_reduce`` and ``ring_all_reduce_group`` launch their kernels for
 CUDA tensors and take the plain versions for CPU tensors only;
@@ -41,6 +47,7 @@ from __future__ import annotations
 
 import copy
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -50,6 +57,10 @@ from repro_torch.kernels import _build
 
 launches_ring = 0
 launches_ring_hop = 0
+# None, or a list to which each group-ring step on the card appends a pair
+# of timing CUDA events recorded on its stream before and after it (its
+# waits on the neighbours, its kernel and its counter write)
+step_events: list | None = None
 
 
 def _check(x: torch.Tensor, mask: torch.Tensor | None) -> None:
@@ -167,32 +178,101 @@ def _ring_group_cpu(flat, mask, group, m: int, r: int, n: int, chunk: int
     return o.view(-1)[:n]
 
 
+class RingStep(NamedTuple):
+    """Step ``t`` of one call of the group ring on one rank.  Call k's steps
+    count from base = k (2M - 1): when the step is done the rank writes base
+    + t + 1 into its counter, and before it starts its stream waits until
+    the left neighbour's counter reaches base + ``wait_left`` and the right
+    neighbour's base + ``wait_right`` (None: no wait)."""
+
+    t: int
+    chunk: int | None      # read from the left, written here; None: stage
+    add: bool              # fold (reduce-scatter) or copy (all-gather)
+    wait_left: int | None
+    wait_right: int | None
+
+
+def hop_schedule(m: int, r: int) -> tuple[RingStep, ...]:
+    """Rank r's 2M - 1 steps of a call over M ranks: the stage (the payload
+    into the row), then the reduce-scatter's M - 1 folds and the
+    all-gather's M - 1 copies, ``ring_all_reduce_plain``'s chunks.
+
+    Hop t waits until the left neighbour has finished step t - 1: the chunk
+    it reads is done.  Around the ring those waits chain, so the right
+    neighbour has then finished step t - M + 1, which covers every read
+    of this row a hop could overwrite (the all-gather's hop s overwrites
+    the partial the right neighbour's fold s read, at its step s + 1 <= t -
+    M + 1); so a hop waits on the left alone, and a rank may run up to M -
+    1 steps ahead of its right neighbour.  The stage overwrites the whole
+    row, so it waits until the right neighbour has finished the call
+    before (its last copy reads this row)."""
+    steps = [RingStep(0, None, False, None, 0)]
+    for s in range(m - 1):
+        steps.append(RingStep(1 + s, (r - s - 1) % m, True, 1 + s, None))
+    for s in range(m - 1):
+        steps.append(RingStep(m + s, (r - s) % m, False, m + s, None))
+    return tuple(steps)
+
+
+_flush: bool | None = None
+
+
+def _wait_flush(lib) -> bool:
+    """Whether the stream waits flush remote writes: the card's
+    CU_DEVICE_ATTRIBUTE_CAN_FLUSH_REMOTE_WRITES.  Raises where the card
+    has no 64-bit stream memory operations: the route has no other way to
+    order its hops."""
+    global _flush
+    if _flush is None:
+        caps = (ctypes.c_int * 2)()
+        _build.check(lib.vq_ring_sync_caps(caps), "vq_ring_sync_caps")
+        if not caps[0]:
+            raise RuntimeError(
+                "ring_all_reduce_group: the card reports "
+                "CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS = 0; the "
+                "hops wait for each other through cuStreamWaitValue64")
+        _flush = bool(caps[1])
+    return _flush
+
+
 class _Staging:
-    """This rank's staging buffer (cudaMalloc) and its left neighbour's,
-    mapped over CUDA IPC, for one group and size."""
+    """This rank's staging allocation (cudaMalloc: the progress counter,
+    then the padded row) and its neighbours', mapped over CUDA IPC, for one
+    group and size; ``calls`` counts the calls enqueued on it."""
 
     def __init__(self, lib, group, dev: torch.device, floats: int, m: int,
                  r: int):
         self.lib = lib
         self.group = group       # kept alive with the mapping
+        self.dev = dev
+        self.flush = _wait_flush(lib)
+        self.schedule = hop_schedule(m, r)
+        self.calls = 0
+        self.stream = None       # the raw stream of the last call
         ptr = ctypes.c_void_p()
         _build.check(lib.vq_ring_alloc(4 * floats, ctypes.byref(ptr)),
-                     "vq_ring_alloc")
+                     "vq_ring_alloc")       # the counter is 0 on return
         self.mine = ptr.value
         handle = ctypes.create_string_buffer(64)
         _build.check(lib.vq_ring_export(self.mine, handle), "vq_ring_export")
         handles = [None] * m
         dist.all_gather_object(handles, handle.raw, group=group)
-        left = ctypes.c_void_p()
-        theirs = ctypes.create_string_buffer(handles[(r - 1) % m], 64)
-        _build.check(lib.vq_ring_open(theirs, ctypes.byref(left)),
-                     "vq_ring_open")
-        self.left = left.value
+        self.mapped = []
+        for i in dict.fromkeys(((r - 1) % m, (r + 1) % m)):  # 1 at M = 2
+            theirs = ctypes.create_string_buffer(handles[i], 64)
+            out = ctypes.c_void_p()
+            _build.check(lib.vq_ring_open(theirs, ctypes.byref(out)),
+                         "vq_ring_open")
+            self.mapped.append(out.value)
+        self.left, self.right = self.mapped[0], self.mapped[-1]
 
     def release(self) -> None:
-        """Unmap the neighbour's buffer, wait for the group to do the same,
-        and free this one."""
-        _build.check(self.lib.vq_ring_close(self.left), "vq_ring_close")
+        """Wait for this rank's enqueued steps, unmap the neighbours'
+        allocations, wait for the group to do the same, and free this
+        one."""
+        torch.cuda.synchronize(self.dev)
+        for ptr in self.mapped:
+            _build.check(self.lib.vq_ring_close(ptr), "vq_ring_close")
         dist.barrier(group=self.group)
         _build.check(self.lib.vq_ring_free(self.mine), "vq_ring_free")
 
@@ -210,7 +290,10 @@ def release_group_buffers() -> None:
 
 def _ring_group_cuda(flat, mask, group, m: int, r: int, n: int, chunk: int
                      ) -> torch.Tensor:
-    """The hops as launches of the hop kernel over the IPC mapping."""
+    """The steps of ``hop_schedule`` enqueued on the current stream, one
+    ``vq_ring_step`` each (its stream waits on the neighbours' counters, its
+    kernel, the write of this rank's); the finished row copied out after
+    them."""
     global launches_ring_hop
     lib = _build.library()
     dev = flat.device
@@ -220,22 +303,34 @@ def _ring_group_cuda(flat, mask, group, m: int, r: int, n: int, chunk: int
         if st is None:
             st = _staging[key] = _Staging(lib, group, dev, m * chunk, m, r)
         stream = _build.current_stream(dev)
-        torch_stream = torch.cuda.current_stream(dev)
+        if st.calls and stream != st.stream:
+            # a call on another stream than the last: this rank's own steps
+            # are ordered by its stream, not by the counters
+            torch.cuda.current_stream(dev).wait_stream(
+                torch.cuda.ExternalStream(st.stream, device=dev)
+                if st.stream else torch.cuda.default_stream(dev))
+        st.stream = stream
         src = flat.contiguous()
-        _build.check(lib.vq_ring_stage_f32(
-            src.data_ptr(), None if mask is None else mask.data_ptr(),
-            st.mine, n, m * chunk, stream), "vq_ring_stage_f32")
-        torch_stream.synchronize()
-        dist.barrier(group=group)
-        for add, first in ((1, -1), (0, 0)):
-            for s in range(m - 1):
-                c = (r - s + first) % m
-                _build.check(lib.vq_ring_hop_f32(st.left, st.mine, c, chunk,
-                                                 add, stream),
-                             "vq_ring_hop_f32")
+        base = st.calls * len(st.schedule)
+        st.calls += 1
+        for step in st.schedule:
+            if step_events is not None:
+                timed = [torch.cuda.Event(enable_timing=True)
+                         for _ in range(2)]
+                timed[0].record()
+            wl, wr = step.wait_left, step.wait_right
+            _build.check(lib.vq_ring_step(
+                st.left, 0 if wl is None else base + wl,
+                st.right, 0 if wr is None else base + wr, st.flush,
+                src.data_ptr(), None if mask is None else mask.data_ptr(), n,
+                m, -1 if step.chunk is None else step.chunk, chunk,
+                int(step.add), st.mine, base + step.t + 1, stream),
+                "vq_ring_step")
+            if step.chunk is not None:
                 launches_ring_hop += 1
-                torch_stream.synchronize()
-                dist.barrier(group=group)
+            if step_events is not None:
+                timed[1].record()
+                step_events.append(tuple(timed))
         out = torch.empty(n, dtype=torch.float32, device=dev)
         _build.check(lib.vq_ring_copy_f32(out.data_ptr(), st.mine, n, stream),
                      "vq_ring_copy_f32")
@@ -250,8 +345,8 @@ def ring_all_reduce_group(x_local: torch.Tensor, group,
     for bit ``ring_all_reduce_plain`` of the ranks' stacked rows.
 
     CPU tensors hop over gloo send/recv; CUDA tensors launch the hop kernel
-    2 (M - 1) times over CUDA IPC.  A group of one returns the (masked)
-    input."""
+    2 (M - 1) times over CUDA IPC, enqueued on the current stream without a
+    host wait.  A group of one returns the (masked) input."""
     m = dist.get_world_size(group)
     r = dist.get_rank(group)
     flat, n, chunk = _group_payload(x_local, mask, m)

@@ -9,8 +9,9 @@ unchanged one is loaded as it is.  Nothing is built at import: the first
 kernel launch builds, and a machine without ``nvcc`` gets an error there.
 
 Each C entry point takes its pointers and the CUDA stream as ``void*`` and
-returns ``cudaGetLastError()`` after its launches; ``check`` raises when
-that is not 0.
+returns ``cudaGetLastError()`` after its launches (the ring's stream waits
+and writes, the driver's ``CUresult``); ``check`` raises when that is not
+0.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_ulonglong
 # C signatures: name -> argument types (every entry point returns int)
 SIGNATURES = {
     # zwin, w0, eps, wout, M, tau, K, D, then the plan (vq_fused._window_plan:
@@ -65,17 +67,24 @@ SIGNATURES = {
     "vq_ring_f32": (_P, _P, _P, _I, _L, _P),
     # a, b, partial, tickets, out, M, N, G (blocks a worker), stream
     "vq_divergence_f32": (_P, _P, _P, _P, _P, _I, _L, _I, _P),
-    # the ring between processes (vq_ring_hop.cu): a staging buffer's
-    # bytes and void** out; free; export (ptr, 64-byte handle out); open
-    # (handle, void** out); close; stage (x, mask or NULL, stage, N, padded
-    # length, stream); one hop (left, mine, chunk index, chunk length, add
-    # 0/1, stream); copy (dst, src, N, stream)
+    # the ring between processes (vq_ring_hop.cu), on staging allocations
+    # (a counter, then the row; every pointer below is an allocation's
+    # base): int[2] out, the card's 64-bit stream memory operations and
+    # remote-write flush (0/1); a row's bytes and void** out; free; export
+    # (base, 64-byte handle out); open (handle, void** out); close; one
+    # step (left, its wait value, right, its wait value (0: no wait),
+    # flush 0/1, x, mask or NULL, N, M, chunk index or -1 for the stage,
+    # chunk length, add 0/1, mine, its counter's new value, stream); one
+    # hop alone (left, mine, chunk index, chunk length, add 0/1, stream);
+    # copy (dst, mine, N, stream)
+    "vq_ring_sync_caps": (_P,),
     "vq_ring_alloc": (_L, _P),
     "vq_ring_free": (_P,),
     "vq_ring_export": (_P, _P),
     "vq_ring_open": (_P, _P),
     "vq_ring_close": (_P,),
-    "vq_ring_stage_f32": (_P, _P, _P, _L, _L, _P),
+    "vq_ring_step": (_P, _U, _P, _U, _I, _P, _P, _L, _I, _I, _L, _I, _P, _U,
+                     _P),
     "vq_ring_hop_f32": (_P, _P, _I, _L, _I, _P),
     "vq_ring_copy_f32": (_P, _P, _L, _P),
     # long long* out: CUDA kernels the argmin engine's entries (assign,

@@ -1,5 +1,6 @@
 """The port stands alone: no file of ``src/repro_torch``, nor
-``chip_smoke.py``, ``kernel_ab.py`` or ``examples/*_torch.py``, imports JAX, the ``repro`` package
+``chip_smoke.py``, ``kernel_ab.py``, ``ring_group_ab.py`` or
+``examples/*_torch.py``, imports JAX, the ``repro`` package
 or ``ml_dtypes`` (the card's machine has none; the checkpointer stores
 narrow floats through ``torch.Tensor.view``).  The observability modules
 are the port's own copies, and the thread runtime's modules start no
@@ -15,7 +16,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "kernel_ab.py"] + sorted(
+    REPO / "chip_smoke.py", REPO / "kernel_ab.py",
+    REPO / "ring_group_ab.py"] + sorted(
     (REPO / "examples").glob("*_torch.py"))
 
 

@@ -244,8 +244,8 @@ def test_assign_wrapper_validates_and_never_counts_cpu():
                                       "vq_divergence_f32", "vq_ring_alloc",
                                       "vq_ring_free", "vq_ring_export",
                                       "vq_ring_open", "vq_ring_close",
-                                      "vq_ring_stage_f32", "vq_ring_hop_f32",
-                                      "vq_ring_copy_f32"}
+                                      "vq_ring_step", "vq_ring_hop_f32",
+                                      "vq_ring_copy_f32", "vq_ring_sync_caps"}
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):

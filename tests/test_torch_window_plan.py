@@ -178,13 +178,55 @@ def window_model(zwin, w0, eps, resident):
     return out
 
 
+def order_error(z, w):
+    """The most that any float32 summation order (with or without fma) can
+    put ``vq::sq_dist`` of z against each row of w off the exact distance:
+    gamma_(d+2) (||z||^2 + 2 sum |z w| + ||w||^2), the bound on the three
+    d-term dot products and the two operations after them.  At d = 1 each
+    product is rounded once whatever the order, so every route computes the
+    same distance and the bound is 0."""
+    d = z.shape[-1]
+    if d == 1:
+        return np.zeros(w.shape[0])
+    z, w = z.astype(np.float64), w.astype(np.float64)
+    gamma = (d + 2) * 2.0**-24 / (1 - (d + 2) * 2.0**-24)
+    return gamma * ((z * z).sum() + 2 * np.abs(w * z).sum(-1)
+                    + (w * w).sum(-1))
+
+
+def order_margin(zwin, w0, eps):
+    """The window replayed with exact distances: the least, over every step
+    of every worker, of the gap from the step's winner to any row that is
+    not a copy of it, less both rows' ``order_error``.  Positive: every
+    summation order picks the same winner at every step (copies tie exactly
+    and go to the lower index)."""
+    least = np.inf
+    for j in range(zwin.shape[0]):
+        w = w0.copy()
+        for t in range(zwin.shape[1]):
+            z = zwin[j, t]
+            dist = ((w.astype(np.float64) - z) ** 2).sum(-1)
+            err = order_error(z, w)
+            i = int(np.argmin(dist))
+            other = ~(w == w[i]).all(-1)
+            least = min(least, (dist[other] - dist[i] - err[other]
+                                - err[i]).min())
+            e = F32(eps[t])
+            w[i] = (w[i] - (e * (w[i] - z)).astype(F32)).astype(F32)
+    return least
+
+
 def near_tie_codebook(rng, kappa, d):
     """Rows in pairs and triples: exact copies (ties, the lower index wins)
-    and copies moved by a small step in one column (near-ties that every
-    summation order still ranks alike)."""
+    and copies moved by a step in one column (near-ties that every
+    summation order still ranks alike).  The step grows as sqrt(d gamma_d),
+    the order error's scale for entries in [0, 1): 0.04 at d = 31, 3.0 at
+    d = 3,072, where a fixed 1e-2 fell under the rounding of a 3,072-term
+    dot product and host BLAS orders flipped winners."""
     base = rng.random((-(-kappa // 3), d)).astype(F32)
     w = np.repeat(base, 3, axis=0)[:kappa].copy()
-    w[2::3, rng.integers(0, d)] += F32(1e-2)
+    gamma = d * 2.0**-24 / (1 - d * 2.0**-24)
+    w[2::3, rng.integers(0, d)] += F32(1e-2 + 4 * np.sqrt(d * gamma))
     return w
 
 
@@ -225,6 +267,7 @@ def test_window_model_equals_plain_bitwise(m, tau, kappa, d):
         rng.standard_normal((m, tau, d)).astype(F32))
     zwin = zwin.astype(F32)
     eps = (F32(0.5) / (F32(1) + np.arange(1, tau + 1, dtype=F32))).astype(F32)
+    assert order_margin(zwin, w0, eps) > 0   # the near-ties rank alike
     resident = window_model(zwin, w0, eps, True)
     warp = window_model(zwin, w0, eps, False)
     plain = vq_fused.vq_window_plain(torch.from_numpy(zwin),
