@@ -542,6 +542,9 @@ class ElasticMeshExecutor:
                             decay=decay)
         self._drain()
         wall_s = time.perf_counter() - t_wall
+        for mex in self._mesh_ex.values():
+            # the timed segments' phases, now that the device has drained
+            mex.read_phases()
         if self.metrics is not None:
             self.metrics.histogram("run_wall_s", executor=self.name,
                                    scheme=scheme).observe(wall_s)

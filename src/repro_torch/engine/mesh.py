@@ -96,6 +96,38 @@ when the trace is read, and the histograms and gauges take a run's values
 at once (``observe_many``, ``set_many``).  The reference's
 ``compile`` span has no counterpart: eager PyTorch compiles no program.
 
+Measured phases (the port's own; ``obs.trace.PhaseClock``): a run is timed
+when the tracer is enabled, a profiler is attached or a ``torch.profiler``
+is active (``torch.autograd._profiler_enabled()``, read once a ``run`` or
+``run_segment``).  A timed loop calls each phase's first function through a
+wrapper that marks the phase's start with a CUDA event on the current
+stream (``time.perf_counter_ns`` on the CPU) and, under a
+``torch.profiler``, opens its range ``repro_torch.local`` / ``.merge`` /
+``.eval``: ``local`` is the window kernel (``_local_window``), or eq. 9's
+step and its epilogue from ``_h`` on; ``merge`` the strategy's merge
+through the transport (the dynamic probe and the quorum's late bits
+included), or eq. 9's ``masked_all_reduce`` and the where-updates after
+it; ``eval`` is ``_eval``.  So a window takes 3 events and a tick 2 or 3,
+each phase ending where the next begins.  An untimed loop binds the
+functions themselves: no event, no range, no test a step.  Timing turns no
+observation on (no divergence kernel, no tuple eval), launches nothing,
+adds no sync and reads nothing inside the loop; its cost is host time, a
+few microseconds a mark (``obs/trace.py``), which shows on the device only
+where the host sets the pace.  After the run's closing drain the marks are
+read into the module's counters ``phase_ns_local``, ``phase_ns_merge``,
+``phase_ns_eval`` (nanoseconds, each phase's idle time included) and
+``phase_steps`` (windows or ticks timed), which the benchmark reads, into
+the tracer's ``"device"`` spans (``local_phase``, ``merge_phase``,
+``eval_phase``, attrs ``step`` and ``run``) placed through an anchor event
+recorded right after the opening drain, and into the profiler's
+``measured_s``.  A segment has no drain of its own: its marks wait for its
+caller's (``read_phases``, which ``ElasticMeshExecutor.run`` calls after
+its closing drain), and its anchor follows no drain, so its spans may sit
+early by the work queued at its start.  On the card the device spans of a
+``run`` may end after its host ``run`` span, by the launches the host
+queued ahead.  The counters are no ``MetricsRegistry`` entries: the
+registry's names are the reference's.
+
 One worker a process (``group=``): each rank of a process group runs one
 worker (``distributed.process_group``; gloo on the CPU, NCCL or gloo on the
 card).  Every rank gets the same global inputs and keeps only its own
@@ -145,7 +177,9 @@ and the profiler read, starts and ends with the device drained
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import threading
 import time
 
 import numpy as np
@@ -159,9 +193,27 @@ from repro_torch.engine import api
 from repro_torch.engine import merge as merge_lib
 from repro_torch.engine.network import GeometricDelayNetwork, NetworkModel
 from repro_torch.kernels import ops, vq_fused
-from repro_torch.obs import (NULL_TRACER, CounterEvent, MetricsRegistry,
-                             SpanEvent, Tracer)
+from repro_torch.obs import (NULL_TRACER, PHASES, CounterEvent,
+                             MetricsRegistry, PhaseClock, SpanEvent, Tracer)
 from repro_torch.topology import Topology
+
+# the measured phases of every timed run in this process (see the module
+# docstring): nanoseconds from each phase's opening mark to its closing one
+# on the device's clock, and the windows or ticks timed
+_phase_lock = threading.Lock()
+phase_ns_local = 0
+phase_ns_merge = 0
+phase_ns_eval = 0
+phase_steps = 0
+
+
+def _count_phases(ns: dict, steps: int) -> None:
+    global phase_ns_local, phase_ns_merge, phase_ns_eval, phase_steps
+    with _phase_lock:
+        phase_ns_local += ns["local"]
+        phase_ns_merge += ns["merge"]
+        phase_ns_eval += ns["eval"]
+        phase_steps += steps
 
 
 def _over(name: str, group, frac: float) -> comm.Transport:
@@ -318,6 +370,10 @@ class MeshExecutor:
         # keys this executor has run, whose records the profiler holds
         self.profiler = profiler
         self._programs: set = set()
+        # the running run's PhaseClock, None when it is not timed; timed
+        # segments whose marks wait for the caller's drain (read_phases)
+        self._clock: PhaseClock | None = None
+        self._unread: list[PhaseClock] = []
 
     def _process_mode(self, group, topology) -> Topology | None:
         """Check a process-mode grid, set ``self.worker``; returns the run's
@@ -399,6 +455,7 @@ class MeshExecutor:
                       eps: torch.Tensor) -> torch.Tensor:
         """tau sequential eq.-1 steps for every worker from the shared w0
         (kappa, d) over zwin (M, tau, d); returns (M, kappa, d)."""
+        zwin = zwin.contiguous()
         if self.use_kernels:
             return ops.window_routed(zwin, w0, eps,
                                      budget_bytes=self.smem_budget_bytes,
@@ -442,14 +499,22 @@ class MeshExecutor:
         dinf = torch.zeros_like(w)
         comm_state = self.transport.init_state(dinf)
         curve = []
+        # a timed run marks each phase's start at its first call
+        h, masked, evaluate = (self._h, self.transport.masked_all_reduce,
+                               self._eval)
+        clock = self._clock
+        if clock is not None:
+            h, masked, evaluate = (clock.before("local", h),
+                                   clock.before("merge", masked),
+                                   clock.before("eval", evaluate))
         for t in range(n):
             # local VQ step on every worker (1st line of eq. 9)
-            step = eps_all[t] * self._h(data[:, t], w)
+            step = eps_all[t] * h(data[:, t], w)
             w_tmp = w - step
             dcur = dcur + step
             # masked merge: only completing workers' in-flight deltas land
             # on the shared version (4th line)
-            landed, comm_state = self.transport.masked_all_reduce(
+            landed, comm_state = masked(
                 dinf, dones_f[t], state=comm_state, tag="merge")
             w_srd = w_srd - landed
             # completed: adopt the downloaded snapshot and replay the local
@@ -460,7 +525,9 @@ class MeshExecutor:
             dinf = torch.where(mask, dcur, dinf)
             dcur = dcur.masked_fill(mask, 0.0)
             if (t + 1) % self.eval_every == 0:
-                curve.append(self._eval(eval_data, w_srd))
+                curve.append(evaluate(eval_data, w_srd))
+        if clock is not None:
+            clock.close()
         if self.profiler is not None:
             # no window barrier: the nominal n // tau windows, the eval
             # folded in as an effective per-window n_eval
@@ -569,29 +636,35 @@ class MeshExecutor:
         # a process, every rank there): on the card the host queues
         # launches ahead of them
         self._drain()
+        clock = self._start_clock(step0=0)
         t_wall = time.perf_counter()
-        with self.tracer.span("run", scheme=scheme, executor=self.name, m=m,
-                              transport=self.transport.name):
-            if scheme != "async_delta":
-                res = self._sync(scheme, w0, data, eval_data, tau=tau,
-                                 eps0=eps0, decay=decay, t0=0)
-            else:
-                lengths = api.async_lengths(self.network, m_all, n, tau,
-                                            generator=generator,
-                                            lengths=lengths)
-                mark = self.transport.log.mark()
-                try:
-                    res = self._run_async(w0, data, eval_data, tau=tau,
-                                          eps0=eps0, decay=decay,
-                                          lengths=lengths)
-                finally:
-                    self.last_comm = comm.CommLog.summarize(
-                        self.transport.log.since(mark))
-                    self.transport.log.mirror_metrics()
-                if self.on_window is not None:
-                    self.on_window(n // tau, res.w_shared)
+        try:
+            with self.tracer.span("run", scheme=scheme, executor=self.name,
+                                  m=m, transport=self.transport.name):
+                if scheme != "async_delta":
+                    res = self._sync(scheme, w0, data, eval_data, tau=tau,
+                                     eps0=eps0, decay=decay, t0=0)
+                else:
+                    lengths = api.async_lengths(self.network, m_all, n, tau,
+                                                generator=generator,
+                                                lengths=lengths)
+                    mark = self.transport.log.mark()
+                    try:
+                        res = self._run_async(w0, data, eval_data, tau=tau,
+                                              eps0=eps0, decay=decay,
+                                              lengths=lengths)
+                    finally:
+                        self.last_comm = comm.CommLog.summarize(
+                            self.transport.log.since(mark))
+                        self.transport.log.mirror_metrics()
+                    if self.on_window is not None:
+                        self.on_window(n // tau, res.w_shared)
+        finally:
+            self._stop_clock(clock)
         self._drain()
         wall_s = time.perf_counter() - t_wall
+        if clock is not None:
+            self._read_clock(clock)
         if self.metrics is not None:
             self.metrics.histogram("run_wall_s", executor=self.name,
                                    scheme=scheme).observe(wall_s)
@@ -613,10 +686,60 @@ class MeshExecutor:
                 "('average', 'delta'); async_delta has no window barrier "
                 "to resize at")
         w0, data, eval_data = self._inputs(scheme, w0, data, eval_data, tau)
-        with self.tracer.span("segment", scheme=scheme, m=data.shape[0],
-                              t0=t0):
-            return self._sync(scheme, w0, data, eval_data, tau=tau,
-                              eps0=eps0, decay=decay, t0=t0)
+        clock = self._start_clock(step0=t0 // tau)
+        try:
+            with self.tracer.span("segment", scheme=scheme, m=data.shape[0],
+                                  t0=t0):
+                res = self._sync(scheme, w0, data, eval_data, tau=tau,
+                                 eps0=eps0, decay=decay, t0=t0)
+        finally:
+            self._stop_clock(clock)
+        if clock is not None:
+            # no drain of its own: the caller reads the marks after its own
+            self._unread.append(clock)
+        return res
+
+    def read_phases(self) -> None:
+        """Read the timed segments' marks (``run_segment``); call once the
+        device has drained, as ``ElasticMeshExecutor.run`` does at its
+        end."""
+        unread, self._unread = self._unread, []
+        for clock in unread:
+            self._read_clock(clock)
+
+    # -- measured phases (see the module docstring) --------------------------
+
+    def _start_clock(self, *, step0: int) -> PhaseClock | None:
+        """The run's ``PhaseClock`` and its anchor, when the run is timed:
+        the tracer is enabled, a profiler attached or a ``torch.profiler``
+        active."""
+        profiled = torch.autograd._profiler_enabled()
+        if not (self.tracer.enabled or self.profiler is not None
+                or profiled):
+            return None
+        self._clock = PhaseClock(self.device, self.tracer, step0=step0,
+                                 ranges=profiled)
+        return self._clock
+
+    def _stop_clock(self, clock: PhaseClock | None) -> None:
+        self._clock = None
+        if clock is not None:
+            clock.close()
+
+    def _read_clock(self, clock: PhaseClock) -> None:
+        """The drained run's phases into the module's counters, the
+        tracer's ``"device"`` spans and the profiler's ``measured_s``."""
+        phases = clock.phases()
+        ns = dict.fromkeys(PHASES, 0)
+        for phase, _, _, dur in phases:
+            ns[phase] += dur
+        _count_phases(ns, clock.steps)
+        if self.tracer.enabled:
+            runs = self.tracer.opened("run")
+            self.tracer.add_spans(len(phases), functools.partial(
+                clock.spans, phases, runs - 1 if runs else None))
+        if self.profiler is not None:
+            self.profiler.note_phases({k: v / 1e9 for k, v in ns.items()})
 
     def _sync(self, scheme: str, w0, data, eval_data, *, tau: int,
               eps0: float, decay: float, t0: int) -> SchemeResult:
@@ -697,23 +820,31 @@ class MeshExecutor:
         log = self.transport.log
         mark = log.mark()
         w_srd, curve, trigs, divs = w0, [], [], []
+        # a timed run marks each phase's start at its first call
+        local, merge, evaluate = self._local_window, strategy, self._eval
+        clock = self._clock
+        if clock is not None:
+            local, merge, evaluate = (clock.before("local", local),
+                                      clock.before("merge", merge),
+                                      clock.before("eval", evaluate))
         for i in range(n_windows):
             span = slice(i * tau, (i + 1) * tau)
-            w_fin = self._local_window(w_srd, data[:, span].contiguous(),
-                                       eps_all[span])
+            w_fin = local(w_srd, data[:, span], eps_all[span])
             if quorum:
-                w_srd, state = strategy(w_srd, w_fin, state=state,
-                                        late=late[:, i])
+                w_srd, state = merge(w_srd, w_fin, state=state,
+                                     late=late[:, i])
             else:
-                w_srd, state = strategy(w_srd, w_fin, state=state)
+                w_srd, state = merge(w_srd, w_fin, state=state)
             if dynamic:
                 trigs.append(strategy.last_trigger)
             if observe:
-                c, dv = self._eval(eval_data, w_srd, w_fin)
+                c, dv = evaluate(eval_data, w_srd, w_fin)
                 divs.append(dv)
             else:
-                c = self._eval(eval_data, w_srd)
+                c = evaluate(eval_data, w_srd)
             curve.append(c)
+        if clock is not None:
+            clock.close()
         # every merge override rides the delta scheme
         scheme = ("average" if isinstance(strategy, merge_lib.AverageMerge)
                   else "delta")

@@ -90,6 +90,12 @@ SIGNATURES = {
     # long long* out: CUDA kernels the argmin engine's entries (assign,
     # delta, blocked) have launched in this process
     "vq_argmin_launches": (_P,),
+    # the phase marks (vq_events.cu; obs.PhaseClock), on raw cudaEvent_t:
+    # n, void** out; one event, stream; events, n, float* ms out: each
+    # mark's milliseconds from the one before it
+    "vq_events_create": (_I, _P),
+    "vq_event_record": (_P, _P),
+    "vq_event_elapsed": (_P, _I, _P),
 }
 
 

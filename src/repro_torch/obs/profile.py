@@ -40,12 +40,20 @@ profiler across its per-M segment executors) calls
   program key (scheme, route, transport, topology and shapes): the run's
   records before the dynamic merge's re-pricing and its loop structure;
 * ``note_segment(...)``                   per executed run or segment;
+* ``note_phases(seconds)``                per run or segment whose phases
+  were measured (a profiler turns the executor's ``PhaseClock`` on);
 * ``finish_run(wall_s)``                  once the run's wall is measured,
   ended by a device sync.
 
 ``finish_run`` emits ``roofline_efficiency{term=}`` gauges and
 ``attributed_*_ns`` counters through the shared ``MetricsRegistry`` and
-appends an attribution record (exported by ``--profile PROF.json``).  A
+appends an attribution record (exported by ``--profile PROF.json``).  Where
+phases were noted, the record also carries ``measured_s``: the ``local``,
+``merge`` and ``eval`` phases' seconds a window on the device's clock, idle
+time inside a phase included, beside the modeled terms, so an operator can
+take the eval's device time out of the ``host`` residual.  The terms, their
+arithmetic, the gauges, the counters and ``summary_table`` do not read
+it.  A
 program's ``cost_flops`` and ``cost_bytes`` are None, as the reference
 records them for a backend without ``cost_analysis``.
 """
@@ -90,6 +98,7 @@ class Profiler:
         self.programs: dict[str, ProgramCost] = {}
         self.attributions: list[dict] = []
         self._pending: list[dict] = []
+        self._phases: dict[str, float] = {}
 
     # -- engine-facing hooks -------------------------------------------------
 
@@ -120,6 +129,11 @@ class Profiler:
             compiled=bool(compiled),
             workers_per_device=int(workers_per_device)))
 
+    def note_phases(self, seconds: dict[str, float]) -> None:
+        """Add one run's or segment's measured phase seconds."""
+        for k, v in seconds.items():
+            self._phases[k] = self._phases.get(k, 0.0) + v
+
     def finish_run(self, wall_s: float) -> dict | None:
         """Attribute one run's measured wall across the pending segments.
 
@@ -131,6 +145,7 @@ class Profiler:
         overshoots.
         """
         segs, self._pending = self._pending, []
+        phases, self._phases = self._phases, {}
         if not segs or wall_s <= 0:
             return None
         total_windows = sum(s["n_windows"] for s in segs)
@@ -185,6 +200,9 @@ class Profiler:
                       "hbm_bw": roofline.HBM_BW,
                       "collective_bw": roofline.COLLECTIVE_BW},
         }
+        if phases:
+            rec["measured_s"] = {k: v / total_windows
+                                 for k, v in phases.items()}
         self.attributions.append(rec)
         if self.metrics is not None:
             labels = {"scheme": first["scheme"],

@@ -34,16 +34,49 @@ a few percent of its wall time, the reference's whole budget for
 instrumentation.  The events, their order and the bounds are what
 ``add_span`` / ``counter`` calls in the same order would give.
 
+**Measured phases** (``PhaseClock``, the port's own): a ``MeshExecutor``
+run marks each step's three phases on the device's clock, ``local`` (the
+window kernel, or eq. 9's step and its epilogue), ``merge`` (the merge
+through the transport; eq. 9's masked merge and where-updates) and
+``eval`` (eq. 2 through the transport).  A mark is a CUDA timing event on
+the current stream at a phase's start (``time.perf_counter_ns()`` on the
+CPU, whose ops run synchronously), each step's last boundary the next
+step's first: 3 events a window, 2 or 3 a tick, and one that closes the
+loop.  While a ``torch.profiler`` runs, each phase also runs inside a
+profiler range, ``repro_torch.local`` / ``repro_torch.merge`` /
+``repro_torch.eval``, on the profiler's own clock beside the kernels (a
+``record_function`` through its C entry, ``_RecordFunctionFast``: under
+the profiler ~1 us of host time a range where ``torch.profiler.
+record_function`` takes ~8; the trace files it as a ``cpu_op``).  The
+marks are read once the device has drained, after the loop, and become
+spans on their own process (``DEVICE_PROCESS``, track ``"phases"``:
+``local_phase``, ``merge_phase``, ``eval_phase`` with attrs ``step`` and
+``run``, the ordinal of the ``run`` wall span), placed on this tracer's
+clock through one anchor event recorded right after the run's opening
+drain with ``now_us()`` read just before it.  The executor times a run
+when the tracer is enabled, a ``Profiler`` is attached or a
+``torch.profiler`` is active (read once a run); otherwise its loops hold
+no mark, no range and no test.  On the card a mark costs the host one
+``cudaEventRecord`` of an event from a pool kept for the process, and the
+range's enter and exit while a ``torch.profiler`` runs; reading the marks
+after the run costs one ``cudaEventElapsedTime`` each, in one C call
+(``kernels/csrc/vq_events.cu``).  On an H100 machine that is ~5 us of host
+time a mark (~6 under the profiler, its range included) and ~4.5 us a mark
+to read.  The device runs nothing for them (an event is no kernel, copy or
+set); where the host sets the pace, as a profiled d = 128 window does, the
+host's time shows as device idle.
+
 The exported file is plain Chrome trace-event JSON: open it at
 https://ui.perfetto.dev (or chrome://tracing).  ``ts``/``dur`` are
-microseconds; one Perfetto "process" per logical process (host, ticks),
-one "thread" per track (worker, tier, host thread).
+microseconds; one Perfetto "process" per logical process (host, ticks,
+device), one "thread" per track (worker, tier, host thread, phases).
 """
 
 from __future__ import annotations
 
 import atexit
 import contextlib
+import ctypes
 import dataclasses
 import json
 import os
@@ -51,6 +84,8 @@ import signal
 import threading
 import time
 from typing import Any, Callable
+
+import torch
 
 
 @dataclasses.dataclass(slots=True)
@@ -103,6 +138,7 @@ class Tracer:
 
     WALL_PROCESS = "host"
     TICK_PROCESS = "ticks"
+    DEVICE_PROCESS = "device"
 
     def __init__(self, *, enabled: bool = True, max_spans: int = 1 << 20,
                  max_counters: int = 1 << 20):
@@ -124,6 +160,7 @@ class Tracer:
         # len(_spans) + _extra["spans"] is the span count
         self._blocks = {"spans": 0, "counters": 0}
         self._extra = {"spans": 0, "counters": 0}
+        self._opened: dict[str, int] = {}   # wall spans entered, by name
         self._t0_ns = time.monotonic_ns()
 
     # -- bounds --------------------------------------------------------------
@@ -196,6 +233,7 @@ class Tracer:
         with self._lock:
             self._spans.append(ev)
             self._open += 1
+            self._opened[name] = self._opened.get(name, 0) + 1
             if len(self._spans) + self._extra["spans"] > self.max_spans:
                 self._trim()
         try:
@@ -204,6 +242,11 @@ class Tracer:
             ev.dur_us = self.now_us() - ev.start_us
             with self._lock:
                 self._open -= 1
+
+    def opened(self, name: str) -> int:
+        """Wall spans named ``name`` entered so far (0 when disabled)."""
+        with self._lock:
+            return self._opened.get(name, 0)
 
     # -- modeled spans and counters ------------------------------------------
 
@@ -340,6 +383,144 @@ class Tracer:
 
 
 NULL_TRACER = Tracer(enabled=False)
+
+PHASES = ("local", "merge", "eval")
+
+# idle raw CUDA events by device index, lent to PhaseClocks and given back
+# once read; made in chunks of EVENT_CHUNK and kept for the process
+EVENT_CHUNK = 256
+_idle_events: dict[int, list[int]] = {}
+_events_lock = threading.Lock()
+
+
+def _lend_events(index: int) -> list[int]:
+    """A chunk of idle timing events on the card ``index``."""
+    with _events_lock:
+        idle = _idle_events.setdefault(index, [])
+        if len(idle) < EVENT_CHUNK:
+            from repro_torch.kernels import _build
+            made = (ctypes.c_void_p * EVENT_CHUNK)()
+            with torch.cuda.device(index):
+                _build.check(_build.library().vq_events_create(
+                    EVENT_CHUNK, made), "vq_events_create")
+            idle.extend(made)
+        lent = idle[-EVENT_CHUNK:]
+        del idle[-EVENT_CHUNK:]
+    return lent
+
+
+def _give_events(index: int, events: list[int]) -> None:
+    with _events_lock:
+        _idle_events[index].extend(events)
+
+
+class PhaseClock:
+    """The marks of one run's phases on the device's clock (see the module
+    docstring).
+
+    ``before(phase, fn)`` wraps a phase's first call: the wrapper marks the
+    phase's start, closing the phase before it, and with ``ranges`` opens
+    its profiler range (only a running ``torch.profiler`` records one).
+    ``close()`` ends the open phase (a loop's end; again on an error, where
+    it is a no-op after a clean end).  ``phases()`` reads the marks once the
+    device has run them, and gives the card's events back to the pool:
+    ``(phase, step, start_ns, dur_ns)`` from the anchor, each phase from its
+    opening mark to the next one, so a phase's interval holds the device's
+    idle time inside it.
+    """
+
+    def __init__(self, device: torch.device, tracer: Tracer, *,
+                 step0: int = 0, ranges: bool = True):
+        self._cuda = device.type == "cuda"
+        self._ranges = ranges         # profiler ranges (a profiler is on)
+        if self._cuda:
+            from repro_torch.kernels import _build
+            self._index = (torch.cuda.current_device() if device.index is None
+                           else device.index)
+            self._record = _build.library().vq_event_record
+            self._check = _build.check
+            self._stream = _build.current_stream(
+                torch.device("cuda", self._index))
+            self._free: list[int] = []
+        self._marks: list = []        # (phase opened or None, step, stamp)
+        self._range = None            # the open profiler range
+        self.steps = 0                # steps timed: "local" phases opened
+        self._step0 = step0
+        # the anchor: the tracer's clock, then the anchor's mark
+        self.anchor_us = tracer.now_us()
+        self._anchor = self._stamp()
+
+    def _stamp(self) -> int:
+        """A mark: the host's nanoseconds on the CPU, a recorded raw event
+        on the card."""
+        if not self._cuda:
+            return time.perf_counter_ns()
+        if not self._free:
+            self._free = _lend_events(self._index)
+        ev = self._free.pop()
+        self._check(self._record(ev, self._stream), "vq_event_record")
+        return ev
+
+    def _mark(self, phase: str | None) -> None:
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        if phase == "local":
+            self.steps += 1
+        self._marks.append((phase, self._step0 + self.steps - 1,
+                            self._stamp()))
+        if phase is not None and self._ranges:
+            self._range = torch._C._profiler._RecordFunctionFast(
+                f"repro_torch.{phase}")
+            self._range.__enter__()
+
+    def before(self, phase: str, fn: Callable) -> Callable:
+        """``fn`` that first marks the start of ``phase``."""
+        def timed(*args, **kwargs):
+            self._mark(phase)
+            return fn(*args, **kwargs)
+        return timed
+
+    def close(self) -> None:
+        """End the open phase, if one is open."""
+        if self._marks and self._marks[-1][0] is not None:
+            self._mark(None)
+
+    def _times_ns(self) -> list[int]:
+        """Each mark's nanoseconds from the anchor.  On the card one C call
+        reads each mark from the one before it (``csrc/vq_events.cu``),
+        so a phase's time is one event interval, not a difference of two
+        float milliseconds from the anchor, and gives the events back."""
+        stamps = [self._anchor] + [stamp for _, _, stamp in self._marks]
+        if not self._cuda:
+            return [t - self._anchor for t in stamps[1:]]
+        from repro_torch.kernels import _build
+        n = len(stamps)
+        ms = (ctypes.c_float * n)()
+        _build.check(_build.library().vq_event_elapsed(
+            (ctypes.c_void_p * n)(*stamps), n, ms), "vq_event_elapsed")
+        _give_events(self._index, stamps + self._free)
+        self._free = []
+        at, out = 0, []
+        for t in ms[1:]:
+            at += round(t * 1e6)
+            out.append(at)
+        return out
+
+    def phases(self) -> list[tuple[str, int, int, int]]:
+        """``(phase, step, start_ns, dur_ns)`` of every closed phase, the
+        times from the anchor; the device must have run every mark."""
+        at = self._times_ns()
+        return [(phase, step, at[k], at[k + 1] - at[k])
+                for k, (phase, step, _) in enumerate(self._marks[:-1])
+                if phase is not None]
+
+    def spans(self, phases: list, run: int | None) -> list[SpanEvent]:
+        """``phases()`` as ``<phase>_phase`` spans on the tracer's clock."""
+        return [SpanEvent(f"{phase}_phase", self.anchor_us + start / 1e3,
+                          dur / 1e3, Tracer.DEVICE_PROCESS, "phases",
+                          {"step": step, "run": run})
+                for phase, step, start, dur in phases]
 
 
 class ExitFlush:

@@ -245,7 +245,9 @@ def test_assign_wrapper_validates_and_never_counts_cpu():
                                       "vq_ring_free", "vq_ring_export",
                                       "vq_ring_open", "vq_ring_close",
                                       "vq_ring_step", "vq_ring_hop_f32",
-                                      "vq_ring_copy_f32", "vq_ring_sync_caps"}
+                                      "vq_ring_copy_f32", "vq_ring_sync_caps",
+                                      "vq_events_create", "vq_event_record",
+                                      "vq_event_elapsed"}
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
@@ -261,7 +263,8 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
                                                           "vq_blocked.cu",
                                                           "vq_ring.cu",
                                                           "vq_divergence.cu",
-                                                          "vq_ring_hop.cu"}
+                                                          "vq_ring_hop.cu",
+                                                          "vq_events.cu"}
     assert os.path.basename(_build.BUILD_ROOT) == ".build"
 
 
